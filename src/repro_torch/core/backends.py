@@ -1,0 +1,266 @@
+"""Execution backends, exact tier (counterpart of
+``repro/core/backends.py``).
+
+Every corpus-scoring call goes through one seam::
+
+    backend.topk(space, query_repr, corpus, k, n_valid) -> TopK
+
+with two registered implementations:
+
+  * ``reference`` -- one-shot ``exact_topk`` over the full [B, N] score
+    matrix; serves every space and is the semantic ground truth;
+  * ``cuda`` -- the hand-written score+top-k kernels: ``mips_topk`` for
+    dense ip/l2 corpora, ``fused_topk`` for fused/sparse ip corpora, f32
+    or bf16.  The name ``"pallas"`` resolves to it too, so descriptors
+    written by ``repro`` still name a backend.  On CPU tensors the
+    kernel wrappers run their plain versions.
+
+:func:`resolve_backend` falls back to ``reference`` for a space outside
+the kernel's ``supports`` matrix (cosine, say), as ``repro`` does.
+Inside the matrix there is no fallback: a kernel that fails to build or
+launch raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Protocol, runtime_checkable
+
+import torch
+
+from repro_torch.core.brute_force import TopK, exact_topk
+from repro_torch.core.sparse import SparseVectors
+from repro_torch.core.spaces import (DenseSpace, FusedSpace, FusedVectors,
+                                     SparseSpace, tensor_leaves)
+
+__all__ = [
+    "ExecutionBackend",
+    "ReferenceBackend",
+    "CudaBackend",
+    "register_backend",
+    "available_backends",
+    "make_backend",
+    "resolve_backend",
+    "backend_identity",
+    "legal_tile",
+]
+
+
+@runtime_checkable
+class ExecutionBackend(Protocol):
+    """The seam every corpus-scoring call flows through."""
+
+    name: str
+
+    @property
+    def identity(self) -> str:
+        """Stable configuration string (folded into serving cache keys)."""
+        ...
+
+    def supports(self, space, corpus) -> Optional[str]:
+        """None if this backend can serve (space, corpus); else the reason."""
+        ...
+
+    def topk(self, space, query_repr, corpus, k: int,
+             n_valid: Optional[int] = None) -> TopK:
+        ...
+
+
+def legal_tile(n_rows: int, requested: int) -> int:
+    """Clamp a requested tile to the corpus: a tile never exceeds N."""
+    return max(1, min(requested, n_rows))
+
+
+def _dense_rows(corpus) -> Optional[int]:
+    """Row count if ``corpus`` is a dense [N, D] tensor, else None."""
+    if isinstance(corpus, torch.Tensor) and corpus.dim() == 2:
+        return int(corpus.shape[0])
+    return None
+
+
+def _rows(corpus) -> Optional[int]:
+    """Row count of a row-major corpus (tensor, ``SparseVectors``,
+    ``FusedVectors``) whose leaves agree on ``shape[0]``, else None."""
+    try:
+        leaves = tensor_leaves(corpus)
+    except TypeError:
+        return None
+    rows = {int(t.shape[0]) for t in leaves if t.dim() >= 1}
+    if not leaves or len(rows) != 1 or any(t.dim() < 1 for t in leaves):
+        return None
+    return rows.pop()
+
+
+def _batch_rows(query_repr) -> int:
+    return int(tensor_leaves(query_repr)[0].shape[0])
+
+
+def _device(query_repr) -> torch.device:
+    return tensor_leaves(query_repr)[0].device
+
+
+def _reference_tail(head: TopK, b: int, k: int, n_valid: int) -> TopK:
+    """Extend a ``min(k, n_valid)``-column result to ``k`` columns with the
+    reference path's degenerate tail: -inf scores and ids continuing from
+    the first masked row (n_valid, n_valid + 1, ...)."""
+    dev = head.scores.device
+    pad = k - head.scores.shape[1]
+    scores = torch.cat([head.scores, torch.full((b, pad), -torch.inf,
+                                                dtype=torch.float32, device=dev)], dim=1)
+    ids = n_valid + torch.arange(pad, dtype=torch.int32, device=dev)
+    indices = torch.cat([head.indices, ids.expand(b, pad)], dim=1)
+    return TopK(scores, indices)
+
+
+def _empty_topk(b: int, device) -> TopK:
+    return TopK(torch.zeros((b, 0), dtype=torch.float32, device=device),
+                torch.zeros((b, 0), dtype=torch.int32, device=device))
+
+
+@dataclasses.dataclass(frozen=True)
+class ReferenceBackend:
+    """One-shot exact top-k (``exact_topk``): the ground-truth path."""
+
+    name = "reference"
+
+    @property
+    def identity(self) -> str:
+        return "reference"
+
+    def supports(self, space, corpus) -> Optional[str]:
+        return None
+
+    def topk(self, space, query_repr, corpus, k: int,
+             n_valid: Optional[int] = None) -> TopK:
+        return exact_topk(space, query_repr, corpus, k, n_valid)
+
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+@dataclasses.dataclass(frozen=True)
+class CudaBackend:
+    """The hand-written score+top-k kernels: ``kernels.mips_topk`` for
+    dense spaces, ``kernels.fused_topk`` for fused/sparse spaces, with the
+    space's learned ``w_dense``/``w_sparse`` passed to the launch."""
+
+    name = "cuda"
+
+    @property
+    def identity(self) -> str:
+        return "cuda"
+
+    def supports(self, space, corpus) -> Optional[str]:
+        if isinstance(space, DenseSpace):
+            if space.kind not in ("ip", "l2"):
+                return f"cuda kernel serves ip/l2, not {space.kind!r}"
+            if _dense_rows(corpus) is None:
+                return "cuda kernel needs a dense [N, D] corpus tensor"
+            if corpus.dtype not in _DTYPES:
+                return f"cuda kernel serves f32/bf16 corpora, not {corpus.dtype}"
+            return None
+        if isinstance(space, SparseSpace):
+            if space.kind != "ip":
+                return f"cuda fused kernel serves sparse ip only, not {space.kind!r}"
+            if not isinstance(corpus, SparseVectors):
+                return "cuda fused kernel needs a SparseVectors corpus"
+            if corpus.values.dtype not in _DTYPES:
+                return ("cuda fused kernel serves f32/bf16 sparse values, "
+                        f"not {corpus.values.dtype}")
+            return None
+        if isinstance(space, FusedSpace):
+            if not isinstance(corpus, FusedVectors):
+                return "cuda fused kernel needs a FusedVectors corpus"
+            if corpus.dense is None and corpus.sparse is None:
+                return "fused corpus has no components"
+            if corpus.dense is not None:
+                # the same matrix as the reference's kernel backend
+                if space.dense_kind != "ip":
+                    return ("cuda fused kernel serves dense_kind 'ip', "
+                            f"not {space.dense_kind!r}")
+                if corpus.dense.dtype not in _DTYPES:
+                    return ("cuda fused kernel serves f32/bf16 dense "
+                            f"components, not {corpus.dense.dtype}")
+            if (corpus.sparse is not None
+                    and corpus.sparse.values.dtype not in _DTYPES):
+                return ("cuda fused kernel serves f32/bf16 sparse values, "
+                        f"not {corpus.sparse.values.dtype}")
+            return None
+        return (f"cuda kernels serve dense/sparse/fused spaces, "
+                f"not {type(space).__name__}")
+
+    def topk(self, space, query_repr, corpus, k: int,
+             n_valid: Optional[int] = None) -> TopK:
+        from repro_torch.kernels import ops   # kernels import core
+
+        n = _rows(corpus)
+        n_valid = n if n_valid is None else min(n_valid, n)
+        k_eff = min(k, n_valid)   # the kernel masks with f32-min, not -inf:
+        b = _batch_rows(query_repr)   # keep its output to valid rows
+        if not k_eff:
+            head = _empty_topk(b, _device(query_repr))
+        elif isinstance(space, DenseSpace):
+            head = ops.mips_topk(query_repr, corpus, k_eff, space=space.kind,
+                                 n_valid=n_valid)
+        elif isinstance(space, SparseSpace):
+            # SparseSpace rides the fused kernel: no dense part, unscaled
+            head = ops.fused_topk(query_repr, None, corpus, None,
+                                  space.vocab_size, k_eff, n_valid=n_valid)
+        else:
+            head = ops.fused_topk(
+                query_repr.sparse, query_repr.dense, corpus.sparse,
+                corpus.dense, space.vocab_size, k_eff,
+                w_dense=space.w_dense, w_sparse=space.w_sparse,
+                dense_kind=space.dense_kind, n_valid=n_valid)
+        return head if k_eff == k else _reference_tail(head, b, k, n_valid)
+
+
+_REGISTRY: Dict[str, Callable[..., ExecutionBackend]] = {}
+
+
+def register_backend(name: str, factory: Callable[..., ExecutionBackend]):
+    """Register a backend factory under ``name`` (overwrites allowed)."""
+    _REGISTRY[name] = factory
+
+
+def available_backends():
+    return tuple(sorted(_REGISTRY))
+
+
+def make_backend(name: str, **kwargs) -> ExecutionBackend:
+    try:
+        factory = _REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown backend {name!r}; registered: {available_backends()}"
+        ) from None
+    return factory(**kwargs)
+
+
+register_backend("reference", ReferenceBackend)
+register_backend("cuda", CudaBackend)
+register_backend("pallas", CudaBackend)   # descriptors written by repro
+
+
+def resolve_backend(backend="cuda", space=None, corpus=None,
+                    **kwargs) -> ExecutionBackend:
+    """Name or instance -> a backend that can serve (space, corpus).  One
+    whose capability check refuses the pair falls back to ``reference``;
+    with ``space``/``corpus`` omitted the check is skipped.  ``"auto"``
+    is not ported yet and raises."""
+    if backend is None or backend == "auto":
+        raise ValueError("backend 'auto' is not ported yet; name "
+                         f"one of {available_backends()}")
+    resolved = make_backend(backend, **kwargs) if isinstance(backend, str) else backend
+    if space is not None and corpus is not None:
+        if resolved.supports(space, corpus) is not None:
+            return ReferenceBackend()
+    return resolved
+
+
+def backend_identity(backend) -> Optional[str]:
+    """Identity string for stats/cache: None stays None, strings pass
+    through, instances report ``identity``."""
+    if backend is None or isinstance(backend, str):
+        return backend
+    return getattr(backend, "identity", None)

@@ -1,0 +1,137 @@
+"""Multi-stage retrieval pipeline, exact subset (counterpart of
+``repro/core/pipeline.py``).
+
+A candidate generator produces ``cand_qty`` documents; optional
+intermediate and final re-rankers narrow them to ``final_qty``.  This
+slice ports the exact brute-force generator and the funnel tail for the
+no-reranker case; any object with ``rerank(q_tokens, cands, keep)``
+still slots in as a re-ranker.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Protocol
+
+from repro_torch.core.backends import ReferenceBackend, resolve_backend
+from repro_torch.core.brute_force import TopK
+from repro_torch.core.spaces import canonical_dtype, cast_corpus, corpus_dtype
+
+__all__ = [
+    "CandidateGenerator",
+    "BruteForceGenerator",
+    "Reranker",
+    "apply_rerankers",
+    "RetrievalPipeline",
+]
+
+
+class CandidateGenerator(Protocol):
+    def generate(self, query_repr, k: int) -> TopK: ...
+
+
+class Reranker(Protocol):
+    def rerank(self, q_tokens, cands: TopK, keep: int) -> TopK: ...
+
+
+@dataclasses.dataclass(frozen=True)
+class BruteForceGenerator:
+    """Exact top-k over a dense, sparse or fused space.
+
+    ``backend`` is an execution backend instance or name; ``None`` keeps
+    the one-shot reference path.  ``corpus_dtype="bfloat16"`` casts the
+    corpus once at construction (scores stay f32); ``None`` reports the
+    dtype the corpus is resident in."""
+
+    space: object
+    corpus: object
+    n_valid: Optional[int] = None
+    backend: Optional[object] = None
+    corpus_dtype: Optional[str] = None
+
+    def __post_init__(self):
+        if self.corpus_dtype is not None:
+            dtype = canonical_dtype(self.corpus_dtype)
+            object.__setattr__(self, "corpus_dtype", dtype)
+            object.__setattr__(self, "corpus", cast_corpus(self.corpus, dtype))
+        else:
+            object.__setattr__(self, "corpus_dtype", corpus_dtype(self.corpus))
+
+    def generate(self, query_repr, k: int) -> TopK:
+        backend = self.backend
+        if backend is None:
+            backend = ReferenceBackend()
+        elif isinstance(backend, str):
+            backend = resolve_backend(backend, self.space, self.corpus)
+        return backend.topk(self.space, query_repr, self.corpus, k, self.n_valid)
+
+    def with_backend(self, backend) -> "BruteForceGenerator":
+        """Same space/corpus, another execution path, resolved against this
+        corpus (an incapable backend falls back to reference)."""
+        return dataclasses.replace(
+            self, backend=resolve_backend(backend, self.space, self.corpus))
+
+    def with_corpus_dtype(self, dtype) -> "BruteForceGenerator":
+        """Same space, another residency dtype; a bound backend instance is
+        re-resolved against the cast corpus."""
+        replaced = dataclasses.replace(self, corpus_dtype=dtype)
+        if self.backend is not None and not isinstance(self.backend, str):
+            replaced = replaced.with_backend(self.backend)
+        return replaced
+
+
+def apply_rerankers(cands: TopK, q_tokens=None, *,
+                    intermediate: Optional[Reranker] = None,
+                    final: Optional[Reranker] = None,
+                    interm_qty: int = 50, final_qty: int = 10) -> TopK:
+    """The funnel tail: candidates -> (intermediate) -> (final) -> result."""
+    if intermediate is not None:
+        cands = intermediate.rerank(q_tokens, cands, interm_qty)
+    if final is not None:
+        return final.rerank(q_tokens, cands, final_qty)
+    keep = min(final_qty, cands.scores.shape[1])
+    return TopK(cands.scores[:, :keep], cands.indices[:, :keep])
+
+
+@dataclasses.dataclass(frozen=True)
+class RetrievalPipeline:
+    """candidate generator -> (optional) intermediate -> (optional) final."""
+
+    generator: CandidateGenerator
+    intermediate: Optional[Reranker] = None
+    final: Optional[Reranker] = None
+    cand_qty: int = 100
+    interm_qty: int = 50
+    final_qty: int = 10
+
+    def generate_candidates(self, query_repr, k: Optional[int] = None) -> TopK:
+        return self.generator.generate(query_repr,
+                                       self.cand_qty if k is None else k)
+
+    def run(self, query_repr, q_tokens=None) -> TopK:
+        cands = self.generate_candidates(query_repr)
+        return apply_rerankers(
+            cands, q_tokens, intermediate=self.intermediate, final=self.final,
+            interm_qty=self.interm_qty, final_qty=self.final_qty)
+
+    @property
+    def backend(self):
+        return getattr(self.generator, "backend", None)
+
+    @property
+    def corpus_dtype(self):
+        return getattr(self.generator, "corpus_dtype", None)
+
+    def with_backend(self, backend) -> "RetrievalPipeline":
+        if not hasattr(self.generator, "with_backend"):
+            raise TypeError(f"generator {type(self.generator).__name__} does "
+                            "not take an execution backend")
+        return dataclasses.replace(
+            self, generator=self.generator.with_backend(backend))
+
+    def with_corpus_dtype(self, dtype) -> "RetrievalPipeline":
+        if not hasattr(self.generator, "with_corpus_dtype"):
+            raise TypeError(f"generator {type(self.generator).__name__} does "
+                            "not take a corpus residency dtype")
+        return dataclasses.replace(
+            self, generator=self.generator.with_corpus_dtype(dtype))

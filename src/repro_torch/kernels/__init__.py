@@ -1,0 +1,3 @@
+"""Hand-written CUDA kernels (``csrc/``), their wrappers, their plain
+PyTorch versions (``ref.py``) and the glue the backends call
+(``ops.py``)."""

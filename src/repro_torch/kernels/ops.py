@@ -1,0 +1,49 @@
+"""Public wrappers around the kernels with the glue the retrieval core
+needs (counterpart of ``repro/kernels/ops.py``: ``mips_topk`` and
+``fused_topk``).
+
+The TPU wrappers pad N up to a multiple of the tile (padded COO rows get
+the trash id ``vocab_size``).  The CUDA kernel masks its ragged last tile
+itself, so nothing is padded here, and the kernel wrappers clamp
+``n_valid``.  The glue left is the densified ``[B, V+1]`` query table,
+built by ``densify`` exactly as the library path builds it.
+"""
+
+from __future__ import annotations
+
+from repro_torch.core.brute_force import TopK
+from repro_torch.core.sparse import SparseVectors
+from repro_torch.kernels import fused_topk as _fused
+from repro_torch.kernels import mips_topk as _mips
+from repro_torch.kernels.ref import query_table
+
+
+def mips_topk(queries, corpus, k: int, space: str = "ip",
+              n_valid: int | None = None) -> TopK:
+    """Kernelised exact k-NN over a dense corpus [N, D]."""
+    s, i = _mips.mips_topk(queries, corpus, k, n_valid=n_valid, space=space)
+    return TopK(s, i)
+
+
+def fused_topk(q_sparse: SparseVectors | None, q_dense, c_sparse: SparseVectors | None,
+               c_dense, vocab_size: int, k: int, w_dense: float | None = None,
+               w_sparse: float | None = None, dense_kind: str = "ip",
+               n_valid: int | None = None) -> TopK:
+    """One-pass fused score + select over a ``FusedSpace``/``SparseSpace``
+    corpus.  Only components present on both sides score; ``None``
+    weights leave a single component unscaled (SparseSpace semantics).
+    Requires ``k <= n_valid`` (the backend clamps and adds the tail)."""
+    has_sparse = c_sparse is not None and q_sparse is not None
+    has_dense = c_dense is not None and q_dense is not None
+    if not (has_sparse or has_dense):
+        raise ValueError("fused_topk: no overlapping components to score")
+    s, i = _fused.fused_topk(
+        query_table(q_sparse, vocab_size) if has_sparse else None,
+        q_dense if has_dense else None,
+        c_sparse.indices if has_sparse else None,
+        c_sparse.values if has_sparse else None,
+        c_dense if has_dense else None,
+        k, w_dense=w_dense if has_dense else None,
+        w_sparse=w_sparse if has_sparse else None,
+        n_valid=n_valid, dense_kind=dense_kind)
+    return TopK(s, i)

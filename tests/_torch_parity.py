@@ -1,0 +1,106 @@
+"""Shared helpers for the tests that hold ``repro_torch`` against ``repro``.
+
+Inputs are made once with numpy and fed to both packages: to ``repro`` as
+jnp arrays, to ``repro_torch`` through ``repro_torch.interop`` on the CPU.
+
+Tolerance for f32 scores across the two frameworks: ``|torch - jax| <=
+F32_RTOL * max|score of the row|``.  Summation order differs between
+PyTorch's and XLA's CPU reductions (JAX 0.9.0's own Pallas-interpret and
+reference paths already differ by about 2.3e-7 relative), so bitwise
+equality is never claimed; a row-scale bound keeps scores that sum to
+near zero from turning a few ULPs of the row into a large ratio.  Ids
+must be equal.
+"""
+
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+
+from repro_torch import interop
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))  # benchmarks/
+
+F32_RTOL = 2e-6
+
+
+def np_of(x):
+    """numpy view of a jnp array or CPU tensor; bf16 becomes its uint16 bits."""
+    if hasattr(x, "detach"):
+        return interop.to_numpy(x)
+    a = np.asarray(x)
+    return a.view(np.uint16) if a.dtype.name == "bfloat16" else a
+
+
+def to_torch(x):
+    """A jnp array (or None) -> CPU tensor with the same values and dtype."""
+    return None if x is None else interop.tensor(np_of(x), "cpu")
+
+
+def sparse_to_torch(sp):
+    if sp is None:
+        return None
+    return interop.sparse_vectors(np.asarray(sp.indices), np_of(sp.values), "cpu")
+
+
+def fused_to_torch(fv):
+    d = None if fv.dense is None else np_of(fv.dense)
+    if fv.sparse is None:
+        return interop.fused_vectors(d, device="cpu")
+    return interop.fused_vectors(d, np.asarray(fv.sparse.indices),
+                                 np_of(fv.sparse.values), device="cpu")
+
+
+def assert_scores_close(want, got, rtol: float = F32_RTOL, ctx=""):
+    """f32 scores within ``rtol`` of each row's largest |score|; -inf
+    tails must align exactly."""
+    w = np.asarray(want, np.float64)
+    g = np.asarray(got, np.float64)
+    assert w.shape == g.shape, (w.shape, g.shape, ctx)
+    fin = np.isfinite(w)
+    np.testing.assert_array_equal(fin, np.isfinite(g), err_msg=f"tails {ctx}")
+    np.testing.assert_array_equal(w[~fin], g[~fin], err_msg=f"tails {ctx}")
+    w = w.reshape(-1, w.shape[-1]) if w.ndim else w.reshape(1, 1)
+    g = g.reshape(w.shape)
+    fin = np.isfinite(w)
+    scale = np.max(np.where(fin, np.abs(w), 0.0), axis=-1, keepdims=True)
+    err = np.abs(np.where(fin, g, 0.0) - np.where(fin, w, 0.0))
+    assert np.all(err <= rtol * np.maximum(scale, 1e-30)), \
+        f"score error {np.max(err / np.maximum(scale, 1e-30)):.3g} of row scale > {rtol} {ctx}"
+
+
+def assert_topk_match(want, got, rtol: float = F32_RTOL, ctx=""):
+    """Ids equal; scores within the f32 tolerance above."""
+    np.testing.assert_array_equal(np.asarray(want[1]), np.asarray(got[1]),
+                                  err_msg=f"ids {ctx}")
+    assert_scores_close(want[0], got[0], rtol, ctx)
+
+
+def planted_fused_np(n, v, nnz, dd, b, k, seed=0, dups=()):
+    """numpy form of ``benchmarks/common.py: planted_margin_fused`` (dense
+    rows, COO ids/values for corpus and queries), with rows ``r`` in
+    ``dups`` overwritten by a copy of row ``r - 1`` to plant exact ties."""
+    from benchmarks.common import planted_margin_fused
+
+    corpus, queries = planted_margin_fused(n, v, nnz, dd, b, k, seed=seed)
+    c = [np.array(corpus.dense), np.array(corpus.sparse.indices),
+         np.array(corpus.sparse.values)]
+    for r in dups:
+        for a in c:
+            a[r] = a[r - 1]
+    q = [np.asarray(queries.dense), np.asarray(queries.sparse.indices),
+         np.asarray(queries.sparse.values)]
+    return c, q
+
+
+def jnp_fused(parts, dtype=jnp.float32):
+    """(dense, idx, val) numpy -> repro FusedVectors in ``dtype``."""
+    from repro.core.sparse import SparseVectors
+    from repro.core.spaces import FusedVectors
+
+    d, i, v = parts
+    return FusedVectors(jnp.asarray(d, dtype),
+                        SparseVectors(jnp.asarray(i, jnp.int32), jnp.asarray(v, dtype)))

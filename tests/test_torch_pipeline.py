@@ -1,0 +1,205 @@
+"""repro_torch backends and pipeline held against repro, and the slice end
+to end: mixing weights learned by ``repro.core.fusion.learn_fused_weights``
+carried across by ``interop`` into ``RetrievalPipeline`` on the ``cuda``
+backend (its plain path on the CPU), against repro's pipeline on the
+``pallas`` backend (interpret mode).
+
+Tolerances: ids equal; f32 scores within ``F32_RTOL`` (2e-6) of the row's
+largest |score|; -inf tails equal exactly; bf16 corpora also at recall@k
+== 1.0 and ``BF16_MAX_ULP`` against the f32 oracle.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import backends as jb
+from repro.core import pipeline as jp
+from repro.core.fusion import learn_fused_weights
+from repro.core.fusion import topk_recall as j_recall
+from repro.core.spaces import DenseSpace as JDense
+from repro.core.spaces import FusedSpace as JFused
+from repro.core.spaces import FusedVectors as JFV
+from repro.core.spaces import SparseSpace as JSparseSpace
+from repro_torch import interop
+from repro_torch.core import backends as tb
+from repro_torch.core import pipeline as tp
+from repro_torch.core.brute_force import TopK
+from repro_torch.core.fusion import topk_recall
+from repro_torch.core.spaces import DenseSpace, FusedSpace, FusedVectors, SparseSpace
+
+from _precision import assert_bf16_oracle_contract, planted_margin_corpus
+from _torch_parity import (assert_topk_match, fused_to_torch, jnp_fused,
+                           planted_fused_np, sparse_to_torch, to_torch)
+
+pytestmark = pytest.mark.torch
+
+
+def _pairs():
+    """(repro space, repro corpus, port space, port corpus) over the
+    capability matrix: inside and outside it."""
+    (cd, ci, cv), _ = planted_fused_np(40, 20, 4, 6, 2, 3)
+    jf = jnp_fused((cd, ci, cv))
+    tf = fused_to_torch(jf)
+    jf16 = JFV(jf.dense.astype(jnp.float16), jf.sparse)
+    tf16 = FusedVectors(tf.dense.half(), tf.sparse)
+    jbf = JFV(jf.dense.astype(jnp.bfloat16), jf.sparse)
+    tbf = FusedVectors(tf.dense.bfloat16(), tf.sparse)
+    out = []
+    for kind in ("ip", "l2", "cosine"):
+        for jd, td in ((jf.dense, tf.dense), (jbf.dense, tbf.dense), (jf16.dense, tf16.dense)):
+            out.append((JDense(kind), jd, DenseSpace(kind), td))
+        out.append((JFused(20, dense_kind=kind), jf, FusedSpace(20, dense_kind=kind), tf))
+        out.append((JFused(20, dense_kind=kind), jbf, FusedSpace(20, dense_kind=kind), tbf))
+    for kind in ("ip", "cosine"):
+        out.append((JSparseSpace(20, kind), jf.sparse, SparseSpace(20, kind), tf.sparse))
+    out += [
+        (JFused(20), jf16, FusedSpace(20), tf16),
+        (JFused(20), JFV(None, None), FusedSpace(20), FusedVectors(None, None)),
+        (JFused(20), jf.dense, FusedSpace(20), tf.dense),
+        (JSparseSpace(20), jf, SparseSpace(20), tf),
+        (JDense(), jf, DenseSpace(), tf),
+        (JFused(20), JFV(None, jf.sparse), FusedSpace(20), FusedVectors(None, tf.sparse)),
+    ]
+    return out
+
+
+def test_supports_matrix_equals_pallas():
+    for js, jc, ts, tc in _pairs():
+        want = jb.PallasBackend().supports(js, jc) is None
+        assert (tb.CudaBackend().supports(ts, tc) is None) == want, (ts, want)
+        resolved = tb.resolve_backend("cuda", ts, tc)
+        assert isinstance(resolved, tb.CudaBackend if want else tb.ReferenceBackend)
+        assert tb.backend_identity(resolved) == ("cuda" if want else "reference")
+
+
+def test_registry_and_names():
+    assert isinstance(tb.make_backend("pallas"), tb.CudaBackend)   # repro descriptors
+    assert set(tb.available_backends()) == {"cuda", "pallas", "reference"}
+    assert tb.backend_identity(None) is None and tb.backend_identity("x") == "x"
+    assert isinstance(tb.resolve_backend(tb.CudaBackend()), tb.CudaBackend)
+    assert isinstance(tb.ReferenceBackend(), tb.ExecutionBackend)
+    with pytest.raises(ValueError, match="unknown backend"):
+        tb.make_backend("streaming")
+    with pytest.raises(ValueError, match="auto"):
+        tb.resolve_backend("auto")
+    assert tb.legal_tile(10, 64) == 10 and tb.legal_tile(100, 64) == 64
+
+
+@pytest.mark.parametrize("k,n_valid", [(12, 7), (5, 0), (40, 40), (3, None)])
+def test_dense_tail_matches_repro(k, n_valid):
+    q, c, _ = planted_margin_corpus(40, 8, 3, 4, seed=3)
+    want = jb.PallasBackend().topk(JDense("ip"), q, c, k, n_valid)
+    ref = jb.ReferenceBackend().topk(JDense("ip"), q, c, k, n_valid)
+    got = tb.CudaBackend().topk(DenseSpace("ip"), to_torch(q), to_torch(c), k, n_valid)
+    assert got.scores.shape == (3, k) and got.indices.dtype == torch.int32
+    assert_topk_match(want, got, ctx=(k, n_valid))
+    assert_topk_match(ref, got, ctx=(k, n_valid))
+
+
+@pytest.mark.parametrize("space", ["fused", "sparse"])
+def test_fused_tail_matches_repro(space):
+    (cd, ci, cv), (qd, qi, qv) = planted_fused_np(64, 30, 6, 8, 2, 4, seed=5)
+    jc, jq = jnp_fused((cd, ci, cv)), jnp_fused((qd, qi, qv))
+    js, ts = JFused(30, 0.6, 0.4), FusedSpace(30, 0.6, 0.4)
+    if space == "sparse":
+        jc, jq, js, ts = jc.sparse, jq.sparse, JSparseSpace(30), SparseSpace(30)
+    tc = fused_to_torch(jc) if space == "fused" else sparse_to_torch(jc)
+    tq = fused_to_torch(jq) if space == "fused" else sparse_to_torch(jq)
+    for k, n_valid in [(10, 6), (4, None)]:
+        want = jb.PallasBackend().topk(js, jq, jc, k, n_valid)
+        got = tb.CudaBackend().topk(ts, tq, tc, k, n_valid)
+        assert_topk_match(want, got, ctx=(space, k, n_valid))
+
+
+def _learned_setup(n=300, v=50, nnz=8, dd=16, b=6, k=10):
+    (cd, ci, cv), (qd, qi, qv) = planted_fused_np(n, v, nnz, dd, b, k, seed=11)
+    jc, jq = jnp_fused((cd, ci, cv)), jnp_fused((qd, qi, qv))
+    dense_s = np.asarray(JDense("ip").score_batch(jq.dense, jc.dense))
+    sparse_s = np.asarray(JSparseSpace(v).score_batch(jq.sparse, jc.sparse))
+    labels = (dense_s + sparse_s >= np.quantile(dense_s + sparse_s, 0.95, axis=1,
+                                                keepdims=True)).astype(np.float32)
+    wd, ws, metric = learn_fused_weights(
+        jnp.asarray(dense_s), jnp.asarray(sparse_s), jnp.asarray(labels),
+        jnp.ones(labels.shape, bool), n_rounds=2, n_restarts=1)
+    assert metric > 0
+    return jc, jq, JFused(v).with_weights(wd, ws), v
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16"])
+def test_slice_end_to_end_with_learned_weights(dtype):
+    jc, jq, jspace, v = _learned_setup()
+    jpipe = jp.RetrievalPipeline(jp.BruteForceGenerator(jspace, jc, backend="pallas",
+                                                        corpus_dtype=dtype),
+                                 cand_qty=10, final_qty=5)
+    space = interop.fused_space(jspace.vocab_size, jspace.w_dense, jspace.w_sparse,
+                                jspace.dense_kind)
+    tpipe = tp.RetrievalPipeline(tp.BruteForceGenerator(space, fused_to_torch(jc),
+                                                        backend="cuda", corpus_dtype=dtype),
+                                 cand_qty=10, final_qty=5)
+    tq = fused_to_torch(jq)
+    got = tpipe.run(tq)
+    assert got.scores.shape == (jq.dense.shape[0], 5)
+    assert_topk_match(jpipe.run(jq), got)
+    assert tpipe.corpus_dtype == jpipe.corpus_dtype
+    cands = tpipe.generate_candidates(tq)
+    assert_topk_match(jpipe.generate_candidates(jq), cands)
+    if dtype:
+        oracle = jp.RetrievalPipeline(jp.BruteForceGenerator(jspace, jc), cand_qty=10,
+                                      final_qty=10).run(jq)
+        assert_bf16_oracle_contract(oracle, cands)
+    # the learned weights reach the scores: another mix changes them
+    other = tp.BruteForceGenerator(space.with_weights(space.w_sparse, space.w_dense),
+                                   fused_to_torch(jc), backend="cuda")
+    if not np.isclose(space.w_dense, space.w_sparse):
+        assert not torch.equal(other.generate(tq, 10).scores,
+                               tp.BruteForceGenerator(space, fused_to_torch(jc)).generate(tq, 10).scores)
+
+
+def test_generator_seams():
+    jc, jq, jspace, v = _learned_setup(n=120, b=2)
+    space = FusedSpace(v, jspace.w_dense, jspace.w_sparse)
+    tc, tq = fused_to_torch(jc), fused_to_torch(jq)
+    gen = tp.BruteForceGenerator(space, tc)
+    assert gen.corpus_dtype == "float32"
+    ref = gen.generate(tq, 8)
+    cuda = gen.with_backend("pallas")
+    assert isinstance(cuda.backend, tb.CudaBackend)
+    assert_topk_match(ref, cuda.generate(tq, 8))
+    bf = cuda.with_corpus_dtype("bf16")
+    assert bf.corpus_dtype == "bfloat16" and isinstance(bf.backend, tb.CudaBackend)
+    assert bf.corpus.dense.dtype == torch.bfloat16
+    cos = tp.BruteForceGenerator(FusedSpace(v, dense_kind="cosine"), tc).with_backend("cuda")
+    assert isinstance(cos.backend, tb.ReferenceBackend)        # capability fallback
+    pipe = tp.RetrievalPipeline(gen, cand_qty=8, final_qty=3)
+    assert isinstance(pipe.with_backend("cuda").backend, tb.CudaBackend)
+    assert pipe.with_corpus_dtype("bf16").corpus_dtype == "bfloat16"
+    with pytest.raises(TypeError):
+        tp.RetrievalPipeline(object()).with_backend("cuda")
+
+
+def test_apply_rerankers():
+    cands = TopK(torch.tensor([[3.0, 2.0, 1.0]]), torch.tensor([[7, 8, 9]], dtype=torch.int32))
+    kept = tp.apply_rerankers(cands, final_qty=2)
+    assert kept.indices.tolist() == [[7, 8]]
+    assert tp.apply_rerankers(cands, final_qty=10).indices.shape == (1, 3)
+
+    class Reverse:
+        def rerank(self, q_tokens, c, keep):
+            return TopK(c.scores.flip(1)[:, :keep], c.indices.flip(1)[:, :keep])
+
+    out = tp.apply_rerankers(cands, None, intermediate=Reverse(), final=Reverse(),
+                             interm_qty=2, final_qty=1)
+    assert out.indices.tolist() == [[8]]     # [9, 8] after the first, then [8]
+
+
+def test_topk_recall_matches_repro():
+    rng = np.random.default_rng(0)
+    a = np.argsort(rng.uniform(size=(4, 20)), axis=1)[:, :5]    # distinct ids per row
+    b = np.argsort(rng.uniform(size=(4, 20)), axis=1)[:, :5]
+    assert topk_recall(a, b) == j_recall(a, b)
+    assert topk_recall(torch.from_numpy(a), torch.from_numpy(a)) == 1.0
+    assert topk_recall(a[0], a[0]) == 1.0
+    with pytest.raises(ValueError):
+        topk_recall(a, b[:2])
