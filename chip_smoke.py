@@ -5,22 +5,33 @@ against their plain PyTorch versions.
     python3 chip_smoke.py            # one H100, MS MARCO passage scale
 
 Phases, one line each: the card; the build of every kernel from
-``src/repro_torch/kernels/csrc``; each kernel against its plain version
-at small shapes; then the main path at MS MARCO passage v1 scale
-(8,841,823 passages, 768-d dense, 30,522-term sparse with 128 nnz per
-passage and 32 per query, batches of 16): fused dense+sparse retrieval
-through ``RetrievalPipeline`` on the ``cuda`` backend and dense ip
-through ``mips_topk``, with the launch counters set to 0 just before and
-read just after.  The last lines are the ``kernels`` JSON, the card's
-name and power limit, and ``{"ok": true, ...}``.  Any failure raises and
-exits non-zero.  The data is synthetic, made on the card from ``--seed``.
+``src/repro_torch/kernels/csrc``; the exact-scan kernels against their
+plain versions at small shapes ("small") and the beam-hop kernel against
+its plain version hop for hop ("beam small"); then the main path at MS
+MARCO passage v1 scale (8,841,823 passages, 768-d dense, 30,522-term
+sparse with 128 nnz per passage and 32 per query, batches of 16): fused
+dense+sparse retrieval through ``RetrievalPipeline`` on the ``cuda``
+backend and dense ip through ``mips_topk``; then graph ANN over the same
+resident corpus ("graph full": ``GraphANNBackend(kernel=True)``, degree
+16, ef 64, 31 hops, on a random graph) and over a planted-cluster corpus
+of 1,048,576 rows at full widths ("graph recall": an NN-descent index,
+recall@10 against the exact answer).  Each served path runs with the
+launch counters set to 0 just before and read just after.  The last
+lines are the ``kernels`` JSON, the card's name and power limit, and
+``{"ok": true, ...}``.  Any failure raises and exits non-zero.  The data
+is synthetic, made on the card from ``--seed``.
+
+    python3 chip_smoke.py --graph-build-n 8841823   # also time one
+                                                    # NN-descent build
 
 Tolerance, kernel against plain version: f32 scores agree within
 ``TOL_REL`` times the row's largest |score| (summation order differs:
 sequential FMAs in the kernel, cuBLAS or a CPU reduction in the plain
 version); ids are equal wherever the construction plants a margin, and
 elsewhere may differ only between neighbours whose plain scores lie
-within that tolerance of each other.
+within that tolerance of each other.  A hop's mark-deltas (words and
+addends: which candidates were valid) must be equal, and its beam is
+held to the same rule, f32-min entries aligned exactly.
 """
 
 from __future__ import annotations
@@ -41,7 +52,12 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOPS = 67e12                # H100 SXM data sheet, f32 on CUDA cores
 BATCHES = 8                      # served batches on the main path
 MSMARCO = dict(n=8_841_823, d=768, v=30_522, nnz=128, nnz_q=32, b=16)
-SOURCES = "src/repro_torch/kernels/csrc/topk_scan.cu"
+SOURCES = ("src/repro_torch/kernels/csrc/topk_scan.cu", "src/repro_torch/kernels/csrc/beam_hop.cu")
+GRAPH = dict(degree=16, ef=64)   # configs/paper_retrieval.py ann_degree / ann_ef
+RECALL_N = 1_048_576             # rows of the planted-cluster recall corpus
+CLUSTERS = 8
+NEG = -3.4028234663852886e38     # f32 min, the mask of invalid candidates
+SLEEP_CYCLES = 2_000_000         # ~1 ms at an H100 SXM's 1.98 GHz boost clock: outlasts the host's enqueue of a hop
 
 
 def log(*parts):
@@ -99,8 +115,28 @@ class Checker:
         assert gs.shape == ws.shape and gi.shape == wi.shape, (name, gs.shape, ws.shape)
         fin = torch.isfinite(ws)
         assert torch.equal(fin, torch.isfinite(gs)), f"{name}: -inf tails differ"
-        scale = torch.where(fin, ws.abs(), torch.zeros_like(ws)).amax(1, keepdim=True).clamp_min(1e-30)
-        err = torch.where(fin, (gs - ws).abs(), torch.zeros_like(ws))
+        self._compare(kernel, name, gs, gi, ws, wi, fin, exact_ids)
+
+    def hop(self, name, got, want, exact_ids=True):
+        """One hop, kernel against plain version: mark-deltas equal;
+        beam scores within tolerance, f32-min (invalid) entries aligned;
+        ids as in ``__call__``.  Returns the number of valid candidates."""
+        torch = self.torch
+        gs, gi, gw, ga = (x.cpu() for x in got)
+        ws, wi, ww, wa = (x.cpu() for x in want)
+        assert torch.equal(gw, ww), f"{name}: visited words differ"
+        assert torch.equal(ga, wa), f"{name}: addends differ at {int((ga != wa).sum())} places"
+        real = ws > NEG
+        assert torch.equal(real, gs > NEG), f"{name}: invalid beam slots differ"
+        self._compare("beam_hop", name, gs, gi, ws, wi, real, exact_ids)
+        return int((ga != 0).sum())
+
+    def _compare(self, kernel, name, gs, gi, ws, wi, real, exact_ids):
+        """Scores where ``real`` within TOL_REL of the row scale; ids equal,
+        or (``exact_ids`` False) different only at near-ties."""
+        torch = self.torch
+        scale = torch.where(real, ws.abs(), torch.zeros_like(ws)).amax(1, keepdim=True).clamp_min(1e-30)
+        err = torch.where(real, (gs - ws).abs(), torch.zeros_like(ws))
         assert bool((err <= TOL_REL * scale).all()), \
             f"{name}: score error {float((err / scale).max()):.3g} of row scale > {TOL_REL}"
         bad = gi != wi
@@ -114,6 +150,51 @@ class Checker:
             assert not bool((bad & ~near).any()), f"{name}: ids differ beyond near-ties"
         self.max_err[kernel] = max(self.max_err.get(kernel, 0.0), float(err.max()))
         self.cases += 1
+
+
+def planted_cluster(torch, n, d, v, nnz, nnz_q, b, seed, device):
+    """Fused planted-cluster corpus and queries over ``CLUSTERS`` clusters:
+    the torch form of benchmarks/common.py planted_cluster_fused, with the
+    COO built directly (a dense [N, V] table would take 128 GB at full
+    scale).  Row i belongs to cluster c = i % C with weight t = 2 - (i //
+    C) / m (m = n / C) on dense axis c and on term c; query j weighs 2 on
+    axis and term j % C.  Noise lives in disjoint bands (queries: axes and
+    terms [C, 2C); rows: [2C, d) and [2C, v), distinct terms per row), so
+    every query scores exactly 2t per part on its cluster's rows and
+    exactly 0 elsewhere: the exact top-k has a margin, and a row's best
+    neighbours are its cluster's best-ranked rows."""
+    C = CLUSTERS
+    assert n % C == 0 and d >= 2 * C + 2 and v >= 2 * C + 2 and nnz >= 2 and nnz_q >= C + 1
+    g = torch.Generator(device=device).manual_seed(seed)
+    rows = torch.arange(n, device=device)
+    t = 2.0 - (rows // C).float() / (n // C)
+    dense = torch.zeros(n, d, device=device)
+    z = torch.randn(n, d - 2 * C, generator=g, device=device)
+    dense[:, 2 * C:] = z.mul_(0.25 / z.norm(dim=1, keepdim=True))
+    del z
+    dense[rows, rows % C] = t
+    band = v - 2 * C
+    j = torch.arange(nnz - 1, device=device)
+    base = torch.randint(0, band, (n, 1), generator=g, device=device)
+    step = torch.randint(1, max(1, (band - 1) // max(1, nnz - 2)) + 1, (n, 1), generator=g, device=device)
+    idx = torch.empty(n, nnz, dtype=torch.int32, device=device)
+    idx[:, 0] = rows % C
+    idx[:, 1:] = 2 * C + (base + j * step) % band
+    val = torch.empty(n, nnz, device=device)
+    val[:, 0] = t
+    val[:, 1:] = torch.rand(n, nnz - 1, generator=g, device=device).mul_(0.1).add_(0.05)
+    qrows = torch.arange(b, device=device)
+    qd = torch.zeros(b, d, device=device)
+    w = torch.randn(b, C, generator=g, device=device)
+    qd[:, C:2 * C] = w / w.norm(dim=1, keepdim=True)
+    qd[qrows, qrows % C] = 2.0
+    qi = torch.full((b, nnz_q), v, dtype=torch.int32, device=device)
+    qv = torch.zeros(b, nnz_q, device=device)
+    qi[:, 0] = qrows % C
+    qv[:, 0] = 2.0
+    qi[:, 1:C + 1] = C + torch.arange(C, device=device, dtype=torch.int32)
+    qv[:, 1:C + 1] = torch.rand(b, C, generator=g, device=device).mul_(0.1).add_(0.05)
+    return (dense, idx, val), (qd, qi, qv)
 
 
 def cuda_ms(torch, fn, reps):
@@ -191,11 +272,336 @@ def small_phase(torch, dev, check):
               ref.fused_topk_table_ref(*args, w_dense=0.6, w_sparse=0.4))
 
 
+def beam_small_phase(torch, dev, check):
+    """The hop kernel against its plain version, hop for hop from the
+    kernel's own state (teacher-forced), over dense ip/l2, sparse and
+    fused spaces, f32 and bf16, graphs with repeated ids, sentinel-padded
+    rows and a starved beam, init beams with sentinel slots, a width that
+    is not a multiple of 4, and ef*R at the budget cap."""
+    from repro_torch.core.sparse import SparseVectors
+    from repro_torch.kernels import beam_topk as bk
+    from repro_torch.kernels import ref
+
+    def init_beam(g, n, ef, b, real):
+        """Score-descending beam: ``real`` random ids, then sentinels (id n,
+        one id -1) scoring f32-min."""
+        ids = torch.randint(0, n, (b, ef), generator=g, device=dev, dtype=torch.int32)
+        s = torch.randn(b, ef, generator=g, device=dev).sort(dim=1, descending=True).values
+        ids[:, real:] = n
+        ids[0, ef - 1] = -1
+        s[:, real:] = NEG
+        return s, ids
+
+    def run(name, args, kw, nbr, n, ef, b, hops, real, exact_ids, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        beam_s, beam_i = init_beam(g, n, ef, b, real)
+        vis = bk.mark_visited(torch.zeros((b, bk.visited_words(n)), dtype=torch.int32, device=dev),
+                              beam_i, n)
+        qd, q_dense, c_idx, c_val, c_dense = args
+        valid = 0
+        for h in range(hops):
+            hop_args = (qd, q_dense, beam_s, beam_i, vis, nbr, c_idx, c_val, c_dense)
+            got = bk.beam_hop(*hop_args, n_valid=n, **kw)
+            want = ref.beam_hop_plain(*hop_args, n_valid=n, **kw)
+            valid += check.hop(f"{name} hop {h}", got, want, exact_ids)
+            beam_s, beam_i = got[0], got[1]
+            vis.scatter_add_(1, got[2].long(), got[3])
+        return valid
+
+    n, d, v, nnz, b = 4096, 64, 1000, 16, 16
+    g = torch.Generator(device=dev).manual_seed(5)
+    rnd = torch.randint(0, n, (n, 16), generator=g, device=dev, dtype=torch.int32)
+    rnd[:, 8:12] = rnd[:, 0:4]                           # repeated ids in a row
+    short = torch.randint(0, n, (n, 8), generator=g, device=dev, dtype=torch.int32)
+    lens = torch.randint(0, 9, (n, 1), generator=g, device=dev)
+    short[torch.arange(8, device=dev)[None, :] >= lens] = n   # flat_adjacency's sentinel pad
+    starved = torch.full((n, 4), n, dtype=torch.int32, device=dev)
+    hubs = torch.arange(0, n, 7, device=dev)
+    starved[hubs, 0] = ((hubs + 1) % n).int()
+    graphs = (("repeats", rnd, 64, 60), ("padded", short, 32, 29), ("starved", starved, 16, 2))
+    valid = seed = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        (cd, ci, cv), (qd, qi, qv) = planted_cluster(torch, n, d, v, nnz, 16, b, 3, dev)
+        cd, cv = cd.to(dtype), cv.to(dtype)
+        table = ref.query_table(SparseVectors(qi, qv), v)
+        spaces = (("dense-ip", (None, qd, None, None, cd), {}),
+                  ("dense-l2", (None, qd, None, None, cd), dict(dense_kind="l2")),
+                  ("sparse", (table, None, ci, cv, None), {}),
+                  ("fused", (table, qd, ci, cv, cd), dict(w_dense=0.5, w_sparse=1.5)))
+        for sname, args, kw in spaces:
+            for gname, nbr, ef, real in graphs:
+                seed += 1
+                valid += run(f"beam {sname} {tag} {gname}", args, kw, nbr, n, ef, b, 4, real,
+                             sname != "dense-l2", seed)
+        # random (unplanted) data at a width that is not a multiple of 4
+        gr = torch.Generator(device=dev).manual_seed(9)
+        dense61 = torch.randn(n, 61, generator=gr, device=dev).to(dtype)
+        q61 = torch.randn(b, 61, generator=gr, device=dev)
+        valid += run(f"beam fused d=61 random {tag}", (table, q61, ci, cv, dense61),
+                     dict(w_dense=0.7, w_sparse=0.3), rnd, n, 64, b, 3, 60, False, 11)
+    # ef*R at the cap: the merge sorts 34,816 entries in global scratch
+    (cd, _, _), (qd, _, _) = planted_cluster(torch, n, d, v, nnz, 16, 1, 4, dev)
+    cap = torch.randint(0, n, (n, 16), generator=g, device=dev, dtype=torch.int32)
+    ef = bk.MAX_BEAM_CANDIDATES // 16
+    assert bk.sort_size(ef, ef * 16) > bk.MERGE_SMEM_ENTRIES
+    valid += run("beam dense-ip f32 ef*R=32768", (None, qd, None, None, cd), {}, cap, n, ef, 1, 2,
+                 ef - 8, True, 13)
+    return valid
+
+
+def graph_full_phase(torch, dev, check, corpus, batches, space, on_card):
+    """Graph ANN over the resident MS MARCO-scale corpus: a random
+    degree-16 graph (rounds=0), served through the pipeline with the
+    beam-hop kernel for the fused and the dense ip space; then a timed
+    pass (CUDA events around each hop) and, on batch 0, every hop held
+    against the plain hop from the same input state."""
+    from repro_torch.core import graph_ann
+    from repro_torch.core.backends import GraphANNBackend, resolve_backend
+    from repro_torch.core.pipeline import BruteForceGenerator, RetrievalPipeline
+    from repro_torch.core.spaces import DenseSpace
+    from repro_torch.kernels import beam_topk as bk
+    from repro_torch.kernels import fused_topk as fk
+    from repro_torch.kernels import mips_topk as mk
+    from repro_torch.kernels import ref
+
+    n, d = corpus.dense.shape
+    nnz = corpus.sparse.indices.shape[1]
+    b = batches[0].dense.shape[0]
+    hops = graph_ann.default_hops(n)
+    c = GRAPH["ef"] * GRAPH["degree"]
+    backend = GraphANNBackend(kernel=True, rounds=0, **GRAPH)
+    # per valid candidate: bytes of the gathered row, multiply-adds
+    paths = {"fused": (space, corpus, lambda q: q, (d * 4 + nnz * 8, d + nnz)),
+             "dense": (DenseSpace("ip"), corpus.dense, lambda q: q.dense, (d * 4, d))}
+    pipes = {}
+    t0 = time.perf_counter()
+    for name, (sp, corp, _, _) in paths.items():
+        assert resolve_backend(backend, sp, corp) is backend
+        pipes[name] = RetrievalPipeline(BruteForceGenerator(sp, corp, backend=backend),
+                                        cand_qty=GRAPH["ef"], final_qty=10)
+        backend._index(sp, corp, n)                 # the random graph, set-up
+    sync(torch, on_card)
+    log(f"phase graph index: two random degree-{GRAPH['degree']} graphs over {n} rows in "
+        f"{time.perf_counter() - t0:.1f} s; {hops} hops per batch")
+
+    mk.launches = fk.launches = bk.launches = 0
+    host = {name: [] for name in paths}
+    results = {name: [] for name in paths}
+    for q in batches:
+        for name, (_, _, pick, _) in paths.items():
+            t0 = time.perf_counter()
+            results[name].append(pipes[name].run(pick(q)))
+            sync(torch, on_card)
+            host[name].append(time.perf_counter() - t0)
+    launches = {"beam_hop": bk.launches, "fused_topk": fk.launches, "mips_topk": mk.launches}
+    if on_card:
+        want = {"beam_hop": len(paths) * hops * len(batches), "fused_topk": len(batches),
+                "mips_topk": len(batches)}
+        assert launches == want, f"graph launches {launches}, expected {want}"
+
+    # every answer: top-10 of distinct rows, descending, rescored alike
+    for name, (sp, corp, pick, _) in paths.items():
+        for q, r in zip(batches, results[name]):
+            ids = r.indices
+            assert r.scores.shape == (b, 10) and bool(torch.isfinite(r.scores).all())
+            assert bool(((ids >= 0) & (ids < n)).all())
+            assert bool((ids.sort(dim=1).values.diff(dim=1) != 0).all()), "repeated ids"
+            assert bool((r.scores.diff(dim=1) <= 0).all()), "not descending"
+            rescored = graph_ann.score_many(sp, pick(q), graph_ann.gather_items(corp, ids))
+            scale = rescored.abs().amax(1, keepdim=True).clamp_min(1e-30)
+            assert bool(((r.scores - rescored).abs() <= TOL_REL * scale).all()), f"{name} rescoring"
+
+    # timed pass: CUDA events around every hop, valid candidates counted
+    orig = bk.beam_hop
+    per_hop = {name: [] for name in paths}
+    kernel_ms = {name: [] for name in paths}
+    bound_ms = {name: [] for name in paths}
+    bound_by = {}
+    rec = []
+
+    def timed(*a, **k):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if on_card else None
+        if on_card:
+            # keep the device busy while the host enqueues the hop, so that
+            # the events bracket the two kernels and not the host's launch
+            torch.cuda._sleep(SLEEP_CYCLES)
+            ev[0].record()
+        out = orig(*a, **k)
+        if on_card:
+            ev[1].record()
+        rec.append((ev, (out[3] != 0).sum()))
+        return out
+
+    bk.beam_hop = timed
+    try:
+        for name, (_, _, pick, (row_bytes, row_fmas)) in paths.items():
+            for q in batches:
+                rec.clear()
+                pipes[name].run(pick(q))
+                sync(torch, on_card)
+                times = [e[0].elapsed_time(e[1]) for e, _ in rec] if on_card else [float("nan")]
+                valid = int(sum(int(v) for _, v in rec))
+                per_hop[name] += times
+                kernel_ms[name].append(sum(times))
+                # each valid row read once, plus a neighbour id and a mask
+                # word per candidate slot; the FMAs of the valid rows
+                t_bytes = (valid * row_bytes + len(rec) * b * c * 8) / HBM_BYTES_PER_S * 1e3
+                t_ops = valid * 2 * row_fmas / F32_FLOPS * 1e3
+                bound_ms[name].append(max(t_bytes, t_ops))
+                bound_by[name] = "bytes" if t_bytes >= t_ops else "operations"
+    finally:
+        bk.beam_hop = orig
+
+    # batch 0, teacher-forced: each hop against the plain hop on its inputs
+    plain_ms = []
+    forced_hops = []
+
+    def forced(*a, **k):
+        out = orig(*a, **k)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if on_card else None
+        if on_card:
+            ev[0].record()
+        want = ref.beam_hop_plain(*a, **k)
+        if on_card:
+            ev[1].record()
+            ev[1].synchronize()
+            plain_ms.append(ev[0].elapsed_time(ev[1]))
+        forced_hops.append(check.hop(f"graph full hop {len(forced_hops)}", out, want,
+                                     exact_ids=False))
+        return out
+
+    bk.beam_hop = forced
+    try:
+        for name, (_, _, pick, _) in paths.items():
+            pipes[name].run(pick(batches[0]))
+    finally:
+        bk.beam_hop = orig
+
+    med = statistics.median
+    for name, (_, _, pick, _) in paths.items():
+        hms, kms = 1e3 * med(host[name]), med(kernel_ms[name])
+        log(f"  graph {name}: {1e3 * min(host[name]):.3f}-{1e3 * max(host[name]):.3f} ms/batch, "
+            f"median {hms:.3f} ms/batch (host clock, synchronised); hop kernels {kms:.3f} ms/batch "
+            f"(CUDA events, device time, summed over {hops} hops; median hop {med(per_hop[name]):.4f} "
+            f"ms); bound {med(bound_ms[name]):.4f} ms/batch ({bound_by[name]})")
+        if on_card:
+            busy = device_profile(torch, lambda: pipes[name].run(pick(batches[1])))
+            if busy:
+                total = sum(busy.values())
+                log(f"    profiler, one batch: device busy {total:.3f} ms of {hms:.3f} ms/batch "
+                    f"(idle share {100 * (1 - total / hms):.1f}%): "
+                    + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(busy.items(), key=lambda kv: -kv[1])))
+            else:
+                log("    profiler: no device time recorded; idle share not measured")
+    log(f"phase graph full: {len(batches)} batches of {b} per space, degree {GRAPH['degree']}, "
+        f"ef {GRAPH['ef']}, {hops} hops; launches {launches}; batch 0 hop for hop against the plain "
+        f"hop: {len(forced_hops)} hops agree")
+    return {"ms": med(per_hop["fused"]), "plain_ms": med(plain_ms) if plain_ms else float("nan"),
+            "bound_ms": statistics.mean(bound_ms["fused"]) / hops, "bound_by": bound_by["fused"],
+            "launches": launches["beam_hop"]}
+
+
+def device_profile(torch, fn):
+    """Device milliseconds by kernel group for one call of ``fn`` under
+    torch.profiler: the hop's two kernels, the exact-scan kernels, and
+    PyTorch's own; {} if the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    groups = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if not us or "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        key = ("beam score" if "beam::score_kernel" in e.key else
+               "beam merge" if "beam::merge_kernel" in e.key else
+               "topk scan+merge" if "topk::" in e.key else "pytorch ops")
+        groups[key] = groups.get(key, 0.0) + us / 1e3
+    return groups
+
+
+def graph_build(torch, dev, corpus, space, m, on_card):
+    """Time one NN-descent build (degree 16, 6 rounds) over the first
+    ``m`` rows of the resident corpus."""
+    from repro_torch.core import graph_ann
+    from repro_torch.core.sparse import SparseVectors
+    from repro_torch.core.spaces import FusedVectors
+
+    sub = FusedVectors(corpus.dense[:m], SparseVectors(corpus.sparse.indices[:m],
+                                                       corpus.sparse.values[:m]))
+    t0 = time.perf_counter()
+    graph_ann.nn_descent(space, sub, m, degree=GRAPH["degree"], rounds=6,
+                         generator=torch.Generator(dev).manual_seed(0))
+    sync(torch, on_card)
+    log(f"phase graph build: NN-descent over {m} fused rows (degree {GRAPH['degree']}, 6 rounds) "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+
+def graph_recall_phase(torch, dev, n, seed, on_card):
+    """An NN-descent index (6 rounds) over a planted-cluster fused corpus
+    at full widths, built inside GraphANNBackend(kernel=True) and timed;
+    served recall@10 against the exact cuda backend, and the plain
+    traversal over the same index."""
+    from repro_torch.core import graph_ann
+    from repro_torch.core.backends import ANN_RECALL_TARGET, CudaBackend, GraphANNBackend
+    from repro_torch.core.fusion import topk_recall
+    from repro_torch.core.pipeline import BruteForceGenerator, RetrievalPipeline
+    from repro_torch.core.sparse import SparseVectors
+    from repro_torch.core.spaces import FusedSpace, FusedVectors
+    from repro_torch.kernels import beam_topk as bk
+
+    d, v, nnz, b = MSMARCO["d"], MSMARCO["v"], MSMARCO["nnz"], MSMARCO["b"]
+    t0 = time.perf_counter()
+    (cd, ci, cv), (qd, qi, qv) = planted_cluster(torch, n, d, v, nnz, MSMARCO["nnz_q"], b, seed, dev)
+    corpus = FusedVectors(cd, SparseVectors(ci, cv))
+    q = FusedVectors(qd, SparseVectors(qi, qv))
+    space = FusedSpace(v, 0.5, 1.5)
+    sync(torch, on_card)
+    made = time.perf_counter() - t0
+    backend = GraphANNBackend(kernel=True, **GRAPH)
+    t0 = time.perf_counter()
+    search_corpus, index = backend._index(space, corpus, n)
+    sync(torch, on_card)
+    build = time.perf_counter() - t0
+    bk.launches = 0
+    t0 = time.perf_counter()
+    got = RetrievalPipeline(BruteForceGenerator(space, corpus, backend=backend),
+                            cand_qty=GRAPH["ef"], final_qty=10).run(q)
+    sync(torch, on_card)
+    served = time.perf_counter() - t0
+    launches = bk.launches
+    exact = CudaBackend().topk(space, q, corpus, 10)
+    recall = topk_recall(exact.indices, got.indices)
+    plain = graph_ann.beam_search(space, q, search_corpus, index, n, k=10, ef=GRAPH["ef"])
+    recall_plain = topk_recall(exact.indices, plain.indices)
+    log(f"phase graph recall: n={n} d={d} v={v} nnz={nnz} planted clusters {CLUSTERS} (made in "
+        f"{made:.1f} s); NN-descent build {build:.1f} s (degree {GRAPH['degree']}, 6 rounds); "
+        f"served batch {1e3 * served:.3f} ms, beam_hop launches {launches}; recall@10 kernel "
+        f"{recall:.4f}, plain traversal {recall_plain:.4f} (target {ANN_RECALL_TARGET})")
+    assert recall >= ANN_RECALL_TARGET and recall_plain >= ANN_RECALL_TARGET, (recall, recall_plain)
+    if on_card:
+        assert launches == graph_ann.default_hops(n), launches
+
+
+def sync(torch, on_card):
+    if on_card:
+        torch.cuda.synchronize()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n", type=int, default=MSMARCO["n"], help="corpus rows")
     ap.add_argument("--device", default="cuda", help="'cpu' rehearses the control flow and fails at the end")
+    ap.add_argument("--recall-n", type=int, default=RECALL_N,
+                    help="rows of the planted-cluster recall corpus (at most --n, a multiple of 8)")
+    ap.add_argument("--graph-build-n", type=int, default=0,
+                    help="also time one NN-descent build over this many rows of the main corpus")
     args = ap.parse_args()
 
     import torch
@@ -203,7 +609,7 @@ def main() -> int:
     if args.device == "cuda" and not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from repro_torch.core.backends import resolve_backend
+    from repro_torch.core.backends import clear_ann_index_cache, resolve_backend
     from repro_torch.core.pipeline import BruteForceGenerator, RetrievalPipeline
     from repro_torch.core.sparse import SparseVectors
     from repro_torch.core.spaces import DenseSpace, FusedSpace, FusedVectors
@@ -224,18 +630,23 @@ def main() -> int:
             f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
         t0 = time.perf_counter()
         _build.build_all()
-        log(f"phase build: {time.perf_counter() - t0:.1f} s for {SOURCES}")
-        ptxas = _build.PTXAS_LOG.get("topk_scan", "")
-        regs = [int(w) for line in ptxas.splitlines() if "registers" in line
-                for w, nxt in zip(line.split(), line.split()[1:]) if nxt == "registers,"]
-        spills = sum(int(line.split()[line.split().index("spill") - 2]) for line in ptxas.splitlines()
-                     if " bytes spill stores" in line)
-        log(f"  ptxas: {len(regs)} kernels, at most {max(regs, default=0)} registers, "
-            f"{spills} bytes of spill stores")
+        log(f"phase build: {time.perf_counter() - t0:.1f} s for {', '.join(SOURCES)}")
+        for lib, ptxas in sorted(_build.PTXAS_LOG.items()):
+            regs = [int(w) for line in ptxas.splitlines() if "registers" in line
+                    for w, nxt in zip(line.split(), line.split()[1:]) if nxt == "registers,"]
+            spills = sum(int(line.split()[line.split().index("spill") - 2])
+                         for line in ptxas.splitlines() if " bytes spill stores" in line)
+            log(f"  ptxas {lib}: {len(regs)} kernels, at most {max(regs, default=0)} registers, "
+                f"{spills} bytes of spill stores")
 
     check = Checker(torch)
     small_phase(torch, dev, check)
     log(f"phase small: {check.cases} cases agree (tolerance {TOL_REL} of row scale)")
+    cases = check.cases
+    t0 = time.perf_counter()
+    valid = beam_small_phase(torch, dev, check)
+    log(f"phase beam small: {check.cases - cases} hops agree hop for hop ({valid} valid candidates; "
+        f"mark-deltas equal, tolerance {TOL_REL} of row scale) in {time.perf_counter() - t0:.1f} s")
 
     # ---- full scale: the main path -------------------------------------
     cfg = dict(MSMARCO, n=args.n)
@@ -338,7 +749,7 @@ def main() -> int:
              bound(dense_bytes, dense_ops)),
             ("fused_topk", "src/repro/kernels/fused_topk.py:146", fused_ms, fused_plain, None,
              bound(fused_bytes, fused_ops))):
-        kernels.append({"name": name, "route": "cuda", "source": SOURCES, "replaces": replaces,
+        kernels.append({"name": name, "route": "cuda", "source": SOURCES[0], "replaces": replaces,
                         "launches": launches[name], "max_abs_err": check.max_err[name],
                         "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
                         "library_ms": lib})
@@ -354,7 +765,24 @@ def main() -> int:
         f"({n * nnz * b * 4 / 1e9:.1f} GB of query-table reads, bound {n * nnz * 8 / HBM_BYTES_PER_S * 1e3:.3f} ms "
         f"by its {n * nnz * 8 / 1e9:.2f} GB COO stream); query table {glue_ms:.3f} ms; "
         f"fused_topk k=2000 {k2000_ms:.3f} ms")
-    del dense, idx, val, corpus
+
+    # ---- graph ANN over the same resident corpus, then at recall scale --
+    hop = graph_full_phase(torch, dev, check, corpus, batches, space, on_card)
+    if args.graph_build_n:
+        graph_build(torch, dev, corpus, space, min(args.graph_build_n, n), on_card)
+    # release the 36 GB corpus: the pipelines, the checks and the ANN
+    # index cache all hold it
+    del dense, idx, val, corpus, batches, q, pipe, dense_gen, results, dense_results, fused_args
+    clear_ann_index_cache()
+    if on_card:
+        torch.cuda.empty_cache()
+    graph_recall_phase(torch, dev, min(args.recall_n, n) // CLUSTERS * CLUSTERS, args.seed + 11,
+                       on_card)
+    kernels.append({"name": "beam_hop", "route": "cuda", "source": SOURCES[1],
+                    "replaces": "src/repro/kernels/beam_topk.py:238", "launches": hop["launches"],
+                    "max_abs_err": check.max_err["beam_hop"], "ms": hop["ms"],
+                    "plain_ms": hop["plain_ms"], "bound_ms": hop["bound_ms"], "bound_by": hop["bound_by"],
+                    "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if not on_card:

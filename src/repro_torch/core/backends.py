@@ -1,11 +1,11 @@
-"""Execution backends, exact tier (counterpart of
-``repro/core/backends.py``).
+"""Execution backends (counterpart of ``repro/core/backends.py``): the
+exact tier and graph ANN.
 
 Every corpus-scoring call goes through one seam::
 
     backend.topk(space, query_repr, corpus, k, n_valid) -> TopK
 
-with two registered implementations:
+with three registered implementations:
 
   * ``reference`` -- one-shot ``exact_topk`` over the full [B, N] score
     matrix; serves every space and is the semantic ground truth;
@@ -13,7 +13,10 @@ with two registered implementations:
     dense ip/l2 corpora, ``fused_topk`` for fused/sparse ip corpora, f32
     or bf16.  The name ``"pallas"`` resolves to it too, so descriptors
     written by ``repro`` still name a backend.  On CPU tensors the
-    kernel wrappers run their plain versions.
+    kernel wrappers run their plain versions;
+  * ``graph_ann`` -- approximate top-k by beam search over a proximity
+    graph (``core.graph_ann``), under the measured-recall tier; with
+    ``kernel=True`` the hops run through the beam-hop kernel.
 
 :func:`resolve_backend` falls back to ``reference`` for a space outside
 the kernel's ``supports`` matrix (cosine, say), as ``repro`` does.
@@ -23,7 +26,9 @@ launch raises.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import threading
 from typing import Callable, Dict, Optional, Protocol, runtime_checkable
 
 import torch
@@ -31,12 +36,17 @@ import torch
 from repro_torch.core.brute_force import TopK, exact_topk
 from repro_torch.core.sparse import SparseVectors
 from repro_torch.core.spaces import (DenseSpace, FusedSpace, FusedVectors,
-                                     SparseSpace, tensor_leaves)
+                                     SparseSpace, map_tensors, tensor_leaves)
 
 __all__ = [
     "ExecutionBackend",
     "ReferenceBackend",
     "CudaBackend",
+    "GraphANNBackend",
+    "ANN_RECALL_TARGET",
+    "ann_index_cache_info",
+    "clear_ann_index_cache",
+    "invalidate_ann_index_entries",
     "register_backend",
     "available_backends",
     "make_backend",
@@ -44,6 +54,10 @@ __all__ = [
     "backend_identity",
     "legal_tile",
 ]
+
+# The measured-recall tier: an approximate backend's recall@k against the
+# exact oracle, at its declared budget, must reach this.
+ANN_RECALL_TARGET = 0.95
 
 
 @runtime_checkable
@@ -215,6 +229,176 @@ class CudaBackend:
         return head if k_eff == k else _reference_tail(head, b, k, n_valid)
 
 
+# ---------------------------------------------------------------------------
+# Approximate backends: lazy per-(space, corpus) index cache.
+# ---------------------------------------------------------------------------
+
+# ANN indexes are built at the first search and kept here, because
+# generators re-resolve string backends per call and a served endpoint
+# calls topk per batch.  Keys use the identity of (space, corpus), plus
+# the n_valid slice and every build parameter; values hold strong
+# references to the keyed objects so that a recycled id never aliases
+# another corpus.  A bounded LRU under a lock: builds run outside it and
+# are deterministic in their key, so a duplicate race costs time only.
+_ANN_INDEX_CACHE: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
+_ANN_INDEX_LOCK = threading.Lock()
+_ANN_INDEX_CAPACITY = 16
+_ANN_INDEX_HITS = 0
+_ANN_INDEX_MISSES = 0
+
+
+def ann_index_cache_info() -> Dict[str, int]:
+    """Entry count and lifetime hit/miss counters of the ANN index cache."""
+    with _ANN_INDEX_LOCK:
+        return {"size": len(_ANN_INDEX_CACHE), "hits": _ANN_INDEX_HITS,
+                "misses": _ANN_INDEX_MISSES}
+
+
+def clear_ann_index_cache():
+    """Drop every cached ANN index and zero the counters."""
+    global _ANN_INDEX_HITS, _ANN_INDEX_MISSES
+    with _ANN_INDEX_LOCK:
+        _ANN_INDEX_CACHE.clear()
+        _ANN_INDEX_HITS = 0
+        _ANN_INDEX_MISSES = 0
+
+
+def invalidate_ann_index_entries(corpus) -> int:
+    """Drop the cached indexes built over exactly this corpus object (all
+    kinds, parameters and n_valid slices of it); every other entry
+    stays.  Returns the number dropped."""
+    with _ANN_INDEX_LOCK:
+        doomed = [key for key, val in _ANN_INDEX_CACHE.items()
+                  if val[1] is corpus]
+        for key in doomed:
+            del _ANN_INDEX_CACHE[key]
+    return len(doomed)
+
+
+def _cached_ann_index(kind: str, space, corpus, n_valid: int, params: tuple,
+                      build):
+    """Memoise ``build()`` per (backend kind, space, corpus, n_valid,
+    build parameters)."""
+    global _ANN_INDEX_HITS, _ANN_INDEX_MISSES
+    key = (kind, id(space), id(corpus), int(n_valid), params)
+    with _ANN_INDEX_LOCK:
+        hit = _ANN_INDEX_CACHE.get(key)
+        if hit is not None and hit[0] is space and hit[1] is corpus:
+            _ANN_INDEX_CACHE.move_to_end(key)
+            _ANN_INDEX_HITS += 1
+            return hit[2]
+    value = build()
+    with _ANN_INDEX_LOCK:
+        _ANN_INDEX_MISSES += 1
+        _ANN_INDEX_CACHE[key] = (space, corpus, value)
+        _ANN_INDEX_CACHE.move_to_end(key)
+        while len(_ANN_INDEX_CACHE) > _ANN_INDEX_CAPACITY:
+            _ANN_INDEX_CACHE.popitem(last=False)
+    return value
+
+
+def _slice_rows(corpus, n_valid: int):
+    return map_tensors(lambda x: x[:n_valid], corpus)
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphANNBackend:
+    """Approximate top-k through a navigable proximity graph: NN-descent
+    build (``graph_ann.nn_descent``) and fixed-hop batched beam search,
+    the paper's SW-graph method.
+
+    The index is built at the first search per (space, corpus, n_valid)
+    and memoised (:func:`ann_index_cache_info`).  ``ef`` is the declared
+    search budget: ``k > ef`` raises instead of losing recall quietly.
+    ``hops=None`` uses ``max(4, 2 ln N)``.  Held to the measured-recall
+    tier (recall@k >= :data:`ANN_RECALL_TARGET` against the exact
+    oracle), not the exact tiers' contract.
+
+    ``kernel=True`` runs the hops through the beam-hop kernel
+    (``kernels/beam_topk.py``) over a packed visited mask, and scores the
+    entry set through the exact kernels, so it takes the ``cuda``
+    backend's capability matrix: what that refuses, this refuses, and
+    ``resolve_backend`` falls back to reference.  ``ef * degree`` is
+    capped by the kernel's candidate budget
+    (``beam_topk.MAX_BEAM_CANDIDATES``); an oversized budget raises when
+    the search starts.  On CUDA tensors every hop launches the kernel."""
+
+    degree: int = 16
+    rounds: int = 6
+    ef: int = 64
+    hops: Optional[int] = None
+    entry_count: Optional[int] = None
+    seed: int = 0
+    kernel: bool = False
+    name = "graph_ann"
+
+    @property
+    def identity(self) -> str:
+        hops = "auto" if self.hops is None else self.hops
+        entries = "auto" if self.entry_count is None else self.entry_count
+        return (f"graph_ann(degree={self.degree},rounds={self.rounds},"
+                f"ef={self.ef},hops={hops},entries={entries},"
+                f"seed={self.seed},"
+                f"kernel={'on' if self.kernel else 'off'})")
+
+    def supports(self, space, corpus) -> Optional[str]:
+        if _rows(corpus) is None:
+            return ("graph_ann backend needs a materialized row-major "
+                    "corpus (tensor, SparseVectors or FusedVectors)")
+        if self.kernel:
+            why = CudaBackend().supports(space, corpus)
+            if why is not None:
+                return f"graph_ann kernel path: {why}"
+        return None
+
+    def _index(self, space, corpus, n_valid: int):
+        from repro_torch.core import graph_ann
+
+        n_total = _rows(corpus)
+        # kernel in the key: the graph is the same either way, but the
+        # LRU must never serve one traversal's entry to the other
+        params = (self.degree, self.rounds, self.entry_count, self.seed,
+                  self.kernel)
+
+        def build():
+            search_corpus = (corpus if n_valid == n_total
+                             else _slice_rows(corpus, n_valid))
+            dev = tensor_leaves(corpus)[0].device
+            index = graph_ann.nn_descent(
+                space, search_corpus, n_valid, degree=self.degree,
+                rounds=self.rounds,
+                generator=torch.Generator(dev).manual_seed(self.seed),
+                entry_count=self.entry_count)
+            return search_corpus, index
+
+        return _cached_ann_index("graph_ann", space, corpus, n_valid, params,
+                                 build)
+
+    def topk(self, space, query_repr, corpus, k: int,
+             n_valid: Optional[int] = None) -> TopK:
+        from repro_torch.core import graph_ann
+
+        n = _rows(corpus)
+        n_valid = n if n_valid is None else min(n_valid, n)
+        b = _batch_rows(query_repr)
+        k_eff = min(k, n_valid)
+        if k_eff > self.ef:
+            raise ValueError(
+                f"graph_ann declared search budget ef={self.ef} cannot "
+                f"produce top-{k_eff}; raise ef or lower k")
+        if not k_eff:
+            empty = _empty_topk(b, _device(query_repr))
+            return _reference_tail(empty, b, k, n_valid) if k else empty
+        if self.kernel:
+            from repro_torch.kernels.beam_topk import check_beam_budget
+            check_beam_budget(self.ef, self.degree)
+        search_corpus, index = self._index(space, corpus, n_valid)
+        search = graph_ann.kernel_beam_search if self.kernel else graph_ann.beam_search
+        head = search(space, query_repr, search_corpus, index, n_valid,
+                      k=k_eff, ef=self.ef, hops=self.hops)
+        return head if k_eff == k else _reference_tail(head, b, k, n_valid)
+
+
 _REGISTRY: Dict[str, Callable[..., ExecutionBackend]] = {}
 
 
@@ -240,6 +424,7 @@ def make_backend(name: str, **kwargs) -> ExecutionBackend:
 register_backend("reference", ReferenceBackend)
 register_backend("cuda", CudaBackend)
 register_backend("pallas", CudaBackend)   # descriptors written by repro
+register_backend("graph_ann", GraphANNBackend)
 
 
 def resolve_backend(backend="cuda", space=None, corpus=None,

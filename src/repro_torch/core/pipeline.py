@@ -4,8 +4,8 @@
 A candidate generator produces ``cand_qty`` documents; optional
 intermediate and final re-rankers narrow them to ``final_qty``.  This
 slice ports the exact brute-force generator and the funnel tail for the
-no-reranker case; any object with ``rerank(q_tokens, cands, keep)``
-still slots in as a re-ranker.
+no-reranker case and the graph-ANN generator; any object with
+``rerank(q_tokens, cands, keep)`` still slots in as a re-ranker.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Protocol
 
+from repro_torch.core import graph_ann
 from repro_torch.core.backends import ReferenceBackend, resolve_backend
 from repro_torch.core.brute_force import TopK
 from repro_torch.core.spaces import canonical_dtype, cast_corpus, corpus_dtype
@@ -20,6 +21,7 @@ from repro_torch.core.spaces import canonical_dtype, cast_corpus, corpus_dtype
 __all__ = [
     "CandidateGenerator",
     "BruteForceGenerator",
+    "GraphANNGenerator",
     "Reranker",
     "apply_rerankers",
     "RetrievalPipeline",
@@ -78,6 +80,23 @@ class BruteForceGenerator:
         if self.backend is not None and not isinstance(self.backend, str):
             replaced = replaced.with_backend(self.backend)
         return replaced
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphANNGenerator:
+    """NSW/HNSW-style beam search over a given index (``core.graph_ann``)."""
+
+    space: object
+    corpus: object
+    index: graph_ann.GraphIndex
+    n_items: int
+    ef: int = 64
+    hops: Optional[int] = None
+
+    def generate(self, query_repr, k: int) -> TopK:
+        return graph_ann.beam_search(
+            self.space, query_repr, self.corpus, self.index, self.n_items,
+            k=k, ef=max(self.ef, k), hops=self.hops)
 
 
 def apply_rerankers(cands: TopK, q_tokens=None, *,

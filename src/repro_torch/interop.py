@@ -11,12 +11,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.graph_ann import GraphIndex
 from repro_torch.core.sparse import SparseVectors
 from repro_torch.core.spaces import FusedSpace, FusedVectors
 from repro_torch.device import resolve_device
 
 __all__ = ["tensor", "to_numpy", "sparse_vectors", "fused_vectors",
-           "fused_space"]
+           "fused_space", "graph_index"]
 
 
 def tensor(array, device=None, *, bf16: bool = False) -> torch.Tensor:
@@ -60,3 +61,11 @@ def fused_space(vocab_size: int, w_dense: float, w_sparse: float,
     """``FusedSpace`` with the mixing weights learned by ``repro``."""
     return FusedSpace(int(vocab_size), float(w_dense), float(w_sparse),
                       str(dense_kind))
+
+
+def graph_index(neighbors, entry_ids, device=None) -> GraphIndex:
+    """``GraphIndex`` from a ``repro`` graph's numpy neighbour table
+    [N, R] and entry ids [E] (cast to i32), so that both packages walk
+    the same graph."""
+    return GraphIndex(tensor(np.asarray(neighbors, np.int32), device),
+                      tensor(np.asarray(entry_ids, np.int32), device))

@@ -1,6 +1,6 @@
 """Public wrappers around the kernels with the glue the retrieval core
-needs (counterpart of ``repro/kernels/ops.py``: ``mips_topk`` and
-``fused_topk``).
+needs (counterpart of ``repro/kernels/ops.py``: ``mips_topk``,
+``fused_topk`` and ``beam_topk``).
 
 The TPU wrappers pad N up to a multiple of the tile (padded COO rows get
 the trash id ``vocab_size``).  The CUDA kernel masks its ragged last tile
@@ -11,8 +11,11 @@ built by ``densify`` exactly as the library path builds it.
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core.brute_force import TopK
 from repro_torch.core.sparse import SparseVectors
+from repro_torch.kernels import beam_topk as _beam
 from repro_torch.kernels import fused_topk as _fused
 from repro_torch.kernels import mips_topk as _mips
 from repro_torch.kernels.ref import query_table
@@ -47,3 +50,33 @@ def fused_topk(q_sparse: SparseVectors | None, q_dense, c_sparse: SparseVectors 
         w_sparse=w_sparse if has_sparse else None,
         n_valid=n_valid, dense_kind=dense_kind)
     return TopK(s, i)
+
+
+def beam_topk(qdensified, q_dense, init_scores, init_ids, neighbors, c_idx,
+              c_val, c_dense, k: int, hops: int, n_valid: int, w_dense=None,
+              w_sparse=None, dense_kind: str = "ip") -> TopK:
+    """Kernelised graph-ANN traversal from a pre-scored entry beam: seeds
+    the packed visited mask from ``init_ids``, runs ``hops`` hops and
+    returns the beam's top ``k``, with sentinel slots rewritten to the
+    exact backends' degenerate tail (ids ``n_valid``, ``n_valid + 1``, ...
+    scoring -inf).
+
+    ``init_scores``/``init_ids`` [B, ef] are score descending, sentinel
+    slots (id >= ``n_valid``) scoring f32-min.  Components and weights
+    follow ``fused_topk``'s conventions."""
+    b, ef = init_scores.shape
+    if k > ef:
+        raise ValueError(f"beam_topk: k={k} exceeds the beam width ef={ef}")
+    visited = torch.zeros((b, _beam.visited_words(n_valid)), dtype=torch.int32,
+                          device=init_ids.device)
+    visited = _beam.mark_visited(visited, init_ids, n_valid)
+    beam_s, beam_i, _ = _beam.beam_search(
+        qdensified, q_dense, init_scores, init_ids, visited, neighbors, c_idx,
+        c_val, c_dense, n_valid=n_valid, hops=hops, w_dense=w_dense,
+        w_sparse=w_sparse, dense_kind=dense_kind)
+    # the merge keeps the beam sorted: its head is the top k
+    s, i = beam_s[:, :k], beam_i[:, :k]
+    sent = i >= n_valid
+    i = torch.where(sent, n_valid + torch.cumsum(sent.int(), dim=1) - 1, i)
+    s = torch.where(sent, torch.full_like(s, -torch.inf), s)
+    return TopK(s, i.to(torch.int32))

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the CUDA kernels (counterpart of
 ``repro/kernels/ref.py``).  The kernel wrappers run them for tensors on
 the CPU; the tests and ``chip_smoke.py`` hold the kernels against them.
+The hop's plain version is at the end of the file.
 
 They score through the library's own paths (``spaces.dense_scores``,
 the ``"bnk,nk->bn"`` gather-reduce of ``core.sparse``,
@@ -16,7 +17,7 @@ import torch
 
 from repro_torch.core.brute_force import select_topk
 from repro_torch.core.sparse import SparseVectors, accum_f32, densify
-from repro_torch.core.spaces import dense_scores, weighted_mix
+from repro_torch.core.spaces import dense_scores, ieee_f32, weighted_mix
 
 NEG = float(torch.finfo(torch.float32).min)
 
@@ -118,3 +119,97 @@ def fused_topk_ref(q_sparse, q_dense, c_sparse, c_dense, vocab_size: int,
         k, w_dense=w_dense if has_dense else None,
         w_sparse=w_sparse if has_sparse else None,
         dense_kind=dense_kind, n_valid=n_valid, tile_n=tile_n)
+
+
+def _hop_candidates(beam_i, neighbors, n: int):
+    """The hop's raw candidate list [B, C] (the neighbours of every beam
+    slot, sentinel slots reading row ``clip(id, 0, n-1)``), whether each
+    may be valid at all, and the clipped ids."""
+    b, ef = beam_i.shape
+    r = neighbors.shape[1]
+    src_ok = (beam_i >= 0) & (beam_i < n)
+    cand = neighbors[beam_i.clamp(0, n - 1).long()].reshape(b, ef * r)
+    cand_ok = src_ok.repeat_interleave(r, dim=1) & (cand >= 0) & (cand < n)
+    return cand, cand_ok, cand.clamp(0, n - 1).long()
+
+
+def _earlier_duplicate(cand: torch.Tensor) -> torch.Tensor:
+    """dup[b, i]: some j < i holds the same raw id.  A C x C strictly
+    lower-triangular equality, one query row at a time."""
+    c = cand.shape[1]
+    earlier = torch.ones((c, c), dtype=torch.bool, device=cand.device).tril(-1)
+    return torch.stack([((row[:, None] == row[None, :]) & earlier).any(1)
+                        for row in cand])
+
+
+def _hop(qdensified, q_dense, beam_s, beam_i, seen_of, neighbors, c_idx,
+         c_val, c_dense, n: int, w_dense, w_sparse, dense_kind: str):
+    """One hop given ``seen_of(safe_c) -> bool[B, C]``; returns the merged
+    beam, the clipped candidate ids and the valid mask."""
+    cand, cand_ok, safe_c = _hop_candidates(beam_i, neighbors, n)
+    valid = cand_ok & ~seen_of(safe_c) & ~_earlier_duplicate(cand)
+    parts = []
+    if c_dense is not None:
+        ieee_f32()
+        q = accum_f32(q_dense)
+        items = accum_f32(c_dense[safe_c])                      # [B, C, Dd]
+        dense = torch.einsum("qd,qcd->qc", q, items)
+        if dense_kind == "l2":
+            q2 = torch.einsum("qd,qd->q", q, q)[:, None]
+            c2 = torch.einsum("qcd,qcd->qc", items, items)
+            dense = -(q2 + c2 - 2.0 * dense)
+        parts.append(dense)
+    if c_idx is not None:
+        b, c = safe_c.shape
+        idx = c_idx[safe_c].long()                              # [B, C, NNZ]
+        picked = torch.gather(accum_f32(qdensified), 1,
+                              idx.reshape(b, -1)).reshape(idx.shape)
+        parts.append(torch.einsum("qck,qck->qc", picked,
+                                  accum_f32(c_val[safe_c])))
+    weights = ([w_dense] if c_dense is not None else []) + \
+              ([w_sparse] if c_idx is not None else [])
+    total = (weighted_mix(parts, weights)
+             if any(w is not None for w in weights) else parts[0])
+    s = torch.where(valid, total, torch.full_like(total, NEG))
+    ids = torch.where(valid, cand, torch.full_like(cand, n))
+    new_s, pos = select_topk(torch.cat([beam_s, s], dim=1), beam_s.shape[1])
+    new_i = torch.gather(torch.cat([beam_i, ids], dim=1), 1, pos)
+    return new_s, new_i.to(torch.int32), safe_c, valid
+
+
+def beam_hop_ref(qdensified, q_dense, beam_s, beam_i, visited, neighbors,
+                 c_idx, c_val, c_dense, *, n_valid: int, w_dense=None,
+                 w_sparse=None, dense_kind: str = "ip"):
+    """Oracle for one hop with machinery independent of the kernel: the
+    visited set is an unpacked ``bool[B, N]`` table, the in-hop dedup a
+    C x C strictly lower-triangular equality over the raw candidate list
+    (an earlier copy of the same id, valid or not, kills a candidate),
+    the merge a stable descending sort of ``[beam, candidates]`` (ties
+    toward the lower slot, as ``lax.top_k``).  Scores use the library's
+    groupings and ``weighted_mix``.  Returns ``(beam_s, beam_i,
+    visited)`` with the new table (only scored candidates marked)."""
+    new_s, new_i, safe_c, valid = _hop(
+        qdensified, q_dense, beam_s, beam_i,
+        lambda ids: torch.gather(visited, 1, ids), neighbors, c_idx, c_val,
+        c_dense, n_valid, w_dense, w_sparse, dense_kind)
+    marks = torch.zeros(visited.shape, dtype=torch.int32, device=visited.device)
+    marks.scatter_add_(1, safe_c, valid.to(torch.int32))
+    return new_s, new_i, visited | (marks > 0)
+
+
+def beam_hop_plain(qdensified, q_dense, beam_s, beam_i, visited, neighbors,
+                   c_idx, c_val, c_dense, *, n_valid: int, w_dense=None,
+                   w_sparse=None, dense_kind: str = "ip"):
+    """Plain version of the hop kernel on its own inputs and outputs: the
+    packed int32 mask in, ``(beam_s, beam_i, words, addend)`` out, through
+    :func:`beam_hop_ref`'s machinery."""
+    from repro_torch.kernels.beam_topk import bit_i32, unpack_visited
+
+    table = unpack_visited(visited, n_valid)
+    new_s, new_i, safe_c, valid = _hop(
+        qdensified, q_dense, beam_s, beam_i,
+        lambda ids: torch.gather(table, 1, ids), neighbors, c_idx, c_val,
+        c_dense, n_valid, w_dense, w_sparse, dense_kind)
+    bit = bit_i32(safe_c & 31)
+    addend = torch.where(valid, bit, torch.zeros_like(bit))
+    return new_s, new_i, (safe_c >> 5).to(torch.int32), addend

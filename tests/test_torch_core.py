@@ -212,7 +212,8 @@ def test_package_imports_no_jax_or_repro(path):
 
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.core.pipeline, repro_torch.interop, "
-            "repro_torch.kernels.ops, repro_torch.core.fusion; "
+            "repro_torch.kernels.ops, repro_torch.core.fusion, repro_torch.core.graph_ann, "
+            "repro_torch.kernels.beam_topk; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

@@ -76,7 +76,7 @@ def test_supports_matrix_equals_pallas():
 
 def test_registry_and_names():
     assert isinstance(tb.make_backend("pallas"), tb.CudaBackend)   # repro descriptors
-    assert set(tb.available_backends()) == {"cuda", "pallas", "reference"}
+    assert set(tb.available_backends()) == {"cuda", "graph_ann", "pallas", "reference"}
     assert tb.backend_identity(None) is None and tb.backend_identity("x") == "x"
     assert isinstance(tb.resolve_backend(tb.CudaBackend()), tb.CudaBackend)
     assert isinstance(tb.ReferenceBackend(), tb.ExecutionBackend)
