@@ -440,6 +440,7 @@ def graph_full_phase(torch, dev, check, corpus, batches, space, on_card):
                 rec.clear()
                 pipes[name].run(pick(q))
                 sync(torch, on_card)
+                assert len(rec) == hops, f"timed pass saw {len(rec)} hops of {hops}"
                 times = [e[0].elapsed_time(e[1]) for e, _ in rec] if on_card else [float("nan")]
                 valid = int(sum(int(v) for _, v in rec))
                 per_hop[name] += times
@@ -477,6 +478,9 @@ def graph_full_phase(torch, dev, check, corpus, batches, space, on_card):
             pipes[name].run(pick(batches[0]))
     finally:
         bk.beam_hop = orig
+    assert len(forced_hops) == len(paths) * hops, f"{len(forced_hops)} hops held of {len(paths) * hops}"
+    if on_card:
+        assert len(plain_ms) == len(forced_hops), (len(plain_ms), len(forced_hops))
 
     med = statistics.median
     for name, (_, _, pick, _) in paths.items():
@@ -486,11 +490,13 @@ def graph_full_phase(torch, dev, check, corpus, batches, space, on_card):
             f"(CUDA events, device time, summed over {hops} hops; median hop {med(per_hop[name]):.4f} "
             f"ms); bound {med(bound_ms[name]):.4f} ms/batch ({bound_by[name]})")
         if on_card:
-            busy = device_profile(torch, lambda: pipes[name].run(pick(batches[1])))
+            busy, span_ms, kspan_ms = device_profile(torch, lambda: pipes[name].run(pick(batches[1])))
             if busy:
                 total = sum(busy.values())
-                log(f"    profiler, one batch: device busy {total:.3f} ms of {hms:.3f} ms/batch "
-                    f"(idle share {100 * (1 - total / hms):.1f}%): "
+                log(f"    profiler, batch 1 alone: device busy {total:.3f} ms of its {span_ms:.3f} ms on "
+                    f"the host clock (idle share {100 * (1 - total / span_ms):.1f}%; profiler on) and of "
+                    f"its {kspan_ms:.3f} ms from first kernel start to last kernel end (idle share "
+                    f"{100 * (1 - total / kspan_ms):.1f}%): "
                     + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(busy.items(), key=lambda kv: -kv[1])))
             else:
                 log("    profiler: no device time recorded; idle share not measured")
@@ -503,14 +509,23 @@ def graph_full_phase(torch, dev, check, corpus, batches, space, on_card):
 
 
 def device_profile(torch, fn):
-    """Device milliseconds by kernel group for one call of ``fn`` under
-    torch.profiler: the hop's two kernels, the exact-scan kernels, and
-    PyTorch's own; {} if the profiler saw no device time."""
+    """One call of ``fn`` under torch.profiler.  Returns the device
+    milliseconds by kernel group (the hop's two kernels, the exact-scan
+    kernels, and PyTorch's own; {} if the profiler saw no device time),
+    the call's host-clock milliseconds (synchronised) and the trace's
+    span from the first kernel's start to the last kernel's end, all from
+    the same call."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        span_ms = 1e3 * (time.perf_counter() - t0)
+    ranges = [(e.time_range.start, e.time_range.end) for e in prof.events()
+              if "CUDA" in str(getattr(e, "device_type", ""))]
+    kspan_ms = (max(r[1] for r in ranges) - min(r[0] for r in ranges)) / 1e3 if ranges else float("nan")
     groups = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
@@ -522,7 +537,7 @@ def device_profile(torch, fn):
                "beam merge" if "beam::merge_kernel" in e.key else
                "topk scan+merge" if "topk::" in e.key else "pytorch ops")
         groups[key] = groups.get(key, 0.0) + us / 1e3
-    return groups
+    return groups, span_ms, kspan_ms
 
 
 def graph_build(torch, dev, corpus, space, m, on_card):
@@ -598,8 +613,6 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n", type=int, default=MSMARCO["n"], help="corpus rows")
     ap.add_argument("--device", default="cuda", help="'cpu' rehearses the control flow and fails at the end")
-    ap.add_argument("--recall-n", type=int, default=RECALL_N,
-                    help="rows of the planted-cluster recall corpus (at most --n, a multiple of 8)")
     ap.add_argument("--graph-build-n", type=int, default=0,
                     help="also time one NN-descent build over this many rows of the main corpus")
     args = ap.parse_args()
@@ -776,8 +789,7 @@ def main() -> int:
     clear_ann_index_cache()
     if on_card:
         torch.cuda.empty_cache()
-    graph_recall_phase(torch, dev, min(args.recall_n, n) // CLUSTERS * CLUSTERS, args.seed + 11,
-                       on_card)
+    graph_recall_phase(torch, dev, min(RECALL_N, n) // CLUSTERS * CLUSTERS, args.seed + 11, on_card)
     kernels.append({"name": "beam_hop", "route": "cuda", "source": SOURCES[1],
                     "replaces": "src/repro/kernels/beam_topk.py:238", "launches": hop["launches"],
                     "max_abs_err": check.max_err["beam_hop"], "ms": hop["ms"],
