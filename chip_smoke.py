@@ -6,20 +6,24 @@ against their plain PyTorch versions.
 
 Phases, one line each: the card; the build of every kernel from
 ``src/repro_torch/kernels/csrc``; the exact-scan kernels against their
-plain versions at small shapes ("small") and the beam-hop kernel against
-its plain version hop for hop ("beam small"); then the main path at MS
+plain versions at small shapes ("small"), the beam-hop kernel against
+its plain version hop for hop ("beam small") and the fused score kernel
+against its plain version ("score small"); then the main path at MS
 MARCO passage v1 scale (8,841,823 passages, 768-d dense, 30,522-term
 sparse with 128 nnz per passage and 32 per query, batches of 16): fused
 dense+sparse retrieval through ``RetrievalPipeline`` on the ``cuda``
 backend and dense ip through ``mips_topk``; then graph ANN over the same
 resident corpus ("graph full": ``GraphANNBackend(kernel=True)``, degree
-16, ef 64, 31 hops, on a random graph) and over a planted-cluster corpus
-of 1,048,576 rows at full widths ("graph recall": an NN-descent index,
-recall@10 against the exact answer).  Each served path runs with the
-launch counters set to 0 just before and read just after.  The last
-lines are the ``kernels`` JSON, the card's name and power limit, and
-``{"ok": true, ...}``.  Any failure raises and exits non-zero.  The data
-is synthetic, made on the card from ``--seed``.
+16, ef 64, 31 hops, on a random graph); NAPP over it ("napp full":
+``NappBackend``, 128 pivots, index 8, search 8, the index built through
+the fused score kernel); the fused score kernel timed at B = 16 and at
+B = 128 ("score full"); and over a planted-cluster corpus of 1,048,576
+rows at full widths, graph ANN ("graph recall": an NN-descent index) and
+NAPP ("napp recall"), recall@10 against the exact answer.  Each served
+path runs with the launch counters set to 0 just before and read just
+after.  The last lines are the ``kernels`` JSON, the card's name and
+power limit, and ``{"ok": true, ...}``.  Any failure raises and exits
+non-zero.  The data is synthetic, made on the card from ``--seed``.
 
     python3 chip_smoke.py --graph-build-n 8841823   # also time one
                                                     # NN-descent build
@@ -52,8 +56,11 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOPS = 67e12                # H100 SXM data sheet, f32 on CUDA cores
 BATCHES = 8                      # served batches on the main path
 MSMARCO = dict(n=8_841_823, d=768, v=30_522, nnz=128, nnz_q=32, b=16)
-SOURCES = ("src/repro_torch/kernels/csrc/topk_scan.cu", "src/repro_torch/kernels/csrc/beam_hop.cu")
+SOURCES = ("src/repro_torch/kernels/csrc/topk_scan.cu", "src/repro_torch/kernels/csrc/beam_hop.cu",
+           "src/repro_torch/kernels/csrc/fused_score.cu")
 GRAPH = dict(degree=16, ef=64)   # configs/paper_retrieval.py ann_degree / ann_ef
+NAPP = dict(num_pivots=128, num_index=8, num_search=8, min_times=2, rerank_qty=256)  # paper_retrieval.py:36-38
+NAPP_DRAWS = 32                  # pivot draws whose recall "napp recall" prints beside the gated one
 RECALL_N = 1_048_576             # rows of the planted-cluster recall corpus
 CLUSTERS = 8
 NEG = -3.4028234663852886e38     # f32 min, the mask of invalid candidates
@@ -130,6 +137,19 @@ class Checker:
         assert torch.equal(real, gs > NEG), f"{name}: invalid beam slots differ"
         self._compare("beam_hop", name, gs, gi, ws, wi, real, exact_ids)
         return int((ga != 0).sum())
+
+    def scores(self, kernel, name, got, want):
+        """A score matrix, kernel against plain version, on their device:
+        finite, and within TOL_REL of each row's largest |score|."""
+        torch = self.torch
+        assert got.shape == want.shape, (name, got.shape, want.shape)
+        assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all()), name
+        scale = want.abs().amax(1, keepdim=True).clamp_min(1e-30)
+        err = (got - want).abs()
+        ratio = float((err / scale).max())
+        assert ratio <= TOL_REL, f"{name}: score error {ratio:.3g} of row scale > {TOL_REL}"
+        self.max_err[kernel] = max(self.max_err.get(kernel, 0.0), float(err.max()))
+        self.cases += 1
 
     def _compare(self, kernel, name, gs, gi, ws, wi, real, exact_ids):
         """Scores where ``real`` within TOL_REL of the row scale; ids equal,
@@ -350,6 +370,39 @@ def beam_small_phase(torch, dev, check):
     return valid
 
 
+def score_small_phase(torch, dev, check):
+    """The fused score kernel against its plain version: f32 and bf16;
+    ragged N, N below one tile and N = 128 (the NAPP probe's pivots); NNZ
+    1, 4 and 128 with pad slots (id V); d = 61; B = 1, 16 and 128;
+    weights (0, 1), (1, 0) and mixed; and the weight linearity
+    score(wd, ws) = wd * score(1, 0) + ws * score(0, 1)."""
+    from repro_torch.core.sparse import SparseVectors
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sparse_dense as sd
+
+    v = 1000
+    g = torch.Generator(device=dev).manual_seed(21)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for n, d, nnz in ((5003, 64, 4), (100, 61, 1), (128, 768, 128), (4096, 768, 128)):
+            dense = torch.randn(n, d, generator=g, device=dev).to(dtype)
+            idx = torch.randint(0, v, (n, nnz), generator=g, device=dev, dtype=torch.int32)
+            idx[torch.rand(n, nnz, generator=g, device=dev) < 0.25] = v
+            val = torch.rand(n, nnz, generator=g, device=dev).to(dtype)
+            for b in (1, 16, 128):
+                qd = torch.randn(b, d, generator=g, device=dev)
+                qi = torch.randint(0, v, (b, 32), generator=g, device=dev, dtype=torch.int32)
+                table = ref.query_table(SparseVectors(qi, torch.rand(b, 32, generator=g, device=dev)), v)
+                args = (table, qd, idx, val, dense)
+                for wd, ws in ((0.0, 1.0), (1.0, 0.0), (0.6, 0.4)):
+                    check.scores("fused_score", f"score {tag} n{n} d{d} nnz{nnz} b{b} w{wd}/{ws}",
+                                 sd.fused_score(*args, wd, ws), ref.fused_score_ref(*args, wd, ws))
+            s_d, s_s = sd.fused_score(*args, 1.0, 0.0), sd.fused_score(*args, 0.0, 1.0)
+            for wd, ws in ((0.3, 1.7), (2.0, 0.5)):
+                check.scores("fused_score", f"score linearity {tag} n{n} w{wd}/{ws}",
+                             sd.fused_score(*args, wd, ws), wd * s_d + ws * s_s)
+
+
 def graph_full_phase(torch, dev, check, corpus, batches, space, on_card):
     """Graph ANN over the resident MS MARCO-scale corpus: a random
     degree-16 graph (rounds=0), served through the pipeline with the
@@ -508,10 +561,144 @@ def graph_full_phase(torch, dev, check, corpus, batches, space, on_card):
             "launches": launches["beam_hop"]}
 
 
-def device_profile(torch, fn):
+def napp_full_phase(torch, dev, check, corpus, batches, space, on_card):
+    """NAPP over the resident MS MARCO-scale corpus, served through the
+    pipeline: the pivot index built through the fused score kernel in row
+    blocks (timed), 8 batches (host clock), one profiled batch, batch 0
+    against the same search with the kernel's pivot scores swapped for
+    the plain version's.  Returns the index and the kernel's launches."""
+    from repro_torch.core import graph_ann, napp
+    from repro_torch.core.backends import CudaBackend, NappBackend, resolve_backend
+    from repro_torch.core.pipeline import BruteForceGenerator, RetrievalPipeline
+    from repro_torch.core.spaces import DenseSpace
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sparse_dense as sd
+
+    n = corpus.dense.shape[0]
+    b = batches[0].dense.shape[0]
+    assert type(resolve_backend("auto", space, corpus)) is CudaBackend
+    if on_card:   # a dense corpus takes the kernels from "auto" on the card only
+        assert type(resolve_backend("auto", DenseSpace("ip"), corpus.dense)) is CudaBackend
+    backend = NappBackend(**NAPP)
+    assert resolve_backend(backend, space, corpus) is backend
+    pipe = RetrievalPipeline(BruteForceGenerator(space, corpus, backend=backend),
+                             cand_qty=100, final_qty=10)
+    blocks = -(-n // napp.NAPP_BLOCK_ROWS)
+    sd.launches = 0
+    t0 = time.perf_counter()
+    _, index = backend._index(space, corpus, n)
+    sync(torch, on_card)
+    build_s = time.perf_counter() - t0
+    host, results = [], []
+    for q in batches:
+        t0 = time.perf_counter()
+        results.append(pipe.run(q))
+        sync(torch, on_card)
+        host.append(time.perf_counter() - t0)
+    launches = sd.launches
+    if on_card:
+        assert launches == blocks + len(batches), f"fused_score launches {launches}, expected {blocks} + {len(batches)}"
+
+    for q, r in zip(batches, results):
+        ids = r.indices
+        assert r.scores.shape == (b, 10) and bool(torch.isfinite(r.scores).all())
+        assert bool(((ids >= 0) & (ids < n)).all())
+        assert bool((ids.sort(dim=1).values.diff(dim=1) != 0).all()), "repeated ids"
+        assert bool((r.scores.diff(dim=1) <= 0).all()), "not descending"
+        rescored = graph_ann.score_many(space, q, graph_ann.gather_items(corpus, ids))
+        scale = rescored.abs().amax(1, keepdim=True).clamp_min(1e-30)
+        assert bool(((r.scores - rescored).abs() <= TOL_REL * scale).all()), "napp rescoring"
+    # batch 0 again, the probe's pivot scores from the plain version
+    kernel_score = sd.fused_score
+    sd.fused_score = ref.fused_score_ref
+    try:
+        want = pipe.run(batches[0])
+    finally:
+        sd.fused_score = kernel_score
+    check("fused_score", "napp batch 0 vs plain pivot scores", tuple(results[0]), tuple(want),
+          exact_ids=False)
+    log(f"phase napp full: pivots {NAPP['num_pivots']}, index {NAPP['num_index']}, search "
+        f"{NAPP['num_search']}, min_times {NAPP['min_times']}, rerank {NAPP['rerank_qty']}; build "
+        f"{build_s:.3f} s in {blocks} row blocks; {len(batches)} batches of {b}: "
+        f"{1e3 * min(host):.3f}-{1e3 * max(host):.3f} ms/batch, median "
+        f"{1e3 * statistics.median(host):.3f} ms/batch (host clock, synchronised); fused_score "
+        f"launches {launches} ({blocks} build blocks + {len(batches)} batches); batch 0 agrees with "
+        f"the plain pivot scores; auto resolves to cuda")
+    if on_card:
+        busy, span_ms, kspan_ms = device_profile(torch, lambda: pipe.run(batches[1]), by_kernel=True)
+        if busy:
+            total = sum(busy.values())
+            log(f"  profiler, batch 1 alone: device busy {total:.3f} ms of its {span_ms:.3f} ms on the "
+                f"host clock (idle share {100 * (1 - total / span_ms):.1f}%; profiler on) and of its "
+                f"{kspan_ms:.3f} ms from first kernel start to last kernel end (idle share "
+                f"{100 * (1 - total / kspan_ms):.1f}%); by kernel: "
+                + "; ".join(f"{k} {v:.3f} ms" for k, v in sorted(busy.items(), key=lambda kv: -kv[1])))
+        else:
+            log("  profiler: no device time recorded; idle share not measured")
+    return index, launches
+
+
+def score_full_phase(torch, check, corpus, q, space, index, timer, reps, bound):
+    """The fused score kernel on the resident corpus: at B = 16 (batch
+    0's queries) against the plain version over every row, timed with the
+    plain version; at B = 128 (the NAPP index's pivots, the build's
+    shape) timed, held against the plain version on row slices, and the
+    slices' top-``num_index`` pivots against the index's membership where
+    the plain scores leave a margin at the cut."""
+    from repro_torch.core import graph_ann
+    from repro_torch.core.brute_force import select_topk
+    from repro_torch.kernels import ops, ref
+
+    n, d = corpus.dense.shape
+    nnz, v = corpus.sparse.indices.shape[1], space.vocab_size
+    w = (space.w_dense, space.w_sparse)
+    tile = 1 << 16
+
+    def args(queries):
+        return (ref.query_table(queries.sparse, v), queries.dense, corpus.sparse.indices,
+                corpus.sparse.values, corpus.dense)
+
+    def work(b):
+        nbytes = n * d * 4 + n * nnz * 8 + b * d * 4 + b * (v + 1) * 4 + b * n * 4
+        return bound(nbytes, 2 * b * n * (d + nnz) + 3 * b * n)
+
+    got = ops.fused_scores(q.sparse, q.dense, corpus.sparse, corpus.dense, v, *w)
+    check.scores("fused_score", "score full b16", got, ref.fused_score_ref(*args(q), *w, tile_n=tile))
+    del got
+    ms16 = timer(lambda: ops.fused_scores(q.sparse, q.dense, corpus.sparse, corpus.dense, v, *w), reps)
+    plain16 = timer(lambda: ref.fused_score_ref(*args(q), *w, tile_n=tile), 1)
+
+    pivots = graph_ann.gather_items(corpus, index.pivot_ids)
+    got = ops.fused_scores(pivots.sparse, pivots.dense, corpus.sparse, corpus.dense, v, *w)
+    k = index.num_index
+    margins = 0
+    for r0 in (0, n // 2, max(0, n - 5003)):
+        r1 = min(n, r0 + 16384)
+        pa = args(pivots)
+        want = ref.fused_score_ref(pa[0], pa[1], pa[2][r0:r1], pa[3][r0:r1], pa[4][r0:r1], *w)
+        check.scores("fused_score", f"score full b128 rows {r0}:{r1}", got[:, r0:r1], want)
+        vals, top = select_topk(want.T, k + 1)
+        scale = want.abs().amax(0).clamp_min(1e-30)
+        clear = (vals[:, k - 1] - vals[:, k]) > 2 * TOL_REL * scale
+        member = torch.zeros_like(index.membership[r0:r1]).scatter_(1, top[:, :k], 1.0)
+        assert torch.equal(member[clear], index.membership[r0:r1][clear]), f"membership rows {r0}:{r1}"
+        margins += int(clear.sum())
+    del got
+    ms128 = timer(lambda: ops.fused_scores(pivots.sparse, pivots.dense, corpus.sparse, corpus.dense,
+                                           v, *w), 3 if reps > 1 else 1)
+    (b16, by16), (b128, by128) = work(q.dense.shape[0]), work(pivots.dense.shape[0])
+    log(f"phase score full: fused_score B=16 {ms16:.3f} ms vs bound {b16:.3f} ms ({by16}), plain "
+        f"{plain16:.3f} ms; B=128 {ms128:.3f} ms vs bound {b128:.3f} ms ({by128}) (CUDA events, "
+        f"median of {reps} / 3); [128, N] held on 3 row slices, index membership equal on "
+        f"{margins} rows with a margin at the cut")
+    return {"ms": ms16, "plain_ms": plain16, "bound_ms": b16, "bound_by": by16}
+
+
+def device_profile(torch, fn, by_kernel=False):
     """One call of ``fn`` under torch.profiler.  Returns the device
     milliseconds by kernel group (the hop's two kernels, the exact-scan
-    kernels, and PyTorch's own; {} if the profiler saw no device time),
+    kernels, the fused score kernel, and PyTorch's own; {} if the
+    profiler saw no device time), or by kernel name with ``by_kernel``,
     the call's host-clock milliseconds (synchronised) and the trace's
     span from the first kernel's start to the last kernel's end, all from
     the same call."""
@@ -533,9 +720,12 @@ def device_profile(torch, fn):
             us = getattr(e, "self_cuda_time_total", 0)
         if not us or "CUDA" not in str(getattr(e, "device_type", "")):
             continue
-        key = ("beam score" if "beam::score_kernel" in e.key else
+        key = (e.key[:60] if by_kernel else
+               "beam score" if "beam::score_kernel" in e.key else
                "beam merge" if "beam::merge_kernel" in e.key else
-               "topk scan+merge" if "topk::" in e.key else "pytorch ops")
+               "fused_score" if "fscore::" in e.key else
+               "topk scan+merge" if "topk::scan_kernel" in e.key or "topk::merge_kernel" in e.key
+               else "pytorch ops")
         groups[key] = groups.get(key, 0.0) + us / 1e3
     return groups, span_ms, kspan_ms
 
@@ -601,6 +791,52 @@ def graph_recall_phase(torch, dev, n, seed, on_card):
     assert recall >= ANN_RECALL_TARGET and recall_plain >= ANN_RECALL_TARGET, (recall, recall_plain)
     if on_card:
         assert launches == graph_ann.default_hops(n), launches
+    return space, corpus, q, exact
+
+
+def napp_recall_phase(torch, dev, space, corpus, q, exact, seed, on_card):
+    """NAPP (``NAPP`` settings) over the planted-cluster corpus of "graph
+    recall": recall@10 against the exact answer, gated.  Rows of a
+    cluster rank by row id there, and NAPP's count ties go to the lower
+    id, so the gate overstates NAPP's selectivity; the same search over a
+    copy with the rows permuted by a seeded permutation is printed
+    beside it, without a gate, and so is the recall of ``NAPP_DRAWS``
+    pivot draws (generator seeds 0, 1, ...; seed 0 is the gated one)."""
+    from repro_torch.core import napp
+    from repro_torch.core.backends import ANN_RECALL_TARGET, CudaBackend, NappBackend
+    from repro_torch.core.fusion import topk_recall
+    from repro_torch.core.pipeline import BruteForceGenerator, RetrievalPipeline
+    from repro_torch.core.spaces import map_tensors
+
+    n = corpus.dense.shape[0]
+    recalls, times = [], []
+    perm = torch.randperm(n, generator=torch.Generator(dev).manual_seed(seed), device=dev)
+    for corp in (corpus, map_tensors(lambda x: x[perm], corpus)):
+        backend = NappBackend(**NAPP)
+        t0 = time.perf_counter()
+        backend._index(space, corp, n)
+        sync(torch, on_card)
+        times.append(time.perf_counter() - t0)
+        got = RetrievalPipeline(BruteForceGenerator(space, corp, backend=backend),
+                                cand_qty=100, final_qty=10).run(q)
+        want = exact if corp is corpus else CudaBackend().topk(space, q, corp, 10)
+        recalls.append(topk_recall(want.indices, got.indices))
+    log(f"phase napp recall: n={n}, NAPP {NAPP}; build {times[0]:.3f} s; recall@10 {recalls[0]:.4f} "
+        f"(target {ANN_RECALL_TARGET}); rows permuted (seed {seed}, no gate): build {times[1]:.3f} s, "
+        f"recall@10 {recalls[1]:.4f}")
+    draws = []
+    search = {k: NAPP[k] for k in ("num_search", "min_times", "rerank_qty")}
+    for seed_d in range(NAPP_DRAWS):
+        index = napp.build_napp(space, corpus, n, NAPP["num_pivots"], NAPP["num_index"],
+                                generator=torch.Generator(dev).manual_seed(seed_d))
+        got = napp.napp_search(space, q, corpus, index, k=10, **search)
+        draws.append(topk_recall(exact.indices, got.indices))
+    assert draws[0] == recalls[0], (draws[0], recalls[0])
+    log(f"  pivot draws 0-{NAPP_DRAWS - 1} (no gate): recall@10 min {min(draws):.4f}, median "
+        f"{statistics.median(draws):.4f}, below {ANN_RECALL_TARGET} in "
+        f"{sum(r < ANN_RECALL_TARGET for r in draws)} of {NAPP_DRAWS}: "
+        + " ".join(f"{r:.4f}" for r in draws))
+    assert recalls[0] >= ANN_RECALL_TARGET, recalls
 
 
 def sync(torch, on_card):
@@ -660,6 +896,9 @@ def main() -> int:
     valid = beam_small_phase(torch, dev, check)
     log(f"phase beam small: {check.cases - cases} hops agree hop for hop ({valid} valid candidates; "
         f"mark-deltas equal, tolerance {TOL_REL} of row scale) in {time.perf_counter() - t0:.1f} s")
+    cases = check.cases
+    score_small_phase(torch, dev, check)
+    log(f"phase score small: {check.cases - cases} score matrices agree (tolerance {TOL_REL} of row scale)")
 
     # ---- full scale: the main path -------------------------------------
     cfg = dict(MSMARCO, n=args.n)
@@ -779,22 +1018,30 @@ def main() -> int:
         f"by its {n * nnz * 8 / 1e9:.2f} GB COO stream); query table {glue_ms:.3f} ms; "
         f"fused_topk k=2000 {k2000_ms:.3f} ms")
 
-    # ---- graph ANN over the same resident corpus, then at recall scale --
+    # ---- graph ANN and NAPP over the same resident corpus, then at recall scale
     hop = graph_full_phase(torch, dev, check, corpus, batches, space, on_card)
     if args.graph_build_n:
         graph_build(torch, dev, corpus, space, min(args.graph_build_n, n), on_card)
+    napp_index, score_launches = napp_full_phase(torch, dev, check, corpus, batches, space, on_card)
+    score = score_full_phase(torch, check, corpus, q, space, napp_index, timer, reps, bound)
     # release the 36 GB corpus: the pipelines, the checks and the ANN
     # index cache all hold it
     del dense, idx, val, corpus, batches, q, pipe, dense_gen, results, dense_results, fused_args
+    del napp_index
     clear_ann_index_cache()
     if on_card:
         torch.cuda.empty_cache()
-    graph_recall_phase(torch, dev, min(RECALL_N, n) // CLUSTERS * CLUSTERS, args.seed + 11, on_card)
+    recall_n = min(RECALL_N, n) // CLUSTERS * CLUSTERS
+    recall_data = graph_recall_phase(torch, dev, recall_n, args.seed + 11, on_card)
+    napp_recall_phase(torch, dev, *recall_data, args.seed + 12, on_card)
     kernels.append({"name": "beam_hop", "route": "cuda", "source": SOURCES[1],
                     "replaces": "src/repro/kernels/beam_topk.py:238", "launches": hop["launches"],
                     "max_abs_err": check.max_err["beam_hop"], "ms": hop["ms"],
                     "plain_ms": hop["plain_ms"], "bound_ms": hop["bound_ms"], "bound_by": hop["bound_by"],
                     "library_ms": None})
+    kernels.append({"name": "fused_score", "route": "cuda", "source": SOURCES[2],
+                    "replaces": "src/repro/kernels/sparse_dense.py:61", "launches": score_launches,
+                    "max_abs_err": check.max_err["fused_score"], **score, "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if not on_card:

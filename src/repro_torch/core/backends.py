@@ -1,14 +1,16 @@
 """Execution backends (counterpart of ``repro/core/backends.py``): the
-exact tier and graph ANN.
+exact tier and the approximate one.
 
 Every corpus-scoring call goes through one seam::
 
     backend.topk(space, query_repr, corpus, k, n_valid) -> TopK
 
-with three registered implementations:
+with these registered implementations:
 
   * ``reference`` -- one-shot ``exact_topk`` over the full [B, N] score
     matrix; serves every space and is the semantic ground truth;
+  * ``streaming`` -- ``streaming_topk`` over row tiles with a running
+    top-k, bounded memory, any row-major corpus;
   * ``cuda`` -- the hand-written score+top-k kernels: ``mips_topk`` for
     dense ip/l2 corpora, ``fused_topk`` for fused/sparse ip corpora, f32
     or bf16.  The name ``"pallas"`` resolves to it too, so descriptors
@@ -16,10 +18,13 @@ with three registered implementations:
     kernel wrappers run their plain versions;
   * ``graph_ann`` -- approximate top-k by beam search over a proximity
     graph (``core.graph_ann``), under the measured-recall tier; with
-    ``kernel=True`` the hops run through the beam-hop kernel.
+    ``kernel=True`` the hops run through the beam-hop kernel;
+  * ``napp`` -- approximate top-k by pivot-permutation filtering and an
+    exact re-rank (``core.napp``), under the same tier.
 
 :func:`resolve_backend` falls back to ``reference`` for a space outside
-the kernel's ``supports`` matrix (cosine, say), as ``repro`` does.
+the kernel's ``supports`` matrix (cosine, say), as ``repro`` does, and
+``"auto"`` (or ``None``) picks an exact backend by size and device.
 Inside the matrix there is no fallback: a kernel that fails to build or
 launch raises.
 """
@@ -33,7 +38,7 @@ from typing import Callable, Dict, Optional, Protocol, runtime_checkable
 
 import torch
 
-from repro_torch.core.brute_force import TopK, exact_topk
+from repro_torch.core.brute_force import TopK, exact_topk, pad_corpus, streaming_topk
 from repro_torch.core.sparse import SparseVectors
 from repro_torch.core.spaces import (DenseSpace, FusedSpace, FusedVectors,
                                      SparseSpace, map_tensors, tensor_leaves)
@@ -41,9 +46,13 @@ from repro_torch.core.spaces import (DenseSpace, FusedSpace, FusedVectors,
 __all__ = [
     "ExecutionBackend",
     "ReferenceBackend",
+    "StreamingBackend",
     "CudaBackend",
     "GraphANNBackend",
+    "NappBackend",
     "ANN_RECALL_TARGET",
+    "AUTO_PALLAS_MIN_ROWS",
+    "AUTO_STREAMING_MIN_ROWS",
     "ann_index_cache_info",
     "clear_ann_index_cache",
     "invalidate_ann_index_entries",
@@ -58,6 +67,11 @@ __all__ = [
 # The measured-recall tier: an approximate backend's recall@k against the
 # exact oracle, at its declared budget, must reach this.
 ANN_RECALL_TARGET = 0.95
+
+# "auto": the kernel backend (``pallas`` in repro) from this many rows,
+# the streaming scan from this many once the kernel cannot serve.
+AUTO_PALLAS_MIN_ROWS = 4096
+AUTO_STREAMING_MIN_ROWS = 32768
 
 
 @runtime_checkable
@@ -147,6 +161,43 @@ class ReferenceBackend:
     def topk(self, space, query_repr, corpus, k: int,
              n_valid: Optional[int] = None) -> TopK:
         return exact_topk(space, query_repr, corpus, k, n_valid)
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamingBackend:
+    """Tiled exact top-k (``streaming_topk``): bounded memory, any
+    row-major corpus, each tile scored through the space's own
+    ``score_batch``.  A corpus that is not a multiple of the tile is
+    zero-padded up to it; the padding rows score -inf through the valid
+    count."""
+
+    tile_n: int = 8192
+    name = "streaming"
+
+    @property
+    def identity(self) -> str:
+        return f"streaming(tile_n={self.tile_n})"
+
+    def supports(self, space, corpus) -> Optional[str]:
+        if _rows(corpus) is None:
+            return ("streaming backend needs a row-major corpus "
+                    "(tensor, SparseVectors or FusedVectors)")
+        return None
+
+    def topk(self, space, query_repr, corpus, k: int,
+             n_valid: Optional[int] = None) -> TopK:
+        n = _rows(corpus)
+        tile = legal_tile(n, self.tile_n)
+        n_valid = n if n_valid is None else min(n_valid, n)
+        k_eff = min(k, n_valid)   # the heap's (-inf, 0) start slots must
+        b = _batch_rows(query_repr)   # never displace the reference's tail
+        if not k_eff:
+            head = _empty_topk(b, _device(query_repr))
+        else:
+            corpus, _ = pad_corpus(corpus, tile)
+            head = streaming_topk(space, query_repr, corpus, k_eff, tile_n=tile,
+                                  n_valid=n_valid)
+        return head if k_eff == k else _reference_tail(head, b, k, n_valid)
 
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -399,6 +450,83 @@ class GraphANNBackend:
         return head if k_eff == k else _reference_tail(head, b, k, n_valid)
 
 
+@dataclasses.dataclass(frozen=True)
+class NappBackend:
+    """Approximate top-k by NAPP (``core.napp``): pivot-intersection
+    counting as one matrix product, then an exact re-rank of the best
+    ``rerank_qty`` candidates, the paper's permutation-family method.
+
+    The pivot index is built at the first search per (space, corpus,
+    n_valid) and memoised in the ANN index cache; pivot scoring runs
+    through the fused score kernel where it computes the space's
+    function (``napp.fused_kernel_serves``).  ``rerank_qty`` is the
+    declared budget: ``k > rerank_qty`` raises.  Pivot counts clamp to
+    the corpus without changing the identity.  Measured-recall tier;
+    never selected by ``"auto"``."""
+
+    num_pivots: int = 128
+    num_index: int = 8
+    num_search: int = 8
+    min_times: int = 2
+    rerank_qty: int = 256
+    seed: int = 0
+    name = "napp"
+
+    @property
+    def identity(self) -> str:
+        return (f"napp(pivots={self.num_pivots},index={self.num_index},"
+                f"search={self.num_search},min_times={self.min_times},"
+                f"rerank_qty={self.rerank_qty},seed={self.seed})")
+
+    def supports(self, space, corpus) -> Optional[str]:
+        if _rows(corpus) is None:
+            return ("napp backend needs a materialized row-major corpus "
+                    "(tensor, SparseVectors or FusedVectors)")
+        return None
+
+    def _index(self, space, corpus, n_valid: int):
+        from repro_torch.core import napp
+
+        n_total = _rows(corpus)
+        params = (self.num_pivots, self.num_index, self.seed)
+
+        def build():
+            search_corpus = (corpus if n_valid == n_total
+                             else _slice_rows(corpus, n_valid))
+            p = min(self.num_pivots, n_valid)
+            dev = tensor_leaves(corpus)[0].device
+            index = napp.build_napp(
+                space, search_corpus, n_valid, num_pivots=p,
+                num_index=min(self.num_index, p),
+                generator=torch.Generator(dev).manual_seed(self.seed))
+            return search_corpus, index
+
+        return _cached_ann_index("napp", space, corpus, n_valid, params, build)
+
+    def topk(self, space, query_repr, corpus, k: int,
+             n_valid: Optional[int] = None) -> TopK:
+        from repro_torch.core import napp
+
+        n = _rows(corpus)
+        n_valid = n if n_valid is None else min(n_valid, n)
+        b = _batch_rows(query_repr)
+        k_eff = min(k, n_valid)
+        if k_eff > self.rerank_qty:
+            raise ValueError(
+                f"napp declared re-rank budget rerank_qty={self.rerank_qty} "
+                f"cannot produce top-{k_eff}; raise rerank_qty or lower k")
+        if not k_eff:
+            empty = _empty_topk(b, _device(query_repr))
+            return _reference_tail(empty, b, k, n_valid) if k else empty
+        search_corpus, index = self._index(space, corpus, n_valid)
+        p = int(index.pivot_ids.shape[0])
+        head = napp.napp_search(space, query_repr, search_corpus, index, k=k_eff,
+                                num_search=min(self.num_search, p),
+                                min_times=self.min_times,
+                                rerank_qty=min(self.rerank_qty, n_valid))
+        return head if k_eff == k else _reference_tail(head, b, k, n_valid)
+
+
 _REGISTRY: Dict[str, Callable[..., ExecutionBackend]] = {}
 
 
@@ -422,20 +550,54 @@ def make_backend(name: str, **kwargs) -> ExecutionBackend:
 
 
 register_backend("reference", ReferenceBackend)
+register_backend("streaming", StreamingBackend)
 register_backend("cuda", CudaBackend)
 register_backend("pallas", CudaBackend)   # descriptors written by repro
 register_backend("graph_ann", GraphANNBackend)
+register_backend("napp", NappBackend)
 
 
-def resolve_backend(backend="cuda", space=None, corpus=None,
+def _auto(space, corpus, tile_n: Optional[int] = None) -> ExecutionBackend:
+    """Size and device policy, the reference's with "on a TPU" read as
+    "the corpus lies on a CUDA device".
+
+    Dense corpora: the ``cuda`` kernels on the card from
+    :data:`AUTO_PALLAS_MIN_ROWS` rows; off the card the plain paths
+    serve, streaming once the [B, N] score matrix grows
+    (:data:`AUTO_STREAMING_MIN_ROWS`), reference below.  Fused and
+    sparse corpora take the ``cuda`` backend from
+    :data:`AUTO_PALLAS_MIN_ROWS` rows wherever it serves them (the only
+    bounded-memory fused scan and select; its plain version off the
+    card), streaming what it refuses.  Approximate backends are never
+    chosen: trading recall for time is the caller's explicit choice."""
+    n = _rows(corpus)
+    if n is None:
+        return ReferenceBackend()
+    cuda = CudaBackend()
+    cuda_ok = cuda.supports(space, corpus) is None
+    if _dense_rows(corpus) is not None:
+        if corpus.device.type == "cuda" and n >= AUTO_PALLAS_MIN_ROWS and cuda_ok:
+            return cuda
+    elif n >= AUTO_PALLAS_MIN_ROWS and cuda_ok:
+        return cuda
+    if n >= AUTO_STREAMING_MIN_ROWS:
+        streaming = StreamingBackend(tile_n) if tile_n else StreamingBackend()
+        if streaming.supports(space, corpus) is None:
+            return streaming
+    return ReferenceBackend()
+
+
+def resolve_backend(backend="auto", space=None, corpus=None,
                     **kwargs) -> ExecutionBackend:
-    """Name or instance -> a backend that can serve (space, corpus).  One
-    whose capability check refuses the pair falls back to ``reference``;
-    with ``space``/``corpus`` omitted the check is skipped.  ``"auto"``
-    is not ported yet and raises."""
-    if backend is None or backend == "auto":
-        raise ValueError("backend 'auto' is not ported yet; name "
-                         f"one of {available_backends()}")
+    """Name, ``"auto"`` (``None`` means it too) or instance -> a backend
+    that can serve (space, corpus).  One whose capability check refuses
+    the pair falls back to ``reference``; with ``space``/``corpus``
+    omitted the check is skipped.  ``kwargs`` reach the named backend's
+    constructor; ``"auto"`` reads ``tile_n`` for the streaming scan."""
+    if backend is None:
+        backend = "auto"
+    if backend == "auto":
+        return _auto(space, corpus, tile_n=kwargs.get("tile_n"))
     resolved = make_backend(backend, **kwargs) if isinstance(backend, str) else backend
     if space is not None and corpus is not None:
         if resolved.supports(space, corpus) is not None:

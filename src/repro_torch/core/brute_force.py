@@ -18,6 +18,7 @@ __all__ = [
     "TopK",
     "select_topk",
     "exact_topk",
+    "streaming_topk",
     "concat_topk",
     "merge_topk",
     "pad_corpus",
@@ -52,9 +53,9 @@ def pad_corpus(x, multiple: int, fill: float = 0.0):
     return map_tensors(pad_leaf, x), n
 
 
-def _mask_invalid(scores: torch.Tensor, n_valid: int) -> torch.Tensor:
-    """-inf out rows at or past ``n_valid``."""
-    rows = torch.arange(scores.shape[-1], device=scores.device)
+def _mask_invalid(scores: torch.Tensor, n_valid: int, base: int = 0) -> torch.Tensor:
+    """-inf out rows at or past ``n_valid``; column j is row ``base + j``."""
+    rows = base + torch.arange(scores.shape[-1], device=scores.device)
     return torch.where(rows[None, :] < n_valid, scores,
                        torch.full_like(scores, -torch.inf))
 
@@ -66,6 +67,31 @@ def exact_topk(space, queries, corpus, k: int, n_valid: int | None = None) -> To
         scores = _mask_invalid(scores, n_valid)
     vals, idx = select_topk(scores, k)
     return TopK(vals, idx.to(torch.int32))
+
+
+def streaming_topk(space, queries, corpus, k: int, tile_n: int = 8192,
+                   n_valid: int | None = None) -> TopK:
+    """Scan corpus tiles keeping a running [B, k] heap, so the [B, N]
+    score matrix never exists.  ``corpus`` is any row-major corpus (a
+    tensor, ``SparseVectors`` or ``FusedVectors``) with N a multiple of
+    ``tile_n`` (see :func:`pad_corpus`); each tile is scored through
+    ``space.score_batch``.  The heap starts as (-inf, id 0) slots and
+    precedes each tile in the merge, as the reference's does."""
+    n = int(tensor_leaves(corpus)[0].shape[0])
+    if n % tile_n:
+        raise ValueError(f"N={n} is not a multiple of tile_n={tile_n}")
+    b = int(tensor_leaves(queries)[0].shape[0])
+    n_valid = n if n_valid is None else n_valid
+    dev = tensor_leaves(corpus)[0].device
+    heap_s = torch.full((b, k), -torch.inf, dtype=torch.float32, device=dev)
+    heap_i = torch.zeros((b, k), dtype=torch.int32, device=dev)
+    for base in range(0, n, tile_n):
+        tile = map_tensors(lambda x: x[base:base + tile_n], corpus)
+        s = _mask_invalid(space.score_batch(queries, tile).float(), n_valid, base)
+        ids = torch.arange(base, base + tile_n, dtype=torch.int32, device=dev)
+        heap_s, pos = select_topk(torch.cat([heap_s, s], dim=1), k)
+        heap_i = torch.gather(torch.cat([heap_i, ids.expand(b, tile_n)], dim=1), 1, pos)
+    return TopK(heap_s, heap_i)
 
 
 def concat_topk(parts) -> TopK:

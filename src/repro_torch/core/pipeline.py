@@ -1,11 +1,11 @@
-"""Multi-stage retrieval pipeline, exact subset (counterpart of
+"""Multi-stage retrieval pipeline (counterpart of
 ``repro/core/pipeline.py``).
 
 A candidate generator produces ``cand_qty`` documents; optional
-intermediate and final re-rankers narrow them to ``final_qty``.  This
-slice ports the exact brute-force generator and the funnel tail for the
-no-reranker case and the graph-ANN generator; any object with
-``rerank(q_tokens, cands, keep)`` still slots in as a re-ranker.
+intermediate and final re-rankers narrow them to ``final_qty``.  Ported
+so far: the brute-force and streaming generators, the graph-ANN and NAPP
+generators, and the funnel tail for the no-reranker case; any object
+with ``rerank(q_tokens, cands, keep)`` still slots in as a re-ranker.
 """
 
 from __future__ import annotations
@@ -13,15 +13,17 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Protocol
 
-from repro_torch.core import graph_ann
-from repro_torch.core.backends import ReferenceBackend, resolve_backend
+from repro_torch.core import graph_ann, napp
+from repro_torch.core.backends import ReferenceBackend, StreamingBackend, resolve_backend
 from repro_torch.core.brute_force import TopK
 from repro_torch.core.spaces import canonical_dtype, cast_corpus, corpus_dtype
 
 __all__ = [
     "CandidateGenerator",
     "BruteForceGenerator",
+    "StreamingGenerator",
     "GraphANNGenerator",
+    "NappGenerator",
     "Reranker",
     "apply_rerankers",
     "RetrievalPipeline",
@@ -34,6 +36,17 @@ class CandidateGenerator(Protocol):
 
 class Reranker(Protocol):
     def rerank(self, q_tokens, cands: TopK, keep: int) -> TopK: ...
+
+
+def _settle_residency(gen):
+    """Cast a generator's corpus to its ``corpus_dtype`` once, or record
+    the dtype the corpus is resident in when none was asked for."""
+    if gen.corpus_dtype is not None:
+        dtype = canonical_dtype(gen.corpus_dtype)
+        object.__setattr__(gen, "corpus_dtype", dtype)
+        object.__setattr__(gen, "corpus", cast_corpus(gen.corpus, dtype))
+    else:
+        object.__setattr__(gen, "corpus_dtype", corpus_dtype(gen.corpus))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,12 +65,7 @@ class BruteForceGenerator:
     corpus_dtype: Optional[str] = None
 
     def __post_init__(self):
-        if self.corpus_dtype is not None:
-            dtype = canonical_dtype(self.corpus_dtype)
-            object.__setattr__(self, "corpus_dtype", dtype)
-            object.__setattr__(self, "corpus", cast_corpus(self.corpus, dtype))
-        else:
-            object.__setattr__(self, "corpus_dtype", corpus_dtype(self.corpus))
+        _settle_residency(self)
 
     def generate(self, query_repr, k: int) -> TopK:
         backend = self.backend
@@ -83,6 +91,38 @@ class BruteForceGenerator:
 
 
 @dataclasses.dataclass(frozen=True)
+class StreamingGenerator:
+    """Tiled exact top-k, bounded memory: ``BruteForceGenerator`` with the
+    streaming backend pinned at ``tile_n``."""
+
+    space: object
+    corpus: object
+    tile_n: int = 8192
+    n_valid: Optional[int] = None
+    corpus_dtype: Optional[str] = None
+
+    def __post_init__(self):
+        _settle_residency(self)
+
+    def generate(self, query_repr, k: int) -> TopK:
+        return StreamingBackend(tile_n=self.tile_n).topk(
+            self.space, query_repr, self.corpus, k, self.n_valid)
+
+    def with_backend(self, backend) -> BruteForceGenerator:
+        """A ``BruteForceGenerator`` on another path; a tiled target
+        (``"streaming"``, or ``"auto"`` when it picks streaming) keeps
+        this generator's tile, which was chosen to bound memory."""
+        kwargs = ({"tile_n": self.tile_n}
+                  if isinstance(backend, str) and backend in ("streaming", "auto") else {})
+        return BruteForceGenerator(
+            self.space, self.corpus, self.n_valid,
+            backend=resolve_backend(backend, self.space, self.corpus, **kwargs))
+
+    def with_corpus_dtype(self, dtype) -> "StreamingGenerator":
+        return dataclasses.replace(self, corpus_dtype=dtype)
+
+
+@dataclasses.dataclass(frozen=True)
 class GraphANNGenerator:
     """NSW/HNSW-style beam search over a given index (``core.graph_ann``)."""
 
@@ -97,6 +137,25 @@ class GraphANNGenerator:
         return graph_ann.beam_search(
             self.space, query_repr, self.corpus, self.index, self.n_items,
             k=k, ef=max(self.ef, k), hops=self.hops)
+
+
+@dataclasses.dataclass(frozen=True)
+class NappGenerator:
+    """NAPP probe over a given index (``core.napp``); the re-rank budget
+    grows to ``k`` when a caller asks for more."""
+
+    space: object
+    corpus: object
+    index: napp.NappIndex
+    num_search: int = 8
+    min_times: int = 2
+    rerank_qty: int = 256
+
+    def generate(self, query_repr, k: int) -> TopK:
+        return napp.napp_search(
+            self.space, query_repr, self.corpus, self.index, k=k,
+            num_search=self.num_search, min_times=self.min_times,
+            rerank_qty=max(self.rerank_qty, k))
 
 
 def apply_rerankers(cands: TopK, q_tokens=None, *,

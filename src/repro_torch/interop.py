@@ -12,12 +12,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.graph_ann import GraphIndex
+from repro_torch.core.napp import NappIndex
 from repro_torch.core.sparse import SparseVectors
 from repro_torch.core.spaces import FusedSpace, FusedVectors
 from repro_torch.device import resolve_device
 
 __all__ = ["tensor", "to_numpy", "sparse_vectors", "fused_vectors",
-           "fused_space", "graph_index"]
+           "fused_space", "graph_index", "napp_index"]
 
 
 def tensor(array, device=None, *, bf16: bool = False) -> torch.Tensor:
@@ -69,3 +70,11 @@ def graph_index(neighbors, entry_ids, device=None) -> GraphIndex:
     the same graph."""
     return GraphIndex(tensor(np.asarray(neighbors, np.int32), device),
                       tensor(np.asarray(entry_ids, np.int32), device))
+
+
+def napp_index(pivot_ids, membership, num_index: int, device=None) -> NappIndex:
+    """``NappIndex`` from a ``repro`` index's numpy pivot ids [P] (cast to
+    i32) and membership [N, P] (f32), so that both packages probe the
+    same index."""
+    return NappIndex(tensor(np.asarray(pivot_ids, np.int32), device),
+                     tensor(np.asarray(membership, np.float32), device), int(num_index))

@@ -1,6 +1,6 @@
 """Public wrappers around the kernels with the glue the retrieval core
 needs (counterpart of ``repro/kernels/ops.py``: ``mips_topk``,
-``fused_topk`` and ``beam_topk``).
+``fused_scores``, ``fused_topk`` and ``beam_topk``).
 
 The TPU wrappers pad N up to a multiple of the tile (padded COO rows get
 the trash id ``vocab_size``).  The CUDA kernel masks its ragged last tile
@@ -18,6 +18,7 @@ from repro_torch.core.sparse import SparseVectors
 from repro_torch.kernels import beam_topk as _beam
 from repro_torch.kernels import fused_topk as _fused
 from repro_torch.kernels import mips_topk as _mips
+from repro_torch.kernels import sparse_dense as _score
 from repro_torch.kernels.ref import query_table
 
 
@@ -26,6 +27,15 @@ def mips_topk(queries, corpus, k: int, space: str = "ip",
     """Kernelised exact k-NN over a dense corpus [N, D]."""
     s, i = _mips.mips_topk(queries, corpus, k, n_valid=n_valid, space=space)
     return TopK(s, i)
+
+
+def fused_scores(q_sparse: SparseVectors, q_dense, c_sparse: SparseVectors, c_dense,
+                 vocab_size: int, w_dense: float = 1.0, w_sparse: float = 1.0) -> torch.Tensor:
+    """Kernelised fused sparse+dense scores [B, N]: the function
+    ``FusedSpace.score_batch`` computes for ``dense_kind='ip'`` with both
+    components present.  Both weights always apply."""
+    return _score.fused_score(query_table(q_sparse, vocab_size), q_dense, c_sparse.indices,
+                              c_sparse.values, c_dense, w_dense, w_sparse)
 
 
 def fused_topk(q_sparse: SparseVectors | None, q_dense, c_sparse: SparseVectors | None,

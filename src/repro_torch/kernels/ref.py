@@ -77,6 +77,20 @@ def fused_table_scores(qdensified, q_dense, c_idx, c_val, c_dense,
     return weighted_mix(parts, weights)
 
 
+def fused_score_ref(qdensified, q_dense, c_idx, c_val, c_dense, w_dense: float,
+                    w_sparse: float, tile_n: int | None = None) -> torch.Tensor:
+    """Plain version of the fused score kernel (``fused_score_pallas``) on
+    its own inputs: scores [B, N] with both weights applied.  ``tile_n``
+    scores the corpus in row blocks, which bounds the [B, tile, NNZ]
+    gather at full scale; it changes the result only by summation order."""
+    if not tile_n:
+        return fused_table_scores(qdensified, q_dense, c_idx, c_val, c_dense, w_dense, w_sparse)
+    return torch.cat([fused_table_scores(qdensified, q_dense, c_idx[r0:r0 + tile_n],
+                                         c_val[r0:r0 + tile_n], c_dense[r0:r0 + tile_n],
+                                         w_dense, w_sparse)
+                      for r0 in range(0, c_dense.shape[0], tile_n)], dim=1)
+
+
 def fused_topk_table_ref(qdensified, q_dense, c_idx, c_val, c_dense, k: int,
                          w_dense=None, w_sparse=None, dense_kind: str = "ip",
                          n_valid: int | None = None,

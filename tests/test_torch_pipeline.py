@@ -76,15 +76,113 @@ def test_supports_matrix_equals_pallas():
 
 def test_registry_and_names():
     assert isinstance(tb.make_backend("pallas"), tb.CudaBackend)   # repro descriptors
-    assert set(tb.available_backends()) == {"cuda", "graph_ann", "pallas", "reference"}
+    assert set(tb.available_backends()) == {"cuda", "graph_ann", "napp", "pallas",
+                                            "reference", "streaming"}
+    assert set(tb.available_backends()) - {"cuda"} == set(jb.available_backends())
     assert tb.backend_identity(None) is None and tb.backend_identity("x") == "x"
     assert isinstance(tb.resolve_backend(tb.CudaBackend()), tb.CudaBackend)
     assert isinstance(tb.ReferenceBackend(), tb.ExecutionBackend)
+    assert isinstance(tb.make_backend("streaming", tile_n=64), tb.StreamingBackend)
     with pytest.raises(ValueError, match="unknown backend"):
-        tb.make_backend("streaming")
-    with pytest.raises(ValueError, match="auto"):
-        tb.resolve_backend("auto")
+        tb.make_backend("exact")
+    # "auto" and None resolve; without a corpus, as in repro, to reference
+    assert isinstance(tb.resolve_backend("auto"), tb.ReferenceBackend)
+    assert isinstance(tb.resolve_backend(None), tb.ReferenceBackend)
+    assert isinstance(tb.resolve_backend(), tb.ReferenceBackend)
     assert tb.legal_tile(10, 64) == 10 and tb.legal_tile(100, 64) == 64
+
+
+def _auto_corpora(n):
+    """(name, repro space, repro corpus, port space, port corpus) with n
+    rows: dense ip, sparse ip, fused ip, and spaces the kernel refuses."""
+    rng = np.random.default_rng(n)
+    d = rng.normal(size=(n, 4)).astype(np.float32)
+    i = rng.integers(0, 20, size=(n, 2)).astype(np.int32)
+    v = rng.uniform(size=(n, 2)).astype(np.float32)
+    jc = jnp_fused((d, i, v))
+    tc = fused_to_torch(jc)
+    return [("dense", JDense("ip"), jc.dense, DenseSpace("ip"), tc.dense),
+            ("dense-cosine", JDense("cosine"), jc.dense, DenseSpace("cosine"), tc.dense),
+            ("sparse", JSparseSpace(20), jc.sparse, SparseSpace(20), tc.sparse),
+            ("sparse-cosine", JSparseSpace(20, "cosine"), jc.sparse, SparseSpace(20, "cosine"),
+             tc.sparse),
+            ("fused", JFused(20, 0.3, 0.7), jc, FusedSpace(20, 0.3, 0.7), tc),
+            ("fused-l2", JFused(20, dense_kind="l2"), jc, FusedSpace(20, dense_kind="l2"), tc)]
+
+
+@pytest.mark.parametrize("n", [100, 4096, 20_000, 32_768, 40_000])
+def test_auto_matches_repro(n):
+    """``"auto"`` picks the same kind of backend as repro's ``_auto`` off
+    the card (repro off a TPU), below and above both thresholds; the
+    kernel backend is ``pallas`` there, ``cuda`` here."""
+    kinds = {jb.PallasBackend: tb.CudaBackend, jb.StreamingBackend: tb.StreamingBackend,
+             jb.ReferenceBackend: tb.ReferenceBackend}
+    for name, js, jc, ts, tc in _auto_corpora(n):
+        want = jb.resolve_backend("auto", js, jc)
+        got = tb.resolve_backend("auto", ts, tc)
+        assert type(got) is kinds[type(want)], (name, n, want, got)
+        assert type(tb.resolve_backend(None, ts, tc)) is type(got)
+        if isinstance(got, tb.StreamingBackend):
+            assert got.identity == want.identity
+            assert tb.resolve_backend("auto", ts, tc, tile_n=512).identity == "streaming(tile_n=512)"
+    assert tb.AUTO_PALLAS_MIN_ROWS == jb.AUTO_PALLAS_MIN_ROWS
+    assert tb.AUTO_STREAMING_MIN_ROWS == jb.AUTO_STREAMING_MIN_ROWS
+
+
+def test_auto_never_picks_ann_and_refuses_opaque_corpora():
+    for _, _, _, ts, tc in _auto_corpora(40_000):
+        assert tb.resolve_backend("auto", ts, tc).name in ("reference", "streaming", "cuda")
+    assert isinstance(tb.resolve_backend("auto", DenseSpace(), [1, 2]), tb.ReferenceBackend)
+
+
+# (n, tile, k, n_valid): ragged N, n_valid < N, k > n_valid, k = 0 valid rows
+STREAM_CASES = [(203, 64, 5, None), (203, 64, 12, 150), (100, 256, 20, 7), (64, 16, 3, 0),
+                (96, 32, 96, None)]
+
+
+@pytest.mark.parametrize("space", ["dense", "fused", "sparse"])
+@pytest.mark.parametrize("case", STREAM_CASES)
+def test_streaming_matches_repro(space, case):
+    n, tile, k, n_valid = case
+    (cd, ci, cv), (qd, qi, qv) = planted_fused_np(n, 30, 6, 8, 3, min(k, n // 2) or 1,
+                                                  seed=n, dups=(5, 9))
+    jc, jq = jnp_fused((cd, ci, cv)), jnp_fused((qd, qi, qv))
+    js, ts = JFused(30, 0.6, 0.4), FusedSpace(30, 0.6, 0.4)
+    tc, tq = fused_to_torch(jc), fused_to_torch(jq)
+    if space == "dense":
+        jc, jq, tc, tq, js, ts = jc.dense, jq.dense, tc.dense, tq.dense, JDense(), DenseSpace()
+    elif space == "sparse":
+        jc, jq, tc, tq = jc.sparse, jq.sparse, tc.sparse, tq.sparse
+        js, ts = JSparseSpace(30), SparseSpace(30)
+    want = jb.StreamingBackend(tile_n=tile).topk(js, jq, jc, k, n_valid)
+    got = tb.StreamingBackend(tile_n=tile).topk(ts, tq, tc, k, n_valid)
+    assert got.indices.dtype == torch.int32 and got.scores.shape == (3, k)
+    assert_topk_match(want, got, ctx=(space, case))
+    assert_topk_match(jb.ReferenceBackend().topk(js, jq, jc, k, n_valid), got, ctx=(space, case))
+
+
+def test_streaming_topk_and_generator():
+    q, c, _ = planted_margin_corpus(256, 8, 3, 4, seed=4)
+    from repro.core.brute_force import streaming_topk as j_streaming
+    from repro_torch.core.brute_force import streaming_topk as t_streaming
+
+    want = j_streaming(JDense(), q, c, 7, tile_n=64, n_valid=200)
+    got = t_streaming(DenseSpace(), to_torch(q), to_torch(c), 7, tile_n=64, n_valid=200)
+    assert_topk_match(want, got)
+    with pytest.raises(ValueError, match="multiple of tile_n"):
+        t_streaming(DenseSpace(), to_torch(q), to_torch(c), 7, tile_n=100)
+    jgen = jp.StreamingGenerator(JDense(), c, tile_n=48, n_valid=250)
+    tgen = tp.StreamingGenerator(DenseSpace(), to_torch(c), tile_n=48, n_valid=250)
+    assert tgen.corpus_dtype == jgen.corpus_dtype == "float32"
+    assert_topk_match(jgen.generate(q, 6), tgen.generate(to_torch(q), 6))
+    assert tgen.with_backend("streaming").backend.identity == "streaming(tile_n=48)"
+    assert isinstance(tgen.with_backend("cuda").backend, tb.CudaBackend)
+    assert isinstance(tgen.with_backend("auto").backend, tb.ReferenceBackend)   # 256 rows
+    bf = tgen.with_corpus_dtype("bf16")
+    assert bf.corpus_dtype == "bfloat16" and bf.corpus.dtype == torch.bfloat16
+    pipe = tp.RetrievalPipeline(tgen, cand_qty=6, final_qty=2)
+    assert_topk_match(jp.RetrievalPipeline(jgen, cand_qty=6, final_qty=2).run(q),
+                      pipe.run(to_torch(q)))
 
 
 @pytest.mark.parametrize("k,n_valid", [(12, 7), (5, 0), (40, 40), (3, None)])
