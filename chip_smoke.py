@@ -5,14 +5,19 @@ against their plain PyTorch versions.
     python3 chip_smoke.py            # one H100, MS MARCO passage scale
 
 Phases, one line each: the card; the build of every kernel from
-``src/repro_torch/kernels/csrc``; the exact-scan kernels against their
-plain versions at small shapes ("small"), the beam-hop kernel against
+``src/repro_torch/kernels/csrc``; the query-term index built on the card
+against its plain version ("index"); the exact-scan kernels against their
+plain versions at small shapes, with the index's risky cases (Zipf-skewed
+and out-of-range ids, repeated query terms, an all-pad query, both
+launch plans, V = 250,000) ("small"), the beam-hop kernel against
 its plain version hop for hop ("beam small") and the fused score kernel
 against its plain version ("score small"); then the main path at MS
 MARCO passage v1 scale (8,841,823 passages, 768-d dense, 30,522-term
 sparse with 128 nnz per passage and 32 per query, batches of 16): fused
 dense+sparse retrieval through ``RetrievalPipeline`` on the ``cuda``
-backend and dense ip through ``mips_topk``; then graph ANN over the same
+backend and dense ip through ``mips_topk``; the scan kernels timed, the
+sparse part alone, and uniform against Zipf-skewed term ids over
+1,048,576 rows ("skew", not gated); then graph ANN over the same
 resident corpus ("graph full": ``GraphANNBackend(kernel=True)``, degree
 16, ef 64, 31 hops, on a random graph); NAPP over it ("napp full":
 ``NappBackend``, 128 pivots, index 8, search 8, the index built through
@@ -62,6 +67,7 @@ GRAPH = dict(degree=16, ef=64)   # configs/paper_retrieval.py ann_degree / ann_e
 NAPP = dict(num_pivots=128, num_index=8, num_search=8, min_times=2, rerank_qty=256)  # paper_retrieval.py:36-38
 NAPP_DRAWS = 32                  # pivot draws whose recall "napp recall" prints beside the gated one
 RECALL_N = 1_048_576             # rows of the planted-cluster recall corpus
+SKEW_N = 1_048_576               # rows of the uniform / Zipf term-id timing
 CLUSTERS = 8
 NEG = -3.4028234663852886e38     # f32 min, the mask of invalid candidates
 SLEEP_CYCLES = 2_000_000         # ~1 ms at an H100 SXM's 1.98 GHz boost clock: outlasts the host's enqueue of a hop
@@ -105,6 +111,45 @@ def make_queries(torch, b, d, v, nnz_q, seed, device, planted=True):
         qi[:, 0] = 0
         qv[:, 0] = 8.0
     return qd, qi, qv
+
+
+def zipf_ids(torch, shape, v, g, device):
+    """Term ids in [1, v) with id r drawn with probability proportional
+    to 1 / r (a Zipf law over the vocabulary's rank order)."""
+    cdf = torch.cumsum(1.0 / torch.arange(1, v, device=device, dtype=torch.float64), 0)
+    u = torch.rand(shape, generator=g, device=device, dtype=torch.float64) * cdf[-1]
+    return (torch.searchsorted(cdf, u) + 1).clamp_max(v - 1).to(torch.int32)
+
+
+def index_stress(torch, idx, qi, qv, v, g, skew):
+    """In place: the corpus ids Zipf-skewed (``skew``), three ids out of
+    range (past v, -1, 2**31 - 1) in odd rows (never planted); every
+    query repeats its terms 1-3 in slots 5-7 and the last query is all pad
+    (ids v, values 0).  Returns the query table [B, V+1]."""
+    if skew:
+        keep = (idx == 0) | (idx == v)    # the planted entries and pad slots
+        idx.copy_(torch.where(keep, idx, zipf_ids(torch, idx.shape, v, g, idx.device)))
+    idx[3, 2], idx[11, 1], idx[17, idx.shape[1] - 1] = v + 7, -1, 2 ** 31 - 1
+    if qi.shape[1] >= 8:
+        qi[:, 5:8] = qi[:, 1:4]
+    qi[-1], qv[-1] = v, 0.0
+    table = torch.zeros(qi.shape[0], v + 1, device=qi.device).scatter_add_(1, qi.long(), qv)
+    table[:, v] = 0.0
+    return table
+
+
+def sparse_fmas(torch, table, idx, rows=1 << 20):
+    """Sparse multiply-adds that these inputs need: over every COO slot,
+    the queries whose table column is present at its term (nonzero or not
+    finite); the other products add zeros."""
+    v = table.shape[1] - 1
+    held = ((table != 0) | ~torch.isfinite(table)).sum(0, dtype=torch.int64)
+    freq = torch.zeros(v + 1, dtype=torch.int64, device=idx.device)
+    for r0 in range(0, idx.shape[0], rows):
+        ids = idx[r0:r0 + rows].flatten().long()
+        ids = torch.where((ids < 0) | (ids > v), v, ids)   # as the kernels read them
+        freq += torch.bincount(ids, minlength=v + 1)
+    return int((freq * held).sum())
 
 
 class Checker:
@@ -290,6 +335,59 @@ def small_phase(torch, dev, check):
         args = (table, qd, idx, val, odd, 100)
         check("fused_topk", f"fused d=61 {tag}", fk.fused_topk(*args, w_dense=0.6, w_sparse=0.4),
               ref.fused_topk_table_ref(*args, w_dense=0.6, w_sparse=0.4))
+    # the query-term index: Zipf-skewed and uniform ids, repeated query
+    # terms, an all-pad query, ids out of range, both plans (qb 16 at
+    # k <= 256, qb 4 at k = 2000), and a vocabulary whose index words
+    # exceed the shared-memory cap (read from global memory)
+    g = torch.Generator(device=dev).manual_seed(31)
+    for v, dtype, skew in ((1000, torch.float32, True), (1000, torch.bfloat16, True),
+                           (30_522, torch.float32, True), (250_000, torch.float32, False),
+                           (250_000, torch.float32, True)):
+        tag = f"v{v} {'zipf' if skew else 'uniform'} {'f32' if dtype == torch.float32 else 'bf16'}"
+        dense, idx, val, _ = make_corpus(torch, n, d, v, nnz, 2048, 41, dev, dtype)
+        for b in (5, 16):
+            qd, qi, qv = make_queries(torch, b, d, v, 8, 43 + b, dev)
+            table = index_stress(torch, idx, qi, qv, v, g, skew)
+            for k in (10, 2000):
+                for label, wd, ws, dn in (("fused", 0.6, 0.4, dense), ("sparse-only", None, None, None)):
+                    qq = qd if dn is not None else None
+                    kw = dict(w_dense=wd, w_sparse=ws, n_valid=n_valid)
+                    check("fused_topk", f"index {label} {tag} b{b} k{k}",
+                          fk.fused_topk(table, qq, idx, val, dn, k, **kw),
+                          ref.fused_topk_table_ref(table, qq, idx, val, dn, k, **kw))
+
+
+def index_phase(torch, dev):
+    """The query-term index built on the card (``build_index``) against
+    its plain version (``query_index``): words equal, and the table read
+    back through the index equal to the densified table (NaN where it is
+    NaN).  Batches 1-128, groups of 4 and 16, blocks of 16 and 64,
+    vocabularies with V+1 not a multiple of 32 up to 250,000, repeated
+    query terms, an all-pad query, a nonzero pad column, inf and NaN
+    entries, f32 and bf16.  Returns the number of indexes compared."""
+    from repro_torch.kernels.query_index import build_index, query_index, table_from_index
+
+    g = torch.Generator(device=dev).manual_seed(61)
+    cases = 0
+    for b, group, block, v, dtype in ((1, 16, 16, 60, torch.float32), (5, 4, 4, 1000, torch.float32),
+                                      (16, 16, 16, 30_522, torch.float32), (16, 4, 4, 30_522, torch.bfloat16),
+                                      (40, 16, 64, 30_522, torch.float32), (128, 16, 64, 30_522, torch.float32),
+                                      (16, 16, 16, 250_000, torch.float32), (128, 16, 64, 250_000, torch.bfloat16)):
+        qi = torch.randint(0, v, (b, 32), generator=g, device=dev)
+        qi[:, 16:] = qi[:, :16]
+        table = torch.zeros(b, v + 1, device=dev).scatter_add_(1, qi, torch.rand(b, 32, generator=g, device=dev))
+        table[-1] = 0.0
+        table[0, v] = 0.5
+        table[0, 1], table[b // 2, 2] = float("inf"), float("nan")
+        table = table.to(dtype)
+        want_w, want_t = query_index(table, group, block)
+        got_w, got_t = build_index(table, group, block)
+        assert torch.equal(got_w, want_w), f"index words b{b} v{v} group {group}"
+        back = table_from_index(got_w, got_t, v)
+        torch.testing.assert_close(back[:b], table.float(), rtol=0, atol=0, equal_nan=True)
+        assert torch.equal(table_from_index(want_w, want_t, v)[:b].nan_to_num(), back[:b].nan_to_num())
+        cases += 1
+    return cases
 
 
 def beam_small_phase(torch, dev, check):
@@ -401,6 +499,29 @@ def score_small_phase(torch, dev, check):
             for wd, ws in ((0.3, 1.7), (2.0, 0.5)):
                 check.scores("fused_score", f"score linearity {tag} n{n} w{wd}/{ws}",
                              sd.fused_score(*args, wd, ws), wd * s_d + ws * s_s)
+    # the query-term index: uniform and Zipf-skewed ids at V = 30,522,
+    # B = 128 with 128-nnz queries (the largest compact tables), the
+    # 64-query block with a partial block (B = 40), repeated query terms,
+    # an all-pad query, ids out of range, and V = 250,000 (index words in
+    # global memory)
+    n, d, nnz = 4099, 96, 128
+    for v, dtype, skew in ((30_522, torch.float32, False), (30_522, torch.bfloat16, True),
+                           (30_522, torch.float32, True), (250_000, torch.float32, True)):
+        tag = f"v{v} {'zipf' if skew else 'uniform'} {'f32' if dtype == torch.float32 else 'bf16'}"
+        dense = torch.randn(n, d, generator=g, device=dev).to(dtype)
+        idx = torch.randint(1, v, (n, nnz), generator=g, device=dev, dtype=torch.int32)
+        idx[torch.rand(n, nnz, generator=g, device=dev) < 0.25] = v
+        val = torch.rand(n, nnz, generator=g, device=dev).to(dtype)
+        for b in (16, 40, 128):
+            nnz_q = 128 if b == 128 else 32
+            qd = torch.randn(b, d, generator=g, device=dev)
+            qi = (zipf_ids(torch, (b, nnz_q), v, g, dev) if skew else
+                  torch.randint(1, v, (b, nnz_q), generator=g, device=dev, dtype=torch.int32))
+            qv = torch.rand(b, nnz_q, generator=g, device=dev)
+            table = index_stress(torch, idx, qi, qv, v, g, skew)
+            want = ref.fused_score_ref(table, qd, idx, val, dense, 0.6, 0.4)
+            check.scores("fused_score", f"score index {tag} b{b} nnz_q{nnz_q}",
+                         sd.fused_score(table, qd, idx, val, dense, 0.6, 0.4), want)
 
 
 def graph_full_phase(torch, dev, check, corpus, batches, space, on_card):
@@ -658,9 +779,11 @@ def score_full_phase(torch, check, corpus, q, space, index, timer, reps, bound):
         return (ref.query_table(queries.sparse, v), queries.dense, corpus.sparse.indices,
                 corpus.sparse.values, corpus.dense)
 
-    def work(b):
+    def work(queries):
+        b = queries.dense.shape[0]
         nbytes = n * d * 4 + n * nnz * 8 + b * d * 4 + b * (v + 1) * 4 + b * n * 4
-        return bound(nbytes, 2 * b * n * (d + nnz) + 3 * b * n)
+        fmas = b * n * d + sparse_fmas(torch, ref.query_table(queries.sparse, v), corpus.sparse.indices)
+        return bound(nbytes, 2 * fmas + 3 * b * n)
 
     got = ops.fused_scores(q.sparse, q.dense, corpus.sparse, corpus.dense, v, *w)
     check.scores("fused_score", "score full b16", got, ref.fused_score_ref(*args(q), *w, tile_n=tile))
@@ -686,7 +809,7 @@ def score_full_phase(torch, check, corpus, q, space, index, timer, reps, bound):
     del got
     ms128 = timer(lambda: ops.fused_scores(pivots.sparse, pivots.dense, corpus.sparse, corpus.dense,
                                            v, *w), 3 if reps > 1 else 1)
-    (b16, by16), (b128, by128) = work(q.dense.shape[0]), work(pivots.dense.shape[0])
+    (b16, by16), (b128, by128) = work(q), work(pivots)
     log(f"phase score full: fused_score B=16 {ms16:.3f} ms vs bound {b16:.3f} ms ({by16}), plain "
         f"{plain16:.3f} ms; B=128 {ms128:.3f} ms vs bound {b128:.3f} ms ({by128}) (CUDA events, "
         f"median of {reps} / 3); [128, N] held on 3 row slices, index membership equal on "
@@ -694,10 +817,60 @@ def score_full_phase(torch, check, corpus, q, space, index, timer, reps, bound):
     return {"ms": ms16, "plain_ms": plain16, "bound_ms": b16, "bound_by": by16}
 
 
+def skew_phase(torch, dev, corpus, q, space, timer):
+    """How the index kernels depend on the term distribution: B2 at
+    B = 16 (k = 100) and B4 at B = 128 (128 pivot rows as queries) over
+    the first SKEW_N rows of the resident corpus, with its uniform ids and
+    with Zipf-skewed ids (queries and pivots drawn from the same law).
+    Timed, not gated; the hits are the queries holding a slot's term.
+    Then B4's dense and sparse parts alone at B = 128 (uniform ids)."""
+    from repro_torch.core import graph_ann
+    from repro_torch.core.sparse import SparseVectors
+    from repro_torch.core.spaces import FusedVectors
+    from repro_torch.kernels import fused_topk as fk
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import sparse_dense as sd
+
+    m = min(SKEW_N, corpus.dense.shape[0])
+    v, w = space.vocab_size, (space.w_dense, space.w_sparse)
+    b, nnz_q = q.sparse.indices.shape
+    g = torch.Generator(device=dev).manual_seed(51)
+    dense, val = corpus.dense[:m], corpus.sparse.values[:m]
+    pivot_rows = torch.arange(0, m, max(1, m // 128), device=dev)[:128]
+    parts = []
+    for law in ("uniform", "zipf"):
+        if law == "uniform":
+            idx, qs = corpus.sparse.indices[:m], q.sparse
+        else:
+            idx = zipf_ids(torch, (m, corpus.sparse.indices.shape[1]), v, g, dev)
+            qs = SparseVectors(zipf_ids(torch, (b, nnz_q), v, g, dev), q.sparse.values)
+        sub = FusedVectors(dense, SparseVectors(idx, val))
+        pivots = graph_ann.gather_items(sub, pivot_rows)
+        table = ref.query_table(qs, v)
+        ms2 = timer(lambda: fk.fused_topk(table, q.dense, idx, val, dense, 100, w_dense=w[0],
+                                          w_sparse=w[1]), 3)
+        ms4 = timer(lambda: ops.fused_scores(pivots.sparse, pivots.dense, sub.sparse, dense, v, *w), 3)
+        hits2 = sparse_fmas(torch, table, idx) / idx.numel()
+        hits4 = sparse_fmas(torch, ref.query_table(pivots.sparse, v), idx) / idx.numel()
+        parts.append(f"{law}: fused_topk B={b} {ms2:.3f} ms ({hits2:.4f} queries hit a slot), "
+                     f"fused_score B={pivots.dense.shape[0]} {ms4:.3f} ms ({hits4:.4f})")
+        if law == "uniform":   # B4's two parts alone: 4 pad slots a row, or 4 zero dimensions
+            pt = ref.query_table(pivots.sparse, v)
+            pad_i = torch.full((m, 4), v, dtype=torch.int32, device=dev)
+            zeros = torch.zeros((m, 4), device=dev)
+            q0 = torch.zeros((pt.shape[0], 4), device=dev)
+            split = (timer(lambda: sd.fused_score(pt, pivots.dense, pad_i, zeros, dense, *w), 3),
+                     timer(lambda: sd.fused_score(pt, q0, idx, val, zeros, *w), 3))
+    log(f"phase skew (n={m}, CUDA events, median of 3, no gate): " + "; ".join(parts)
+        + f"; fused_score B=128 uniform, dense part alone {split[0]:.3f} ms, sparse part alone "
+          f"{split[1]:.3f} ms")
+
+
 def device_profile(torch, fn, by_kernel=False):
     """One call of ``fn`` under torch.profiler.  Returns the device
     milliseconds by kernel group (the hop's two kernels, the exact-scan
-    kernels, the fused score kernel, and PyTorch's own; {} if the
+    kernels, the fused score kernel, the query-index build, and PyTorch's
+    own; {} if the
     profiler saw no device time), or by kernel name with ``by_kernel``,
     the call's host-clock milliseconds (synchronised) and the trace's
     span from the first kernel's start to the last kernel's end, all from
@@ -724,6 +897,7 @@ def device_profile(torch, fn, by_kernel=False):
                "beam score" if "beam::score_kernel" in e.key else
                "beam merge" if "beam::merge_kernel" in e.key else
                "fused_score" if "fscore::" in e.key else
+               "query index" if "topk::index_kernel" in e.key else
                "topk scan+merge" if "topk::scan_kernel" in e.key or "topk::merge_kernel" in e.key
                else "pytorch ops")
         groups[key] = groups.get(key, 0.0) + us / 1e3
@@ -866,6 +1040,7 @@ def main() -> int:
     from repro_torch.kernels import fused_topk as fk
     from repro_torch.kernels import mips_topk as mk
     from repro_torch.kernels.ops import fused_topk as ops_fused
+    from repro_torch.kernels.query_index import build_index
     from repro_torch.device import resolve_device
 
     dev = resolve_device(args.device)
@@ -889,6 +1064,9 @@ def main() -> int:
                 f"{spills} bytes of spill stores")
 
     check = Checker(torch)
+    if on_card:   # build_index launches index_kernel: no plain fallback
+        log(f"phase index: {index_phase(torch, dev)} query-term indexes built on the card equal "
+            f"their plain version")
     small_phase(torch, dev, check)
     log(f"phase small: {check.cases} cases agree (tolerance {TOL_REL} of row scale)")
     cases = check.cases
@@ -989,7 +1167,7 @@ def main() -> int:
     dense_bytes = n * d * 4 + b * d * 4 + b * 100 * 8
     dense_ops = 2 * b * n * d
     fused_bytes = n * d * 4 + n * nnz * 8 + b * d * 4 + b * (v + 1) * 4 + b * 100 * 8
-    fused_ops = 2 * b * n * (d + nnz) + 3 * b * n
+    fused_ops = 2 * (b * n * d + sparse_fmas(torch, table, idx)) + 3 * b * n
 
     def bound(nbytes, ops):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
@@ -1008,15 +1186,20 @@ def main() -> int:
     log(f"phase timings (B={b}, k=100, f32, CUDA events, median of {reps}): "
         + "; ".join(f"{k['name']} {k['ms']:.3f} ms vs bound {k['bound_ms']:.3f} ms ({k['bound_by']}), "
                     f"plain {k['plain_ms']:.3f} ms, library {k['library_ms']}" for k in kernels))
-    # where the fused time goes: the sparse part alone (the table gather),
-    # the query-table glue of ops.fused_topk, and the k=2000 launch
+    # where the fused time goes: the sparse part alone (the index lookups
+    # and the COO stream), the query-table and query-index glue of
+    # ops.fused_topk, and the k=2000 launch
     sparse_ms = timer(lambda: fk.fused_topk(table, None, idx, val, None, 100), reps)
     glue_ms = timer(lambda: ref.query_table(q.sparse, v), reps)
+    index_ms = timer(lambda: build_index(table, 16), reps)
     k2000_ms = timer(lambda: fk.fused_topk(*fused_args, 2000, **fused_kw), 1)
     log(f"phase breakdown: sparse-only fused_topk {sparse_ms:.3f} ms "
-        f"({n * nnz * b * 4 / 1e9:.1f} GB of query-table reads, bound {n * nnz * 8 / HBM_BYTES_PER_S * 1e3:.3f} ms "
-        f"by its {n * nnz * 8 / 1e9:.2f} GB COO stream); query table {glue_ms:.3f} ms; "
+        f"(bound {n * nnz * 8 / HBM_BYTES_PER_S * 1e3:.3f} ms by its {n * nnz * 8 / 1e9:.2f} GB COO stream; "
+        f"{(fused_ops - 2 * b * n * d - 3 * b * n) / 2 / (n * nnz):.4f} of {b} queries hit a slot); "
+        f"query table {glue_ms:.3f} ms; query index {index_ms:.3f} ms; "
         f"fused_topk k=2000 {k2000_ms:.3f} ms")
+
+    skew_phase(torch, dev, corpus, q, space, timer)
 
     # ---- graph ANN and NAPP over the same resident corpus, then at recall scale
     hop = graph_full_phase(torch, dev, check, corpus, batches, space, on_card)

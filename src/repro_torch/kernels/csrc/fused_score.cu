@@ -3,30 +3,47 @@
 //   fused_score_launch  replaces src/repro/kernels/sparse_dense.py
 //                       fused_score_pallas (with _kernel):
 //                       score[b, n] = w_d*<q_d[b], c_d[n]> + w_s*sum_j qd[b, idx[n,j]]*val[n,j]
-//                       written as f32 [B, N]; pad id V lands in the
-//                       table's zero row.
+//                       written as f32 [B, N]; pad id V reads the table's
+//                       column V.
 //
 // Design.  The scoring half of topk_scan.cu's scan_kernel, with the top-k
-// replaced by a store.  Each block scores one tile of kRows corpus rows
-// for QB = 16 queries: per thread a register tile of 4 rows x 4 queries,
-// corpus chunks of kDenseChunk columns transposed through shared memory
-// (the next chunk's loads in flight meanwhile), the sparse part gathered
-// 4 queries at a time from the densified query table laid out transposed,
-// [V+1, b_pad].  B reaches 128 (the NAPP build scores all pivots as
-// queries), so blocks are numbered query group fastest: the 8 blocks
-// that share a corpus tile run side by side and all but the first find
-// the tile in L2.  Each thread's 4 rows are contiguous in the output, so
-// a warp stores 4 full 128-byte lines per instruction.  The ragged last
-// tile is masked here: nothing is padded.
+// replaced by a store.  Each block scores one tile of corpus rows for QB
+// queries: per thread a register tile of 4 rows x QW queries, corpus
+// chunks of kDenseChunk columns transposed through shared memory and the
+// queries' columns read with 16-byte loads from a transposed copy (q_t,
+// built by the wrapper in the order the threads read it), the next
+// chunk's loads in flight meanwhile.  Two shapes:
+//   QB = 16: 256-row tiles, 4 queries a thread (B <= 32: the query batch
+//            and the NAPP probe);
+//   QB = 64: 128-row tiles, 8 queries a thread (the NAPP build, B = 128:
+//            each corpus tile is read by 2 blocks, not 8).
+// Blocks are numbered query block fastest, so the blocks that share a
+// corpus tile run side by side and the second finds it in L2.  Both
+// shapes ask for two blocks an SM (at most 128 registers a thread).
+//
+// The sparse part does not read the densified query table.  The wrapper
+// builds, per group of 16 queries, a query-term index (topk_scan.cuh:
+// presence bits and ranks over the term ids, and a compact table of the
+// group's present columns).  A block stages its groups' index words in
+// shared memory (global memory above kWordsSmemCap: V large, the same
+// code through a generic pointer).  The COO slots stream through in
+// chunks of kSparseChunk with 16-byte loads, the next chunk's in flight
+// while this one is used; four lanes turn a row's chunk into one hit list
+// per group (stage_hits), and each thread then multiplies only its rows'
+// hits, reading the group's values from the compact table in L2.  A miss
+// contributes fmaf(0, v, acc) = acc, so the sums are bit for bit those of
+// the table gather (misses with a non-finite value stay in the list).
 //
 // What bounds it on an H100 SXM (80 GB at 3.35 TB/s, 67 TFLOP/s f32 on
 // CUDA cores), at MS MARCO passage scale (8,841,823 x 768 f32 dense,
 // 128-nnz COO over 30,522 terms): at B = 16 the 36.2 GB corpus and the
-// 0.57 GB output, 10.98 ms by bytes against 3.8 ms of operations; at
-// B = 128 (the NAPP build) 2.03 TFLOP, 30.3 ms by operations.  The
-// sparse part reads the table 16 (128) times per COO slot from L2:
-// 72 GB (579 GB) of L2 traffic, the same traffic that holds topk_scan.cu's
-// fused kernel above its HBM bound (PERF.md holds what was measured).
+// 0.57 GB output, 10.98 ms by bytes; at B = 128 the 1.74 TFLOP of dense
+// products, about 26 ms by operations (the sparse products the data needs
+// are those of the pivots that hold a row's terms, 1.2 GFLOP).  The table
+// gather this replaces read 16 (128) floats from L2 per COO slot, 72 GB
+// (579 GB); the hits are about 1.7% of slots per group at B = 16 and 6.7%
+// at B = 128 on uniform ids.  What is left: the dense part's FMA issue at
+// B = 128 and the per-slot staging (PERF.md holds what was measured).
 //
 // Numerics.  IEEE f32 on CUDA cores: no TF32, bf16 converted with
 // __bfloat162float before the first multiply.  Both weights always
@@ -37,40 +54,58 @@
 
 namespace fscore {
 
+using topk::index_words;
 using topk::kDenseChunk;
-using topk::kRows;
 using topk::kSparseChunk;
 using topk::kThreads;
+using topk::kWordsSmemCap;
+using topk::load_slots4;
+using topk::stage_hits;
 using topk::swizzle;
 using topk::to_f32;
 
-constexpr int QB = 16;                                   // queries per block
-constexpr int QG = QB / 4;                               // query groups of 4
-constexpr int R = kRows * QG / kThreads;                 // rows per thread
-constexpr int kLoads = kRows * kDenseChunk / 4 / kThreads;   // float4 loads per thread per chunk
-static_assert(R == 4, "each thread holds 4 contiguous rows");
-constexpr int kDenseStage = kDenseChunk * kRows * 4 + kDenseChunk * QB * 4;
-constexpr int kSparseStage = kRows * (kSparseChunk + 1) * 4 * 2;
-constexpr int kStage = kDenseStage > kSparseStage ? kDenseStage : kSparseStage;
+constexpr int kGroup = 16;     // queries per index group
+constexpr int kNarrowQB = 16;  // queries per block, B <= 32
+constexpr int kWideQB = 64;    // queries per block, B > 32
 
 struct Args {
-  const float* q_dense;   // [B, D] f32
+  const float* q_t;       // [D, b_pad] f32: the queries transposed, each block's columns in read order
+  int b_pad;
   const void* c_dense;    // [N, D] f32/bf16
   int d;
-  const float* qdt;       // [V+1, b_pad] f32 transposed densified queries
-  int b_pad;
+  const uint2* words;     // [groups, index_words(vocab)] index words
+  const float* table;     // [groups, vocab + 2, kGroup] compact tables
   const int* c_idx;       // [N, NNZ] i32
   const void* c_val;      // [N, NNZ] f32/bf16
   int nnz;
-  int vocab;              // the pad id; its table row is zero
-  int b, n, n_groups;
+  int vocab;              // the pad id
+  int b, n, n_qblocks, stage_words;
   float w_dense, w_sparse;
   float* out;             // [B, N] f32
 };
 
+template <int QB>
+struct Shape {
+  static constexpr int QW = QB == kNarrowQB ? 4 : 8;         // queries per thread
+  static constexpr int QG = QB / QW;                          // threads per row group
+  static constexpr int R = 4;                                 // rows per thread
+  static constexpr int ROWS = kThreads / QG * R;              // rows per tile
+  static constexpr int NG = QB / kGroup;                      // index groups per block
+  static constexpr int kLoads = ROWS * kDenseChunk / 4 / kThreads;   // float4 loads per thread per chunk
+  static constexpr int kSlotLoads = ROWS * kSparseChunk / 4 / kThreads;   // 4-slot loads per thread per chunk
+  static constexpr int kSlotStride = kSparseChunk + 1;
+  static constexpr int kRowTile = ROWS * kSlotStride + 1;     // odd: the groups' rows fall in other banks
+  static constexpr int kDenseStage = kDenseChunk * ROWS * 4 + kDenseChunk * QB * 4;
+  static constexpr int kSparseStage = 2 * NG * kRowTile * 4;  // hit lists: rows and values per group
+  static constexpr int kQLoads = (kDenseChunk * QB / 4 + kThreads - 1) / kThreads;   // float4 loads of queries
+  static constexpr int kStageMax = kDenseStage > kSparseStage ? kDenseStage : kSparseStage;
+  static constexpr int kStage = (kStageMax + 15) / 16 * 16;     // the dense and sparse staging share it
+  static_assert(QG * QW == QB && QW % 4 == 0 && kLoads * 4 * kThreads == ROWS * kDenseChunk, "layout");
+};
+
 // Four consecutive corpus values as f32 (16-byte f32 or 8-byte bf16
-// load).  Plain cached loads: the other query groups' blocks re-read the
-// tile from L2.
+// load).  Plain cached loads: the other query blocks re-read the tile
+// from L2.
 __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
@@ -81,29 +116,53 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
-template <typename TD, typename TV>
-__global__ void __launch_bounds__(kThreads) score_kernel(Args a) {
-  __shared__ float4 smem4[kStage / 16];
-  float* c_tile = reinterpret_cast<float*>(smem4);           // [kDenseChunk][kRows], swizzled
-  float* q_tile = c_tile + kDenseChunk * kRows;              // [kDenseChunk][QB]
-  int* idx_tile = reinterpret_cast<int*>(smem4);             // [kRows][kSparseChunk + 1]
-  float* val_tile = reinterpret_cast<float*>(idx_tile + kRows * (kSparseChunk + 1));
+// Two blocks an SM (at most 128 registers a thread): one block waits at
+// its barriers while the other computes.
+template <int QB, typename TD, typename TV>
+__global__ void __launch_bounds__(kThreads, 2) score_kernel(Args a) {
+  using S = Shape<QB>;
+  constexpr int QW = S::QW, QG = S::QG, R = S::R, ROWS = S::ROWS, NG = S::NG;
+  extern __shared__ float4 smem4[];
+  float* c_tile = reinterpret_cast<float*>(smem4);           // [kDenseChunk][ROWS], swizzled
+  float* q_tile = c_tile + kDenseChunk * ROWS;               // [kDenseChunk][QB], q_t's order
+  int* row_tile = reinterpret_cast<int*>(smem4);             // [NG][kRowTile] hit lists: rows
+  float* val_tile = reinterpret_cast<float*>(row_tile + NG * S::kRowTile);   // and values
+  uint2* s_words = reinterpret_cast<uint2*>(reinterpret_cast<char*>(smem4) + S::kStage);
 
   const int tid = threadIdx.x;
   const int qg = tid % QG, rg = tid / QG;
-  const int q0 = int(blockIdx.x % unsigned(a.n_groups)) * QB;
+  const int qblock = int(blockIdx.x % unsigned(a.n_qblocks));
+  const int q0 = qblock * QB;
   const int qn = min(QB, a.b - q0);
-  const int tile0 = int(blockIdx.x / unsigned(a.n_groups)) * kRows;
-  const int row_end = min(a.n, tile0 + kRows);
+  const int tile0 = int(blockIdx.x / unsigned(a.n_qblocks)) * ROWS;
+  const int row_end = min(a.n, tile0 + ROWS);
   const TD* cd = static_cast<const TD*>(a.c_dense);
   const TV* cv = static_cast<const TV*>(a.c_val);
   const bool vec = a.d % 4 == 0 && reinterpret_cast<uintptr_t>(a.c_dense) % 16 == 0;
+  const bool svec = a.nnz % 4 == 0 && reinterpret_cast<uintptr_t>(a.c_idx) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(a.c_val) % (4 * sizeof(TV)) == 0;
 
-  float4 pre[kLoads];
-  // chunk [tile0, +kRows) x [d0, +kDenseChunk) into registers; zero outside
+  // the block's index groups: q0 / kGroup ... + NG - 1 (the wrapper pads B)
+  const int nw = index_words(a.vocab);
+  const uint2* words = a.words + size_t(q0 / kGroup) * nw;
+  if (a.stage_words) {
+    for (int i = tid; i < NG * nw; i += kThreads) s_words[i] = words[i];
+    words = s_words;   // made visible by the first chunk's barrier
+  }
+
+  float4 pre[S::kLoads], qpre[S::kQLoads];
+  // chunk [tile0, +ROWS) x [d0, +kDenseChunk) into registers, zero
+  // outside, and the queries' rows [d0, +kDenseChunk) of q_t
   auto load_chunk = [&](int d0) {
 #pragma unroll
-    for (int i = 0; i < kLoads; ++i) {
+    for (int i = 0; i < S::kQLoads; ++i) {
+      const int e = i * kThreads + tid, c = e / (QB / 4);
+      qpre[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (e < kDenseChunk * QB / 4 && d0 + c < a.d)
+        qpre[i] = __ldg(reinterpret_cast<const float4*>(a.q_t + size_t(d0 + c) * a.b_pad + q0 + 4 * (e % (QB / 4))));
+    }
+#pragma unroll
+    for (int i = 0; i < S::kLoads; ++i) {
       const int e = i * kThreads + tid;
       const int r = e / (kDenseChunk / 4), col = d0 + 4 * (e % (kDenseChunk / 4));
       const int grow = tile0 + r;
@@ -123,78 +182,105 @@ __global__ void __launch_bounds__(kThreads) score_kernel(Args a) {
     }
   };
   // registers -> transposed shared chunk, plus the queries' columns
-  auto store_chunk = [&](int d0) {
+  auto store_chunk = [&]() {
 #pragma unroll
-    for (int i = 0; i < kLoads; ++i) {
+    for (int i = 0; i < S::kLoads; ++i) {
       const int e = i * kThreads + tid;
       const int r = e / (kDenseChunk / 4), c = 4 * (e % (kDenseChunk / 4));
-      c_tile[swizzle(c + 0, r)] = pre[i].x;
-      c_tile[swizzle(c + 1, r)] = pre[i].y;
-      c_tile[swizzle(c + 2, r)] = pre[i].z;
-      c_tile[swizzle(c + 3, r)] = pre[i].w;
+      c_tile[swizzle<ROWS>(c + 0, r)] = pre[i].x;
+      c_tile[swizzle<ROWS>(c + 1, r)] = pre[i].y;
+      c_tile[swizzle<ROWS>(c + 2, r)] = pre[i].z;
+      c_tile[swizzle<ROWS>(c + 3, r)] = pre[i].w;
     }
-    for (int e = tid; e < kDenseChunk * QB; e += kThreads) {
-      const int c = e / QB, q = e % QB;
-      q_tile[e] = (q < qn && d0 + c < a.d) ? a.q_dense[size_t(q0 + q) * a.d + d0 + c] : 0.f;
+#pragma unroll
+    for (int i = 0; i < S::kQLoads; ++i) {
+      const int e = i * kThreads + tid;
+      if (e < kDenseChunk * QB / 4) reinterpret_cast<float4*>(q_tile)[e] = qpre[i];
     }
   };
 
-  float dense[R][4], sparse[R][4];
+  float dense[R][QW], sparse[R][QW];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) { dense[r][j] = 0.f; sparse[r][j] = 0.f; }
+    for (int j = 0; j < QW; ++j) { dense[r][j] = 0.f; sparse[r][j] = 0.f; }
   }
 
   load_chunk(0);
   for (int d0 = 0; d0 < a.d; d0 += kDenseChunk) {
     __syncthreads();   // the previous chunk is done
-    store_chunk(d0);
+    store_chunk();
     __syncthreads();
     if (d0 + kDenseChunk < a.d) load_chunk(d0 + kDenseChunk);   // in flight meanwhile
 #pragma unroll 8
     for (int c = 0; c < kDenseChunk; ++c) {
-      const float4 qv = *reinterpret_cast<const float4*>(q_tile + c * QB + 4 * qg);
-      const float4 t = *reinterpret_cast<const float4*>(c_tile + swizzle(c, 4 * rg));
+      float qv[QW];
+#pragma unroll
+      for (int h = 0; h < QW / 4; ++h) {
+        const float4 t = *reinterpret_cast<const float4*>(q_tile + c * QB + h * (QB / 2) + 4 * qg);
+        qv[4 * h] = t.x; qv[4 * h + 1] = t.y; qv[4 * h + 2] = t.z; qv[4 * h + 3] = t.w;
+      }
+      const float4 t = *reinterpret_cast<const float4*>(c_tile + swizzle<ROWS>(c, 4 * rg));
       const float x[R] = {t.x, t.y, t.z, t.w};
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        dense[r][0] = fmaf(qv.x, x[r], dense[r][0]);
-        dense[r][1] = fmaf(qv.y, x[r], dense[r][1]);
-        dense[r][2] = fmaf(qv.z, x[r], dense[r][2]);
-        dense[r][3] = fmaf(qv.w, x[r], dense[r][3]);
+#pragma unroll
+        for (int j = 0; j < QW; ++j) dense[r][j] = fmaf(qv[j], x[r], dense[r][j]);
       }
     }
   }
 
+  // this thread's queries lie in index group g; its table columns start at
+  // col.  The sparse part runs as a pipeline over chunks of kSparseChunk
+  // slots: the next chunk's ids and values are in flight while this chunk
+  // is multiplied.
+  const int g = qg * QW / kGroup, col = qg * QW % kGroup;
+  const float* table = a.table + (size_t(q0 / kGroup + g) * (a.vocab + 2)) * kGroup + col;
+  const int* my_rows = row_tile + g * S::kRowTile;
+  const float* my_vals = val_tile + g * S::kRowTile;
+  int4 pid[S::kSlotLoads];
+  float4 pval[S::kSlotLoads];
+  auto load_slots = [&](int j0) {
+#pragma unroll
+    for (int i = 0; i < S::kSlotLoads; ++i) {
+      const int e = i * kThreads + tid;
+      const int grow = tile0 + e / (kSparseChunk / 4), j = j0 + 4 * (e % (kSparseChunk / 4));
+      pid[i] = make_int4(0, 0, 0, 0);
+      pval[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (grow < row_end && j < a.nnz)
+        load_slots4(a.c_idx + size_t(grow) * a.nnz, cv + size_t(grow) * a.nnz, j, a.nnz, svec, pid[i], pval[i]);
+    }
+  };
+  if (a.nnz > 0) load_slots(0);
   for (int j0 = 0; j0 < a.nnz; j0 += kSparseChunk) {
     __syncthreads();
-    for (int e = tid; e < kRows * kSparseChunk; e += kThreads) {
-      const int r = e / kSparseChunk, c = e % kSparseChunk;
-      const int grow = tile0 + r, gj = j0 + c;
-      int id = a.vocab;
-      float v = 0.f;
-      if (grow < row_end && gj < a.nnz) {
-        id = a.c_idx[size_t(grow) * a.nnz + gj];
-        v = to_f32(cv[size_t(grow) * a.nnz + gj]);
-      }
-      idx_tile[r * (kSparseChunk + 1) + c] = id;
-      val_tile[r * (kSparseChunk + 1) + c] = v;
+    // each row's slots become one hit list per group (topk_scan.cuh:
+    // stage_hits); the next chunk's loads go out as soon as the registers
+    // are free
+#pragma unroll
+    for (int i = 0; i < S::kSlotLoads; ++i) {
+      const int e = i * kThreads + tid;
+      const int r = e / (kSparseChunk / 4), j = j0 + 4 * (e % (kSparseChunk / 4));
+      const int real = tile0 + r < row_end ? min(4, max(0, a.nnz - j)) : 0;
+      stage_hits<NG>(words, nw, a.vocab, pid[i], pval[i], real, row_tile + r * S::kSlotStride,
+                     val_tile + r * S::kSlotStride, S::kRowTile);
     }
+    if (j0 + kSparseChunk < a.nnz) load_slots(j0 + kSparseChunk);
     __syncthreads();
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const int lr = rg * R + r;
+      const int* hit = my_rows + (rg * R + r) * S::kSlotStride;
+      const float* hv = my_vals + (rg * R + r) * S::kSlotStride;
+      for (int h = 0; h < hit[kSparseChunk]; ++h) {
+        const float v = hv[h];
 #pragma unroll
-      for (int c = 0; c < kSparseChunk; ++c) {
-        unsigned id = static_cast<unsigned>(idx_tile[lr * (kSparseChunk + 1) + c]);
-        if (id > static_cast<unsigned>(a.vocab)) id = a.vocab;   // out of range reads the zero row
-        const float v = val_tile[lr * (kSparseChunk + 1) + c];
-        const float4 t = __ldg(reinterpret_cast<const float4*>(a.qdt + size_t(id) * a.b_pad + q0 + 4 * qg));
-        sparse[r][0] = fmaf(t.x, v, sparse[r][0]);
-        sparse[r][1] = fmaf(t.y, v, sparse[r][1]);
-        sparse[r][2] = fmaf(t.z, v, sparse[r][2]);
-        sparse[r][3] = fmaf(t.w, v, sparse[r][3]);
+        for (int q = 0; q < QW / 4; ++q) {
+          const float4 u = __ldg(reinterpret_cast<const float4*>(table + size_t(hit[h]) * kGroup + 4 * q));
+          sparse[r][4 * q] = fmaf(u.x, v, sparse[r][4 * q]);
+          sparse[r][4 * q + 1] = fmaf(u.y, v, sparse[r][4 * q + 1]);
+          sparse[r][4 * q + 2] = fmaf(u.z, v, sparse[r][4 * q + 2]);
+          sparse[r][4 * q + 3] = fmaf(u.w, v, sparse[r][4 * q + 3]);
+        }
       }
     }
   }
@@ -203,8 +289,8 @@ __global__ void __launch_bounds__(kThreads) score_kernel(Args a) {
   const int row0 = tile0 + rg * R;
   const bool vec_out = a.n % 4 == 0 && row0 + R <= row_end;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int q = 4 * qg + j;
+  for (int j = 0; j < QW; ++j) {
+    const int q = QW * qg + j;
     if (q >= qn) continue;
     float s[R];
 #pragma unroll
@@ -221,36 +307,60 @@ __global__ void __launch_bounds__(kThreads) score_kernel(Args a) {
   }
 }
 
-template <typename TD, typename TV>
-cudaError_t launch(const Args& a, unsigned blocks, cudaStream_t stream) {
-  score_kernel<TD, TV><<<blocks, kThreads, 0, stream>>>(a);
+template <int QB>
+size_t smem_bytes(const Args& a) {
+  return Shape<QB>::kStage + (a.stage_words ? size_t(Shape<QB>::NG) * index_words(a.vocab) * 8 : 0);
+}
+
+template <int QB, typename TD, typename TV>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const long long blocks = ((long long)a.n + Shape<QB>::ROWS - 1) / Shape<QB>::ROWS * a.n_qblocks;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<QB>(a);
+  auto kernel = score_kernel<QB, TD, TV>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<unsigned(blocks), kThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int QB>
+cudaError_t dispatch(Args a, bool dense_bf16, bool val_bf16, cudaStream_t st) {
+  using bf = __nv_bfloat16;
+  a.n_qblocks = (a.b + QB - 1) / QB;
+  a.stage_words = size_t(Shape<QB>::NG) * index_words(a.vocab) * 8 <= size_t(kWordsSmemCap);
+  if (dense_bf16) return val_bf16 ? launch<QB, bf, bf>(a, st) : launch<QB, bf, float>(a, st);
+  return val_bf16 ? launch<QB, float, bf>(a, st) : launch<QB, float, float>(a, st);
 }
 
 }  // namespace fscore
 
 extern "C" {
 
-// Fused dense+sparse scores [B, N]; both parts required.  Returns a
-// cudaError_t.
-int fused_score_launch(const float* qdt, int b_pad, const int* c_idx, const void* c_val, int val_bf16,
-                       int nnz, int vocab, const float* q_dense, const void* c_dense, int dense_bf16,
-                       int d, int b, int n, float w_dense, float w_sparse, float* out, void* stream) {
-  using bf = __nv_bfloat16;
-  if (!qdt || !c_idx || !c_val || !q_dense || !c_dense || !out || b < 1 || n < 1 || d < 0 ||
-      nnz < 0 || vocab < 0 || b_pad % fscore::QB || b_pad < b)
+// Fused dense+sparse scores [B, N]; both parts required.  qb is 16 or 64
+// queries per block; `q_t` [D, b_pad] holds the dense queries transposed,
+// each block's qb columns in the order its threads read them
+// (sparse_dense.py: query_columns); `words` and `table` are the
+// query-term index of b_pad / 16 groups of 16 queries
+// (kernels/query_index.py).  Returns a cudaError_t.
+int fused_score_launch(const void* words, const float* table, const int* c_idx, const void* c_val,
+                       int val_bf16, int nnz, int vocab, const float* q_t, int b_pad, const void* c_dense,
+                       int dense_bf16, int d, int b, int n, int qb, float w_dense, float w_sparse,
+                       float* out, void* stream) {
+  if (!words || !table || !c_idx || !c_val || !q_t || !c_dense || !out || b < 1 || n < 1 ||
+      qb < 1 || b_pad % qb || b_pad < b ||
+      d < 0 || nnz < 0 || vocab < 0 || vocab > 0x7ffffffd)
     return int(cudaErrorInvalidValue);
   fscore::Args a{};
-  a.q_dense = q_dense; a.c_dense = c_dense; a.d = d;
-  a.qdt = qdt; a.b_pad = b_pad; a.c_idx = c_idx; a.c_val = c_val; a.nnz = nnz; a.vocab = vocab;
-  a.b = b; a.n = n; a.n_groups = (b + fscore::QB - 1) / fscore::QB;
+  a.q_t = q_t; a.b_pad = b_pad; a.c_dense = c_dense; a.d = d;
+  a.words = static_cast<const uint2*>(words); a.table = table;
+  a.c_idx = c_idx; a.c_val = c_val; a.nnz = nnz; a.vocab = vocab;
+  a.b = b; a.n = n;
   a.w_dense = w_dense; a.w_sparse = w_sparse; a.out = out;
-  const long long blocks = ((long long)n + topk::kRows - 1) / topk::kRows * a.n_groups;
-  if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
-  const unsigned g = unsigned(blocks);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dense_bf16) return int(val_bf16 ? fscore::launch<bf, bf>(a, g, st) : fscore::launch<bf, float>(a, g, st));
-  return int(val_bf16 ? fscore::launch<float, bf>(a, g, st) : fscore::launch<float, float>(a, g, st));
+  if (qb == fscore::kNarrowQB) return int(fscore::dispatch<fscore::kNarrowQB>(a, dense_bf16, val_bf16, st));
+  if (qb == fscore::kWideQB) return int(fscore::dispatch<fscore::kWideQB>(a, dense_bf16, val_bf16, st));
+  return int(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

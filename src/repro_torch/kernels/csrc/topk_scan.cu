@@ -29,11 +29,24 @@
 // loaded with 16-byte streaming loads (__ldcs: read once, kept out of L2's
 // way), transposed into shared memory, and the next chunk's loads are in
 // flight while the current chunk is multiplied.
-// The sparse part gathers 4 contiguous floats per COO slot and thread
-// from the densified query table laid out transposed, [V+1, b_pad].  The
-// table (1.95 MB at V = 30,522 and B = 16) stays in L2, and 16 x 128 table
-// reads per corpus row (72 GB per batch) are expected to bound the fused
-// kernel by L2, not by HBM (an estimate; PERF.md holds what was measured).
+// The sparse part no longer gathers the densified query table from L2
+// (16 floats per COO slot, 72 GB per batch at B = 16, which held the fused
+// kernel at 2.6x its bytes bound).  The wrapper builds a query-term index
+// of the block's query group (topk_scan.cuh: presence bits and ranks over
+// the term ids, and a compact table of the present columns); the block
+// stages the index words in shared memory (7.6 KB at V = 30,522; global
+// memory above kWordsSmemCap, through the same code).  The COO slots
+// stream through in chunks of kSparseChunk with 16-byte streaming loads,
+// the next chunk's in flight while this one is used; four lanes turn a
+// row's chunk into its hit list (stage_hits) and each thread multiplies
+// only its rows' hits, reading the group's values from the compact table
+// in L2 (about 1.7% of slots at B = 16 on uniform ids).  A miss would add
+// fmaf(0, v, acc) = acc, so the sums are bit for bit the gather's.  The
+// compact table stays in global memory: in shared memory it would cost
+// the second block an SM at qb = 16.  What bounds the fused kernel now is
+// the dense part's memory pipeline (B1's, 55% of HBM) plus the per-slot
+// staging (PERF.md holds what was measured).  The dense-only instantiation
+// (mips_topk_launch) compiles to the same code as before the index.
 //
 // Numerics.  Every score is IEEE f32: no TF32, bf16 loads converted with
 // __bfloat162float before the first multiply.  The mix is computed as
@@ -50,19 +63,22 @@ struct ScanArgs {
   const float* q_dense;   // [B, D] f32, or null
   const void* c_dense;    // [N, D] f32/bf16, or null
   int d;
-  const float* qdt;       // [V+1, b_pad] f32 transposed densified queries, or null
-  int b_pad;
+  const uint2* words;     // [groups, index_words(vocab)] query-term index words, or null
+  const float* table;     // [groups, vocab + 2, QB] compact query tables
   const int* c_idx;       // [N, NNZ] i32, or null
   const void* c_val;      // [N, NNZ] f32/bf16
   int nnz;
-  int vocab;              // the pad id; its table row is zero
+  int vocab;              // the pad id
   int b, n, n_valid, k;
   int l2, weighted;
   float w_dense, w_sparse;
   float* part_s;          // [B, n_splits, k]
   int* part_i;
   int n_splits, rows_per_split, buf;
+  int stage_words;        // the block's index words fit in shared memory
 };
+// The layout keeps the dense-only kernel's arguments where they were before
+// the index (its code is unchanged; a larger struct changes what nvcc emits).
 
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
 
@@ -75,9 +91,11 @@ __host__ __device__ inline size_t staging_bytes() {
   return align16(dense > sparse ? dense : sparse);
 }
 
+// Candidate lists, per-query scalars, staging, then (sparse, staged) the
+// block's index words.
 template <int QB>
-__host__ __device__ inline size_t scan_smem_bytes(int buf) {
-  return align16(size_t(QB) * buf * 4) * 2 + align16(QB * 16) + staging_bytes<QB>();
+__host__ __device__ inline size_t scan_smem_bytes(int buf, size_t words_bytes) {
+  return align16(size_t(QB) * buf * 4) * 2 + align16(QB * 16) + staging_bytes<QB>() + words_bytes;
 }
 
 // Four consecutive corpus values as f32 (16-byte f32 or 8-byte bf16 load).
@@ -98,6 +116,7 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
   constexpr int R = kRows * QG / kThreads;
   static_assert(QB % 4 == 0 && R * kThreads == kRows * QG && (R == 1 || R == 4), "layout");
   constexpr int kLoads = kRows * kDenseChunk / 4 / kThreads;   // float4 loads per thread per chunk
+  constexpr int kSlotLoads = kRows * kSparseChunk / 4 / kThreads;   // 4-slot loads per thread per chunk
 
   extern __shared__ float4 smem4[];
   char* p = reinterpret_cast<char*>(smem4);
@@ -110,8 +129,9 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
   p += align16(QB * 16);
   float* c_tile = reinterpret_cast<float*>(p);               // [kDenseChunk][kRows], swizzled
   float* q_tile = c_tile + kDenseChunk * kRows;              // [kDenseChunk][QB]
-  int* idx_tile = reinterpret_cast<int*>(p);                 // [kRows][kSparseChunk + 1]
-  float* val_tile = reinterpret_cast<float*>(idx_tile + kRows * (kSparseChunk + 1));
+  int* row_tile = reinterpret_cast<int*>(p);                 // [kRows][kSparseChunk + 1] compact rows
+  float* val_tile = reinterpret_cast<float*>(row_tile + kRows * (kSparseChunk + 1));
+  uint2* s_words = reinterpret_cast<uint2*>(p + staging_bytes<QB>());
 
   const int tid = threadIdx.x;
   const int qg = tid % QG, rg = tid / QG;
@@ -123,10 +143,25 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
   const TD* cd = static_cast<const TD*>(a.c_dense);
   const TV* cv = static_cast<const TV*>(a.c_val);
   const bool vec = a.d % 4 == 0 && reinterpret_cast<uintptr_t>(a.c_dense) % 16 == 0;
+  const bool svec = a.nnz % 4 == 0 && reinterpret_cast<uintptr_t>(a.c_idx) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(a.c_val) % (4 * sizeof(TV)) == 0;
 
   auto cands = [&](int q) {
     return Cands{cand_s + size_t(q) * a.buf, cand_i + size_t(q) * a.buf, cnt + q, th_s + q, th_i + q};
   };
+  // the block's query group has one index; its words go to shared memory
+  // when they fit (made visible by the first tile's barrier)
+  const uint2* words = nullptr;
+  const float* table = nullptr;
+  if (SPARSE) {
+    const int nw = index_words(a.vocab);
+    words = a.words + size_t(blockIdx.y) * nw;
+    table = a.table + size_t(blockIdx.y) * (a.vocab + 2) * QB + 4 * qg;
+    if (a.stage_words) {
+      for (int i = tid; i < nw; i += kThreads) s_words[i] = words[i];
+      words = s_words;
+    }
+  }
   if (tid < QB) {
     init_cands(cands(tid));
     float acc = 0.f;
@@ -220,31 +255,44 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
     }
 
     if (SPARSE) {
+      // a pipeline over chunks of kSparseChunk slots: the next chunk's ids
+      // and values are in flight while this chunk is multiplied
+      int4 pid[kSlotLoads];
+      float4 pval[kSlotLoads];
+      auto load_slots = [&](int j0) {
+#pragma unroll
+        for (int i = 0; i < kSlotLoads; ++i) {
+          const int e = i * kThreads + tid;
+          const int grow = tile0 + e / (kSparseChunk / 4), j = j0 + 4 * (e % (kSparseChunk / 4));
+          pid[i] = make_int4(0, 0, 0, 0);
+          pval[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (grow < row_end && j < a.nnz)
+            load_slots4(a.c_idx + size_t(grow) * a.nnz, cv + size_t(grow) * a.nnz, j, a.nnz, svec,
+                        pid[i], pval[i]);
+        }
+      };
+      load_slots(0);
       for (int j0 = 0; j0 < a.nnz; j0 += kSparseChunk) {
         __syncthreads();
-        for (int e = tid; e < kRows * kSparseChunk; e += kThreads) {
-          const int r = e / kSparseChunk, c = e % kSparseChunk;
-          const int grow = tile0 + r, gj = j0 + c;
-          int id = a.vocab;
-          float v = 0.f;
-          if (grow < row_end && gj < a.nnz) {
-            id = a.c_idx[size_t(grow) * a.nnz + gj];
-            v = to_f32(cv[size_t(grow) * a.nnz + gj]);
-          }
-          idx_tile[r * (kSparseChunk + 1) + c] = id;
-          val_tile[r * (kSparseChunk + 1) + c] = v;
+        // each row's slots become its hit list (topk_scan.cuh: stage_hits);
+        // the next chunk's loads go out as soon as the registers are free
+#pragma unroll
+        for (int i = 0; i < kSlotLoads; ++i) {
+          const int e = i * kThreads + tid;
+          const int r = e / (kSparseChunk / 4), j = j0 + 4 * (e % (kSparseChunk / 4));
+          const int real = tile0 + r < row_end ? min(4, max(0, a.nnz - j)) : 0;
+          stage_hits<1>(words, 0, a.vocab, pid[i], pval[i], real, row_tile + r * (kSparseChunk + 1),
+                        val_tile + r * (kSparseChunk + 1), 0);
         }
+        if (j0 + kSparseChunk < a.nnz) load_slots(j0 + kSparseChunk);
         __syncthreads();
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          const int lr = rg * R + r;
-#pragma unroll
-          for (int c = 0; c < kSparseChunk; ++c) {
-            unsigned id = static_cast<unsigned>(idx_tile[lr * (kSparseChunk + 1) + c]);
-            if (id > static_cast<unsigned>(a.vocab)) id = a.vocab;   // out of range reads the zero row
-            const float v = val_tile[lr * (kSparseChunk + 1) + c];
-            const float4 t = __ldg(reinterpret_cast<const float4*>(
-                a.qdt + size_t(id) * a.b_pad + q0 + 4 * qg));
+          const int* hit = row_tile + (rg * R + r) * (kSparseChunk + 1);
+          const float* hv = val_tile + (rg * R + r) * (kSparseChunk + 1);
+          for (int h = 0; h < hit[kSparseChunk]; ++h) {
+            const float4 t = __ldg(reinterpret_cast<const float4*>(table + size_t(hit[h]) * QB));
+            const float v = hv[h];
             sparse[r][0] = fmaf(t.x, v, sparse[r][0]);
             sparse[r][1] = fmaf(t.y, v, sparse[r][1]);
             sparse[r][2] = fmaf(t.z, v, sparse[r][2]);
@@ -316,8 +364,10 @@ merge_kernel(const float* part_s, const int* part_i, int m, int k, int buf, floa
 }
 
 template <int QB, bool DENSE, bool SPARSE, typename TD, typename TV>
-cudaError_t launch_scan(const ScanArgs& a, cudaStream_t stream) {
-  const size_t smem = scan_smem_bytes<QB>(a.buf);
+cudaError_t launch_scan(ScanArgs a, cudaStream_t stream) {
+  const size_t words_bytes = SPARSE ? size_t(index_words(a.vocab)) * 8 : 0;
+  a.stage_words = SPARSE && words_bytes <= size_t(kWordsSmemCap);
+  const size_t smem = scan_smem_bytes<QB>(a.buf, a.stage_words ? align16(words_bytes) : 0);
   auto kernel = scan_kernel<QB, DENSE, SPARSE, TD, TV>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
@@ -347,7 +397,7 @@ cudaError_t run(const ScanArgs& a, int qb, bool dense_bf16, bool val_bf16,
   const bool dense = a.c_dense != nullptr, sparse = a.c_idx != nullptr;
   if (!(dense || sparse) || a.k < 1 || a.k > a.n || a.buf < a.k + kRows || (a.buf & (a.buf - 1)) ||
       a.n_splits < 1 || size_t(a.n_splits) * a.rows_per_split < size_t(a.n) ||
-      a.rows_per_split % kRows || (sparse && (a.b_pad % 4 || a.b_pad < (a.b + qb - 1) / qb * qb)) ||
+      a.rows_per_split % kRows || (sparse && (!a.words || !a.table || a.vocab < 0 || a.vocab > 0x7ffffffd)) ||
       (dense && sparse && !a.weighted))
     return cudaErrorInvalidValue;
   cudaError_t err;
@@ -366,6 +416,25 @@ cudaError_t run(const ScanArgs& a, int qb, bool dense_bf16, bool val_bf16,
 
 extern "C" {
 
+// The query-term index (topk_scan.cuh: index_kernel) of `groups` groups of
+// `group` queries from the densified table [b, vocab + 1] (f32, or bf16
+// with bf16 = 1).  Returns a cudaError_t.
+int query_index_launch(const void* qd, int bf16, int b, int vocab, int group, int groups,
+                       void* words, float* table, void* stream) {
+  if (!qd || !words || !table || b < 1 || vocab < 0 || vocab > 0x7ffffffd || group < 1 ||
+      groups < (b + group - 1) / group)
+    return int(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  uint2* w = static_cast<uint2*>(words);
+  if (bf16)
+    topk::index_kernel<<<groups, topk::kIndexThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(qd), b, vocab, group, w, table);
+  else
+    topk::index_kernel<<<groups, topk::kIndexThreads, 0, st>>>(
+        static_cast<const float*>(qd), b, vocab, group, w, table);
+  return int(cudaGetLastError());
+}
+
 // Dense ip (l2 = 0) or negated l2 (l2 = 1) top-k.  Returns a cudaError_t.
 int mips_topk_launch(const float* q, const void* c, int c_bf16, int b, int n, int d, int n_valid,
                      int k, int l2, float* part_s, int* part_i, int n_splits, int rows_per_split,
@@ -379,15 +448,17 @@ int mips_topk_launch(const float* q, const void* c, int c_bf16, int b, int n, in
 }
 
 // Fused dense+sparse top-k.  A null c_dense (or c_idx) drops that part;
-// weighted = 0 leaves a single part unscaled.  Returns a cudaError_t.
-int fused_topk_launch(const float* qdt, int b_pad, const int* c_idx, const void* c_val, int val_bf16,
+// weighted = 0 leaves a single part unscaled.  `words` and `table` are the
+// query-term index of ceil(B / qb) groups of qb queries
+// (kernels/query_index.py).  Returns a cudaError_t.
+int fused_topk_launch(const void* words, const float* table, const int* c_idx, const void* c_val, int val_bf16,
                       int nnz, int vocab, const float* q_dense, const void* c_dense, int dense_bf16,
                       int d, int b, int n, int n_valid, int k, int l2, int weighted, float w_dense,
                       float w_sparse, float* part_s, int* part_i, int n_splits, int rows_per_split,
                       int qb, int buf, float* out_s, int* out_i, void* stream) {
   topk::ScanArgs a{};
   a.q_dense = q_dense; a.c_dense = c_dense; a.d = d;
-  a.qdt = qdt; a.b_pad = b_pad; a.c_idx = c_idx; a.c_val = c_val; a.nnz = nnz; a.vocab = vocab;
+  a.words = static_cast<const uint2*>(words); a.table = table; a.c_idx = c_idx; a.c_val = c_val; a.nnz = nnz; a.vocab = vocab;
   a.b = b; a.n = n; a.n_valid = n_valid; a.k = k; a.l2 = l2; a.weighted = weighted;
   a.w_dense = w_dense; a.w_sparse = w_sparse;
   a.part_s = part_s; a.part_i = part_i;

@@ -22,15 +22,18 @@ namespace topk {
 constexpr int kThreads = 256;      // threads per block
 constexpr int kRows = 256;         // corpus rows per tile
 constexpr int kDenseChunk = 32;    // dense columns staged in shared memory per pass
-constexpr int kSparseChunk = 8;    // COO slots staged in shared memory per pass
+constexpr int kSparseChunk = 16;   // COO slots staged in shared memory per pass
 
 // Position of corpus value (column c, row r) in the transposed dense chunk
-// [kDenseChunk][kRows].  Groups of 4 rows stay contiguous (one 16-byte
+// [kDenseChunk][ROWS].  Groups of 4 rows stay contiguous (one 16-byte
 // read gives a thread its 4 rows); the group index is XORed with the
 // column's quad so that the transposing stores hit 32 distinct banks.
+template <int ROWS = kRows>
 __device__ __forceinline__ int swizzle(int c, int r) {
-  return c * kRows + 4 * ((r >> 2) ^ ((c >> 2) & 7)) + (r & 3);
+  static_assert(ROWS % 32 == 0, "the XOR stays inside a row");
+  return c * ROWS + 4 * ((r >> 2) ^ ((c >> 2) & 7)) + (r & 3);
 }
+
 constexpr float kNeg = -3.402823466e+38f;   // f32 min: the mask for rows >= n_valid
 constexpr int kSentinelId = 0x7fffffff;     // empty slot: (-inf, kSentinelId)
 
@@ -45,6 +48,176 @@ __device__ __forceinline__ float to_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// COO slots [j, j + 4) of one row: ids, and values as f32, read once
+// (streaming loads).  `vec`: 16-byte id and 16- (f32) or 8-byte (bf16)
+// value alignment with nnz % 4 == 0; otherwise scalar loads of the slots
+// below nnz (the others read as id 0, value 0).
+__device__ __forceinline__ float4 stream4(const float* p) {
+  return __ldcs(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 stream4(const __nv_bfloat16* p) {
+  const uint2 u = __ldcs(reinterpret_cast<const uint2*>(p));
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+template <typename TV>
+__device__ __forceinline__ void load_slots4(const int* idx, const TV* val, int j, int nnz, bool vec,
+                                            int4& id, float4& v) {
+  if (vec) {
+    id = __ldcs(reinterpret_cast<const int4*>(idx + j));
+    v = stream4(val + j);
+    return;
+  }
+  id = make_int4(0, 0, 0, 0);
+  v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (j < nnz) { id.x = idx[j]; v.x = to_f32(val[j]); }
+  if (j + 1 < nnz) { id.y = idx[j + 1]; v.y = to_f32(val[j + 1]); }
+  if (j + 2 < nnz) { id.z = idx[j + 2]; v.z = to_f32(val[j + 2]); }
+  if (j + 3 < nnz) { id.w = idx[j + 3]; v.w = to_f32(val[j + 3]); }
+}
+
+// The query-term index of one group of queries (built by index_kernel
+// below, which kernels/query_index.py launches): one 8-byte word
+// per 32 term ids, x the presence bits (a term is present when any query of
+// the group holds a nonzero or non-finite value for it), y the compact
+// table row of the word's first present term (1 + the present terms before
+// it).  The compact table [vocab + 2, group] holds the present columns in
+// term order from row 1; row 0 stands for every absent term, whose column
+// is zero for every query of the group.
+constexpr int kWordsSmemCap = 32768;   // bytes of index words a block stages in shared memory
+
+// Compact-table row of term `id` for one group, 0 when the group does not
+// hold it.  Ids outside [0, vocab] (negative ones too, as unsigned) look up
+// column vocab, as the table's clamp did.  `words` may point to shared or
+// to global memory.
+__device__ __forceinline__ int index_row(const uint2* words, int vocab, int id) {
+  unsigned u = static_cast<unsigned>(id);
+  if (u > static_cast<unsigned>(vocab)) u = static_cast<unsigned>(vocab);
+  const uint2 w = words[u >> 5];
+  const unsigned bit = 1u << (u & 31);
+  return (w.x & bit) ? static_cast<int>(w.y) + __popc(w.x & (bit - 1)) : 0;
+}
+
+// Stage four consecutive slots [c, c + 4) of one tile row, real of them
+// below nnz, as the row's hit lists for NG query groups (group h's index
+// words at words + h * nw, its list at rows / vals + h * list_stride).
+// The slots that need a multiply-add go, in slot order, to rows[0, n)
+// (compact-table rows) and vals[0, n): the hits, and the misses whose
+// value is not finite (0 * inf and 0 * NaN are NaN; row 0 of the compact
+// table is zero).  A skipped miss adds fmaf(0, v, acc) = acc, so sums over
+// the list equal the sums over every slot bit for bit (an accumulator that
+// starts at +0 never becomes -0).  rows[kSparseChunk] receives n.  The
+// row's four threads are consecutive lanes, lane % 4 giving c / 4; they
+// scan their counts, all groups' packed in one word, together, so every
+// lane of the warp calls this at once.
+template <int NG>
+__device__ __forceinline__ void stage_hits(const uint2* words, int nw, int vocab, const int4& id,
+                                           const float4& v, int real, int* rows, float* vals,
+                                           int list_stride) {
+  static_assert(kSparseChunk == 16 && NG <= 4, "four lanes stage a row's chunk; 8-bit counts");
+  const int ids[4] = {id.x, id.y, id.z, id.w};
+  const float vs[4] = {v.x, v.y, v.z, v.w};
+  int row[NG][4];
+  unsigned mask[NG];
+#pragma unroll
+  for (int h = 0; h < NG; ++h) mask[h] = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const bool poison = !isfinite(vs[k]);
+#pragma unroll
+    for (int h = 0; h < NG; ++h) {
+      row[h][k] = index_row(words + h * nw, vocab, ids[k]);
+      if (k < real && (row[h][k] != 0 || poison)) mask[h] |= 1u << k;
+    }
+  }
+  unsigned n = 0;
+#pragma unroll
+  for (int h = 0; h < NG; ++h) n |= static_cast<unsigned>(__popc(mask[h])) << (8 * h);
+  const int sub = threadIdx.x & 3;
+  unsigned upto = n;   // hits of this lane and the lanes before it in the row, per group
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    const unsigned y = __shfl_up_sync(0xffffffffu, upto, off, 4);
+    if (sub >= off) upto += y;
+  }
+#pragma unroll
+  for (int h = 0; h < NG; ++h) {
+    const int end = (upto >> (8 * h)) & 255;
+    int pos = end - __popc(mask[h]);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (mask[h] >> k & 1) {
+        rows[h * list_stride + pos] = row[h][k];
+        vals[h * list_stride + pos] = vs[k];
+        ++pos;
+      }
+    }
+    if (sub == 3) rows[h * list_stride + kSparseChunk] = end;
+  }
+}
+
+// Index words per group: ceil((vocab + 1) / 32).
+__host__ __device__ inline int index_words(int vocab) { return vocab / 32 + 1; }
+
+constexpr int kIndexThreads = 1024;
+
+// Build the query-term index of one group of `group` queries per block from
+// the densified table qd [b, vocab + 1] (groups past b are empty): words
+// [groups, index_words(vocab)] and the compact tables [groups, vocab + 2,
+// group] (rows past the group's present terms are left as they are; no
+// kernel reads them).  A term is present when a value is nonzero: NaN and
+// inf compare unequal to zero.
+template <typename T>
+__global__ void __launch_bounds__(kIndexThreads)
+index_kernel(const T* qd, int b, int vocab, int group, uint2* words, float* table) {
+  __shared__ int run[kIndexThreads];
+  const int q0 = blockIdx.x * group, qn = min(group, b - q0);
+  const int nw = index_words(vocab), v1 = vocab + 1;
+  uint2* w = words + size_t(blockIdx.x) * nw;
+  float* tab = table + size_t(blockIdx.x) * (vocab + 2) * group;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // 1. presence bits, one warp per word of 32 consecutive terms
+  for (int i = warp; i < nw; i += kIndexThreads / 32) {
+    const int c = i * 32 + lane;
+    bool held = false;
+    if (c < v1) {
+      for (int q = 0; q < qn; ++q) held |= to_f32(qd[size_t(q0 + q) * v1 + c]) != 0.f;
+    }
+    const unsigned bits = __ballot_sync(0xffffffffu, held);
+    if (lane == 0) w[i].x = bits;
+  }
+  __syncthreads();
+  // 2. ranks: each thread counts a run of words, the block scans the runs
+  const int per = (nw + kIndexThreads - 1) / kIndexThreads;
+  const int w0 = min(nw, int(threadIdx.x) * per), w1 = min(nw, w0 + per);
+  int own = 0;
+  for (int i = w0; i < w1; ++i) own += __popc(w[i].x);
+  run[threadIdx.x] = own;
+  __syncthreads();
+  for (int off = 1; off < kIndexThreads; off <<= 1) {
+    const int x = int(threadIdx.x) >= off ? run[threadIdx.x - off] : 0;
+    __syncthreads();
+    run[threadIdx.x] += x;
+    __syncthreads();
+  }
+  int first = 1 + run[threadIdx.x] - own;
+  for (int i = w0; i < w1; ++i) {
+    w[i].y = static_cast<unsigned>(first);
+    first += __popc(w[i].x);
+  }
+  __syncthreads();
+  // 3. compact table: row 0 zero, each present term's values to its row
+  if (int(threadIdx.x) < group) tab[threadIdx.x] = 0.f;
+  for (int c = threadIdx.x; c < v1; c += kIndexThreads) {
+    const int row = index_row(w, vocab, c);
+    if (row) {
+      for (int q = 0; q < group; ++q)
+        tab[size_t(row) * group + q] = q < qn ? to_f32(qd[size_t(q0 + q) * v1 + c]) : 0.f;
+    }
+  }
 }
 
 // Block-wide bitonic sort of s/id[0, size), best first; size is a power of

@@ -15,8 +15,9 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.mips_topk import (_DTYPES, _sms, cdiv, check_k, plan,
-                                           ptr, require_cuda)
+from repro_torch.kernels.mips_topk import (_DTYPES, _sms, check_k, plan, ptr,
+                                           require_cuda)
+from repro_torch.kernels.query_index import build_index
 
 launches = 0
 
@@ -25,7 +26,7 @@ def _declare(lib):
     fn = lib.fused_topk_launch
     if fn.argtypes is None:
         v, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [v, i, v, v, i, i, i, v, v, i, i, i, i, i, i, i, i, f, f,
+        fn.argtypes = [v, v, v, v, i, i, i, v, v, i, i, i, i, i, i, i, i, f, f,
                        v, v, i, i, i, i, v, v, v]
         fn.restype = ctypes.c_int
     return fn
@@ -76,8 +77,8 @@ def fused_topk(qdensified, q_dense, c_idx, c_val, c_dense, k: int,
     b = (q_dense if has_dense else qdensified).shape[0]
     qb, buf, n_splits, rows = plan(b, n, k, _sms(dev))
 
-    q = qdt = None
-    d = nnz = vocab = b_pad = 0
+    q = words = table = None
+    d = nnz = vocab = 0
     if has_dense:
         q = q_dense.float().contiguous()   # upcast before the first multiply
         require_cuda("q_dense", q, (torch.float32,), 2, dev)
@@ -98,11 +99,9 @@ def fused_topk(qdensified, q_dense, c_idx, c_val, c_dense, k: int,
         if qdensified.shape[0] != b:
             raise ValueError(f"qdensified has {qdensified.shape[0]} rows, "
                              f"expected {b}")
-        # the kernel reads the table transposed, [V+1, b_pad]: the queries
-        # of one block for one term id are contiguous and 16-byte aligned
-        b_pad = cdiv(b, qb) * qb
-        qdt = torch.zeros((vocab + 1, b_pad), dtype=torch.float32, device=dev)
-        qdt[:, :b] = qdensified.float().T
+        # the kernel reads the sparse part through a query-term index per
+        # block's group of qb queries, built here on the card
+        words, table = build_index(qdensified, qb)
     part_s = torch.empty((b, n_splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((b, n_splits, k), dtype=torch.int32, device=dev)
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
@@ -110,7 +109,7 @@ def fused_topk(qdensified, q_dense, c_idx, c_val, c_dense, k: int,
     fn = _declare(_build.load("topk_scan"))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ptr(qdt), b_pad, ptr(c_idx if has_sparse else None),
+        err = fn(ptr(words), ptr(table), ptr(c_idx if has_sparse else None),
                  ptr(c_val if has_sparse else None),
                  _DTYPES[c_val.dtype] if has_sparse else 0, nnz, vocab,
                  ptr(q), ptr(c_dense), _DTYPES[c_dense.dtype] if has_dense else 0,

@@ -18,6 +18,7 @@ import torch
 from repro_torch.core.brute_force import select_topk
 from repro_torch.core.sparse import SparseVectors, accum_f32, densify
 from repro_torch.core.spaces import dense_scores, ieee_f32, weighted_mix
+from repro_torch.kernels.query_index import index_rows
 
 NEG = float(torch.finfo(torch.float32).min)
 
@@ -57,13 +58,17 @@ def fused_table_scores(qdensified, q_dense, c_idx, c_val, c_dense,
                        w_dense=None, w_sparse=None, dense_kind: str = "ip"):
     """Fused scores [B, N] from the kernel's inputs: the densified query
     table [B, V+1] (zero trash column last), COO ids/values, dense parts.
-    ``None`` weights leave a single part unscaled."""
+    ``None`` weights leave a single part unscaled.  Ids outside [0, V]
+    read column V, as the kernels read them."""
     parts, weights = [], []
     if c_dense is not None:
         parts.append(dense_scores(dense_kind, q_dense, c_dense))
         weights.append(w_dense)
     if c_idx is not None:
-        picked = accum_f32(qdensified)[:, c_idx.long()]       # [B, N, NNZ]
+        vocab = qdensified.shape[1] - 1
+        ids = c_idx.long()
+        ids = torch.where((ids < 0) | (ids > vocab), vocab, ids)
+        picked = accum_f32(qdensified)[:, ids]                 # [B, N, NNZ]
         parts.append(torch.einsum("bnk,nk->bn", picked, accum_f32(c_val)))
         weights.append(w_sparse)
     if not parts:
@@ -75,6 +80,19 @@ def fused_table_scores(qdensified, q_dense, c_idx, c_val, c_dense,
                              "unweighted sum)")
         return parts[0]
     return weighted_mix(parts, weights)
+
+
+def index_sparse_scores(words, table, c_idx, c_val, vocab: int, b: int) -> torch.Tensor:
+    """Plain emulation of the fused kernels' sparse arithmetic through the
+    query-term index (``kernels/query_index.py``): every COO slot's
+    compact row per group (0 on a miss, whose values are zero), the
+    group's values gathered from that row, and the slot sum reduced as
+    ``fused_table_scores`` reduces it.  f32 [b, N]."""
+    g, _, group = table.shape
+    rows = index_rows(words, vocab, c_idx)                             # [G, N, NNZ]
+    picked = torch.gather(table, 1, rows.reshape(g, -1, 1).expand(-1, -1, group))
+    picked = picked.reshape(g, *c_idx.shape, group).permute(0, 3, 1, 2).reshape(g * group, *c_idx.shape)
+    return torch.einsum("bnk,nk->bn", picked[:b], accum_f32(c_val))
 
 
 def fused_score_ref(qdensified, q_dense, c_idx, c_val, c_dense, w_dense: float,

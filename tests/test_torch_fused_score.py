@@ -135,4 +135,24 @@ def test_wrapper_refuses_other_devices():
 def test_kernel_source_and_entry_point():
     text = (_build.CSRC / "fused_score.cu").read_text()
     assert "fused_score_launch" in text and "fused_score_pallas" in text
-    assert sd.QUERIES_PER_BLOCK == 16 and "constexpr int QB = 16;" in text
+    assert sd.QUERIES_PER_BLOCK == 16 and "constexpr int kNarrowQB = 16;" in text
+    assert sd.WIDE_QUERIES_PER_BLOCK == 64 and "constexpr int kWideQB = 64;" in text
+
+
+@pytest.mark.parametrize("b,qb", [(5, 16), (16, 16), (40, 64), (128, 64)])
+def test_query_columns_follow_the_thread_layout(b, qb):
+    """``query_columns`` puts query ``q0 + qw*qg + 4*h + k`` of each block
+    at column ``q0 + h*qb/2 + 4*qg + k``, where thread ``qg`` of the
+    kernel reads it (fused_score.cu, the dense loop), and zeros past B."""
+    q = torch.arange(b * 3, dtype=torch.float32).reshape(b, 3) + 1.0
+    q_t = sd.query_columns(q, qb)
+    assert q_t.shape == (3, -(-b // qb) * qb)
+    qw = 4 if qb == 16 else 8
+    for q0 in range(0, q_t.shape[1], qb):
+        for qg in range(qb // qw):
+            for h in range(qw // 4):
+                for k in range(4):
+                    query = q0 + qw * qg + 4 * h + k
+                    col = q_t[:, q0 + h * qb // 2 + 4 * qg + k]
+                    want = q[query] if query < b else torch.zeros(3)
+                    assert torch.equal(col, want), (q0, qg, h, k)
