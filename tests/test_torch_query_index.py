@@ -1,20 +1,22 @@
-"""The query-term index that the fused CUDA kernels read in place of the
-densified query table (``repro_torch/kernels/query_index.py``), held on
-the CPU against the table itself and against repro's
+"""The query-term index that the fused CUDA kernels test before they
+read the densified query table (``repro_torch/kernels/query_index.py``),
+held on the CPU against the table itself and against repro's
 ``fused_score_pallas`` (Pallas interpret mode, as repro's own tests run
 it).
 
 The kernels cannot run here; ``chip_smoke.py`` holds them against their
-plain versions on the card.  Here: (1) the index encodes each group's
-``[group, V+1]`` table exactly (read back column by column through the
-plain version of the kernels' ``index_row``), over batch sizes, group
-widths, vocabularies whose V+1 is not a multiple of 32, duplicated query
-terms, an all-pad query, a nonzero pad column, bf16 tables and non-finite
-entries; (2) the plain emulation of the kernels' sparse arithmetic
-through the index gives ``ref.fused_table_scores``'s sparse part bit for
-bit (the same values reach the same reduction; a miss reads zeros), and
-repro's ``fused_score_pallas`` within ``F32_RTOL`` (2e-6) of the row's
-largest |score| (XLA and PyTorch sum in other orders).
+plain versions on the card.  Here: (1) the index marks exactly each
+group's present terms and the table read through it (the plain version
+of the kernels' ``index_hit``) is each group's ``[group, V+1]`` table,
+over batch sizes, group widths, vocabularies whose V+1 is not a multiple
+of 32, duplicated query terms, an all-pad query, a nonzero pad column,
+bf16 tables and non-finite entries; (2) the plain emulation of the
+kernels' sparse arithmetic through the index gives
+``ref.fused_table_scores``'s sparse part bit for bit (the same values
+reach the same reduction; a miss reads zeros), and repro's
+``fused_score_pallas`` within ``F32_RTOL`` (2e-6) of the row's largest
+|score| (XLA and PyTorch sum in other orders); (3) the plain version
+indexes out-of-range ids as repro's plain version does.
 """
 
 import jax.numpy as jnp
@@ -24,9 +26,10 @@ import torch
 
 from repro.core.sparse import SparseVectors as JSparse
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import sparse_dense as sd
-from repro_torch.kernels.query_index import index_rows, query_index, table_from_index
+from repro_torch.kernels.query_index import index_hits, query_index, table_from_index
 
 from _torch_parity import assert_scores_close
 
@@ -66,21 +69,20 @@ def _equal_with_nan(got, want):
 def test_index_reconstructs_the_table(b, group, v):
     assert (v + 1) % 32
     table = torch.from_numpy(_table_np(b, v, 32, seed=b * 7 + v, nonfinite=b > 4))
-    words, compact = query_index(table, group)
+    words, qdt = query_index(table, group)
     groups = -(-b // group)
-    assert words.shape == (groups, -(-(v + 1) // 32), 2) and words.dtype == torch.int32
-    assert compact.shape == (groups, v + 2, group) and compact.dtype == torch.float32
-    back = table_from_index(words, compact, v)
+    assert words.shape == (groups, -(-(v + 1) // 32)) and words.dtype == torch.int32
+    assert qdt.shape == (v + 1, groups * group) and qdt.dtype == torch.float32
+    back = table_from_index(words, qdt, v)
     _equal_with_nan(back[:b], table)
     assert not bool(back[b:].any())
-    # row 0 is the misses' zero row; each group's present terms fill rows 1..S
-    assert not bool(compact[:, 0].any())
+    # a group's bit is set exactly where one of its queries holds the term
     present = ((table != 0) | ~torch.isfinite(table))
     present = torch.nn.functional.pad(present, (0, 0, 0, groups * group - b))
-    counts = present.view(groups, group, v + 1).any(1).sum(1)
-    last = words[:, -1, 1].long() - 1 + torch.tensor(
-        [bin(int(x) & 0xFFFFFFFF).count("1") for x in words[:, -1, 0]])
-    assert torch.equal(last, counts)
+    present = present.view(groups, group, v + 1).any(1)
+    assert torch.equal(index_hits(words, v, torch.arange(v + 1)), present)
+    counts = torch.tensor([[bin(int(x) & 0xFFFFFFFF).count("1") for x in row] for row in words])
+    assert torch.equal(counts.sum(1), present.sum(1))
 
 
 @pytest.mark.parametrize("block", [16, 64])
@@ -88,10 +90,10 @@ def test_index_pads_to_the_block(block):
     """The score kernel reads ceil(B / block) * block / 16 groups: the
     padded groups are empty (every lookup misses)."""
     table = torch.from_numpy(_table_np(20, 300, 8, seed=3))
-    words, compact = query_index(table, 16, block)
-    assert words.shape[0] == block // 16 * (-(-20 // block))
-    _equal_with_nan(table_from_index(words, compact, 300)[:20], table)
-    assert not bool(words[-(-20 // 16):, :, 0].any())   # the groups past B hold no term
+    words, qdt = query_index(table, 16, block)
+    assert words.shape[0] == block // 16 * (-(-20 // block)) and qdt.shape[1] == 16 * words.shape[0]
+    _equal_with_nan(table_from_index(words, qdt, 300)[:20], table)
+    assert not bool(words[-(-20 // 16):].any())   # the groups past B hold no term
     with pytest.raises(ValueError, match="multiple of the group"):
         query_index(table, 16, 24)
 
@@ -99,8 +101,8 @@ def test_index_pads_to_the_block(block):
 def test_bf16_table_upcasts():
     t32 = torch.from_numpy(_table_np(16, 1000, 32, seed=5))
     t16 = t32.to(torch.bfloat16)
-    words, compact = query_index(t16, 16)
-    _equal_with_nan(table_from_index(words, compact, 1000), t16.float())
+    words, qdt = query_index(t16, 16)
+    _equal_with_nan(table_from_index(words, qdt, 1000), t16.float())
 
 
 def test_lookup_of_out_of_range_ids():
@@ -110,8 +112,8 @@ def test_lookup_of_out_of_range_ids():
     table = torch.from_numpy(_table_np(4, v, 6, seed=11))       # column V nonzero in query 0
     words, _ = query_index(table, 4)
     ids = torch.tensor([v, v + 1, 2 ** 31 - 1, -1, -(2 ** 31)], dtype=torch.int32)
-    rows = index_rows(words, v, ids)
-    assert bool((rows == rows[:, :1]).all()) and int(rows[0, 0]) > 0
+    hits = index_hits(words, v, ids)
+    assert bool(hits.all())
 
 
 def _coo_np(n, v, nnz, seed, *, skew=False, out_of_range=False):
@@ -123,7 +125,7 @@ def _coo_np(n, v, nnz, seed, *, skew=False, out_of_range=False):
         ids = rng.integers(0, v, size=(n, nnz))
     ids[rng.uniform(size=(n, nnz)) < 0.2] = v                     # pad slots
     if out_of_range:
-        ids[0, 0], ids[1, 1], ids[2, 2] = v + 5, -1, -7
+        ids[0, 0], ids[1, 1], ids[2, 2] = v + 5, -1, 2 ** 31 - 1   # where the kernels and repro agree
     return ids.astype(np.int32), rng.uniform(size=(n, nnz)).astype(np.float32)
 
 
@@ -139,8 +141,8 @@ def test_emulation_matches_the_table_and_repro(case):
     table_np = _table_np(b, v, nnz_q, seed=n + b, pad_column=False)   # repro's densify zeroes V
     ids_np, vals_np = _coo_np(n, v, nnz, seed=n, skew=skew)
     table, ids, vals = (torch.from_numpy(x) for x in (table_np, ids_np, vals_np))
-    words, compact = query_index(table, group)
-    got = ref.index_sparse_scores(words, compact, ids, vals, v, b)
+    words, qdt = query_index(table, group)
+    got = ref.index_sparse_scores(words, qdt, ids, vals, v, b)
     assert got.shape == (b, n) and got.dtype == torch.float32
     want = ref.fused_table_scores(table, None, ids, vals, None)
     assert torch.equal(got, want)
@@ -153,15 +155,32 @@ def test_emulation_matches_the_table_and_repro(case):
 
 
 def test_emulation_with_nonfinite_and_out_of_range():
-    """inf and NaN in the table, and ids outside [0, V], give what the
-    plain version's table gather gives (both read column V for those)."""
+    """inf and NaN in the table and the values, and ids above V and -1,
+    give what the plain version's table gather gives (both read column V
+    for those ids)."""
     v = 80
     table = torch.from_numpy(_table_np(6, v, 8, seed=2, nonfinite=True))
     ids_np, vals_np = _coo_np(40, v, 9, seed=4, out_of_range=True)
+    vals_np[3, 4], vals_np[5, 0] = np.inf, np.nan
     ids, vals = torch.from_numpy(ids_np), torch.from_numpy(vals_np)
-    words, compact = query_index(table, 4)
-    got = ref.index_sparse_scores(words, compact, ids, vals, v, 6)
+    words, qdt = query_index(table, 4)
+    got = ref.index_sparse_scores(words, qdt, ids, vals, v, 6)
     _equal_with_nan(got, ref.fused_table_scores(table, None, ids, vals, None))
+
+
+def test_plain_version_indexes_out_of_range_ids_as_repro():
+    """Ids past V read column V; negative ids count from the end, then
+    clamp to 0, as repro's ``qdensified[:, c_idx]`` does."""
+    v = 50
+    table_np = _table_np(3, v, 8, seed=9)
+    ids_np, vals_np = _coo_np(6, v, 8, seed=10)
+    ids_np[:, :6] = [[v + 1, 2 ** 31 - 1, -1, -7, -(v + 1), -(2 ** 31)]] * 6
+    got = ref.fused_table_scores(torch.from_numpy(table_np), None, torch.from_numpy(ids_np),
+                                 torch.from_numpy(vals_np), None)
+    qd, cd = jnp.zeros((3, 4), jnp.float32), jnp.zeros((6, 4), jnp.float32)
+    want = jref.fused_score_ref(jnp.asarray(table_np), qd, jnp.asarray(ids_np), jnp.asarray(vals_np),
+                                cd, 0.0, 1.0)
+    assert_scores_close(np.asarray(want), got.numpy(), ctx="out-of-range ids")
 
 
 @pytest.mark.parametrize("b,qb", [(1, 16), (16, 16), (32, 16), (33, 64), (128, 64)])
@@ -173,7 +192,8 @@ def test_kernel_sources_use_the_index():
     score = (_build.CSRC / "fused_score.cu").read_text()
     scan = (_build.CSRC / "topk_scan.cu").read_text()
     header = (_build.CSRC / "topk_scan.cuh").read_text()
-    assert "stage_hits" in header and "index_kernel" in header and "kWordsSmemCap" in header
+    assert "index_hit(" in header and "index_kernel" in header and "kWordsSmemCap" in header
     assert "stage_hits<" in score and "stage_hits<" in scan and "query_index_launch" in scan
-    assert "qdt" not in score and "qdt" not in scan
     assert f"constexpr int kGroup = {sd.INDEX_GROUP};" in score
+    # the dense-only scan's code depends on the argument struct's layout
+    assert "static_assert(sizeof(ScanArgs) == 128" in scan
