@@ -21,18 +21,18 @@
 // corpus tile run side by side and the second finds it in L2.  Both
 // shapes ask for two blocks an SM (at most 128 registers a thread).
 //
-// The sparse part reads the densified query table (transposed, qdt) only
-// where it is not zero.  The wrapper builds, per group of 16 queries, a
-// query-term index (topk_scan.cuh: one presence bit per term id).  A block
-// stages its groups' index words in shared memory (global memory above
-// kWordsSmemCap: V large, the same code through a generic pointer).  The
-// COO slots stream through in chunks of kSparseChunk with 16-byte loads,
-// the next chunk's in flight while this one is used; four lanes turn a
-// row's chunk into one hit list per group (stage_hits), and each thread
-// then multiplies only its rows' hits, reading its queries' values of the
-// term from qdt in L2.  A miss contributes fmaf(0, v, acc) = acc, so the
-// sums are bit for bit those of the table gather (misses with a non-finite
-// value stay in the list).
+// The sparse part does not read the densified query table.  The wrapper
+// builds, per group of 16 queries, a query-term index (topk_scan.cuh:
+// presence bits and ranks over the term ids, and a compact table of the
+// group's present columns).  A block stages its groups' index words in
+// shared memory (global memory above kWordsSmemCap: V large, the same
+// code through a generic pointer).  The COO slots stream through in
+// chunks of kSparseChunk with 16-byte loads, the next chunk's in flight
+// while this one is used; four lanes turn a row's chunk into one hit list
+// per group (stage_hits), and each thread then multiplies only its rows'
+// hits, reading the group's values from the compact table in L2.  A miss
+// contributes fmaf(0, v, acc) = acc, so the sums are bit for bit those of
+// the table gather (misses with a non-finite value stay in the list).
 //
 // What bounds it on an H100 SXM (80 GB at 3.35 TB/s, 67 TFLOP/s f32 on
 // CUDA cores), at MS MARCO passage scale (8,841,823 x 768 f32 dense,
@@ -73,8 +73,8 @@ struct Args {
   int b_pad;
   const void* c_dense;    // [N, D] f32/bf16
   int d;
-  const unsigned* words;  // [groups, index_words(vocab)] index words
-  const float* qdt;       // [vocab + 1, b_pad] the densified queries transposed
+  const uint2* words;     // [groups, index_words(vocab)] index words
+  const float* table;     // [groups, vocab + 2, kGroup] compact tables
   const int* c_idx;       // [N, NNZ] i32
   const void* c_val;      // [N, NNZ] f32/bf16
   int nnz;
@@ -127,7 +127,7 @@ __global__ void __launch_bounds__(kThreads, 2) score_kernel(Args a) {
   float* q_tile = c_tile + kDenseChunk * ROWS;               // [kDenseChunk][QB], q_t's order
   int* row_tile = reinterpret_cast<int*>(smem4);             // [NG][kRowTile] hit lists: rows
   float* val_tile = reinterpret_cast<float*>(row_tile + NG * S::kRowTile);   // and values
-  unsigned* s_words = reinterpret_cast<unsigned*>(reinterpret_cast<char*>(smem4) + S::kStage);
+  uint2* s_words = reinterpret_cast<uint2*>(reinterpret_cast<char*>(smem4) + S::kStage);
 
   const int tid = threadIdx.x;
   const int qg = tid % QG, rg = tid / QG;
@@ -144,7 +144,7 @@ __global__ void __launch_bounds__(kThreads, 2) score_kernel(Args a) {
 
   // the block's index groups: q0 / kGroup ... + NG - 1 (the wrapper pads B)
   const int nw = index_words(a.vocab);
-  const unsigned* words = a.words + size_t(q0 / kGroup) * nw;
+  const uint2* words = a.words + size_t(q0 / kGroup) * nw;
   if (a.stage_words) {
     for (int i = tid; i < NG * nw; i += kThreads) s_words[i] = words[i];
     words = s_words;   // made visible by the first chunk's barrier
@@ -230,12 +230,12 @@ __global__ void __launch_bounds__(kThreads, 2) score_kernel(Args a) {
     }
   }
 
-  // this thread's QW queries lie in index group g; their columns of qdt
-  // are contiguous.  The sparse part runs as a pipeline over chunks of
-  // kSparseChunk slots: the next chunk's ids and values are in flight
-  // while this chunk is multiplied.
-  const int g = qg * QW / kGroup;
-  const float* qcols = a.qdt + q0 + qg * QW;
+  // this thread's queries lie in index group g; its table columns start at
+  // col.  The sparse part runs as a pipeline over chunks of kSparseChunk
+  // slots: the next chunk's ids and values are in flight while this chunk
+  // is multiplied.
+  const int g = qg * QW / kGroup, col = qg * QW % kGroup;
+  const float* table = a.table + (size_t(q0 / kGroup + g) * (a.vocab + 2)) * kGroup + col;
   const int* my_rows = row_tile + g * S::kRowTile;
   const float* my_vals = val_tile + g * S::kRowTile;
   int4 pid[S::kSlotLoads];
@@ -275,7 +275,7 @@ __global__ void __launch_bounds__(kThreads, 2) score_kernel(Args a) {
         const float v = hv[h];
 #pragma unroll
         for (int q = 0; q < QW / 4; ++q) {
-          const float4 u = __ldg(reinterpret_cast<const float4*>(qcols + size_t(hit[h]) * a.b_pad + 4 * q));
+          const float4 u = __ldg(reinterpret_cast<const float4*>(table + size_t(hit[h]) * kGroup + 4 * q));
           sparse[r][4 * q] = fmaf(u.x, v, sparse[r][4 * q]);
           sparse[r][4 * q + 1] = fmaf(u.y, v, sparse[r][4 * q + 1]);
           sparse[r][4 * q + 2] = fmaf(u.z, v, sparse[r][4 * q + 2]);
@@ -309,7 +309,7 @@ __global__ void __launch_bounds__(kThreads, 2) score_kernel(Args a) {
 
 template <int QB>
 size_t smem_bytes(const Args& a) {
-  return Shape<QB>::kStage + (a.stage_words ? size_t(Shape<QB>::NG) * index_words(a.vocab) * 4 : 0);
+  return Shape<QB>::kStage + (a.stage_words ? size_t(Shape<QB>::NG) * index_words(a.vocab) * 8 : 0);
 }
 
 template <int QB, typename TD, typename TV>
@@ -328,7 +328,7 @@ template <int QB>
 cudaError_t dispatch(Args a, bool dense_bf16, bool val_bf16, cudaStream_t st) {
   using bf = __nv_bfloat16;
   a.n_qblocks = (a.b + QB - 1) / QB;
-  a.stage_words = size_t(Shape<QB>::NG) * index_words(a.vocab) * 4 <= size_t(kWordsSmemCap);
+  a.stage_words = size_t(Shape<QB>::NG) * index_words(a.vocab) * 8 <= size_t(kWordsSmemCap);
   if (dense_bf16) return val_bf16 ? launch<QB, bf, bf>(a, st) : launch<QB, bf, float>(a, st);
   return val_bf16 ? launch<QB, float, bf>(a, st) : launch<QB, float, float>(a, st);
 }
@@ -340,20 +340,20 @@ extern "C" {
 // Fused dense+sparse scores [B, N]; both parts required.  qb is 16 or 64
 // queries per block; `q_t` [D, b_pad] holds the dense queries transposed,
 // each block's qb columns in the order its threads read them
-// (sparse_dense.py: query_columns); `words` and `qdt` are the
+// (sparse_dense.py: query_columns); `words` and `table` are the
 // query-term index of b_pad / 16 groups of 16 queries
 // (kernels/query_index.py).  Returns a cudaError_t.
-int fused_score_launch(const void* words, const float* qdt, const int* c_idx, const void* c_val,
+int fused_score_launch(const void* words, const float* table, const int* c_idx, const void* c_val,
                        int val_bf16, int nnz, int vocab, const float* q_t, int b_pad, const void* c_dense,
                        int dense_bf16, int d, int b, int n, int qb, float w_dense, float w_sparse,
                        float* out, void* stream) {
-  if (!words || !qdt || !c_idx || !c_val || !q_t || !c_dense || !out || b < 1 || n < 1 ||
+  if (!words || !table || !c_idx || !c_val || !q_t || !c_dense || !out || b < 1 || n < 1 ||
       qb < 1 || b_pad % qb || b_pad < b ||
       d < 0 || nnz < 0 || vocab < 0 || vocab > 0x7ffffffd)
     return int(cudaErrorInvalidValue);
   fscore::Args a{};
   a.q_t = q_t; a.b_pad = b_pad; a.c_dense = c_dense; a.d = d;
-  a.words = static_cast<const unsigned*>(words); a.qdt = qdt;
+  a.words = static_cast<const uint2*>(words); a.table = table;
   a.c_idx = c_idx; a.c_val = c_val; a.nnz = nnz; a.vocab = vocab;
   a.b = b; a.n = n;
   a.w_dense = w_dense; a.w_sparse = w_sparse; a.out = out;

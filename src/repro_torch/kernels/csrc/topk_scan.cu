@@ -30,19 +30,20 @@
 // way), transposed into shared memory, and the next chunk's loads are in
 // flight while the current chunk is multiplied.
 // The sparse part no longer gathers the densified query table from L2
-// for every COO slot (16 floats per slot, 72 GB per batch at B = 16, which
-// held the fused kernel at 2.6x its bytes bound).  The wrapper builds a
-// query-term index of the block's query group (topk_scan.cuh: one presence
-// bit per term id); the block stages its words in shared memory (3.8 KB at
-// V = 30,522; global memory above kWordsSmemCap, through the same code).
-// The COO slots stream through in chunks of kSparseChunk with 16-byte
-// streaming loads, the next chunk's in flight while this one is used; four
-// lanes turn a row's chunk into its hit list (stage_hits) and each thread
-// multiplies only its rows' hits, reading the group's values from the
-// transposed table in L2 (about 1.7% of slots at B = 16 on uniform ids).
-// A miss would add fmaf(0, v, acc) = acc, so the sums are bit for bit the
-// gather's.  The table stays in global memory: in shared memory it would
-// cost the second block an SM at qb = 16.  What bounds the fused kernel now is
+// (16 floats per COO slot, 72 GB per batch at B = 16, which held the fused
+// kernel at 2.6x its bytes bound).  The wrapper builds a query-term index
+// of the block's query group (topk_scan.cuh: presence bits and ranks over
+// the term ids, and a compact table of the present columns); the block
+// stages the index words in shared memory (7.6 KB at V = 30,522; global
+// memory above kWordsSmemCap, through the same code).  The COO slots
+// stream through in chunks of kSparseChunk with 16-byte streaming loads,
+// the next chunk's in flight while this one is used; four lanes turn a
+// row's chunk into its hit list (stage_hits) and each thread multiplies
+// only its rows' hits, reading the group's values from the compact table
+// in L2 (about 1.7% of slots at B = 16 on uniform ids).  A miss would add
+// fmaf(0, v, acc) = acc, so the sums are bit for bit the gather's.  The
+// compact table stays in global memory: in shared memory it would cost
+// the second block an SM at qb = 16.  What bounds the fused kernel now is
 // the dense part's memory pipeline (B1's, 55% of HBM) plus the per-slot
 // staging (PERF.md holds what was measured).  The dense-only instantiation
 // (mips_topk_launch) compiles to the same code as before the index.
@@ -62,8 +63,8 @@ struct ScanArgs {
   const float* q_dense;   // [B, D] f32, or null
   const void* c_dense;    // [N, D] f32/bf16, or null
   int d;
-  const unsigned* words;  // [groups, index_words(vocab)] query-term index words, or null
-  const float* qdt;       // [vocab + 1, b_pad] the densified queries transposed, b_pad = B rounded up to QB
+  const uint2* words;     // [groups, index_words(vocab)] query-term index words, or null
+  const float* table;     // [groups, vocab + 2, QB] compact query tables
   const int* c_idx;       // [N, NNZ] i32, or null
   const void* c_val;      // [N, NNZ] f32/bf16
   int nnz;
@@ -131,9 +132,9 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
   p += align16(QB * 16);
   float* c_tile = reinterpret_cast<float*>(p);               // [kDenseChunk][kRows], swizzled
   float* q_tile = c_tile + kDenseChunk * kRows;              // [kDenseChunk][QB]
-  int* row_tile = reinterpret_cast<int*>(p);                 // [kRows][kSparseChunk + 1] hit term ids
+  int* row_tile = reinterpret_cast<int*>(p);                 // [kRows][kSparseChunk + 1] compact rows
   float* val_tile = reinterpret_cast<float*>(row_tile + kRows * (kSparseChunk + 1));
-  unsigned* s_words = reinterpret_cast<unsigned*>(p + staging_bytes<QB>());
+  uint2* s_words = reinterpret_cast<uint2*>(p + staging_bytes<QB>());
 
   const int tid = threadIdx.x;
   const int qg = tid % QG, rg = tid / QG;
@@ -153,13 +154,12 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
   };
   // the block's query group has one index; its words go to shared memory
   // when they fit (made visible by the first tile's barrier)
-  const unsigned* words = nullptr;
-  const float* qcols = nullptr;   // this thread's 4 queries' columns of qdt
-  const size_t b_pad = size_t((a.b + QB - 1) / QB) * QB;
+  const uint2* words = nullptr;
+  const float* table = nullptr;
   if (SPARSE) {
     const int nw = index_words(a.vocab);
     words = a.words + size_t(blockIdx.y) * nw;
-    qcols = a.qdt + q0 + 4 * qg;
+    table = a.table + size_t(blockIdx.y) * (a.vocab + 2) * QB + 4 * qg;
     if (a.stage_words) {
       for (int i = tid; i < nw; i += kThreads) s_words[i] = words[i];
       words = s_words;
@@ -294,7 +294,7 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
           const int* hit = row_tile + (rg * R + r) * (kSparseChunk + 1);
           const float* hv = val_tile + (rg * R + r) * (kSparseChunk + 1);
           for (int h = 0; h < hit[kSparseChunk]; ++h) {
-            const float4 t = __ldg(reinterpret_cast<const float4*>(qcols + size_t(hit[h]) * b_pad));
+            const float4 t = __ldg(reinterpret_cast<const float4*>(table + size_t(hit[h]) * QB));
             const float v = hv[h];
             sparse[r][0] = fmaf(t.x, v, sparse[r][0]);
             sparse[r][1] = fmaf(t.y, v, sparse[r][1]);
@@ -368,7 +368,7 @@ merge_kernel(const float* part_s, const int* part_i, int m, int k, int buf, floa
 
 template <int QB, bool DENSE, bool SPARSE, typename TD, typename TV>
 cudaError_t launch_scan(ScanArgs a, cudaStream_t stream) {
-  const size_t words_bytes = SPARSE ? size_t(index_words(a.vocab)) * 4 : 0;
+  const size_t words_bytes = SPARSE ? size_t(index_words(a.vocab)) * 8 : 0;
   a.stage_words = SPARSE && words_bytes <= size_t(kWordsSmemCap);
   const size_t smem = scan_smem_bytes<QB>(a.buf, a.stage_words ? align16(words_bytes) : 0);
   auto kernel = scan_kernel<QB, DENSE, SPARSE, TD, TV>;
@@ -400,7 +400,7 @@ cudaError_t run(const ScanArgs& a, int qb, bool dense_bf16, bool val_bf16,
   const bool dense = a.c_dense != nullptr, sparse = a.c_idx != nullptr;
   if (!(dense || sparse) || a.k < 1 || a.k > a.n || a.buf < a.k + kRows || (a.buf & (a.buf - 1)) ||
       a.n_splits < 1 || size_t(a.n_splits) * a.rows_per_split < size_t(a.n) ||
-      a.rows_per_split % kRows || (sparse && (!a.words || !a.qdt || a.vocab < 0 || a.vocab > 0x7ffffffd)) ||
+      a.rows_per_split % kRows || (sparse && (!a.words || !a.table || a.vocab < 0 || a.vocab > 0x7ffffffd)) ||
       (dense && sparse && !a.weighted))
     return cudaErrorInvalidValue;
   cudaError_t err;
@@ -421,21 +421,20 @@ extern "C" {
 
 // The query-term index (topk_scan.cuh: index_kernel) of `groups` groups of
 // `group` queries from the densified table [b, vocab + 1] (f32, or bf16
-// with bf16 = 1): words [groups, index_words(vocab)] and the table
-// transposed, qdt [vocab + 1, groups * group].  Returns a cudaError_t.
+// with bf16 = 1).  Returns a cudaError_t.
 int query_index_launch(const void* qd, int bf16, int b, int vocab, int group, int groups,
-                       void* words, float* qdt, void* stream) {
-  if (!qd || !words || !qdt || b < 1 || vocab < 0 || vocab > 0x7ffffffd || group < 4 || group % 4 ||
+                       void* words, float* table, void* stream) {
+  if (!qd || !words || !table || b < 1 || vocab < 0 || vocab > 0x7ffffffd || group < 1 ||
       groups < (b + group - 1) / group)
     return int(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  unsigned* w = static_cast<unsigned*>(words);
+  uint2* w = static_cast<uint2*>(words);
   if (bf16)
     topk::index_kernel<<<groups, topk::kIndexThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(qd), b, vocab, group, w, qdt);
+        static_cast<const __nv_bfloat16*>(qd), b, vocab, group, w, table);
   else
     topk::index_kernel<<<groups, topk::kIndexThreads, 0, st>>>(
-        static_cast<const float*>(qd), b, vocab, group, w, qdt);
+        static_cast<const float*>(qd), b, vocab, group, w, table);
   return int(cudaGetLastError());
 }
 
@@ -452,17 +451,17 @@ int mips_topk_launch(const float* q, const void* c, int c_bf16, int b, int n, in
 }
 
 // Fused dense+sparse top-k.  A null c_dense (or c_idx) drops that part;
-// weighted = 0 leaves a single part unscaled.  `words` and `qdt` are the
+// weighted = 0 leaves a single part unscaled.  `words` and `table` are the
 // query-term index of ceil(B / qb) groups of qb queries
 // (kernels/query_index.py).  Returns a cudaError_t.
-int fused_topk_launch(const void* words, const float* qdt, const int* c_idx, const void* c_val, int val_bf16,
+int fused_topk_launch(const void* words, const float* table, const int* c_idx, const void* c_val, int val_bf16,
                       int nnz, int vocab, const float* q_dense, const void* c_dense, int dense_bf16,
                       int d, int b, int n, int n_valid, int k, int l2, int weighted, float w_dense,
                       float w_sparse, float* part_s, int* part_i, int n_splits, int rows_per_split,
                       int qb, int buf, float* out_s, int* out_i, void* stream) {
   topk::ScanArgs a{};
   a.q_dense = q_dense; a.c_dense = c_dense; a.d = d;
-  a.words = static_cast<const unsigned*>(words); a.qdt = qdt; a.c_idx = c_idx; a.c_val = c_val; a.nnz = nnz; a.vocab = vocab;
+  a.words = static_cast<const uint2*>(words); a.table = table; a.c_idx = c_idx; a.c_val = c_val; a.nnz = nnz; a.vocab = vocab;
   a.b = b; a.n = n; a.n_valid = n_valid; a.k = k; a.l2 = l2; a.weighted = weighted;
   a.w_dense = w_dense; a.w_sparse = w_sparse;
   a.part_s = part_s; a.part_i = part_i;

@@ -80,47 +80,47 @@ __device__ __forceinline__ void load_slots4(const int* idx, const TV* val, int j
 }
 
 // The query-term index of one group of queries (built by index_kernel
-// below, which kernels/query_index.py launches): one 32-bit word of
-// presence bits per 32 term ids (bit t % 32 of word t / 32 is set when any
-// query of the group holds a nonzero or non-finite value for term t).  A
-// hit reads the group's values from the densified table transposed,
-// qdt [vocab + 1, b_pad]: the queries of one term are contiguous there.
-// An absent term's column is zero for every query of the group, so a
-// kernel may skip it.
-constexpr int kWordsSmemCap = 16384;   // bytes of index words a block stages in shared memory
+// below, which kernels/query_index.py launches): one 8-byte word
+// per 32 term ids, x the presence bits (a term is present when any query of
+// the group holds a nonzero or non-finite value for it), y the compact
+// table row of the word's first present term (1 + the present terms before
+// it).  The compact table [vocab + 2, group] holds the present columns in
+// term order from row 1; row 0 stands for every absent term, whose column
+// is zero for every query of the group.
+constexpr int kWordsSmemCap = 32768;   // bytes of index words a block stages in shared memory
 
-// Ids outside [0, vocab] (negative ones too, as unsigned) read column vocab.
-__device__ __forceinline__ unsigned clamp_id(int id, int vocab) {
-  const unsigned u = static_cast<unsigned>(id);
-  return u > static_cast<unsigned>(vocab) ? static_cast<unsigned>(vocab) : u;
-}
-
-// Whether the group whose index words are `words` (shared or global
-// memory) holds term u.
-__device__ __forceinline__ bool index_hit(const unsigned* words, unsigned u) {
-  return (words[u >> 5] >> (u & 31)) & 1u;
+// Compact-table row of term `id` for one group, 0 when the group does not
+// hold it.  Ids outside [0, vocab] (negative ones too, as unsigned) look up
+// column vocab, as the table's clamp did.  `words` may point to shared or
+// to global memory.
+__device__ __forceinline__ int index_row(const uint2* words, int vocab, int id) {
+  unsigned u = static_cast<unsigned>(id);
+  if (u > static_cast<unsigned>(vocab)) u = static_cast<unsigned>(vocab);
+  const uint2 w = words[u >> 5];
+  const unsigned bit = 1u << (u & 31);
+  return (w.x & bit) ? static_cast<int>(w.y) + __popc(w.x & (bit - 1)) : 0;
 }
 
 // Stage four consecutive slots [c, c + 4) of one tile row, real of them
 // below nnz, as the row's hit lists for NG query groups (group h's index
 // words at words + h * nw, its list at rows / vals + h * list_stride).
 // The slots that need a multiply-add go, in slot order, to rows[0, n)
-// (term ids, clamped) and vals[0, n): the hits, and the misses whose value
-// is not finite (0 * inf and 0 * NaN are NaN; an absent term's column is
-// zero).  A skipped miss adds fmaf(0, v, acc) = acc, so sums over the list
-// equal the sums over every slot bit for bit (an accumulator that starts
-// at +0 never becomes -0).  rows[kSparseChunk] receives n.  The row's four
-// threads are consecutive lanes, lane % 4 giving c / 4; they scan their
-// counts, all groups' packed in one word, together, so every lane of the
-// warp calls this at once.
+// (compact-table rows) and vals[0, n): the hits, and the misses whose
+// value is not finite (0 * inf and 0 * NaN are NaN; row 0 of the compact
+// table is zero).  A skipped miss adds fmaf(0, v, acc) = acc, so sums over
+// the list equal the sums over every slot bit for bit (an accumulator that
+// starts at +0 never becomes -0).  rows[kSparseChunk] receives n.  The
+// row's four threads are consecutive lanes, lane % 4 giving c / 4; they
+// scan their counts, all groups' packed in one word, together, so every
+// lane of the warp calls this at once.
 template <int NG>
-__device__ __forceinline__ void stage_hits(const unsigned* words, int nw, int vocab, const int4& id,
+__device__ __forceinline__ void stage_hits(const uint2* words, int nw, int vocab, const int4& id,
                                            const float4& v, int real, int* rows, float* vals,
                                            int list_stride) {
   static_assert(kSparseChunk == 16 && NG <= 4, "four lanes stage a row's chunk; 8-bit counts");
-  const unsigned us[4] = {clamp_id(id.x, vocab), clamp_id(id.y, vocab), clamp_id(id.z, vocab),
-                          clamp_id(id.w, vocab)};
+  const int ids[4] = {id.x, id.y, id.z, id.w};
   const float vs[4] = {v.x, v.y, v.z, v.w};
+  int row[NG][4];
   unsigned mask[NG];
 #pragma unroll
   for (int h = 0; h < NG; ++h) mask[h] = 0;
@@ -129,7 +129,8 @@ __device__ __forceinline__ void stage_hits(const unsigned* words, int nw, int vo
     const bool poison = !isfinite(vs[k]);
 #pragma unroll
     for (int h = 0; h < NG; ++h) {
-      if (k < real && (poison || index_hit(words + h * nw, us[k]))) mask[h] |= 1u << k;
+      row[h][k] = index_row(words + h * nw, vocab, ids[k]);
+      if (k < real && (row[h][k] != 0 || poison)) mask[h] |= 1u << k;
     }
   }
   unsigned n = 0;
@@ -149,7 +150,7 @@ __device__ __forceinline__ void stage_hits(const unsigned* words, int nw, int vo
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       if (mask[h] >> k & 1) {
-        rows[h * list_stride + pos] = static_cast<int>(us[k]);
+        rows[h * list_stride + pos] = row[h][k];
         vals[h * list_stride + pos] = vs[k];
         ++pos;
       }
@@ -165,32 +166,57 @@ constexpr int kIndexThreads = 1024;
 
 // Build the query-term index of one group of `group` queries per block from
 // the densified table qd [b, vocab + 1] (groups past b are empty): words
-// [groups, index_words(vocab)], and the group's columns of the transposed
-// table qdt [vocab + 1, groups * group] (zero past b); group % 4 == 0.  A
-// term is present when a value is nonzero: NaN and inf compare unequal to
-// zero.
+// [groups, index_words(vocab)] and the compact tables [groups, vocab + 2,
+// group] (rows past the group's present terms are left as they are; no
+// kernel reads them).  A term is present when a value is nonzero: NaN and
+// inf compare unequal to zero.
 template <typename T>
 __global__ void __launch_bounds__(kIndexThreads)
-index_kernel(const T* qd, int b, int vocab, int group, unsigned* words, float* qdt) {
+index_kernel(const T* qd, int b, int vocab, int group, uint2* words, float* table) {
+  __shared__ int run[kIndexThreads];
   const int q0 = blockIdx.x * group, qn = min(group, b - q0);
   const int nw = index_words(vocab), v1 = vocab + 1;
-  const size_t b_pad = size_t(gridDim.x) * group;
-  unsigned* w = words + size_t(blockIdx.x) * nw;
+  uint2* w = words + size_t(blockIdx.x) * nw;
+  float* tab = table + size_t(blockIdx.x) * (vocab + 2) * group;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  auto value = [&](int q, int c) { return q < qn ? to_f32(qd[size_t(q0 + q) * v1 + c]) : 0.f; };
-  // one warp per word of 32 consecutive terms, a lane per term
+  // 1. presence bits, one warp per word of 32 consecutive terms
   for (int i = warp; i < nw; i += kIndexThreads / 32) {
     const int c = i * 32 + lane;
     bool held = false;
     if (c < v1) {
-      for (int q = 0; q < group; q += 4) {
-        const float4 x = make_float4(value(q, c), value(q + 1, c), value(q + 2, c), value(q + 3, c));
-        held |= x.x != 0.f || x.y != 0.f || x.z != 0.f || x.w != 0.f;
-        *reinterpret_cast<float4*>(qdt + size_t(c) * b_pad + q0 + q) = x;
-      }
+      for (int q = 0; q < qn; ++q) held |= to_f32(qd[size_t(q0 + q) * v1 + c]) != 0.f;
     }
     const unsigned bits = __ballot_sync(0xffffffffu, held);
-    if (lane == 0) w[i] = bits;
+    if (lane == 0) w[i].x = bits;
+  }
+  __syncthreads();
+  // 2. ranks: each thread counts a run of words, the block scans the runs
+  const int per = (nw + kIndexThreads - 1) / kIndexThreads;
+  const int w0 = min(nw, int(threadIdx.x) * per), w1 = min(nw, w0 + per);
+  int own = 0;
+  for (int i = w0; i < w1; ++i) own += __popc(w[i].x);
+  run[threadIdx.x] = own;
+  __syncthreads();
+  for (int off = 1; off < kIndexThreads; off <<= 1) {
+    const int x = int(threadIdx.x) >= off ? run[threadIdx.x - off] : 0;
+    __syncthreads();
+    run[threadIdx.x] += x;
+    __syncthreads();
+  }
+  int first = 1 + run[threadIdx.x] - own;
+  for (int i = w0; i < w1; ++i) {
+    w[i].y = static_cast<unsigned>(first);
+    first += __popc(w[i].x);
+  }
+  __syncthreads();
+  // 3. compact table: row 0 zero, each present term's values to its row
+  if (int(threadIdx.x) < group) tab[threadIdx.x] = 0.f;
+  for (int c = threadIdx.x; c < v1; c += kIndexThreads) {
+    const int row = index_row(w, vocab, c);
+    if (row) {
+      for (int q = 0; q < group; ++q)
+        tab[size_t(row) * group + q] = q < qn ? to_f32(qd[size_t(q0 + q) * v1 + c]) : 0.f;
+    }
   }
 }
 

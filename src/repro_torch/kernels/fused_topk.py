@@ -77,7 +77,7 @@ def fused_topk(qdensified, q_dense, c_idx, c_val, c_dense, k: int,
     b = (q_dense if has_dense else qdensified).shape[0]
     qb, buf, n_splits, rows = plan(b, n, k, _sms(dev))
 
-    q = words = qdt = None
+    q = words = table = None
     d = nnz = vocab = 0
     if has_dense:
         q = q_dense.float().contiguous()   # upcast before the first multiply
@@ -101,7 +101,7 @@ def fused_topk(qdensified, q_dense, c_idx, c_val, c_dense, k: int,
                              f"expected {b}")
         # the kernel reads the sparse part through a query-term index per
         # block's group of qb queries, built here on the card
-        words, qdt = build_index(qdensified, qb)
+        words, table = build_index(qdensified, qb)
     part_s = torch.empty((b, n_splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((b, n_splits, k), dtype=torch.int32, device=dev)
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
@@ -109,7 +109,7 @@ def fused_topk(qdensified, q_dense, c_idx, c_val, c_dense, k: int,
     fn = _declare(_build.load("topk_scan"))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ptr(words), ptr(qdt), ptr(c_idx if has_sparse else None),
+        err = fn(ptr(words), ptr(table), ptr(c_idx if has_sparse else None),
                  ptr(c_val if has_sparse else None),
                  _DTYPES[c_val.dtype] if has_sparse else 0, nnz, vocab,
                  ptr(q), ptr(c_dense), _DTYPES[c_dense.dtype] if has_dense else 0,

@@ -18,7 +18,7 @@ import torch
 from repro_torch.core.brute_force import select_topk
 from repro_torch.core.sparse import SparseVectors, accum_f32, densify
 from repro_torch.core.spaces import dense_scores, ieee_f32, weighted_mix
-from repro_torch.kernels.query_index import clamp_ids, index_hits
+from repro_torch.kernels.query_index import index_rows
 
 NEG = float(torch.finfo(torch.float32).min)
 
@@ -67,7 +67,8 @@ def fused_table_scores(qdensified, q_dense, c_idx, c_val, c_dense,
         weights.append(w_dense)
     if c_idx is not None:
         v1 = qdensified.shape[1]
-        ids = c_idx.clamp(-v1, v1 - 1)                         # PyTorch wraps -v1 .. -1
+        lo, hi = (torch.full((1,), x, dtype=torch.long, device=c_idx.device) for x in (-v1, v1 - 1))
+        ids = torch.clamp(c_idx, lo, hi)      # int64 in one pass, as .long(); PyTorch wraps -v1 .. -1
         picked = accum_f32(qdensified)[:, ids]                 # [B, N, NNZ]
         parts.append(torch.einsum("bnk,nk->bn", picked, accum_f32(c_val)))
         weights.append(w_sparse)
@@ -82,18 +83,17 @@ def fused_table_scores(qdensified, q_dense, c_idx, c_val, c_dense,
     return weighted_mix(parts, weights)
 
 
-def index_sparse_scores(words, qdt, c_idx, c_val, vocab: int, b: int) -> torch.Tensor:
+def index_sparse_scores(words, table, c_idx, c_val, vocab: int, b: int) -> torch.Tensor:
     """Plain emulation of the fused kernels' sparse arithmetic through the
-    query-term index (``kernels/query_index.py``): a slot reads its
-    group's values of its term (ids clamped as the kernels clamp them)
-    where the group's bit is set or the value is not finite, else zero,
-    and the slot sum is reduced as ``fused_table_scores`` reduces it.
-    f32 [b, N]."""
-    g = words.shape[0]
-    keep = index_hits(words, vocab, c_idx) | ~torch.isfinite(accum_f32(c_val))   # [G, N, NNZ]
-    keep = keep.repeat_interleave(qdt.shape[1] // g, 0)[:b]
-    picked = torch.where(keep, qdt[clamp_ids(c_idx, vocab)].permute(2, 0, 1)[:b], 0.0)
-    return torch.einsum("bnk,nk->bn", picked, accum_f32(c_val))
+    query-term index (``kernels/query_index.py``): every COO slot's
+    compact row per group (0 on a miss, whose values are zero), the
+    group's values gathered from that row, and the slot sum reduced as
+    ``fused_table_scores`` reduces it.  f32 [b, N]."""
+    g, _, group = table.shape
+    rows = index_rows(words, vocab, c_idx)                             # [G, N, NNZ]
+    picked = torch.gather(table, 1, rows.reshape(g, -1, 1).expand(-1, -1, group))
+    picked = picked.reshape(g, *c_idx.shape, group).permute(0, 3, 1, 2).reshape(g * group, *c_idx.shape)
+    return torch.einsum("bnk,nk->bn", picked[:b], accum_f32(c_val))
 
 
 def fused_score_ref(qdensified, q_dense, c_idx, c_val, c_dense, w_dense: float,

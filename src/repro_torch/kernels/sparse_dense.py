@@ -96,12 +96,12 @@ def fused_score(qdensified, q_dense, c_idx, c_val, c_dense, w_dense: float = 1.0
         raise ValueError(f"qdensified has {qdensified.shape[0]} rows, expected {b}")
     qb = block_queries(b)
     q_t = query_columns(q, qb)
-    words, qdt = build_index(qdensified, INDEX_GROUP, qb)
+    words, table = build_index(qdensified, INDEX_GROUP, qb)
     out = torch.empty((b, n), dtype=torch.float32, device=dev)
     fn = _declare(_build.load("fused_score"))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ptr(words), ptr(qdt), ptr(c_idx), ptr(c_val), _DTYPES[c_val.dtype], nnz,
+        err = fn(ptr(words), ptr(table), ptr(c_idx), ptr(c_val), _DTYPES[c_val.dtype], nnz,
                  vocab, ptr(q_t), q_t.shape[1], ptr(c_dense), _DTYPES[c_dense.dtype], d, b, n, qb,
                  float(w_dense), float(w_sparse), ptr(out), ctypes.c_void_p(stream))
     _build.check(err, "fused_score_launch")

@@ -1,22 +1,21 @@
-"""The query-term index that the fused CUDA kernels test before they
-read the densified query table (``repro_torch/kernels/query_index.py``),
-held on the CPU against the table itself and against repro's
+"""The query-term index that the fused CUDA kernels read in place of the
+densified query table (``repro_torch/kernels/query_index.py``), held on
+the CPU against the table itself and against repro's
 ``fused_score_pallas`` (Pallas interpret mode, as repro's own tests run
 it).
 
 The kernels cannot run here; ``chip_smoke.py`` holds them against their
-plain versions on the card.  Here: (1) the index marks exactly each
-group's present terms and the table read through it (the plain version
-of the kernels' ``index_hit``) is each group's ``[group, V+1]`` table,
-over batch sizes, group widths, vocabularies whose V+1 is not a multiple
-of 32, duplicated query terms, an all-pad query, a nonzero pad column,
-bf16 tables and non-finite entries; (2) the plain emulation of the
-kernels' sparse arithmetic through the index gives
-``ref.fused_table_scores``'s sparse part bit for bit (the same values
-reach the same reduction; a miss reads zeros), and repro's
-``fused_score_pallas`` within ``F32_RTOL`` (2e-6) of the row's largest
-|score| (XLA and PyTorch sum in other orders); (3) the plain version
-indexes out-of-range ids as repro's plain version does.
+plain versions on the card.  Here: (1) the index encodes each group's
+``[group, V+1]`` table exactly (read back column by column through the
+plain version of the kernels' ``index_row``), over batch sizes, group
+widths, vocabularies whose V+1 is not a multiple of 32, duplicated query
+terms, an all-pad query, a nonzero pad column, bf16 tables and non-finite
+entries; (2) the plain emulation of the kernels' sparse arithmetic
+through the index gives ``ref.fused_table_scores``'s sparse part bit for
+bit (the same values reach the same reduction; a miss reads zeros), and
+repro's ``fused_score_pallas`` within ``F32_RTOL`` (2e-6) of the row's
+largest |score| (XLA and PyTorch sum in other orders); (3) the plain
+version indexes out-of-range ids as repro's plain version does.
 """
 
 import jax.numpy as jnp
@@ -29,7 +28,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import sparse_dense as sd
-from repro_torch.kernels.query_index import index_hits, query_index, table_from_index
+from repro_torch.kernels.query_index import index_rows, query_index, table_from_index
 
 from _torch_parity import assert_scores_close
 
@@ -69,20 +68,21 @@ def _equal_with_nan(got, want):
 def test_index_reconstructs_the_table(b, group, v):
     assert (v + 1) % 32
     table = torch.from_numpy(_table_np(b, v, 32, seed=b * 7 + v, nonfinite=b > 4))
-    words, qdt = query_index(table, group)
+    words, compact = query_index(table, group)
     groups = -(-b // group)
-    assert words.shape == (groups, -(-(v + 1) // 32)) and words.dtype == torch.int32
-    assert qdt.shape == (v + 1, groups * group) and qdt.dtype == torch.float32
-    back = table_from_index(words, qdt, v)
+    assert words.shape == (groups, -(-(v + 1) // 32), 2) and words.dtype == torch.int32
+    assert compact.shape == (groups, v + 2, group) and compact.dtype == torch.float32
+    back = table_from_index(words, compact, v)
     _equal_with_nan(back[:b], table)
     assert not bool(back[b:].any())
-    # a group's bit is set exactly where one of its queries holds the term
+    # row 0 is the misses' zero row; each group's present terms fill rows 1..S
+    assert not bool(compact[:, 0].any())
     present = ((table != 0) | ~torch.isfinite(table))
     present = torch.nn.functional.pad(present, (0, 0, 0, groups * group - b))
-    present = present.view(groups, group, v + 1).any(1)
-    assert torch.equal(index_hits(words, v, torch.arange(v + 1)), present)
-    counts = torch.tensor([[bin(int(x) & 0xFFFFFFFF).count("1") for x in row] for row in words])
-    assert torch.equal(counts.sum(1), present.sum(1))
+    counts = present.view(groups, group, v + 1).any(1).sum(1)
+    last = words[:, -1, 1].long() - 1 + torch.tensor(
+        [bin(int(x) & 0xFFFFFFFF).count("1") for x in words[:, -1, 0]])
+    assert torch.equal(last, counts)
 
 
 @pytest.mark.parametrize("block", [16, 64])
@@ -90,10 +90,10 @@ def test_index_pads_to_the_block(block):
     """The score kernel reads ceil(B / block) * block / 16 groups: the
     padded groups are empty (every lookup misses)."""
     table = torch.from_numpy(_table_np(20, 300, 8, seed=3))
-    words, qdt = query_index(table, 16, block)
-    assert words.shape[0] == block // 16 * (-(-20 // block)) and qdt.shape[1] == 16 * words.shape[0]
-    _equal_with_nan(table_from_index(words, qdt, 300)[:20], table)
-    assert not bool(words[-(-20 // 16):].any())   # the groups past B hold no term
+    words, compact = query_index(table, 16, block)
+    assert words.shape[0] == block // 16 * (-(-20 // block))
+    _equal_with_nan(table_from_index(words, compact, 300)[:20], table)
+    assert not bool(words[-(-20 // 16):, :, 0].any())   # the groups past B hold no term
     with pytest.raises(ValueError, match="multiple of the group"):
         query_index(table, 16, 24)
 
@@ -101,8 +101,8 @@ def test_index_pads_to_the_block(block):
 def test_bf16_table_upcasts():
     t32 = torch.from_numpy(_table_np(16, 1000, 32, seed=5))
     t16 = t32.to(torch.bfloat16)
-    words, qdt = query_index(t16, 16)
-    _equal_with_nan(table_from_index(words, qdt, 1000), t16.float())
+    words, compact = query_index(t16, 16)
+    _equal_with_nan(table_from_index(words, compact, 1000), t16.float())
 
 
 def test_lookup_of_out_of_range_ids():
@@ -112,8 +112,8 @@ def test_lookup_of_out_of_range_ids():
     table = torch.from_numpy(_table_np(4, v, 6, seed=11))       # column V nonzero in query 0
     words, _ = query_index(table, 4)
     ids = torch.tensor([v, v + 1, 2 ** 31 - 1, -1, -(2 ** 31)], dtype=torch.int32)
-    hits = index_hits(words, v, ids)
-    assert bool(hits.all())
+    rows = index_rows(words, v, ids)
+    assert bool((rows == rows[:, :1]).all()) and int(rows[0, 0]) > 0
 
 
 def _coo_np(n, v, nnz, seed, *, skew=False, out_of_range=False):
@@ -141,8 +141,8 @@ def test_emulation_matches_the_table_and_repro(case):
     table_np = _table_np(b, v, nnz_q, seed=n + b, pad_column=False)   # repro's densify zeroes V
     ids_np, vals_np = _coo_np(n, v, nnz, seed=n, skew=skew)
     table, ids, vals = (torch.from_numpy(x) for x in (table_np, ids_np, vals_np))
-    words, qdt = query_index(table, group)
-    got = ref.index_sparse_scores(words, qdt, ids, vals, v, b)
+    words, compact = query_index(table, group)
+    got = ref.index_sparse_scores(words, compact, ids, vals, v, b)
     assert got.shape == (b, n) and got.dtype == torch.float32
     want = ref.fused_table_scores(table, None, ids, vals, None)
     assert torch.equal(got, want)
@@ -163,8 +163,8 @@ def test_emulation_with_nonfinite_and_out_of_range():
     ids_np, vals_np = _coo_np(40, v, 9, seed=4, out_of_range=True)
     vals_np[3, 4], vals_np[5, 0] = np.inf, np.nan
     ids, vals = torch.from_numpy(ids_np), torch.from_numpy(vals_np)
-    words, qdt = query_index(table, 4)
-    got = ref.index_sparse_scores(words, qdt, ids, vals, v, 6)
+    words, compact = query_index(table, 4)
+    got = ref.index_sparse_scores(words, compact, ids, vals, v, 6)
     _equal_with_nan(got, ref.fused_table_scores(table, None, ids, vals, None))
 
 
@@ -192,8 +192,9 @@ def test_kernel_sources_use_the_index():
     score = (_build.CSRC / "fused_score.cu").read_text()
     scan = (_build.CSRC / "topk_scan.cu").read_text()
     header = (_build.CSRC / "topk_scan.cuh").read_text()
-    assert "index_hit(" in header and "index_kernel" in header and "kWordsSmemCap" in header
+    assert "stage_hits" in header and "index_kernel" in header and "kWordsSmemCap" in header
     assert "stage_hits<" in score and "stage_hits<" in scan and "query_index_launch" in scan
+    assert "qdt" not in score and "qdt" not in scan
     assert f"constexpr int kGroup = {sd.INDEX_GROUP};" in score
     # the dense-only scan's code depends on the argument struct's layout
     assert "static_assert(sizeof(ScanArgs) == 128" in scan
