@@ -1064,7 +1064,7 @@ def main() -> int:
                 f"{spills} bytes of spill stores")
 
     check = Checker(torch)
-    if on_card:   # build_index launches index_kernel: no plain fallback
+    if on_card:   # build_index launches the index kernels: no plain fallback
         log(f"phase index: {index_phase(torch, dev)} query-term indexes built on the card equal "
             f"their plain version")
     small_phase(torch, dev, check)

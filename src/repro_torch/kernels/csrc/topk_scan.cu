@@ -415,27 +415,33 @@ cudaError_t run(const ScanArgs& a, int qb, bool dense_bf16, bool val_bf16,
   return cudaGetLastError();
 }
 
+// The query-term index (topk_scan.cuh: index_kernel_bits, index_kernel_rows)
+// of `groups` groups of `group` queries.
+template <typename T>
+cudaError_t query_index(const T* qd, int b, int vocab, int group, int groups, uint2* words,
+                        float* table, cudaStream_t st) {
+  const dim3 grid((index_words(vocab) + kIndexWords - 1) / kIndexWords, groups);
+  index_kernel_bits<<<grid, kIndexThreads, 0, st>>>(qd, b, vocab, group, words);
+  index_kernel_rows<<<grid, kIndexThreads, 0, st>>>(qd, b, vocab, group, words, table);
+  return cudaGetLastError();
+}
+
 }  // namespace topk
 
 extern "C" {
 
-// The query-term index (topk_scan.cuh: index_kernel) of `groups` groups of
-// `group` queries from the densified table [b, vocab + 1] (f32, or bf16
-// with bf16 = 1).  Returns a cudaError_t.
+// The query-term index (topk_scan.cuh: index_kernel_bits, index_kernel_rows)
+// of `groups` groups of `group` queries from the densified table
+// [b, vocab + 1] (f32, or bf16 with bf16 = 1).  Returns a cudaError_t.
 int query_index_launch(const void* qd, int bf16, int b, int vocab, int group, int groups,
                        void* words, float* table, void* stream) {
   if (!qd || !words || !table || b < 1 || vocab < 0 || vocab > 0x7ffffffd || group < 1 ||
-      groups < (b + group - 1) / group)
+      groups < (b + group - 1) / group || groups > 65535)
     return int(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   uint2* w = static_cast<uint2*>(words);
-  if (bf16)
-    topk::index_kernel<<<groups, topk::kIndexThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(qd), b, vocab, group, w, table);
-  else
-    topk::index_kernel<<<groups, topk::kIndexThreads, 0, st>>>(
-        static_cast<const float*>(qd), b, vocab, group, w, table);
-  return int(cudaGetLastError());
+  if (bf16) return int(topk::query_index(static_cast<const __nv_bfloat16*>(qd), b, vocab, group, groups, w, table, st));
+  return int(topk::query_index(static_cast<const float*>(qd), b, vocab, group, groups, w, table, st));
 }
 
 // Dense ip (l2 = 0) or negated l2 (l2 = 1) top-k.  Returns a cudaError_t.

@@ -79,8 +79,8 @@ __device__ __forceinline__ void load_slots4(const int* idx, const TV* val, int j
   if (j + 3 < nnz) { id.w = idx[j + 3]; v.w = to_f32(val[j + 3]); }
 }
 
-// The query-term index of one group of queries (built by index_kernel
-// below, which kernels/query_index.py launches): one 8-byte word
+// The query-term index of one group of queries (built by index_kernel_bits
+// and index_kernel_rows below, which kernels/query_index.py launches): one 8-byte word
 // per 32 term ids, x the presence bits (a term is present when any query of
 // the group holds a nonzero or non-finite value for it), y the compact
 // table row of the word's first present term (1 + the present terms before
@@ -162,61 +162,69 @@ __device__ __forceinline__ void stage_hits(const uint2* words, int nw, int vocab
 // Index words per group: ceil((vocab + 1) / 32).
 __host__ __device__ inline int index_words(int vocab) { return vocab / 32 + 1; }
 
-constexpr int kIndexThreads = 1024;
+constexpr int kIndexThreads = 512;
+constexpr int kIndexWords = kIndexThreads / 32;   // index words per block, one warp each
 
-// Build the query-term index of one group of `group` queries per block from
+// The query-term index of one group of `group` queries per grid row y from
 // the densified table qd [b, vocab + 1] (groups past b are empty): words
 // [groups, index_words(vocab)] and the compact tables [groups, vocab + 2,
 // group] (rows past the group's present terms are left as they are; no
-// kernel reads them).  A term is present when a value is nonzero: NaN and
+// kernel reads them).  Two launches over the same grid, block x handling
+// words [x * kIndexWords, +kIndexWords) of group y, so that every SM reads
+// the table (one block per group was bound by one SM's loads).
+//
+// 1. presence bits.  A term is present when a value is nonzero: NaN and
 // inf compare unequal to zero.
 template <typename T>
 __global__ void __launch_bounds__(kIndexThreads)
-index_kernel(const T* qd, int b, int vocab, int group, uint2* words, float* table) {
-  __shared__ int run[kIndexThreads];
-  const int q0 = blockIdx.x * group, qn = min(group, b - q0);
+index_kernel_bits(const T* qd, int b, int vocab, int group, uint2* words) {
+  const int q0 = blockIdx.y * group, qn = min(group, b - q0);
   const int nw = index_words(vocab), v1 = vocab + 1;
-  uint2* w = words + size_t(blockIdx.x) * nw;
-  float* tab = table + size_t(blockIdx.x) * (vocab + 2) * group;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  // 1. presence bits, one warp per word of 32 consecutive terms
-  for (int i = warp; i < nw; i += kIndexThreads / 32) {
+  const int i = blockIdx.x * kIndexWords + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (i >= nw) return;   // whole warps
+  const int c = i * 32 + lane;
+  bool held = false;
+  if (c < v1) {
+    for (int q = 0; q < qn; ++q) held |= to_f32(qd[size_t(q0 + q) * v1 + c]) != 0.f;
+  }
+  const unsigned bits = __ballot_sync(0xffffffffu, held);
+  if (lane == 0) words[size_t(blockIdx.y) * nw + i].x = bits;
+}
+
+// 2. ranks and the compact table: the block counts the present terms of
+// the words before its own, then each present term's values go to its row.
+template <typename T>
+__global__ void __launch_bounds__(kIndexThreads)
+index_kernel_rows(const T* qd, int b, int vocab, int group, uint2* words, float* table) {
+  __shared__ int before[kIndexWords], own[kIndexWords];
+  const int q0 = blockIdx.y * group, qn = min(group, b - q0);
+  const int nw = index_words(vocab), v1 = vocab + 1;
+  uint2* w = words + size_t(blockIdx.y) * nw;
+  float* tab = table + size_t(blockIdx.y) * (vocab + 2) * group;
+  const int w0 = blockIdx.x * kIndexWords, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int n = 0;
+  for (int j = threadIdx.x; j < w0; j += kIndexThreads) n += __popc(w[j].x);
+  for (int off = 16; off > 0; off >>= 1) n += __shfl_down_sync(0xffffffffu, n, off);
+  const int i = w0 + warp;
+  const unsigned bits = i < nw ? w[i].x : 0u;
+  if (lane == 0) {
+    before[warp] = n;
+    own[warp] = __popc(bits);
+  }
+  __syncthreads();
+  if (i >= nw) return;   // whole warps
+  int first = 1;
+  for (int j = 0; j < kIndexWords; ++j) first += before[j] + (j < warp ? own[j] : 0);
+  if (lane == 0) w[i].y = static_cast<unsigned>(first);
+  if (i == 0) {
+    for (int q = lane; q < group; q += 32) tab[q] = 0.f;   // row 0, the misses'
+  }
+  const unsigned bit = 1u << lane;
+  if (bits & bit) {
+    const int row = first + __popc(bits & (bit - 1));
     const int c = i * 32 + lane;
-    bool held = false;
-    if (c < v1) {
-      for (int q = 0; q < qn; ++q) held |= to_f32(qd[size_t(q0 + q) * v1 + c]) != 0.f;
-    }
-    const unsigned bits = __ballot_sync(0xffffffffu, held);
-    if (lane == 0) w[i].x = bits;
-  }
-  __syncthreads();
-  // 2. ranks: each thread counts a run of words, the block scans the runs
-  const int per = (nw + kIndexThreads - 1) / kIndexThreads;
-  const int w0 = min(nw, int(threadIdx.x) * per), w1 = min(nw, w0 + per);
-  int own = 0;
-  for (int i = w0; i < w1; ++i) own += __popc(w[i].x);
-  run[threadIdx.x] = own;
-  __syncthreads();
-  for (int off = 1; off < kIndexThreads; off <<= 1) {
-    const int x = int(threadIdx.x) >= off ? run[threadIdx.x - off] : 0;
-    __syncthreads();
-    run[threadIdx.x] += x;
-    __syncthreads();
-  }
-  int first = 1 + run[threadIdx.x] - own;
-  for (int i = w0; i < w1; ++i) {
-    w[i].y = static_cast<unsigned>(first);
-    first += __popc(w[i].x);
-  }
-  __syncthreads();
-  // 3. compact table: row 0 zero, each present term's values to its row
-  if (int(threadIdx.x) < group) tab[threadIdx.x] = 0.f;
-  for (int c = threadIdx.x; c < v1; c += kIndexThreads) {
-    const int row = index_row(w, vocab, c);
-    if (row) {
-      for (int q = 0; q < group; ++q)
-        tab[size_t(row) * group + q] = q < qn ? to_f32(qd[size_t(q0 + q) * v1 + c]) : 0.f;
-    }
+    for (int q = 0; q < group; ++q)
+      tab[size_t(row) * group + q] = q < qn ? to_f32(qd[size_t(q0 + q) * v1 + c]) : 0.f;
   }
 }
 

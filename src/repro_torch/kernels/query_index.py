@@ -19,8 +19,9 @@ A term's row is ``words[t // 32, 1] + popcount(bits below t % 32)`` when
 its bit is set, else 0.  The kernels clamp ids outside ``[0, V]`` to
 ``V``.
 
-``build_index`` builds it on the card in one launch of ``index_kernel``
-(``csrc/topk_scan.cuh``), where a dozen PyTorch calls would cost the host
+``build_index`` builds it on the card in two kernel launches from one
+call (``index_kernel_bits`` and ``index_kernel_rows`` in
+``csrc/topk_scan.cuh``), where a dozen PyTorch calls would cost the host
 more than the entry-set scan of a graph batch; ``query_index`` is its
 plain version, which the tests and ``chip_smoke.py`` hold it against.
 Neither synchronises with the host.
