@@ -10,7 +10,8 @@ against its plain version ("index"); the exact-scan kernels against their
 plain versions at small shapes, with the index's risky cases (Zipf-skewed
 and out-of-range ids, repeated query terms, an all-pad query, both
 launch plans, V = 250,000) ("small"), the beam-hop kernel against
-its plain version hop for hop ("beam small") and the fused score kernel
+its plain version hop for hop, and one traversal launch against the
+hop-by-hop launches bit for bit ("beam small"), and the fused score kernel
 against its plain version ("score small"); then the main path at MS
 MARCO passage v1 scale (8,841,823 passages, 768-d dense, 30,522-term
 sparse with 128 nnz per passage and 32 per query, batches of 16): fused
@@ -19,9 +20,9 @@ backend and dense ip through ``mips_topk``; the scan kernels timed, the
 sparse part alone, and uniform against Zipf-skewed term ids over
 1,048,576 rows ("skew", not gated); then graph ANN over the same
 resident corpus ("graph full": ``GraphANNBackend(kernel=True)``, degree
-16, ef 64, 31 hops, on a random graph); NAPP over it ("napp full":
-``NappBackend``, 128 pivots, index 8, search 8, the index built through
-the fused score kernel); the fused score kernel timed at B = 16 and at
+16, ef 64, 31 hops in one launch per batch, on a random graph); NAPP
+over it ("napp full": ``NappBackend``, 128 pivots, index 8, search 8,
+the index built through the fused score kernel); the fused score kernel timed at B = 16 and at
 B = 128 ("score full"); and over a planted-cluster corpus of 1,048,576
 rows at full widths, graph ANN ("graph recall": an NN-descent index) and
 NAPP ("napp recall"), recall@10 against the exact answer.  Each served
@@ -60,9 +61,10 @@ TOL_REL = 1e-5
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOPS = 67e12                # H100 SXM data sheet, f32 on CUDA cores
 BATCHES = 8                      # served batches on the main path
+DEEP_K = 4096                    # the main path's one deep dense request: k above the scan kernels' 2048
 MSMARCO = dict(n=8_841_823, d=768, v=30_522, nnz=128, nnz_q=32, b=16)
 SOURCES = ("src/repro_torch/kernels/csrc/topk_scan.cu", "src/repro_torch/kernels/csrc/beam_hop.cu",
-           "src/repro_torch/kernels/csrc/fused_score.cu")
+           "src/repro_torch/kernels/csrc/fused_score.cu", "src/repro_torch/kernels/csrc/topk_large.cu")
 GRAPH = dict(degree=16, ef=64)   # configs/paper_retrieval.py ann_degree / ann_ef
 NAPP = dict(num_pivots=128, num_index=8, num_search=8, min_times=2, rerank_qty=256)  # paper_retrieval.py:36-38
 NAPP_DRAWS = 32                  # pivot draws whose recall "napp recall" prints beside the gated one
@@ -70,11 +72,59 @@ RECALL_N = 1_048_576             # rows of the planted-cluster recall corpus
 SKEW_N = 1_048_576               # rows of the uniform / Zipf term-id timing
 CLUSTERS = 8
 NEG = -3.4028234663852886e38     # f32 min, the mask of invalid candidates
-SLEEP_CYCLES = 2_000_000         # ~1 ms at an H100 SXM's 1.98 GHz boost clock: outlasts the host's enqueue of a hop
+SLEEP_CYCLES = 2_000_000         # ~1 ms at an H100 SXM's 1.98 GHz boost clock: outlasts the host's enqueue of a traversal
 
 
 def log(*parts):
     print(*parts, flush=True)
+
+
+def large_phase(torch, dev, check):
+    """The large-k kernels (k above the scan kernels' 2048) against their
+    plain version: dense ip/l2, fused and sparse, f32 and bf16, k from
+    2049 to n_valid; a sparse corpus of small integers (exact scores, so
+    ties everywhere and the lower id must win) with rows scoring NaN
+    (+inf at a term no query weighs) and COO ids out of range; and k past
+    n_valid through the backend, which adds the reference's tail."""
+    from repro_torch.core.backends import CudaBackend, ReferenceBackend
+    from repro_torch.core.spaces import DenseSpace
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import topk_large as lk
+
+    n, d, v, nnz, n_valid = 5003, 64, 1000, 16, 4900
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        dense, idx, val, _ = make_corpus(torch, n, d, v, nnz, 2048, 51, dev, dtype)
+        for b in (5, 16):
+            qd, qi, qv = make_queries(torch, b, d, v, 8, 52 + b, dev)
+            table = torch.zeros(b, v + 1, device=dev).scatter_add_(1, qi.long(), qv)
+            table[:, v] = 0.0
+            for k in (2049, n_valid):
+                for label, args in (
+                        ("dense ip", (None, qd, None, None, dense, k, None, None, "ip")),
+                        ("dense l2", (None, qd, None, None, dense, k, None, None, "l2")),
+                        ("fused", (table, qd, idx, val, dense, k, 0.6, 0.4, "ip"))):
+                    kw = dict(w_dense=args[6], w_sparse=args[7], dense_kind=args[8], n_valid=n_valid)
+                    want = ref.fused_topk_table_ref(*args[:5], k, **kw)
+                    check("topk_large", f"large {label} {tag} b{b} k{k}", lk.topk_large(*args[:6], **kw),
+                          want, exact_ids=False)
+        got = CudaBackend().topk(DenseSpace("ip"), qd, dense, 5000, n_valid=n_valid)
+        want = ReferenceBackend().topk(DenseSpace("ip"), qd, dense, 5000, n_valid=n_valid)
+        check("topk_large", f"large backend tail {tag}", got, want, exact_ids=False)
+    # exact scores: ties everywhere, NaN rows, out-of-range ids
+    g = torch.Generator(device=dev).manual_seed(53)
+    idx = torch.randint(1, 64, (n, nnz), generator=g, device=dev, dtype=torch.int32)
+    val = torch.randint(1, 4, (n, nnz), generator=g, device=dev).float()
+    bad = torch.tensor([v + 1, 2 ** 31 - 1, -1, -7, -(v + 1)], dtype=torch.int32, device=dev)
+    idx[1::9, 1] = bad.repeat(n // 45 + 1)[:len(range(1, n, 9))]
+    idx[4::97, 2], val[4::97, 2] = v - 2, math.inf
+    table = torch.randint(0, 3, (16, v + 1), generator=g, device=dev).float()
+    table[:, v - 2] = 0.0
+    for k in (2049, 4000, n_valid):
+        want = ref.fused_topk_table_ref(table, None, idx, val, None, k, n_valid=n_valid)
+        assert bool(want[0].isnan().any()) and bool((want[0][:, 1:] == want[0][:, :-1]).any())
+        check("topk_large", f"large sparse exact ties NaN k{k}",
+              lk.topk_large(table, None, idx, val, None, k, n_valid=n_valid), want)
 
 
 def make_corpus(torch, n, d, v, nnz, n_plant, seed, device, dtype):
@@ -122,14 +172,15 @@ def zipf_ids(torch, shape, v, g, device):
 
 
 def index_stress(torch, idx, qi, qv, v, g, skew):
-    """In place: the corpus ids Zipf-skewed (``skew``), three ids out of
-    range (past v, -1, 2**31 - 1) in odd rows (never planted); every
-    query repeats its terms 1-3 in slots 5-7 and the last query is all pad
-    (ids v, values 0).  Returns the query table [B, V+1]."""
+    """In place: the corpus ids Zipf-skewed (``skew``), five ids out of
+    range (past v, -1, 2**31 - 1, -7, -(v+1)) in odd rows (never planted);
+    every query repeats its terms 1-3 in slots 5-7 and the last query is
+    all pad (ids v, values 0).  Returns the query table [B, V+1]."""
     if skew:
         keep = (idx == 0) | (idx == v)    # the planted entries and pad slots
         idx.copy_(torch.where(keep, idx, zipf_ids(torch, idx.shape, v, g, idx.device)))
     idx[3, 2], idx[11, 1], idx[17, idx.shape[1] - 1] = v + 7, -1, 2 ** 31 - 1
+    idx[23, 3], idx[29, 0] = -7, -(v + 1)    # count from the end: columns v - 6 and 0
     if qi.shape[1] >= 8:
         qi[:, 5:8] = qi[:, 1:4]
     qi[-1], qv[-1] = v, 0.0
@@ -147,7 +198,7 @@ def sparse_fmas(torch, table, idx, rows=1 << 20):
     freq = torch.zeros(v + 1, dtype=torch.int64, device=idx.device)
     for r0 in range(0, idx.shape[0], rows):
         ids = idx[r0:r0 + rows].flatten().long()
-        ids = torch.where((ids < 0) | (ids > v), v, ids)   # as the kernels read them
+        ids = torch.where(ids < 0, ids + v + 1, ids).clamp(0, v)   # as the kernels read them
         freq += torch.bincount(ids, minlength=v + 1)
     return int((freq * held).sum())
 
@@ -180,6 +231,7 @@ class Checker:
         assert torch.equal(ga, wa), f"{name}: addends differ at {int((ga != wa).sum())} places"
         real = ws > NEG
         assert torch.equal(real, gs > NEG), f"{name}: invalid beam slots differ"
+        assert torch.equal(ws.isnan(), gs.isnan()), f"{name}: NaN beam slots differ"
         self._compare("beam_hop", name, gs, gi, ws, wi, real, exact_ids)
         return int((ga != 0).sum())
 
@@ -392,10 +444,15 @@ def index_phase(torch, dev):
 
 def beam_small_phase(torch, dev, check):
     """The hop kernel against its plain version, hop for hop from the
-    kernel's own state (teacher-forced), over dense ip/l2, sparse and
-    fused spaces, f32 and bf16, graphs with repeated ids, sentinel-padded
-    rows and a starved beam, init beams with sentinel slots, a width that
-    is not a multiple of 4, and ef*R at the budget cap."""
+    kernel's own state (teacher-forced), and one traversal launch over the
+    same hops against the hop-by-hop launches with their deltas committed
+    (beam and final mask equal bit for bit): dense ip/l2, sparse and fused
+    spaces, f32 and bf16, graphs with repeated ids, sentinel-padded rows
+    and a starved beam, init beams with sentinel slots, COO ids out of
+    range (V+1, 2**31-1, -1, -7, -(V+1)), valid candidates scoring f32-min
+    and -inf and NaN from unsorted beams, a width that is not a multiple of 4,
+    clusters of 8, 3 and 1 blocks, and ef*R at the budget cap (the state
+    in global scratch)."""
     from repro_torch.core.sparse import SparseVectors
     from repro_torch.kernels import beam_topk as bk
     from repro_torch.kernels import ref
@@ -410,12 +467,13 @@ def beam_small_phase(torch, dev, check):
         s[:, real:] = NEG
         return s, ids
 
-    def run(name, args, kw, nbr, n, ef, b, hops, real, exact_ids, seed):
-        g = torch.Generator(device=dev).manual_seed(seed)
-        beam_s, beam_i = init_beam(g, n, ef, b, real)
+    def run(name, args, kw, nbr, n, beam, hops, exact_ids):
+        beam_s, beam_i = beam
+        b = beam_s.shape[0]
         vis = bk.mark_visited(torch.zeros((b, bk.visited_words(n)), dtype=torch.int32, device=dev),
                               beam_i, n)
         qd, q_dense, c_idx, c_val, c_dense = args
+        start = (beam_s, beam_i, vis.clone())
         valid = 0
         for h in range(hops):
             hop_args = (qd, q_dense, beam_s, beam_i, vis, nbr, c_idx, c_val, c_dense)
@@ -424,6 +482,11 @@ def beam_small_phase(torch, dev, check):
             valid += check.hop(f"{name} hop {h}", got, want, exact_ids)
             beam_s, beam_i = got[0], got[1]
             vis.scatter_add_(1, got[2].long(), got[3])
+        one = bk.beam_search(qd, q_dense, start[0], start[1], start[2], nbr, c_idx, c_val, c_dense,
+                             n_valid=n, hops=hops, **kw)
+        for what, x, y in (("scores", one[0], beam_s), ("ids", one[1], beam_i), ("mask", one[2], vis)):
+            x, y = (t.view(torch.int32) for t in (x, y))   # bit patterns: NaN equals NaN
+            assert torch.equal(x, y), f"{name}: one launch and {hops} hop launches differ in {what}"
         return valid
 
     n, d, v, nnz, b = 4096, 64, 1000, 16, 16
@@ -437,6 +500,8 @@ def beam_small_phase(torch, dev, check):
     hubs = torch.arange(0, n, 7, device=dev)
     starved[hubs, 0] = ((hubs + 1) % n).int()
     graphs = (("repeats", rnd, 64, 60), ("padded", short, 32, 29), ("starved", starved, 16, 2))
+    # COO ids out of range in odd rows, read from columns V, V, V, V - 6, 0
+    bad = torch.tensor([v + 1, 2 ** 31 - 1, -1, -7, -(v + 1)], dtype=torch.int32, device=dev)
     valid = seed = 0
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
@@ -450,21 +515,97 @@ def beam_small_phase(torch, dev, check):
         for sname, args, kw in spaces:
             for gname, nbr, ef, real in graphs:
                 seed += 1
-                valid += run(f"beam {sname} {tag} {gname}", args, kw, nbr, n, ef, b, 4, real,
-                             sname != "dense-l2", seed)
+                beam = init_beam(torch.Generator(device=dev).manual_seed(seed), n, ef, b, real)
+                valid += run(f"beam {sname} {tag} {gname}", args, kw, nbr, n, beam, 4,
+                             sname != "dense-l2")
+        # out-of-range COO ids, and a table whose columns V - 6 and 0 weigh
+        # in, so that a wrong column shows in the scores
+        ci_bad = ci.clone()
+        ci_bad[1::2, 1] = bad.repeat(n // 10 + 1)[:n // 2]
+        table_bad = table.clone()
+        table_bad[:, v - 6] = 0.5
+        for sname, args, kw in (("sparse", (table_bad, None, ci_bad, cv, None), {}),
+                                ("fused", (table_bad, qd, ci_bad, cv, cd), dict(w_dense=0.5, w_sparse=1.5))):
+            seed += 1
+            beam = init_beam(torch.Generator(device=dev).manual_seed(seed), n, 64, b, 60)
+            valid += run(f"beam {sname} {tag} ids out of range", args, kw, rnd, n, beam, 4, False)
         # random (unplanted) data at a width that is not a multiple of 4
         gr = torch.Generator(device=dev).manual_seed(9)
         dense61 = torch.randn(n, 61, generator=gr, device=dev).to(dtype)
         q61 = torch.randn(b, 61, generator=gr, device=dev)
         valid += run(f"beam fused d=61 random {tag}", (table, q61, ci, cv, dense61),
-                     dict(w_dense=0.7, w_sparse=0.3), rnd, n, 64, b, 3, 60, False, 11)
-    # ef*R at the cap: the merge sorts 34,816 entries in global scratch
-    (cd, _, _), (qd, _, _) = planted_cluster(torch, n, d, v, nnz, 16, 1, 4, dev)
+                     dict(w_dense=0.7, w_sparse=0.3), rnd, n,
+                     init_beam(torch.Generator(device=dev).manual_seed(11), n, 64, b, 60), 3, False)
+    valid += extremes(torch, dev, run, n, v, nnz, b)
+    # clusters of 3 (B = 40) and of 1 block (B = 200) a query
+    for bq in (40, 200):
+        (cd, _, _), (qd, _, _) = planted_cluster(torch, n, d, v, nnz, 16, bq, 6, dev)
+        beam = init_beam(torch.Generator(device=dev).manual_seed(bq), n, 64, bq, 60)
+        valid += run(f"beam dense-ip f32 b={bq}", (None, qd, None, None, cd), {}, rnd, n, beam, 3, True)
+    # ef*R at the cap: each query's state in global scratch
+    (cd, _, _), (qd, _, _) = planted_cluster(torch, n, d, v, nnz, 16, 3, 4, dev)
     cap = torch.randint(0, n, (n, 16), generator=g, device=dev, dtype=torch.int32)
     ef = bk.MAX_BEAM_CANDIDATES // 16
-    assert bk.sort_size(ef, ef * 16) > bk.MERGE_SMEM_ENTRIES
-    valid += run("beam dense-ip f32 ef*R=32768", (None, qd, None, None, cd), {}, cap, n, ef, 1, 2,
-                 ef - 8, True, 13)
+    assert dev.type != "cuda" or bk.scratch_bytes(ef, 16) > 0
+    beam = init_beam(torch.Generator(device=dev).manual_seed(13), n, ef, 3, ef - 8)
+    valid += run("beam dense-ip f32 ef*R=32768", (None, qd, None, None, cd), {}, cap, n, beam, 2, True)
+    return valid
+
+
+def extremes(torch, dev, run, n, v, nnz, b):
+    """Sparse f32 hops where valid candidates score exactly f32-min (rows
+    i % 4 == 1: one slot of value f32-min at a term every query weighs
+    1.0, the rest pad) and -inf (rows i % 4 == 3), from unsorted beams:
+    (a) a starved beam of 2 real slots among sentinel slots (ids n and
+    -1) scoring -inf, degree 4 with a sentinel neighbour, so that the
+    f32-min candidates interleave with the invalid ones by slot; (b) 8
+    real slots, 3 at -inf and 1 at f32-min, degree 2, every candidate
+    distinct, so that -inf candidates reach the beam; (c) valid candidates
+    scoring NaN (rows i % 4 == 2 also hold +inf at a term no query weighs:
+    0 * inf), which rank above +inf, from a starved beam and from a beam
+    holding a NaN."""
+    from repro_torch.core.sparse import SparseVectors
+    from repro_torch.kernels import ref
+
+    (_, ci, cv), (_, qi, qv) = planted_cluster(torch, n, 64, v, nnz, 16, b, 8, dev)
+    table = ref.query_table(SparseVectors(qi, qv), v)
+    table[:, v - 1] = 1.0
+    rows = torch.arange(n, device=dev)
+    for r0, val in ((1, NEG), (3, -math.inf)):
+        x = rows[r0::4]
+        ci[x], cv[x] = v, 0.0
+        ci[x, 0], cv[x, 0] = v - 1, val
+    g = torch.Generator(device=dev).manual_seed(17)
+    even = lambda shape: 2 * torch.randint(0, n // 2, shape, generator=g, device=dev, dtype=torch.int32)
+    i = rows.int()
+    deg4 = torch.stack([(4 * i + 1) % n, torch.full_like(i, n), (4 * i + 3) % n, even((n,))], 1)
+    deg2 = torch.stack([(4 * i + 1) % n, (4 * i + 3) % n], 1)
+    valid = 0
+    # (a)
+    ids = torch.full((b, 16), n, dtype=torch.int32, device=dev)
+    ids[:, 1::7] = -1
+    s = torch.full((b, 16), -math.inf, device=dev)
+    real = torch.stack([torch.randperm(16, generator=g, device=dev)[:2] for _ in range(b)])
+    ids.scatter_(1, real, even((b, 2)))
+    s.scatter_(1, real, torch.randn(b, 2, generator=g, device=dev))
+    s16, ids16 = s.clone(), ids.clone()
+    valid += run("beam sparse f32 f32-min/-inf starved", (table, None, ci, cv, None), {}, deg4, n,
+                 (s, ids), 3, True)
+    # (b)
+    s = torch.randn(b, 8, generator=g, device=dev)
+    s[:, 2], s[:, 5], s[:, 7], s[:, 4] = -math.inf, -math.inf, -math.inf, NEG
+    valid += run("beam sparse f32 f32-min/-inf full", (table, None, ci, cv, None), {}, deg2, n,
+                 (s, even((b, 8))), 3, True)
+    # (c)
+    ci_nan, cv_nan, table_nan = ci.clone(), cv.clone(), table.clone()
+    ci_nan[rows[2::4], 1], cv_nan[rows[2::4], 1] = v - 2, math.inf
+    table_nan[:, v - 2] = 0.0
+    nan_args = (table_nan, None, ci_nan, cv_nan, None)
+    valid += run("beam sparse f32 NaN starved", nan_args, {}, deg4, n, (s16, ids16), 3, True)
+    s = torch.randn(b, 8, generator=g, device=dev)
+    s[:, 1], s[:, 6] = math.nan, -math.inf
+    deg2n = torch.stack([(4 * i + 2) % n, (4 * i + 3) % n], 1)
+    valid += run("beam sparse f32 NaN full", nan_args, {}, deg2n, n, (s, even((b, 8))), 3, True)
     return valid
 
 
@@ -527,8 +668,10 @@ def score_small_phase(torch, dev, check):
 def graph_full_phase(torch, dev, check, corpus, batches, space, on_card):
     """Graph ANN over the resident MS MARCO-scale corpus: a random
     degree-16 graph (rounds=0), served through the pipeline with the
-    beam-hop kernel for the fused and the dense ip space; then a timed
-    pass (CUDA events around each hop) and, on batch 0, every hop held
+    beam-hop kernel for the fused and the dense ip space, one traversal
+    launch per batch; then a timed pass (CUDA events around each
+    traversal) whose traversals are replayed hop by hop, one launch a hop,
+    and must equal it bit for bit; on batch 0 every replayed hop is held
     against the plain hop from the same input state."""
     from repro_torch.core import graph_ann
     from repro_torch.core.backends import GraphANNBackend, resolve_backend
@@ -569,8 +712,8 @@ def graph_full_phase(torch, dev, check, corpus, batches, space, on_card):
             sync(torch, on_card)
             host[name].append(time.perf_counter() - t0)
     launches = {"beam_hop": bk.launches, "fused_topk": fk.launches, "mips_topk": mk.launches}
-    if on_card:
-        want = {"beam_hop": len(paths) * hops * len(batches), "fused_topk": len(batches),
+    if on_card:   # one traversal launch per batch and space
+        want = {"beam_hop": len(paths) * len(batches), "fused_topk": len(batches),
                 "mips_topk": len(batches)}
         assert launches == want, f"graph launches {launches}, expected {want}"
 
@@ -586,83 +729,89 @@ def graph_full_phase(torch, dev, check, corpus, batches, space, on_card):
             scale = rescored.abs().amax(1, keepdim=True).clamp_min(1e-30)
             assert bool(((r.scores - rescored).abs() <= TOL_REL * scale).all()), f"{name} rescoring"
 
-    # timed pass: CUDA events around every hop, valid candidates counted
-    orig = bk.beam_hop
-    per_hop = {name: [] for name in paths}
-    kernel_ms = {name: [] for name in paths}
-    bound_ms = {name: [] for name in paths}
-    bound_by = {}
+    # timed pass: CUDA events around each traversal (its mask copy and its
+    # one launch); its arguments and result are kept for the replay
+    orig = bk.beam_search
     rec = []
 
     def timed(*a, **k):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if on_card else None
         if on_card:
-            # keep the device busy while the host enqueues the hop, so that
-            # the events bracket the two kernels and not the host's launch
+            # keep the device busy while the host enqueues the traversal,
+            # so that the events bracket the device's work, not the launch
             torch.cuda._sleep(SLEEP_CYCLES)
             ev[0].record()
         out = orig(*a, **k)
         if on_card:
             ev[1].record()
-        rec.append((ev, (out[3] != 0).sum()))
+        rec.append((ev, a, k, out))
         return out
 
-    bk.beam_hop = timed
+    traversals = {name: [] for name in paths}
+    bk.beam_search = timed
     try:
-        for name, (_, _, pick, (row_bytes, row_fmas)) in paths.items():
+        for name, (_, _, pick, _) in paths.items():
             for q in batches:
                 rec.clear()
                 pipes[name].run(pick(q))
-                sync(torch, on_card)
-                assert len(rec) == hops, f"timed pass saw {len(rec)} hops of {hops}"
-                times = [e[0].elapsed_time(e[1]) for e, _ in rec] if on_card else [float("nan")]
-                valid = int(sum(int(v) for _, v in rec))
-                per_hop[name] += times
-                kernel_ms[name].append(sum(times))
-                # each valid row read once, plus a neighbour id and a mask
-                # word per candidate slot; the FMAs of the valid rows
-                t_bytes = (valid * row_bytes + len(rec) * b * c * 8) / HBM_BYTES_PER_S * 1e3
-                t_ops = valid * 2 * row_fmas / F32_FLOPS * 1e3
-                bound_ms[name].append(max(t_bytes, t_ops))
-                bound_by[name] = "bytes" if t_bytes >= t_ops else "operations"
+                assert len(rec) == 1, f"timed pass saw {len(rec)} traversals in a batch"
+                traversals[name].append(rec[0])
+        sync(torch, on_card)
     finally:
-        bk.beam_hop = orig
+        bk.beam_search = orig
+    copy_ms = cuda_ms(torch, lambda: rec[0][1][4].clone(), 5) if on_card else float("nan")
 
-    # batch 0, teacher-forced: each hop against the plain hop on its inputs
-    plain_ms = []
-    forced_hops = []
-
-    def forced(*a, **k):
-        out = orig(*a, **k)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if on_card else None
-        if on_card:
-            ev[0].record()
-        want = ref.beam_hop_plain(*a, **k)
-        if on_card:
-            ev[1].record()
-            ev[1].synchronize()
-            plain_ms.append(ev[0].elapsed_time(ev[1]))
-        forced_hops.append(check.hop(f"graph full hop {len(forced_hops)}", out, want,
-                                     exact_ids=False))
-        return out
-
-    bk.beam_hop = forced
-    try:
-        for name, (_, _, pick, _) in paths.items():
-            pipes[name].run(pick(batches[0]))
-    finally:
-        bk.beam_hop = orig
-    assert len(forced_hops) == len(paths) * hops, f"{len(forced_hops)} hops held of {len(paths) * hops}"
-    if on_card:
-        assert len(plain_ms) == len(forced_hops), (len(plain_ms), len(forced_hops))
+    # replay every traversal hop by hop through beam_hop: the one launch
+    # must equal it bit for bit; the valid candidates per hop give the
+    # bound; batch 0's hops are held against the plain hop on the same
+    # inputs (teacher-forced)
+    kernel_ms = {name: [] for name in paths}
+    bound_ms = {name: [] for name in paths}
+    plain_ms = {name: 0.0 for name in paths}
+    bound_by = {}
+    forced_hops = 0
+    for name, (_, _, _, (row_bytes, row_fmas)) in paths.items():
+        for i, (ev, a, k, out) in enumerate(traversals[name]):
+            kw = {key: val for key, val in k.items() if key != "hops"}
+            assert k["hops"] == hops, (k["hops"], hops)
+            beam_s, beam_i, vis = a[2], a[3], a[4].clone()
+            valid = 0
+            for h in range(hops):
+                hop_args = (a[0], a[1], beam_s, beam_i, vis, *a[5:])
+                got = bk.beam_hop(*hop_args, **kw)
+                if i == 0:
+                    pe = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if on_card else None
+                    if on_card:
+                        pe[0].record()
+                    want = ref.beam_hop_plain(*hop_args, **kw)
+                    if on_card:
+                        pe[1].record()
+                        pe[1].synchronize()
+                        plain_ms[name] += pe[0].elapsed_time(pe[1])
+                    check.hop(f"graph full {name} hop {h}", got, want, exact_ids=False)
+                    forced_hops += 1
+                valid += int((got[3] != 0).sum())
+                beam_s, beam_i = got[0], got[1]
+                vis.scatter_add_(1, got[2].long(), got[3])
+            for what, x, y in (("scores", out[0], beam_s), ("ids", out[1], beam_i), ("mask", out[2], vis)):
+                assert torch.equal(x, y), f"graph full {name} batch {i}: one launch and the replay differ in {what}"
+            kernel_ms[name].append(ev[0].elapsed_time(ev[1]) if on_card else float("nan"))
+            # each valid row read once, plus a neighbour id and a mask word
+            # per candidate slot, summed over the hops; the valid rows' FMAs
+            t_bytes = (valid * row_bytes + hops * b * c * 8) / HBM_BYTES_PER_S * 1e3
+            t_ops = valid * 2 * row_fmas / F32_FLOPS * 1e3
+            bound_ms[name].append(max(t_bytes, t_ops))
+            bound_by[name] = "bytes" if t_bytes >= t_ops else "operations"
+    assert forced_hops == len(paths) * hops, f"{forced_hops} hops held of {len(paths) * hops}"
 
     med = statistics.median
     for name, (_, _, pick, _) in paths.items():
         hms, kms = 1e3 * med(host[name]), med(kernel_ms[name])
         log(f"  graph {name}: {1e3 * min(host[name]):.3f}-{1e3 * max(host[name]):.3f} ms/batch, "
-            f"median {hms:.3f} ms/batch (host clock, synchronised); hop kernels {kms:.3f} ms/batch "
-            f"(CUDA events, device time, summed over {hops} hops; median hop {med(per_hop[name]):.4f} "
-            f"ms); bound {med(bound_ms[name]):.4f} ms/batch ({bound_by[name]})")
+            f"median {hms:.3f} ms/batch (host clock, synchronised); traversal kernel {kms:.4f} ms/batch "
+            f"(CUDA events around the one launch and the mask copy, {copy_ms:.4f} ms alone; per hop "
+            f"{kms / hops:.5f} ms over {hops} hops); bound {med(bound_ms[name]):.4f} ms/batch summed over "
+            f"the hops ({bound_by[name]}); plain hops of batch 0 {plain_ms[name]:.3f} ms")
         if on_card:
             busy, span_ms, kspan_ms = device_profile(torch, lambda: pipes[name].run(pick(batches[1])))
             if busy:
@@ -675,10 +824,11 @@ def graph_full_phase(torch, dev, check, corpus, batches, space, on_card):
             else:
                 log("    profiler: no device time recorded; idle share not measured")
     log(f"phase graph full: {len(batches)} batches of {b} per space, degree {GRAPH['degree']}, "
-        f"ef {GRAPH['ef']}, {hops} hops; launches {launches}; batch 0 hop for hop against the plain "
-        f"hop: {len(forced_hops)} hops agree")
-    return {"ms": med(per_hop["fused"]), "plain_ms": med(plain_ms) if plain_ms else float("nan"),
-            "bound_ms": statistics.mean(bound_ms["fused"]) / hops, "bound_by": bound_by["fused"],
+        f"ef {GRAPH['ef']}, {hops} hops in one launch; launches {launches}; every traversal equals its "
+        f"{hops} hops replayed one launch each, bit for bit; batch 0's {forced_hops} hops agree with the "
+        f"plain hop")
+    return {"ms": med(kernel_ms["fused"]), "plain_ms": plain_ms["fused"] if on_card else float("nan"),
+            "bound_ms": statistics.mean(bound_ms["fused"]), "bound_by": bound_by["fused"],
             "launches": launches["beam_hop"]}
 
 
@@ -868,7 +1018,7 @@ def skew_phase(torch, dev, corpus, q, space, timer):
 
 def device_profile(torch, fn, by_kernel=False):
     """One call of ``fn`` under torch.profiler.  Returns the device
-    milliseconds by kernel group (the hop's two kernels, the exact-scan
+    milliseconds by kernel group (the traversal kernel, the exact-scan
     kernels, the fused score kernel, the query-index build, and PyTorch's
     own; {} if the
     profiler saw no device time), or by kernel name with ``by_kernel``,
@@ -894,8 +1044,7 @@ def device_profile(torch, fn, by_kernel=False):
         if not us or "CUDA" not in str(getattr(e, "device_type", "")):
             continue
         key = (e.key[:60] if by_kernel else
-               "beam score" if "beam::score_kernel" in e.key else
-               "beam merge" if "beam::merge_kernel" in e.key else
+               "beam traversal" if "beam::hop_kernel" in e.key else
                "fused_score" if "fscore::" in e.key else
                "query index" if "topk::index_kernel" in e.key else
                "topk scan+merge" if "topk::scan_kernel" in e.key or "topk::merge_kernel" in e.key
@@ -963,8 +1112,8 @@ def graph_recall_phase(torch, dev, n, seed, on_card):
         f"served batch {1e3 * served:.3f} ms, beam_hop launches {launches}; recall@10 kernel "
         f"{recall:.4f}, plain traversal {recall_plain:.4f} (target {ANN_RECALL_TARGET})")
     assert recall >= ANN_RECALL_TARGET and recall_plain >= ANN_RECALL_TARGET, (recall, recall_plain)
-    if on_card:
-        assert launches == graph_ann.default_hops(n), launches
+    if on_card:   # one traversal launch for the batch
+        assert launches == 1, launches
     return space, corpus, q, exact
 
 
@@ -1039,6 +1188,7 @@ def main() -> int:
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import fused_topk as fk
     from repro_torch.kernels import mips_topk as mk
+    from repro_torch.kernels import topk_large as lk
     from repro_torch.kernels.ops import fused_topk as ops_fused
     from repro_torch.kernels.query_index import build_index
     from repro_torch.device import resolve_device
@@ -1069,6 +1219,10 @@ def main() -> int:
             f"their plain version")
     small_phase(torch, dev, check)
     log(f"phase small: {check.cases} cases agree (tolerance {TOL_REL} of row scale)")
+    cases = check.cases
+    large_phase(torch, dev, check)
+    log(f"phase large small: {check.cases - cases} cases of k > 2048 agree (tolerance {TOL_REL} of row scale; "
+        f"sparse with exact scores: ids equal, ties and NaN included)")
     cases = check.cases
     t0 = time.perf_counter()
     valid = beam_small_phase(torch, dev, check)
@@ -1105,6 +1259,7 @@ def main() -> int:
 
     mk.launches = 0
     fk.launches = 0
+    lk.launches = 0
     fused_s, dense_s, results, dense_results = [], [], [], []
     for q in batches:
         t0 = time.perf_counter()
@@ -1117,8 +1272,10 @@ def main() -> int:
         if on_card:
             torch.cuda.synchronize()
         dense_s.append(time.perf_counter() - t0)
-    launches = {"mips_topk": mk.launches, "fused_topk": fk.launches}
-    log(f"phase main path: {BATCHES} batches of {b}; launches {launches}; "
+    # one deep request: k above the scan kernels' 2048 (a reranking pool)
+    deep = dense_gen.generate(batches[0].dense, DEEP_K)
+    launches = {"mips_topk": mk.launches, "fused_topk": fk.launches, "topk_large": lk.launches}
+    log(f"phase main path: {BATCHES} batches of {b} and one dense request of k = {DEEP_K}; launches {launches}; "
         f"fused pipeline median {1e3 * statistics.median(fused_s):.3f} ms/batch, "
         f"dense median {1e3 * statistics.median(dense_s):.3f} ms/batch (host clock, synchronised)")
     if on_card:
@@ -1140,10 +1297,12 @@ def main() -> int:
     check("fused_topk", "full fused k=2000", fk.fused_topk(*fused_args, 2000, **fused_kw), want2000)
     want_dense = ref.mips_topk_ref(q.dense, dense, 100, tile_n=1 << 18)
     check("mips_topk", "full dense k=100 (generator)", tuple(dense_results[0]), want_dense)
+    want_deep = ref.mips_topk_ref(q.dense, dense, DEEP_K, tile_n=1 << 18)
+    check("topk_large", f"full dense k={DEEP_K} (generator)", tuple(deep), want_deep, exact_ids=False)
     rq, _, _ = make_queries(torch, b, d, v, 8, args.seed + 7, dev, planted=False)
     check("mips_topk", "full dense k=100 random queries", mk.mips_topk(rq, dense, 100),
           ref.mips_topk_ref(rq, dense, 100, tile_n=1 << 18), exact_ids=False)
-    log(f"phase full check: fused k=100 and k=2000, dense k=100 (planted and random) agree")
+    log(f"phase full check: fused k=100 and k=2000, dense k=100 (planted and random) and k={DEEP_K} agree")
 
     # ---- timings ------------------------------------------------------
     reps = 5 if on_card else 1
@@ -1151,16 +1310,16 @@ def main() -> int:
     mips_ms = timer(lambda: mk.mips_topk(q.dense, dense, 100), reps)
     mips_plain = timer(lambda: ref.mips_topk_ref(q.dense, dense, 100, tile_n=1 << 18), 1)
 
-    def library_topk():
+    def library_topk(k):
         parts_s, parts_i = [], []
         for r0 in range(0, n, 1 << 20):
-            s, i = torch.topk(q.dense @ dense[r0:r0 + (1 << 20)].T, 100)
+            s, i = torch.topk(q.dense @ dense[r0:r0 + (1 << 20)].T, k)
             parts_s.append(s)
             parts_i.append(i + r0)
-        s, p = torch.topk(torch.cat(parts_s, 1), 100)
+        s, p = torch.topk(torch.cat(parts_s, 1), k)
         return s, torch.gather(torch.cat(parts_i, 1), 1, p)
 
-    mips_lib = timer(library_topk, reps)
+    mips_lib = timer(lambda: library_topk(100), reps)
     fused_ms = timer(lambda: fk.fused_topk(*fused_args, 100, **fused_kw), reps)
     fused_plain = timer(lambda: ref.fused_topk_table_ref(*fused_args, 100, tile_n=1 << 16, **fused_kw), 1)
 
@@ -1173,17 +1332,24 @@ def main() -> int:
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
+    large_ms = timer(lambda: lk.topk_large(None, q.dense, None, None, dense, DEEP_K), reps)
+    large_plain = timer(lambda: ref.mips_topk_ref(q.dense, dense, DEEP_K, tile_n=1 << 18), 1)
+    large_lib = timer(lambda: library_topk(DEEP_K), reps)
+    large_bytes = n * d * 4 + b * d * 4 + b * DEEP_K * 8
+
     kernels = []
-    for name, replaces, ms, plain, lib, (bms, by) in (
-            ("mips_topk", "src/repro/kernels/mips_topk.py:92", mips_ms, mips_plain, mips_lib,
+    for name, source, replaces, ms, plain, lib, (bms, by) in (
+            ("mips_topk", SOURCES[0], "src/repro/kernels/mips_topk.py:92", mips_ms, mips_plain, mips_lib,
              bound(dense_bytes, dense_ops)),
-            ("fused_topk", "src/repro/kernels/fused_topk.py:146", fused_ms, fused_plain, None,
-             bound(fused_bytes, fused_ops))):
-        kernels.append({"name": name, "route": "cuda", "source": SOURCES[0], "replaces": replaces,
+            ("fused_topk", SOURCES[0], "src/repro/kernels/fused_topk.py:146", fused_ms, fused_plain, None,
+             bound(fused_bytes, fused_ops)),
+            ("topk_large", SOURCES[3], "src/repro/kernels/mips_topk.py:92", large_ms, large_plain, large_lib,
+             bound(large_bytes, dense_ops))):
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": check.max_err[name],
                         "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
                         "library_ms": lib})
-    log(f"phase timings (B={b}, k=100, f32, CUDA events, median of {reps}): "
+    log(f"phase timings (B={b}, k=100 (topk_large: k={DEEP_K}), f32, CUDA events, median of {reps}): "
         + "; ".join(f"{k['name']} {k['ms']:.3f} ms vs bound {k['bound_ms']:.3f} ms ({k['bound_by']}), "
                     f"plain {k['plain_ms']:.3f} ms, library {k['library_ms']}" for k in kernels))
     # where the fused time goes: the sparse part alone (the index lookups

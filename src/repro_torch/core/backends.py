@@ -207,7 +207,9 @@ _DTYPES = (torch.float32, torch.bfloat16)
 class CudaBackend:
     """The hand-written score+top-k kernels: ``kernels.mips_topk`` for
     dense spaces, ``kernels.fused_topk`` for fused/sparse spaces, with the
-    space's learned ``w_dense``/``w_sparse`` passed to the launch."""
+    space's learned ``w_dense``/``w_sparse`` passed to the launch.  A k
+    beyond their ``MAX_K`` goes to ``kernels.topk_large``, whose kernels
+    serve any k."""
 
     name = "cuda"
 
@@ -257,6 +259,7 @@ class CudaBackend:
     def topk(self, space, query_repr, corpus, k: int,
              n_valid: Optional[int] = None) -> TopK:
         from repro_torch.kernels import ops   # kernels import core
+        from repro_torch.kernels.mips_topk import MAX_K
 
         n = _rows(corpus)
         n_valid = n if n_valid is None else min(n_valid, n)
@@ -264,6 +267,21 @@ class CudaBackend:
         b = _batch_rows(query_repr)   # keep its output to valid rows
         if not k_eff:
             head = _empty_topk(b, _device(query_repr))
+        elif k_eff > MAX_K:
+            # beyond the scan kernels' candidate lists: the large-k kernels,
+            # so that any k is served, as repro's kernel backend serves it
+            if isinstance(space, DenseSpace):
+                head = ops.topk_large(None, query_repr, None, corpus, 0, k_eff,
+                                      dense_kind=space.kind, n_valid=n_valid)
+            elif isinstance(space, SparseSpace):
+                head = ops.topk_large(query_repr, None, corpus, None, space.vocab_size,
+                                      k_eff, n_valid=n_valid)
+            else:
+                head = ops.topk_large(
+                    query_repr.sparse, query_repr.dense, corpus.sparse, corpus.dense,
+                    space.vocab_size, k_eff, w_dense=space.w_dense,
+                    w_sparse=space.w_sparse, dense_kind=space.dense_kind,
+                    n_valid=n_valid)
         elif isinstance(space, DenseSpace):
             head = ops.mips_topk(query_repr, corpus, k_eff, space=space.kind,
                                  n_valid=n_valid)
@@ -372,7 +390,8 @@ class GraphANNBackend:
     ``resolve_backend`` falls back to reference.  ``ef * degree`` is
     capped by the kernel's candidate budget
     (``beam_topk.MAX_BEAM_CANDIDATES``); an oversized budget raises when
-    the search starts.  On CUDA tensors every hop launches the kernel."""
+    the search starts.  On CUDA tensors each search's traversal is one
+    kernel launch."""
 
     degree: int = 16
     rounds: int = 6

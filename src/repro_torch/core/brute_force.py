@@ -32,8 +32,11 @@ class TopK(NamedTuple):
 
 def select_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(values, positions) of the ``k`` largest entries of each row, score
-    descending, ties toward the lower position."""
-    vals, pos = torch.sort(scores, dim=-1, descending=True, stable=True)
+    descending, ties toward the lower position, NaN above +inf (NaNs by
+    position, as ``lax.top_k``), -0 equal to +0.  Every NaN becomes one
+    NaN first: PyTorch's stable sort on CUDA orders NaNs by their bits."""
+    x = torch.where(torch.isnan(scores), float("nan"), scores)
+    vals, pos = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], pos[..., :k]
 
 

@@ -109,7 +109,7 @@ def score_many(space, queries, items) -> torch.Tensor:
 
         qd = query_table(queries, space.vocab_size)            # [B, V+1]
         b = qd.shape[0]
-        idx = items.indices.long().clamp(0, space.vocab_size)
+        idx = _clip(items.indices, space.vocab_size + 1)       # as repro's qrow[it_idx]
         picked = torch.gather(qd, 1, idx.reshape(b, -1)).reshape(idx.shape)
         return torch.sum(picked * accum_f32(items.values), dim=-1)
     if isinstance(space, spaces_lib.FusedSpace):

@@ -1,23 +1,26 @@
-"""One graph-ANN hop through the CUDA kernel in ``csrc/beam_hop.cu``
-(``beam_hop_launch``), the counterpart of
-``repro/kernels/beam_topk.py: beam_hop_pallas``, plus the hop loop and
-the packed visited-mask helpers.
+"""Graph-ANN hops through the CUDA kernel in ``csrc/beam_hop.cu``
+(``beam_hop_launch``): :func:`beam_hop`, one hop, the counterpart of
+``repro/kernels/beam_topk.py: beam_hop_pallas``, and :func:`beam_search`,
+a whole traversal in one launch, the counterpart of ``beam_search_pallas``;
+plus the packed visited-mask helpers.
 
 A hop gathers the ``ef * R`` neighbours of the beam, tests them against
 the packed visited mask, drops in-hop duplicates (first occurrence by
 position wins, valid or not), scores the survivors with the fused
 kernel's arithmetic, merges them into the top-``ef`` beam and emits
-``(word, addend)`` mark-deltas; the loop commits the deltas.
+``(word, addend)`` mark-deltas; a traversal commits each hop's deltas
+before the next.
 
 The visited mask is ``int32[B, ceil(N/32)]`` holding the bit patterns of
 the reference's ``uint32`` words (``torch.uint32`` has only partial
 operator support): bit 31 is ``INT32_MIN``, and adding disjoint bits
-equals or-ing them, so the commit is one ``scatter_add_``.  At the numpy
+equals or-ing them, so a commit is one ``scatter_add_``.  At the numpy
 boundary ``.view(np.uint32)`` turns one into the other.
 
-For tensors on the CPU the wrapper runs the plain version
-(``ref.beam_hop_plain``); for CUDA tensors it launches the kernel or
-raises.  ``launches`` counts kernel launches, nowhere else.
+For tensors on the CPU the wrappers run the plain version
+(``ref.beam_hop_plain``, hop by hop); for CUDA tensors they launch the
+kernel or raise.  ``launches`` counts kernel launches, nowhere else: one
+per :func:`beam_hop` call and one per :func:`beam_search` call.
 """
 
 from __future__ import annotations
@@ -30,18 +33,12 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels.fused_topk import _weights
 from repro_torch.kernels.mips_topk import _DTYPES, ptr, require_cuda
 
-# Cap on the hop's candidate block C = ef * R.  The score kernel stages
-# the hop's raw candidate ids, 4*C bytes, in shared memory for the
-# first-occurrence test, beside under 1 KB of per-block state, and a
-# block of an H100 may use 232,448 bytes: C <= 57,856.  The cap is the
-# largest power of two below that, 32768 (128 KB), which is also
-# repro's VMEM-derived cap, so the port accepts and refuses exactly the
-# budgets the reference does.
+# Cap on the hop's candidate block C = ef * R: repro's VMEM-derived cap,
+# so the port accepts and refuses exactly the budgets the reference does.
+# A query's state (about 50 bytes per candidate) stays in the leader
+# block's shared memory up to about C = 4096 and moves to a global
+# scratch buffer beyond.
 MAX_BEAM_CANDIDATES = 32768
-# The merge sorts ef + C entries (8 bytes each, padded to a power of
-# two) in shared memory up to this many, 128 KB; larger sorts run in a
-# global scratch buffer the wrapper allocates.
-MERGE_SMEM_ENTRIES = 16384
 
 launches = 0
 
@@ -52,13 +49,12 @@ def visited_words(n: int) -> int:
 
 
 def check_beam_budget(ef: int, r: int):
-    """Refuse candidate blocks beyond the kernel's shared-memory budget."""
+    """Refuse candidate blocks beyond the kernel's budget."""
     if ef * r > MAX_BEAM_CANDIDATES:
         raise ValueError(
             f"beam candidate block ef*R = {ef}*{r} = {ef * r} exceeds the "
-            f"kernel budget {MAX_BEAM_CANDIDATES} (the hop's candidate ids "
-            "must fit the score kernel's shared memory); lower ef or the "
-            "graph degree")
+            f"kernel budget {MAX_BEAM_CANDIDATES} (the reference's cap on a "
+            "hop's candidate block); lower ef or the graph degree")
 
 
 def bit_i32(bits: torch.Tensor) -> torch.Tensor:
@@ -98,36 +94,25 @@ def _declare(lib):
     if fn.argtypes is None:
         v, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [v, i, v, i, v, v, i, i, v, i, v, i, v, v, i, i, v, i, i,
-                       i, i, f, f, v, v, v, v, i, v, v, v, v, v]
+                       i, i, f, f, i, i, v, v, v, v, v, v]
         fn.restype = ctypes.c_int
+        lib.beam_hop_scratch_bytes.argtypes = [i, i]
+        lib.beam_hop_scratch_bytes.restype = ctypes.c_longlong
     return fn
 
 
-def sort_size(ef: int, c: int) -> int:
-    """Entries the merge sorts: ef + C rounded up to a power of two."""
-    return 1 << (ef + c - 1).bit_length()
+def scratch_bytes(ef: int, r: int) -> int:
+    """Bytes of global scratch per query that a launch with beam ``ef``
+    and degree ``r`` takes: 0 while a query's state fits the leader
+    block's shared memory.  Loads the CUDA library."""
+    lib = _build.load("beam_hop")
+    _declare(lib)
+    return int(lib.beam_hop_scratch_bytes(ef, r))
 
 
-def beam_hop(qdensified, q_dense, beam_s, beam_i, visited, neighbors,
-             c_idx, c_val, c_dense, *, n_valid: int, w_dense=None,
-             w_sparse=None, dense_kind: str = "ip"):
-    """One hop: ``(beam_s f32[B, ef], beam_i i32[B, ef], words i32[B, C],
-    addend i32[B, C])``, C = ef * R.
-
-    ``beam_s``/``beam_i`` are the running beam, score descending, with
-    sentinel slots (id outside [0, n_valid)) scoring f32-min.
-    ``visited`` int32[B, ceil(n_valid/32)] is read only: commit the
-    deltas with ``visited.scatter_add_(1, words.long(), addend)``.
-    ``neighbors`` i32[N, R].  Components follow ``fused_topk``:
-    ``qdensified`` [B, V+1] (zero trash column) with ``c_idx``/``c_val``
-    [N, NNZ], ``q_dense`` [B, Dd] with ``c_dense`` [N, Dd]; ``None``
-    drops a part; sparse and fused spaces take ``dense_kind='ip'`` only.
-    A candidate is valid iff its beam slot and its own id lie in
-    [0, n_valid), its bit is clear and no earlier position of the hop's
-    raw candidate list holds the same id; invalid ones score f32-min with
-    id ``n_valid`` and get a zero addend.  The merge keeps the top ef of
-    ``[beam, candidates]`` by (score descending, slot ascending)."""
-    global launches
+def _check(c_idx, c_dense, beam_s, neighbors, w_dense, w_sparse, dense_kind):
+    """The refusals both wrappers share; returns (weighted, w_dense,
+    w_sparse) as the launch takes them."""
     has_dense, has_sparse = c_dense is not None, c_idx is not None
     if not (has_dense or has_sparse):
         raise ValueError("beam_hop: no components to score")
@@ -136,18 +121,25 @@ def beam_hop(qdensified, q_dense, beam_s, beam_i, visited, neighbors,
                          "dense_kind='ip' only (like fused_topk)")
     if dense_kind not in ("ip", "l2"):
         raise ValueError(f"beam_hop serves dense ip/l2, not {dense_kind!r}")
-    weighted, wd, ws = _weights(w_dense, w_sparse, has_dense, has_sparse)
+    weights = _weights(w_dense, w_sparse, has_dense, has_sparse)
+    check_beam_budget(beam_s.shape[1], neighbors.shape[1])
+    if neighbors.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"beam_hop runs on cpu or cuda, not {neighbors.device}")
+    return weights
+
+
+def _launch(qdensified, q_dense, beam_s, beam_i, visited, neighbors, c_idx,
+            c_val, c_dense, n_valid: int, weights, dense_kind: str, hops: int,
+            commit: bool):
+    """One launch of ``hops`` hops for CUDA tensors: ``(beam_s, beam_i,
+    words, addend)``; with ``commit`` the hops update ``visited`` in
+    place and words/addend are None."""
+    global launches
+    has_dense, has_sparse = c_dense is not None, c_idx is not None
+    weighted, wd, ws = weights
+    dev = neighbors.device
     b, ef = beam_s.shape
     r = neighbors.shape[1]
-    check_beam_budget(ef, r)
-    if neighbors.device.type == "cpu":
-        return ref.beam_hop_plain(
-            qdensified, q_dense, beam_s, beam_i, visited, neighbors, c_idx,
-            c_val, c_dense, n_valid=n_valid, w_dense=w_dense,
-            w_sparse=w_sparse, dense_kind=dense_kind)
-    if neighbors.device.type != "cuda":
-        raise ValueError(f"beam_hop runs on cpu or cuda, not {neighbors.device}")
-    dev = neighbors.device
     n = int(n_valid)
     c = ef * r
     w = visited_words(n)
@@ -182,18 +174,16 @@ def beam_hop(qdensified, q_dense, beam_s, beam_i, visited, neighbors,
             raise ValueError("sparse shapes disagree: qdensified "
                              f"{tuple(qd.shape)}, c_idx {tuple(c_idx.shape)}, "
                              f"c_val {tuple(c_val.shape)}")
-    m = sort_size(ef, c)
-    sort_s = sort_i = None
-    if m > MERGE_SMEM_ENTRIES:
-        sort_s = torch.empty((b, m), dtype=torch.float32, device=dev)
-        sort_i = torch.empty((b, m), dtype=torch.int32, device=dev)
-    cand_s = torch.empty((b, c), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((b, c), dtype=torch.int32, device=dev)
+    fn = _declare(_build.load("beam_hop"))
+    per_query = scratch_bytes(ef, r)
+    scratch = (torch.empty((b, per_query), dtype=torch.uint8, device=dev)
+               if per_query else None)
     out_s = torch.empty((b, ef), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, ef), dtype=torch.int32, device=dev)
-    words = torch.empty((b, c), dtype=torch.int32, device=dev)
-    addend = torch.empty((b, c), dtype=torch.int32, device=dev)
-    fn = _declare(_build.load("beam_hop"))
+    words = addend = None
+    if not commit:
+        words = torch.empty((b, c), dtype=torch.int32, device=dev)
+        addend = torch.empty((b, c), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(ptr(qd), vp1, ptr(qdt), d, ptr(beam_s), ptr(beam_i), b, ef,
@@ -202,8 +192,8 @@ def beam_hop(qdensified, q_dense, beam_s, beam_i, visited, neighbors,
                  ptr(c_val if has_sparse else None),
                  int(has_sparse and c_val.dtype == torch.bfloat16), nnz,
                  ptr(c_dense), int(has_dense and c_dense.dtype == torch.bfloat16),
-                 n, int(dense_kind == "l2"), int(weighted), wd, ws,
-                 ptr(cand_s), ptr(cand_i), ptr(sort_s), ptr(sort_i), m,
+                 n, int(dense_kind == "l2"), int(weighted), wd, ws, int(hops),
+                 int(commit), ptr(scratch),
                  ptr(out_s), ptr(out_i), ptr(words), ptr(addend),
                  ctypes.c_void_p(stream))
     _build.check(err, "beam_hop_launch")
@@ -211,18 +201,57 @@ def beam_hop(qdensified, q_dense, beam_s, beam_i, visited, neighbors,
     return out_s, out_i, words, addend
 
 
-def beam_search(qdensified, q_dense, beam_s, beam_i, visited, neighbors,
-                c_idx, c_val, c_dense, *, n_valid: int, hops: int,
-                w_dense=None, w_sparse=None, dense_kind: str = "ip"):
-    """``hops`` hops from ``(beam_s, beam_i, visited)``, committing each
-    hop's deltas with one ``scatter_add_`` on a copy of the mask (valid
-    candidates are unique and unseen, so the add is an or).  Returns the
-    final ``(beam_s, beam_i, visited)``."""
-    visited = visited.clone()
-    for _ in range(int(hops)):
-        beam_s, beam_i, words, addend = beam_hop(
+def beam_hop(qdensified, q_dense, beam_s, beam_i, visited, neighbors,
+             c_idx, c_val, c_dense, *, n_valid: int, w_dense=None,
+             w_sparse=None, dense_kind: str = "ip"):
+    """One hop: ``(beam_s f32[B, ef], beam_i i32[B, ef], words i32[B, C],
+    addend i32[B, C])``, C = ef * R.
+
+    ``beam_s``/``beam_i`` are the running beam (any order), with sentinel
+    slots (id outside [0, n_valid)) scoring f32-min.  ``visited``
+    int32[B, ceil(n_valid/32)] is read only: commit the deltas with
+    ``visited.scatter_add_(1, words.long(), addend)``.  ``neighbors``
+    i32[N, R].  Components follow ``fused_topk``: ``qdensified`` [B, V+1]
+    (zero trash column) with ``c_idx``/``c_val`` [N, NNZ], ``q_dense``
+    [B, Dd] with ``c_dense`` [N, Dd]; ``None`` drops a part; sparse and
+    fused spaces take ``dense_kind='ip'`` only.  A candidate is valid iff
+    its beam slot and its own id lie in [0, n_valid), its bit is clear and
+    no earlier position of the hop's raw candidate list holds the same id;
+    invalid ones score f32-min with id ``n_valid`` and get a zero addend.
+    The merge keeps the top ef of ``[beam, candidates]`` by (score
+    descending, slot ascending)."""
+    weights = _check(c_idx, c_dense, beam_s, neighbors, w_dense, w_sparse, dense_kind)
+    if neighbors.device.type == "cpu":
+        return ref.beam_hop_plain(
             qdensified, q_dense, beam_s, beam_i, visited, neighbors, c_idx,
             c_val, c_dense, n_valid=n_valid, w_dense=w_dense,
             w_sparse=w_sparse, dense_kind=dense_kind)
-        visited.scatter_add_(1, words.long(), addend)
+    return _launch(qdensified, q_dense, beam_s, beam_i, visited, neighbors,
+                   c_idx, c_val, c_dense, n_valid, weights, dense_kind, 1, False)
+
+
+def beam_search(qdensified, q_dense, beam_s, beam_i, visited, neighbors,
+                c_idx, c_val, c_dense, *, n_valid: int, hops: int,
+                w_dense=None, w_sparse=None, dense_kind: str = "ip"):
+    """``hops`` hops from ``(beam_s, beam_i, visited)`` on a copy of the
+    mask; returns the final ``(beam_s, beam_i, visited)``.  For CUDA
+    tensors one launch runs every hop, committing each hop's marks in the
+    kernel; on the CPU the plain hop runs hop by hop, its deltas committed
+    with one ``scatter_add_`` (valid candidates are unique and unseen, so
+    the add is an or).  Both give the hop-by-hop result bit for bit."""
+    weights = _check(c_idx, c_dense, beam_s, neighbors, w_dense, w_sparse, dense_kind)
+    visited = visited.clone()
+    if neighbors.device.type == "cpu":
+        for _ in range(int(hops)):
+            beam_s, beam_i, words, addend = ref.beam_hop_plain(
+                qdensified, q_dense, beam_s, beam_i, visited, neighbors, c_idx,
+                c_val, c_dense, n_valid=n_valid, w_dense=w_dense,
+                w_sparse=w_sparse, dense_kind=dense_kind)
+            visited.scatter_add_(1, words.long(), addend)
+        return beam_s, beam_i, visited
+    if int(hops) < 1:
+        return beam_s, beam_i, visited
+    beam_s, beam_i, _, _ = _launch(
+        qdensified, q_dense, beam_s, beam_i, visited, neighbors, c_idx, c_val,
+        c_dense, n_valid, weights, dense_kind, int(hops), True)
     return beam_s, beam_i, visited

@@ -1,6 +1,7 @@
-// One graph-ANN hop for sm_90a: beam_hop_launch replaces
-// src/repro/kernels/beam_topk.py beam_hop_pallas (with _hop_kernel and
-// the -inf-masking _fold_topk).
+// Graph-ANN hops for sm_90a: beam_hop_launch replaces
+// src/repro/kernels/beam_topk.py beam_hop_pallas (with _hop_kernel and the
+// -inf-masking _fold_topk) and, run for `hops` hops in one launch, the
+// lax.scan of beam_search_pallas over it.
 //
 // A hop, per query b with beam (s, id)[ef] and adjacency nbr[N, R]:
 //   cand[p] = nbr[clip(id[p / R], 0, n-1)][p % R]         p < C = ef*R
@@ -9,57 +10,143 @@
 //              valid or not: an invalid first copy kills a valid later one)
 //   score[p] = valid ? w_d*dense(q_b, c[cand]) + w_s*sparse(q_b, c[cand]) : NEG
 //   beam'    = top ef of [beam, (score, valid ? cand : n)] by (score
-//              descending, slot ascending), as lax.top_k orders ties;
+//              descending, slot ascending), as lax.top_k orders them: NaN
+//              above +inf, NaNs by slot;
 //   words[p] = clip(cand[p]) >> 5, addend[p] = valid ? 1 << (clip & 31) : 0.
-// The visited mask is read only; the caller commits the deltas.
+// With commit = 0 (one hop, beam_hop) the visited mask is read only and
+// the deltas are written out; with commit = 1 (a traversal, beam_search)
+// each hop ors its valid candidates' bits into the mask before the next.
 //
 // Design.  The TPU kernel runs one grid step per query block and holds
-// the gathered [QB, C, D] block in VMEM.  Here two kernels:
-//   1. score: grid (C / kChunk, B).  Each block stages the raw ids
-//      cand[0, p1) of its query in shared memory (the first-occurrence
-//      test needs every earlier position: 4*C bytes, the budget behind
-//      MAX_BEAM_CANDIDATES), tests its kChunk positions against the
-//      packed mask, writes words/addend, and scores each valid candidate
-//      with one warp: 16-byte loads of the gathered dense row, the sparse
-//      part gathered from the query's row of the densified table, warp
-//      sums.  Invalid candidates are never read from the corpus.
-//   2. merge: one block per query sorts the ef + C (score, slot) pairs,
-//      padded to a power of two, bitonically (topk::sort_best_first) in
-//      shared memory, or in a global scratch buffer beyond 16384 entries,
-//      and writes the top ef.
+// the gathered [QB, C, D] block in VMEM, and the traversal is a scan of
+// such launches.  Here one launch runs every hop: one thread-block
+// cluster per query (as many blocks as keep B x cluster within the SM
+// count, at most 8, halved while the B clusters cannot all be resident at
+// once), no grid-wide synchronisation
+// (queries never depend on each other).  The query's state lives in the
+// leader block's shared memory (or, when it does not fit, in a global
+// scratch buffer): the beam (two buffers), the raw candidate ids and
+// their flags, a hash set of raw ids, the valid list and the merge's sort
+// arrays.  Per hop, between cluster barriers:
+//   1. leader: gather the C raw ids, test range and visited bit (the mask
+//      as it stood at the hop's start), and insert the ids that pass into
+//      a hash set that keeps each id's lowest position (atomicCAS, then
+//      atomicMin).  A copy that failed the test can never be valid, so it
+//      stays out; a copy from an invalid source slot goes in.
+//   2. leader: valid = source slot in range and first occurrence; an
+//      ordered compaction (block scan) lists the V valid (position, id);
+//      the deltas are written out or committed with atomicOr.
+//   3. every block of the cluster: one warp per valid candidate, reading
+//      the list through distributed shared memory and writing the score
+//      back: 16-byte loads of the gathered dense row, the sparse part
+//      gathered from the query's row of the densified table, warp sums.
+//   4. leader: the merge ranks the ef beam entries and those of the V
+//      valid candidates that score above the beam's worst entry (the
+//      others have all ef beam entries before them, whose slots are
+//      lower).  The C - V invalid ones are all (NEG, n); they rank among
+//      themselves by slot, after every entry scoring above NEG (NaN
+//      included), so when fewer than ef entries score above NEG the first
+//      ef - (entries above NEG) of them join as (NEG, slot).  The top ef of
+//      these is the top ef of all ef + C entries.  Up to kRankMax entries,
+//      each entry's place is the count of entries ahead of it (the order is
+//      total: NaN above +inf, then slots); beyond, a bitonic sort.
 //
 // What bounds it on an H100 SXM (3.35 TB/s): the gathered rows.  Each
 // valid candidate reads D*4 dense bytes and NNZ*8 COO bytes once (4 KB at
 // 768-d f32 and 128 nnz), plus 4 bytes of adjacency and 4 of mask per
-// candidate slot; the merge's sort and the dedup's C*C/2 compares stay in
-// shared memory.  On a random degree-16 graph over 8.84M rows (ef 64, 16
-// queries) a hop has about 44 valid candidates per query, about 3 MB, a
-// bound under 1 us, so latency sets the time: the merge's block-wide
-// sort, one block per query, and the two launches (PERF.md has the times
-// measured on an H100 80GB HBM3 at 700 W).
+// candidate slot.  On a random degree-16 graph over 8.84M rows (ef 64, 16
+// queries) a hop has about 44 valid candidates per query on average, most
+// of them in the first hop (about 1000), later ones a dozen: a bound of
+// about 28 us for 31 hops, so latency sets the time: each hop is a chain
+// of dependent loads (beam -> adjacency -> mask -> rows), two cluster
+// barriers and the merge.  The launch takes the host out of the hop loop;
+// the cluster spreads a query's candidates over 128 warps, each lane
+// issuing its row's loads together; the hash set and the filtered merge
+// replace an O(C^2) dedup and a 2048-entry sort per query.  Registers are
+// capped for one 512-thread block an SM, so that all clusters of a
+// served batch are resident at once (PERF.md has the times measured on an
+// H100 80GB HBM3 at 700 W).
 //
 // Numerics.  IEEE f32 on CUDA cores: no TF32, bf16 converted with
 // __bfloat162float before the first multiply; the mix is
 // __fadd_rn(__fmul_rn(w_d, dense), __fmul_rn(w_s, sparse)) (rounded
 // products, rounded sum, no FMA contraction); l2 is -((q2 + c2) - 2*dot),
-// the grouping of spaces.dense_scores.  Warp sums order the additions
+// the grouping of spaces.dense_scores.  A sparse id outside [0, V] indexes
+// the table as repro's qdensified[:, c_idx]: a negative id counts from the
+// end once, then ids clamp to [0, V].  Warp sums order the additions
 // differently from the plain version: scores agree within a tolerance,
-// not bitwise.
+// not bitwise.  A candidate's score does not depend on the warp, block or
+// launch that computes it, so a traversal equals its hops launched one by
+// one, bit for bit.
+#include <cooperative_groups.h>
+
+#include "score_row.cuh"
 #include "topk_scan.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace beam {
 
+using rows::score_row;
+using rows::warp_sum;
 using topk::kNeg;
-using topk::to_f32;
 
-constexpr int kScoreThreads = 256;
-constexpr int kWarps = kScoreThreads / 32;
-constexpr int kChunk = 64;                     // candidate positions per score block
-constexpr int kPerPos = kScoreThreads / kChunk;  // threads sharing one position's dedup scan
-constexpr int kMergeThreads = 1024;
-constexpr int kMaxCandidates = 32768;          // MAX_BEAM_CANDIDATES in beam_topk.py
-constexpr int kMergeSmemEntries = 16384;       // MERGE_SMEM_ENTRIES in beam_topk.py
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCluster = 8;                // portable cluster size
+constexpr int kMaxCandidates = 32768;         // MAX_BEAM_CANDIDATES in beam_topk.py
+constexpr size_t kSmemBudget = 220 * 1024;    // dynamic shared memory a leader may take
+constexpr int kEmpty = -1;                    // free hash slot (entered ids are >= 0)
 constexpr int kPadSlot = 0x7fffffff;
+constexpr int kMaxDevices = 64;
+constexpr int kGather = 4;                    // candidate positions a thread gathers at once
+constexpr int kBlocksPerSm = 1;               // register budget (128 a thread): one block an SM
+constexpr int kRankMax = 1024;                // merges up to this many entries select by rank
+constexpr int kRankStep = 8;                  // entries a rank count reads between exit tests
+
+// per-position flags
+constexpr unsigned char kSrcOk = 1;   // the beam slot's id lies in [0, n)
+constexpr unsigned char kEnter = 2;   // the id lies in [0, n) and was not visited
+constexpr unsigned char kValid = 4;
+
+__host__ __device__ inline int log2_ceil(long long x) {
+  int k = 0;
+  while ((1ll << k) < x) ++k;
+  return k;
+}
+__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
+
+// Byte offsets of one query's state; the same on host and device.
+struct Layout {
+  int c, hbits, sbits;
+  size_t cand, vid, vpos, vscore, hkey, hpos, beam_s, beam_i, ks, kslot, kkey, flag, bytes;
+};
+
+__host__ __device__ inline Layout layout(int ef, int r) {
+  Layout L;
+  L.c = ef * r;
+  L.hbits = log2_ceil(2ll * L.c);          // load factor <= 1/2
+  if (L.hbits < 1) L.hbits = 1;
+  L.sbits = log2_ceil(ef + L.c);           // the merge sorts at most ef + C entries
+  const size_t c4 = size_t(L.c) * 4, h4 = (size_t(1) << L.hbits) * 4, s4 = (size_t(1) << L.sbits) * 4;
+  // header: [0] valid count, [1] entries above NEG, [2] the beam's worst
+  // score (f32), [3] candidates entering the merge
+  size_t o = 16;
+  L.cand = o;   o = align16(o + c4);
+  L.vid = o;    o = align16(o + c4);
+  L.vpos = o;   o = align16(o + c4);
+  L.vscore = o; o = align16(o + c4);
+  L.hkey = o;   o = align16(o + h4);
+  L.hpos = o;   o = align16(o + h4);
+  L.beam_s = o; o = align16(o + size_t(ef) * 8);   // two buffers
+  L.beam_i = o; o = align16(o + size_t(ef) * 8);
+  L.ks = o;     o = align16(o + s4);
+  L.kslot = o;  o = align16(o + s4);
+  L.kkey = o;   o = align16(o + 2 * s4);
+  L.flag = o;   o = align16(o + size_t(L.c));
+  L.bytes = o;
+  return L;
+}
 
 struct HopArgs {
   const float* qd;          // [B, V+1] f32 densified queries (zero trash column), or null
@@ -69,7 +156,7 @@ struct HopArgs {
   const float* beam_s;      // [B, ef]
   const int* beam_i;        // [B, ef]
   int b, ef;
-  const unsigned* visited;  // [B, W] packed mask
+  unsigned* visited;        // [B, W] packed mask; written only with commit
   int w;
   const int* neighbors;     // [N, R]
   int r;
@@ -80,193 +167,358 @@ struct HopArgs {
   int n;                    // n_valid
   int l2, weighted;
   float w_dense, w_sparse;
-  float* cand_s;            // [B, C] scratch
-  int* cand_i;
-  float* sort_s;            // [B, sort_size] global sort scratch, or null (shared memory)
-  int* sort_i;
-  int sort_size;
+  int hops, commit;
+  unsigned char* scratch;   // [B, layout bytes] when the state exceeds kSmemBudget, else null
   float* out_s;             // [B, ef]
   int* out_i;
-  int* words;               // [B, C]
-  unsigned* addend;         // [B, C]
+  int* words;               // [B, C] without commit, else null
+  unsigned* addend;
 };
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// An integer in the merge's order of (score, slot): topk::better_nan(sa,
+// la, sb, lb) iff rank_key(sa, la) > rank_key(sb, lb).
+__device__ __forceinline__ unsigned long long rank_key(float s, int slot) {
+  return (static_cast<unsigned long long>(topk::order_key(s)) << 32) | static_cast<unsigned>(0x7fffffff - slot);
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
+__device__ __forceinline__ unsigned hash_slot(int id, int bits) {
+  return (static_cast<unsigned>(id) * 2654435761u) >> (32 - bits);
 }
 
-// dot(q, row) and |row|^2 over d columns, one warp, result in every lane.
-template <typename TD>
-__device__ __forceinline__ float2 dense_dot(const float* q, const TD* row, int d, bool vec, int lane) {
-  float dot = 0.f, c2 = 0.f;
-  if (vec) {
-    for (int j = 4 * lane; j < d; j += 128) {
-      const float4 x = ld4(row + j);
-      const float4 qv = ld4(q + j);
-      dot = fmaf(qv.x, x.x, dot); dot = fmaf(qv.y, x.y, dot);
-      dot = fmaf(qv.z, x.z, dot); dot = fmaf(qv.w, x.w, dot);
-      c2 = fmaf(x.x, x.x, c2); c2 = fmaf(x.y, x.y, c2);
-      c2 = fmaf(x.z, x.z, c2); c2 = fmaf(x.w, x.w, c2);
-    }
-  } else {
-    for (int j = lane; j < d; j += 32) {
-      const float x = to_f32(row[j]);
-      dot = fmaf(__ldg(q + j), x, dot);
-      c2 = fmaf(x, x, c2);
+// Insert id at position p: the slot keeps the lowest position of the id.
+__device__ __forceinline__ void hash_insert(int* key, int* pos, int bits, int id, int p) {
+  const unsigned mask = (1u << bits) - 1u;
+  for (unsigned h = hash_slot(id, bits);; h = (h + 1u) & mask) {
+    const int k = atomicCAS(key + h, kEmpty, id);
+    if (k == kEmpty || k == id) {
+      atomicMin(pos + h, p);
+      return;
     }
   }
-  return make_float2(warp_sum(dot), warp_sum(c2));
+}
+
+// Lowest position of an inserted id.
+__device__ __forceinline__ int hash_first(const int* key, const int* pos, int bits, int id) {
+  const unsigned mask = (1u << bits) - 1u;
+  unsigned h = hash_slot(id, bits);
+  while (key[h] != id) h = (h + 1u) & mask;
+  return pos[h];
+}
+
+// Exclusive block-wide prefix sum of v; `total` receives the sum.
+__device__ __forceinline__ int exclusive_scan(int v, int* warp_sums, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  int before = 0;
+  total = 0;
+#pragma unroll
+  for (int i = 0; i < kWarps; ++i) {
+    const int s = warp_sums[i];
+    before += i < warp ? s : 0;
+    total += s;
+  }
+  return before + x - v;
 }
 
 template <bool DENSE, bool SPARSE, typename TD, typename TV>
-__global__ void __launch_bounds__(kScoreThreads) score_kernel(HopArgs a) {
-  extern __shared__ int cand[];            // raw candidate ids [0, p1)
-  __shared__ int dup[kChunk];
-  __shared__ int valid[kChunk];
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) hop_kernel(HopArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float q2_s;
-  const int q = blockIdx.y;
-  const int c = a.ef * a.r;
-  const int p0 = blockIdx.x * kChunk;
-  const int p1 = min(c, p0 + kChunk);
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int* beam = a.beam_i + size_t(q) * a.ef;
-  const float* qrow = DENSE ? a.q_dense + size_t(q) * a.d : nullptr;
+  __shared__ int warp_sums[kWarps];
+  __shared__ float warp_lo[kWarps];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const bool leader = rank == 0;
+  const int q = blockIdx.x / cs;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ef = a.ef, r = a.r, n = a.n;
+  const Layout L = layout(ef, r);
+  const int c = L.c, hsize = 1 << L.hbits;
+  // the leader reaches the state directly, the others through the cluster
+  unsigned char* base = a.scratch != nullptr ? a.scratch + size_t(q) * L.bytes
+                        : leader ? smem : cluster.map_shared_rank(smem, 0);
+  int* hdr = reinterpret_cast<int*>(base);
+  int* cand = reinterpret_cast<int*>(base + L.cand);
+  int* vid = reinterpret_cast<int*>(base + L.vid);
+  int* vpos = reinterpret_cast<int*>(base + L.vpos);
+  float* vscore = reinterpret_cast<float*>(base + L.vscore);
+  int* hkey = reinterpret_cast<int*>(base + L.hkey);
+  int* hpos = reinterpret_cast<int*>(base + L.hpos);
+  float* bs = reinterpret_cast<float*>(base + L.beam_s);
+  int* bi = reinterpret_cast<int*>(base + L.beam_i);
+  float* ks = reinterpret_cast<float*>(base + L.ks);
+  int* kslot = reinterpret_cast<int*>(base + L.kslot);
+  // (order_key(score), -slot) in one integer per entry: the rank count's
+  // one compare and one load
+  unsigned long long* kkey = reinterpret_cast<unsigned long long*>(base + L.kkey);
+  unsigned char* flag = base + L.flag;
+  unsigned* mask = a.visited + size_t(q) * a.w;
 
-  for (int p = tid; p < p1; p += kScoreThreads) {
-    const int src = min(max(beam[p / a.r], 0), a.n - 1);
-    cand[p] = a.neighbors[size_t(src) * a.r + p % a.r];
-  }
-  if (tid < kChunk) dup[tid] = 0;
   if (DENSE && a.l2 && warp == 0) {
+    const float* qrow = a.q_dense + size_t(q) * a.d;
     float acc = 0.f;
     for (int j = lane; j < a.d; j += 32) acc = fmaf(qrow[j], qrow[j], acc);
     acc = warp_sum(acc);
     if (lane == 0) q2_s = acc;
   }
-  __syncthreads();
-
-  // first occurrence wins: any earlier position with the same raw id
-  {
-    const int i = tid % kChunk, p = p0 + i;
-    if (p < p1) {
-      const int id = cand[p];
-      for (int j = tid / kChunk; j < p; j += kPerPos) {
-        if (cand[j] == id) { dup[i] = 1; break; }
-      }
+  if (leader) {
+    for (int j = tid; j < ef; j += kThreads) {
+      bs[j] = a.beam_s[size_t(q) * ef + j];
+      bi[j] = a.beam_i[size_t(q) * ef + j];
+    }
+    for (int h = tid; h < hsize; h += kThreads) {
+      hkey[h] = kEmpty;
+      hpos[h] = kPadSlot;
+    }
+    // the worst score of the entry beam, which need not be sorted: fminf
+    // skips NaN, and an all-NaN beam gives +inf, below NaN in the merge's
+    // order, which only lets more candidates into the merge
+    float lo = INFINITY;
+    for (int j = tid; j < ef; j += kThreads) lo = fminf(lo, a.beam_s[size_t(q) * ef + j]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    if (lane == 0) warp_lo[warp] = lo;
+    __syncthreads();
+    if (tid == 0) {
+      for (int i = 1; i < kWarps; ++i) lo = fminf(lo, warp_lo[i]);
+      reinterpret_cast<float*>(hdr)[2] = lo;
     }
   }
   __syncthreads();
-
-  if (tid < p1 - p0) {
-    const int p = p0 + tid;
-    const int src = beam[p / a.r];
-    const int id = cand[p];
-    const int safe = min(max(id, 0), a.n - 1);
-    const int word = safe >> 5;
-    const unsigned bit = 1u << (safe & 31);
-    const bool seen = (a.visited[size_t(q) * a.w + word] & bit) != 0u;
-    const bool ok = src >= 0 && src < a.n && id >= 0 && id < a.n && !seen && !dup[tid];
-    a.words[size_t(q) * c + p] = word;
-    a.addend[size_t(q) * c + p] = ok ? bit : 0u;
-    valid[tid] = ok;
-  }
-  __syncthreads();
-
-  const TD* cd = static_cast<const TD*>(a.c_dense);
-  const TV* cv = static_cast<const TV*>(a.c_val);
-  const float* trow = SPARSE ? a.qd + size_t(q) * a.vp1 : nullptr;
+  const float q2 = (DENSE && a.l2) ? q2_s : 0.f;
   const bool vec = DENSE && a.d % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(a.c_dense) % (4 * sizeof(TD)) == 0 &&
                    reinterpret_cast<uintptr_t>(a.q_dense) % 16 == 0;
-  for (int i = warp; i < p1 - p0; i += kWarps) {
-    const int p = p0 + i;
-    float score = kNeg;
-    int out_id = a.n;
-    if (valid[i]) {                        // warp-uniform
-      const size_t row = size_t(cand[p]);
-      float dv = 0.f, sv = 0.f;
-      if (DENSE) {
-        const float2 r = dense_dot(qrow, cd + row * a.d, a.d, vec, lane);
-        dv = a.l2 ? -__fsub_rn(__fadd_rn(q2_s, r.y), __fmul_rn(2.f, r.x)) : r.x;
-      }
-      if (SPARSE) {
-        float acc = 0.f;
-        for (int j = lane; j < a.nnz; j += 32) {
-          unsigned t = static_cast<unsigned>(__ldg(a.c_idx + row * a.nnz + j));
-          if (t > static_cast<unsigned>(a.vp1 - 1)) t = a.vp1 - 1;   // out of range reads the zero column
-          acc = fmaf(__ldg(trow + t), to_f32(cv[row * a.nnz + j]), acc);
-        }
-        sv = warp_sum(acc);
-      }
-      if (DENSE && SPARSE) {
-        score = __fadd_rn(__fmul_rn(a.w_dense, dv), __fmul_rn(a.w_sparse, sv));
-      } else if (DENSE) {
-        score = a.weighted ? __fmul_rn(a.w_dense, dv) : dv;
-      } else {
-        score = a.weighted ? __fmul_rn(a.w_sparse, sv) : sv;
-      }
-      out_id = cand[p];
-    }
-    if (lane == 0) {
-      a.cand_s[size_t(q) * c + p] = score;
-      a.cand_i[size_t(q) * c + p] = out_id;
-    }
-  }
-}
+  // the leader's thread owns positions [p0, p1) for the ordered compaction
+  const int per = (c + kThreads - 1) / kThreads;
+  const int p0 = min(c, tid * per), p1 = min(c, p0 + per);
 
-// One block per query: top ef of [beam, candidates] by (score desc, slot asc).
-__global__ void __launch_bounds__(kMergeThreads) merge_kernel(HopArgs a) {
-  extern __shared__ float4 smem4[];
-  const int q = blockIdx.x;
-  const int c = a.ef * a.r, m = a.ef + c, size = a.sort_size;
-  float* s;
-  int* slot;
-  if (a.sort_s != nullptr) {
-    s = a.sort_s + size_t(q) * size;
-    slot = a.sort_i + size_t(q) * size;
-  } else {
-    s = reinterpret_cast<float*>(smem4);
-    slot = reinterpret_cast<int*>(s + size);
+  int cur = 0;
+  for (int hop = 0; hop < a.hops; ++hop) {
+    float* cur_s = bs + cur * ef;
+    int* cur_i = bi + cur * ef;
+    int first_valid = 0;   // valid positions before p0
+    if (leader) {
+      // 1. gather, range and visited tests, hash insert (each thread
+      // issues the loads of kGather positions together)
+      for (int pg = tid; pg < c; pg += kThreads * kGather) {
+        int src[kGather], id[kGather];
+        unsigned word[kGather];
+#pragma unroll
+        for (int u = 0; u < kGather; ++u) {
+          const int p = pg + u * kThreads;
+          if (p < c) {
+            src[u] = cur_i[p / r];
+            id[u] = __ldg(a.neighbors + size_t(min(max(src[u], 0), n - 1)) * r + p % r);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kGather; ++u) {
+          const int p = pg + u * kThreads;
+          word[u] = p < c && id[u] >= 0 && id[u] < n ? __ldcg(mask + (id[u] >> 5)) : ~0u;
+        }
+#pragma unroll
+        for (int u = 0; u < kGather; ++u) {
+          const int p = pg + u * kThreads;
+          if (p >= c) continue;
+          unsigned char f = (src[u] >= 0 && src[u] < n) ? kSrcOk : 0;
+          if (((word[u] >> (id[u] & 31)) & 1u) == 0u) {   // in range (else all ones) and not visited
+            f |= kEnter;
+            hash_insert(hkey, hpos, L.hbits, id[u], p);
+          }
+          cand[p] = id[u];
+          flag[p] = f;
+        }
+      }
+      __syncthreads();
+      // 2. first occurrence, ordered compaction, deltas
+      int cnt = 0;
+      for (int p = p0; p < p1; ++p) {
+        const unsigned char f = flag[p];
+        const int id = cand[p];
+        const bool ok = (f & kSrcOk) && (f & kEnter) && hash_first(hkey, hpos, L.hbits, id) == p;
+        if (ok) {
+          flag[p] = f | kValid;
+          ++cnt;
+        }
+        if (!a.commit) {
+          const int safe = min(max(id, 0), n - 1);
+          a.words[size_t(q) * c + p] = safe >> 5;
+          a.addend[size_t(q) * c + p] = ok ? 1u << (safe & 31) : 0u;
+        } else if (ok) {
+          atomicOr(mask + (id >> 5), 1u << (id & 31));
+        }
+      }
+      int total;
+      first_valid = exclusive_scan(cnt, warp_sums, total);
+      for (int p = p0, o = first_valid; p < p1; ++p) {
+        if (flag[p] & kValid) {
+          vid[o] = cand[p];
+          vpos[o] = p;
+          ++o;
+        }
+      }
+      if (tid == 0) {
+        hdr[0] = total;
+        hdr[1] = 0;
+        hdr[3] = 0;
+      }
+    }
+    cluster.sync();
+    // 3. score the valid candidates, one warp each, over the cluster
+    {
+      const int nv = hdr[0];
+      for (int i = rank * kWarps + warp; i < nv; i += cs * kWarps) {
+        const float s = score_row<DENSE, SPARSE, TD, TV>(a, q, size_t(vid[i]), q2, vec, lane);
+        if (lane == 0) vscore[i] = s;
+      }
+    }
+    cluster.sync();
+    if (leader) {
+      // 4. merge: the beam, the valid candidates ahead of its worst score
+      // (the others have all ef beam entries before them), and as many
+      // invalid ones (in slot order) as can reach the top ef
+      const int nv = hdr[0];
+      const float worst = reinterpret_cast<const float*>(hdr)[2];
+      int above = 0;
+      for (int j = tid; j < ef; j += kThreads) {
+        ks[j] = cur_s[j];
+        kkey[j] = rank_key(cur_s[j], j);
+        kslot[j] = j;
+        above += !(cur_s[j] <= kNeg);   // NaN ranks above NEG
+      }
+      for (int i = tid; i < nv; i += kThreads) {
+        const float sc = vscore[i];
+        above += !(sc <= kNeg);
+        if (topk::better_nan(sc, 1, worst, 0)) {   // ahead of the worst beam entry, whose slot is lower
+          const int k = ef + atomicAdd(hdr + 3, 1);
+          ks[k] = sc;
+          kkey[k] = rank_key(sc, ef + vpos[i]);
+          kslot[k] = ef + vpos[i];
+        }
+      }
+      above = __reduce_add_sync(0xffffffffu, above);
+      if (lane == 0 && above) atomicAdd(hdr + 1, above);
+      __syncthreads();
+      const int m0 = ef + hdr[3];
+      const int need = min(max(ef - hdr[1], 0), c - nv);
+      if (need > 0) {
+        for (int p = p0, before = first_valid; p < p1; ++p) {
+          if (flag[p] & kValid) {
+            ++before;
+          } else if (p - before < need) {   // rank among the invalid positions
+            ks[m0 + p - before] = kNeg;
+            kkey[m0 + p - before] = rank_key(kNeg, ef + p);
+            kslot[m0 + p - before] = ef + p;
+          }
+        }
+      }
+      const int m = m0 + need;
+      float* nxt_s = bs + (cur ^ 1) * ef;
+      int* nxt_i = bi + (cur ^ 1) * ef;
+      auto id_of = [&](int sl) {
+        return sl < ef ? cur_i[sl] : (flag[sl - ef] & kValid) ? cand[sl - ef] : n;
+      };
+      if (m <= kRankMax) {
+        // an entry's place is the number of entries ahead of it, counted
+        // on the entries' rank keys
+        __syncthreads();
+        for (int e = tid; e < m; e += kThreads) {
+          const float se = ks[e];
+          const int le = kslot[e];
+          const unsigned long long ke = kkey[e];
+          int rank = 0;
+          for (int f0 = 0; f0 < m && rank < ef; f0 += kRankStep) {   // kRankStep loads in flight
+#pragma unroll
+            for (int u = 0; u < kRankStep; ++u) {
+              if (f0 + u < m) rank += kkey[f0 + u] > ke;
+            }
+          }
+          if (rank < ef) {
+            nxt_s[rank] = se;
+            nxt_i[rank] = id_of(le);
+          }
+        }
+      } else {
+        const int size = 1 << log2_ceil(m);
+        for (int j = m + tid; j < size; j += kThreads) {
+          ks[j] = -INFINITY;
+          kslot[j] = kPadSlot;
+        }
+        __syncthreads();
+        topk::sort_best_first(ks, kslot, size, topk::BetterNan());
+        for (int j = tid; j < ef; j += kThreads) {
+          nxt_s[j] = ks[j];
+          nxt_i[j] = id_of(kslot[j]);
+        }
+      }
+      for (int h = tid; h < hsize; h += kThreads) {
+        hkey[h] = kEmpty;
+        hpos[h] = kPadSlot;
+      }
+      __syncthreads();
+      if (tid == 0) reinterpret_cast<float*>(hdr)[2] = nxt_s[ef - 1];   // the new beam is in merge order
+      cur ^= 1;
+    }
   }
-  for (int p = threadIdx.x; p < size; p += kMergeThreads) {
-    float v = -INFINITY;
-    int sl = kPadSlot;
-    if (p < a.ef) { v = a.beam_s[size_t(q) * a.ef + p]; sl = p; }
-    else if (p < m) { v = a.cand_s[size_t(q) * c + p - a.ef]; sl = p; }
-    s[p] = v;
-    slot[p] = sl;
-  }
-  __syncthreads();
-  topk::sort_best_first(s, slot, size);
-  for (int j = threadIdx.x; j < a.ef; j += kMergeThreads) {
-    const int sl = slot[j];
-    a.out_s[size_t(q) * a.ef + j] = s[j];
-    a.out_i[size_t(q) * a.ef + j] = sl < a.ef ? a.beam_i[size_t(q) * a.ef + sl]
-                                              : a.cand_i[size_t(q) * c + sl - a.ef];
+  if (leader) {
+    for (int j = tid; j < ef; j += kThreads) {
+      a.out_s[size_t(q) * ef + j] = bs[cur * ef + j];
+      a.out_i[size_t(q) * ef + j] = bi[cur * ef + j];
+    }
   }
 }
 
 template <bool DENSE, bool SPARSE, typename TD, typename TV>
-cudaError_t launch_score(const HopArgs& a, cudaStream_t st) {
-  const int c = a.ef * a.r;
-  const size_t smem = size_t(c) * 4;
-  auto kernel = score_kernel<DENSE, SPARSE, TD, TV>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+cudaError_t launch(const HopArgs& a, size_t smem, cudaStream_t st) {
+  auto kernel = hop_kernel<DENSE, SPARSE, TD, TV>;
+  static bool ready[kMaxDevices] = {};   // the shared-memory attribute, once per device
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const dim3 grid((c + kChunk - 1) / kChunk, a.b);
-  kernel<<<grid, kScoreThreads, smem, st>>>(a);
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kSmemBudget));
+    if (err != cudaSuccess) return err;
+    ready[dev] = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // blocks per query: as many as keep B x cluster within the SM count, at
+  // most the portable 8; then all B clusters resident at once (a cluster
+  // runs on one GPC): halve the cluster while they would not be, since
+  // later clusters would wait for whole traversals to end
+  int cluster = sms / a.b;
+  cluster = cluster < 1 ? 1 : cluster > kMaxCluster ? kMaxCluster : cluster;
+  for (;; cluster = (cluster + 1) / 2) {
+    cfg.gridDim = dim3(unsigned(a.b) * unsigned(cluster));
+    attr[0].val.clusterDim.x = unsigned(cluster);
+    int fit = 0;
+    err = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    if (fit < 1) return cudaErrorLaunchOutOfResources;
+    if (cluster == 1 || fit >= a.b) break;
+  }
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -274,57 +526,59 @@ cudaError_t run(const HopArgs& a, bool dense_bf16, bool val_bf16, cudaStream_t s
   using bf = __nv_bfloat16;
   const bool dense = a.c_dense != nullptr, sparse = a.c_idx != nullptr;
   const long long c = (long long)a.ef * a.r;
-  const int size = a.sort_size;
-  if (!(dense || sparse) || a.b < 1 || a.b > 65535 || a.ef < 1 || a.r < 1 || c > kMaxCandidates ||
-      a.n < 1 || a.w != (a.n + 31) / 32 || size < a.ef + c || (size & (size - 1)) ||
-      (a.sort_s == nullptr && size > kMergeSmemEntries) || (dense && (a.q_dense == nullptr || a.d < 1)) ||
+  if (!(dense || sparse) || a.b < 1 || a.ef < 1 || a.r < 1 || c > kMaxCandidates || a.n < 1 ||
+      a.w != (a.n + 31) / 32 || a.hops < 1 || (long long)a.b * kMaxCluster > 0x7fffffffll || (dense && (a.q_dense == nullptr || a.d < 1)) ||
       (sparse && (a.qd == nullptr || a.vp1 < 1 || a.nnz < 0)) || (sparse && a.l2) ||
-      (dense && sparse && !a.weighted))
+      (dense && sparse && !a.weighted) || (!a.commit && (a.words == nullptr || a.addend == nullptr)))
     return cudaErrorInvalidValue;
-  cudaError_t err;
+  const size_t bytes = layout(a.ef, a.r).bytes;
+  if ((bytes > kSmemBudget) != (a.scratch != nullptr)) return cudaErrorInvalidValue;
+  const size_t smem = a.scratch != nullptr ? 0 : bytes;
   if (dense && sparse) {
-    if (dense_bf16) err = val_bf16 ? launch_score<true, true, bf, bf>(a, st)
-                                   : launch_score<true, true, bf, float>(a, st);
-    else err = val_bf16 ? launch_score<true, true, float, bf>(a, st)
-                        : launch_score<true, true, float, float>(a, st);
-  } else if (dense) {
-    err = dense_bf16 ? launch_score<true, false, bf, float>(a, st)
-                     : launch_score<true, false, float, float>(a, st);
-  } else {
-    err = val_bf16 ? launch_score<false, true, float, bf>(a, st)
-                   : launch_score<false, true, float, float>(a, st);
+    if (dense_bf16) return val_bf16 ? launch<true, true, bf, bf>(a, smem, st)
+                                    : launch<true, true, bf, float>(a, smem, st);
+    return val_bf16 ? launch<true, true, float, bf>(a, smem, st)
+                    : launch<true, true, float, float>(a, smem, st);
   }
-  if (err != cudaSuccess) return err;
-  const size_t smem = a.sort_s == nullptr ? size_t(size) * 8 : 0;
-  err = cudaFuncSetAttribute(merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  merge_kernel<<<a.b, kMergeThreads, smem, st>>>(a);
-  return cudaGetLastError();
+  if (dense) return dense_bf16 ? launch<true, false, bf, float>(a, smem, st)
+                               : launch<true, false, float, float>(a, smem, st);
+  return val_bf16 ? launch<false, true, float, bf>(a, smem, st)
+                  : launch<false, true, float, float>(a, smem, st);
 }
 
 }  // namespace beam
 
 extern "C" {
 
-// One hop; see the comment at the top.  A null c_dense (or c_idx) drops
-// that part; weighted = 0 leaves a single part unscaled.  sort_s/sort_i
-// are [B, sort_size] global scratch when sort_size > 16384, else null.
-// Returns a cudaError_t.
+// Bytes of global scratch per query the launch needs for a beam of ef and
+// degree r: 0 when the query's state fits the leader's shared memory.
+long long beam_hop_scratch_bytes(int ef, int r) {
+  const size_t bytes = beam::layout(ef, r).bytes;
+  return bytes > beam::kSmemBudget ? (long long)bytes : 0;
+}
+
+// `hops` hops in one launch of B thread-block clusters; see the comment
+// at the top.  A null c_dense (or c_idx) drops that part;
+// weighted = 0 leaves a single part unscaled.  commit = 0: one hop, the
+// mask read only, words/addend [B, ef*r] written; commit = 1: the mask is
+// updated in place and words/addend are null.  scratch is [B,
+// beam_hop_scratch_bytes(ef, r)] bytes, or null when that is 0.  Returns
+// a cudaError_t.
 int beam_hop_launch(const float* qd, int vp1, const float* q_dense, int d, const float* beam_s,
-                    const int* beam_i, int b, int ef, const int* visited, int w, const int* neighbors,
+                    const int* beam_i, int b, int ef, int* visited, int w, const int* neighbors,
                     int r, const int* c_idx, const void* c_val, int val_bf16, int nnz,
                     const void* c_dense, int dense_bf16, int n, int l2, int weighted, float w_dense,
-                    float w_sparse, float* cand_s, int* cand_i, float* sort_s, int* sort_i,
-                    int sort_size, float* out_s, int* out_i, int* words, int* addend, void* stream) {
+                    float w_sparse, int hops, int commit, void* scratch, float* out_s,
+                    int* out_i, int* words, int* addend, void* stream) {
   beam::HopArgs a{};
   a.qd = qd; a.vp1 = vp1; a.q_dense = q_dense; a.d = d;
   a.beam_s = beam_s; a.beam_i = beam_i; a.b = b; a.ef = ef;
-  a.visited = reinterpret_cast<const unsigned*>(visited); a.w = w;
+  a.visited = reinterpret_cast<unsigned*>(visited); a.w = w;
   a.neighbors = neighbors; a.r = r;
   a.c_idx = c_idx; a.c_val = c_val; a.nnz = nnz; a.c_dense = c_dense;
   a.n = n; a.l2 = l2; a.weighted = weighted; a.w_dense = w_dense; a.w_sparse = w_sparse;
-  a.cand_s = cand_s; a.cand_i = cand_i;
-  a.sort_s = sort_s; a.sort_i = sort_i; a.sort_size = sort_size;
+  a.hops = hops; a.commit = commit;
+  a.scratch = static_cast<unsigned char*>(scratch);
   a.out_s = out_s; a.out_i = out_i; a.words = words;
   a.addend = reinterpret_cast<unsigned*>(addend);
   return int(beam::run(a, dense_bf16 != 0, val_bf16 != 0, static_cast<cudaStream_t>(stream)));

@@ -90,12 +90,13 @@ __device__ __forceinline__ void load_slots4(const int* idx, const TV* val, int j
 constexpr int kWordsSmemCap = 32768;   // bytes of index words a block stages in shared memory
 
 // Compact-table row of term `id` for one group, 0 when the group does not
-// hold it.  Ids outside [0, vocab] (negative ones too, as unsigned) look up
-// column vocab, as the table's clamp did.  `words` may point to shared or
-// to global memory.
+// hold it.  Ids outside [0, vocab] index as repro's qdensified[:, c_idx]:
+// a negative id counts from the end of the vocab + 1 columns once, then
+// ids clamp to [0, vocab].  `words` may point to shared or to global
+// memory.
 __device__ __forceinline__ int index_row(const uint2* words, int vocab, int id) {
-  unsigned u = static_cast<unsigned>(id);
-  if (u > static_cast<unsigned>(vocab)) u = static_cast<unsigned>(vocab);
+  if (id < 0) id += vocab + 1;
+  const unsigned u = static_cast<unsigned>(min(max(id, 0), vocab));
   const uint2 w = words[u >> 5];
   const unsigned bit = 1u << (u & 31);
   return (w.x & bit) ? static_cast<int>(w.y) + __popc(w.x & (bit - 1)) : 0;
@@ -228,9 +229,37 @@ index_kernel_rows(const T* qd, int b, int vocab, int group, uint2* words, float*
   }
 }
 
-// Block-wide bitonic sort of s/id[0, size), best first; size is a power of
-// two.  Every thread of the block must call it.
-__device__ inline void sort_best_first(float* s, int* id, int size) {
+struct Better {
+  __device__ __forceinline__ bool operator()(float sa, int ia, float sb, int ib) const {
+    return better(sa, ia, sb, ib);
+  }
+};
+
+// better() with NaN above +inf and NaNs ordered by id: the order of
+// lax.top_k and of torch.sort (descending, stable).
+__device__ __forceinline__ bool better_nan(float sa, int ia, float sb, int ib) {
+  const bool na = isnan(sa), nb = isnan(sb);
+  if (na || nb) return na && (!nb || ia < ib);
+  return better(sa, ia, sb, ib);
+}
+// An unsigned key in better_nan's order of scores: NaN above +inf, -0
+// equal to +0, else the float order.
+__device__ __forceinline__ unsigned order_key(float x) {
+  if (isnan(x)) return 0xffffffffu;
+  const unsigned u = __float_as_uint(x == 0.f ? 0.f : x);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+struct BetterNan {
+  __device__ __forceinline__ bool operator()(float sa, int ia, float sb, int ib) const {
+    return better_nan(sa, ia, sb, ib);
+  }
+};
+
+// Block-wide bitonic sort of s/id[0, size), best first by `cmp`; size is
+// a power of two.  Every thread of the block must call it.
+template <typename Cmp = Better>
+__device__ inline void sort_best_first(float* s, int* id, int size, Cmp cmp = Cmp()) {
   for (int len = 2; len <= size; len <<= 1) {
     for (int stride = len >> 1; stride > 0; stride >>= 1) {
       for (int p = threadIdx.x; p < size / 2; p += blockDim.x) {
@@ -239,7 +268,7 @@ __device__ inline void sort_best_first(float* s, int* id, int size) {
         const bool best_first = (lo & len) == 0;
         const float s_lo = s[lo], s_hi = s[hi];
         const int i_lo = id[lo], i_hi = id[hi];
-        if (better(s_hi, i_hi, s_lo, i_lo) == best_first) {
+        if (cmp(s_hi, i_hi, s_lo, i_lo) == best_first) {
           s[lo] = s_hi; s[hi] = s_lo;
           id[lo] = i_hi; id[hi] = i_lo;
         }

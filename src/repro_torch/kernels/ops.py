@@ -1,6 +1,7 @@
 """Public wrappers around the kernels with the glue the retrieval core
 needs (counterpart of ``repro/kernels/ops.py``: ``mips_topk``,
-``fused_scores``, ``fused_topk`` and ``beam_topk``).
+``fused_scores``, ``fused_topk`` and ``beam_topk``; ``topk_large`` serves
+the k beyond the scan kernels' ``MAX_K`` that repro's kernels serve).
 
 The TPU wrappers pad N up to a multiple of the tile (padded COO rows get
 the trash id ``vocab_size``).  The CUDA kernel masks its ragged last tile
@@ -19,6 +20,7 @@ from repro_torch.kernels import beam_topk as _beam
 from repro_torch.kernels import fused_topk as _fused
 from repro_torch.kernels import mips_topk as _mips
 from repro_torch.kernels import sparse_dense as _score
+from repro_torch.kernels import topk_large as _large
 from repro_torch.kernels.ref import query_table
 
 
@@ -51,6 +53,27 @@ def fused_topk(q_sparse: SparseVectors | None, q_dense, c_sparse: SparseVectors 
     if not (has_sparse or has_dense):
         raise ValueError("fused_topk: no overlapping components to score")
     s, i = _fused.fused_topk(
+        query_table(q_sparse, vocab_size) if has_sparse else None,
+        q_dense if has_dense else None,
+        c_sparse.indices if has_sparse else None,
+        c_sparse.values if has_sparse else None,
+        c_dense if has_dense else None,
+        k, w_dense=w_dense if has_dense else None,
+        w_sparse=w_sparse if has_sparse else None,
+        n_valid=n_valid, dense_kind=dense_kind)
+    return TopK(s, i)
+
+
+def topk_large(q_sparse: SparseVectors | None, q_dense, c_sparse: SparseVectors | None,
+               c_dense, vocab_size: int, k: int, w_dense: float | None = None,
+               w_sparse: float | None = None, dense_kind: str = "ip",
+               n_valid: int | None = None) -> TopK:
+    """Exact top-k at any k <= n_valid over a dense, sparse or fused
+    corpus, with ``fused_topk``'s conventions (a dense space passes no
+    sparse parts and its kind as ``dense_kind``)."""
+    has_sparse = c_sparse is not None and q_sparse is not None
+    has_dense = c_dense is not None and q_dense is not None
+    s, i = _large.topk_large(
         query_table(q_sparse, vocab_size) if has_sparse else None,
         q_dense if has_dense else None,
         c_sparse.indices if has_sparse else None,

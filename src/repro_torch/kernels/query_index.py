@@ -16,8 +16,9 @@ launch plan's ``qb`` in the fused top-k kernel) over term ids
   for every absent term.  Rows past the group's present terms stay zero.
 
 A term's row is ``words[t // 32, 1] + popcount(bits below t % 32)`` when
-its bit is set, else 0.  The kernels clamp ids outside ``[0, V]`` to
-``V``.
+its bit is set, else 0.  The kernels index ids outside ``[0, V]`` as
+repro's ``qdensified[:, c_idx]``: a negative id counts from the end of
+the ``V + 1`` columns once, then ids clamp to ``[0, V]``.
 
 ``build_index`` builds it on the card in two kernel launches from one
 call (``index_kernel_bits`` and ``index_kernel_rows`` in
@@ -102,9 +103,10 @@ def index_rows(words: torch.Tensor, vocab: int, ids: torch.Tensor) -> torch.Tens
     """Plain version of the kernels' ``index_row``: the compact-table row
     of every id in ``ids`` for every group, int64 ``[groups, *ids.shape]``
     (0 where the group does not hold the term).  Ids outside ``[0,
-    vocab]`` look up column ``vocab``."""
+    vocab]`` index as repro's: a negative id counts from the end once,
+    then ids clamp to ``[0, vocab]``."""
     u = ids.long()
-    u = torch.where((u < 0) | (u > vocab), vocab, u)
+    u = torch.where(u < 0, u + vocab + 1, u).clamp(0, vocab)
     w = words.long()                                                # [G, W, 2]
     flat = u.reshape(-1)
     bits = w[:, flat // 32, 0] & 0xFFFFFFFF                         # [G, M]

@@ -193,10 +193,13 @@ def _hop(qdensified, q_dense, beam_s, beam_i, seen_of, neighbors, c_idx,
             dense = -(q2 + c2 - 2.0 * dense)
         parts.append(dense)
     if c_idx is not None:
-        b, c = safe_c.shape
-        idx = c_idx[safe_c].long()                              # [B, C, NNZ]
-        picked = torch.gather(accum_f32(qdensified), 1,
-                              idx.reshape(b, -1)).reshape(idx.shape)
+        # out-of-range ids index as repro's qrow[irow]: a negative id
+        # counts from the end once, then ids clamp to [0, V]
+        v1 = qdensified.shape[1]
+        lo, hi = (torch.full((1,), x, dtype=torch.long, device=c_idx.device) for x in (-v1, v1 - 1))
+        idx = torch.clamp(c_idx[safe_c], lo, hi)                # int64 [B, C, NNZ]
+        rows = torch.arange(idx.shape[0], device=idx.device)[:, None, None]
+        picked = accum_f32(qdensified)[rows, idx]               # PyTorch wraps -v1 .. -1
         parts.append(torch.einsum("qck,qck->qc", picked,
                                   accum_f32(c_val[safe_c])))
     weights = ([w_dense] if c_dense is not None else []) + \

@@ -243,10 +243,149 @@ def test_budget_and_argument_refusals(no_library):
     assert MAX_BEAM_CANDIDATES == tb.MAX_BEAM_CANDIDATES
 
 
+def _kernel_merge(beam_s, beam_i, cand_s, cand_i, valid):
+    """The kernel's merge (``csrc/beam_hop.cu``, step 4) for one query in
+    numpy: the ef beam entries, the valid candidates ahead of the beam's
+    worst score, and, when fewer than ef entries of the beam and the valid
+    candidates score above f32-min (NaN counts as above), that many of the
+    invalid candidates (f32-min, in slot order); the top ef of those, NaN
+    ranking above +inf.  Returns the top ef (scores, ids) and the number
+    of entries ranked."""
+    ef, c = beam_s.shape[0], cand_s.shape[0]
+    pos = np.flatnonzero(valid)
+    above = int((~(beam_s <= NEG)).sum() + (~(cand_s[pos] <= NEG)).sum())
+    worst = np.fmin.reduce(np.append(beam_s, np.float32(np.inf)))   # fminf from +inf: skips NaN
+    ahead = (cand_s[pos] > worst) | (np.isnan(cand_s[pos]) & ~np.isnan(worst))
+    keep = pos[ahead]
+    need = min(max(ef - above, 0), c - pos.size)
+    slot = np.concatenate([np.arange(ef), ef + keep, ef + np.flatnonzero(~valid)[:need]])
+    s = np.concatenate([beam_s, cand_s[keep], np.full(need, NEG, np.float32)])
+    key = -np.where(np.isnan(s), 0.0, s.astype(np.float64))
+    order = np.lexsort((slot, key, ~np.isnan(s)))[:ef]   # NaN first, score descending, slot ascending
+    return s[order], np.concatenate([beam_i, cand_i])[slot[order]], slot.size
+
+
+def _merge_case(rng, ef, c, valid_share, extremes, nan=False):
+    """A beam in any order (random, f32-min and -inf scores, ids -1 and n
+    among them) and C candidates, a share of them valid; invalid ones are
+    (f32-min, n), ``extremes`` makes some valid ones score f32-min or
+    -inf, and ``nan`` some beam entries and valid candidates NaN (0 * inf
+    in a sparse part)."""
+    n = 10_000
+    beam_s = rng.standard_normal(ef).astype(np.float32)
+    beam_i = rng.integers(0, n, ef).astype(np.int32)
+    pick = rng.uniform(size=ef)
+    beam_s[pick < 0.3], beam_i[pick < 0.3] = NEG, n
+    beam_s[(pick >= 0.3) & (pick < 0.4)] = -np.inf
+    beam_i[0] = -1
+    valid = rng.uniform(size=c) < valid_share
+    cand_s = np.where(valid, rng.standard_normal(c), NEG).astype(np.float32)
+    if extremes:
+        x = rng.uniform(size=c)
+        cand_s[valid & (x < 0.3)] = NEG
+        cand_s[valid & (x > 0.8)] = -np.inf
+    if nan:
+        beam_s[(pick >= 0.4) & (pick < 0.5)] = np.nan
+        cand_s[valid & (rng.uniform(size=c) < 0.3)] = np.nan
+        cand_s[valid & (rng.uniform(size=c) < 0.1)] = np.inf
+    cand_i = np.where(valid, rng.integers(0, n, c), n).astype(np.int32)
+    return beam_s, beam_i, cand_s, cand_i, valid
+
+
+def _assert_merge_is_top_k(beam_s, beam_i, cand_s, cand_i, valid):
+    """The emulated kernel merge against repro's: ``lax.top_k`` over the
+    whole [beam, candidates] row (``beam_hop_ref``)."""
+    ef = beam_s.shape[0]
+    want_s, pos = jax.lax.top_k(jnp.asarray(np.concatenate([beam_s, cand_s])), ef)
+    want_i = np.concatenate([beam_i, cand_i])[np.asarray(pos)]
+    got_s, got_i, _ = _kernel_merge(beam_s, beam_i, cand_s, cand_i, valid)
+    np.testing.assert_array_equal(np.asarray(want_s), got_s)
+    np.testing.assert_array_equal(want_i, got_i)
+
+
+@pytest.mark.parametrize("ef,r,valid_share,extremes", [
+    (64, 16, 0.04, False), (64, 16, 0.04, True), (16, 4, 0.0, False), (16, 4, 0.02, True),
+    (8, 4, 1.0, True), (32, 8, 0.5, True), (2048, 16, 0.001, True), (1, 1, 1.0, False)])
+def test_merge_over_valid_candidates_equals_full_sort(ef, r, valid_share, extremes):
+    """Sorting the beam and the valid candidates (plus as many invalid ones
+    as can reach the top) gives the top ef of repro's full merge
+    (``lax.top_k`` over [beam, candidates]): starved beams, beam ids -1 and
+    n, unsorted beams, valid candidates scoring f32-min or -inf."""
+    rng = np.random.default_rng(ef * 7 + r + int(100 * valid_share) + extremes)
+    for _ in range(4):
+        _assert_merge_is_top_k(*_merge_case(rng, ef, ef * r, valid_share, extremes))
+
+
+@pytest.mark.parametrize("ef,r,valid_share", [
+    (64, 16, 0.04), (16, 4, 0.02), (8, 4, 1.0), (32, 8, 0.5), (2048, 16, 0.001), (4, 2, 0.0)])
+def test_merge_with_nan_scores_equals_lax_top_k(ef, r, valid_share):
+    """NaN scores (beam entries and valid candidates) rank above +inf, NaNs
+    by slot, as ``lax.top_k`` ranks them: the kernel's filter and rank
+    count keep them, and a starved beam still takes the right number of
+    invalid entries."""
+    rng = np.random.default_rng(ef * 13 + r + int(1000 * valid_share))
+    for _ in range(4):
+        beam_s, beam_i, cand_s, cand_i, valid = _merge_case(rng, ef, ef * r, valid_share, True, nan=True)
+        _assert_merge_is_top_k(beam_s, beam_i, cand_s, cand_i, valid)
+    beam_s[:] = np.nan       # an all-NaN beam: no candidate gets ahead of it
+    _assert_merge_is_top_k(beam_s, beam_i, cand_s, cand_i, valid)
+
+
 def test_sort_size():
-    assert tb.sort_size(64, 1024) == 2048
-    assert tb.sort_size(1, 1) == 2
-    assert tb.sort_size(32, 32768) == 65536
+    """The merge ranks the beam and only the valid candidates that beat
+    its worst score; a starved beam adds as many invalid candidates as
+    can reach the top; never more than ef + C entries (the full sort's
+    count)."""
+    rng = np.random.default_rng(3)
+    beam_s, beam_i, cand_s, cand_i, valid = _merge_case(rng, 64, 1024, 0.04, False)
+    beam_s[:], beam_i[:] = rng.standard_normal(64).astype(np.float32) + 2, 7
+    beats = int((cand_s[valid] > beam_s.min()).sum())
+    assert 0 < beats < valid.sum()
+    assert _kernel_merge(beam_s, beam_i, cand_s, cand_i, valid)[2] == 64 + beats
+    beam_s[:] = NEG              # every valid candidate joins, and 64 - V invalid ones
+    v = int(valid.sum())
+    assert _kernel_merge(beam_s, beam_i, cand_s, cand_i, valid)[2] == 64 + v + (64 - v)
+    valid[:] = False
+    assert _kernel_merge(beam_s, beam_i, cand_s, cand_i, valid)[2] == 128 <= 64 + 1024
+
+
+@pytest.mark.parametrize("bad_id", ["V+1", "2**31-1", "-1", "-7", "-(V+1)"])
+def test_hop_indexes_out_of_range_ids_as_repro(bad_id, no_library):
+    """COO ids outside [0, V] in the corpus: the plain hop and the wrapper
+    (its plain path on CPU tensors) index the query table as repro's
+    ``beam_hop_ref`` does (``qrow[irow]``: a negative id counts from the
+    end once, then ids clamp to [0, V]), in the sparse and fused spaces."""
+    for space in ("sparse", "fused"):
+        kw, rng = _case(space, "f32", seed=41)
+        v = kw["qdensified"].shape[1] - 1
+        bad = {"V+1": v + 1, "2**31-1": 2 ** 31 - 1, "-1": -1, "-7": -7, "-(V+1)": -(v + 1)}[bad_id]
+        kw["c_idx"] = kw["c_idx"].copy()
+        kw["c_idx"][::2, 1] = bad                    # every other row
+        kw["qdensified"][:, :v] += 0.25              # every column but V weighs in
+        n, b, ef = kw["neighbors"].shape[0], 3, 8
+        s, ids = _init(rng, n, ef, b, 2)
+        names = ("qdensified", "q_dense", "neighbors", "c_idx", "c_val", "c_dense")
+        opts = dict(n_valid=n, w_dense=kw["w_dense"], w_sparse=kw["w_sparse"],
+                    dense_kind=kw["dense_kind"])
+        jargs = {k: _jnp(kw[k]) for k in names}
+        targs = {k: _torch(kw[k]) for k in names}
+        tvis = tb.mark_visited(torch.zeros((b, tb.visited_words(n)), dtype=torch.int32),
+                               torch.from_numpy(ids), n)
+        jtable = jnp.asarray(tb.unpack_visited(tvis, n).numpy())
+        js, ji, jt = jref.beam_hop_ref(jargs["qdensified"], jargs["q_dense"], jnp.asarray(s),
+                                       jnp.asarray(ids), jtable, jargs["neighbors"],
+                                       jargs["c_idx"], jargs["c_val"], jargs["c_dense"], **opts)
+        hop_args = (targs["qdensified"], targs["q_dense"], torch.from_numpy(s),
+                    torch.from_numpy(ids), tvis, targs["neighbors"], targs["c_idx"],
+                    targs["c_val"], targs["c_dense"])
+        for fn in (tref.beam_hop_plain, tb.beam_hop):
+            ts, ti, tw, ta = fn(*hop_args, **opts)
+            ctx = f"{space} {bad_id} {fn.__name__}"
+            np.testing.assert_array_equal(np.asarray(ji), ti.numpy(), err_msg=ctx)
+            assert_scores_close(np.asarray(js), ts.numpy(), ctx=ctx)
+            after = tb.unpack_visited(tvis.scatter_add(1, tw.long(), ta), n)
+            np.testing.assert_array_equal(np.asarray(jt), after.numpy(), err_msg=ctx)
+        assert bool((np.asarray(js) > NEG).any())
 
 
 @pytest.mark.parametrize("space", SPACES)

@@ -109,6 +109,26 @@ def test_gather_and_score_many_match_repro(space):
     assert_scores_close(np.asarray(want), got.numpy())
 
 
+@pytest.mark.parametrize("item_id", [-1, -7, 13, -2, -8, -11, -12, 10])
+def test_score_many_indexes_out_of_range_sparse_ids_as_repro(item_id):
+    """A SparseSpace's one-vs-many scores on item ids outside [0, V]
+    (V = 10, query terms {0: 2, 3: 5}): repro pads the densified queries
+    to V+1 columns and indexes them with qrow[it_idx] (a negative id
+    counts from the end once, then ids clamp to [0, V]); the port does
+    the same."""
+    from repro.core.sparse import SparseVectors as JSV
+    from repro_torch.core.sparse import SparseVectors as TSV
+
+    v = 10
+    qi, qv = np.asarray([[0, 3]], np.int32), np.asarray([[2.0, 5.0]], np.float32)
+    ii, iv = np.asarray([[[item_id, 3]]], np.int32), np.asarray([[[1.0, 0.5]]], np.float32)
+    want = jga.score_many(JSparse(v), JSV(jnp.asarray(qi), jnp.asarray(qv)),
+                          JSV(jnp.asarray(ii), jnp.asarray(iv)))
+    got = tga.score_many(SparseSpace(v), TSV(torch.from_numpy(qi), torch.from_numpy(qv)),
+                         TSV(torch.from_numpy(ii), torch.from_numpy(iv)))
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
 @pytest.mark.parametrize("space", SPACES)
 def test_nn_descent_round_matches_repro(space):
     """One refinement round fed the draws jax.random made gives repro's

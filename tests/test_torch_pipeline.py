@@ -211,6 +211,49 @@ def test_fused_tail_matches_repro(space):
         assert_topk_match(want, got, ctx=(space, k, n_valid))
 
 
+@pytest.mark.parametrize("space", ["dense", "fused", "dense-l2", "sparse"])
+def test_cuda_backend_serves_k_above_max_k(space, monkeypatch):
+    """k = 2100 > MAX_K (2048) on N = 3000: the cuda backend answers as
+    repro's reference backend does; the scan kernels' wrappers never see a
+    k above MAX_K, and the large-k wrapper (``kernels.topk_large``) serves
+    it."""
+    from repro_torch.kernels import fused_topk as fk
+    from repro_torch.kernels import mips_topk as mk
+    from repro_torch.kernels import topk_large as lk
+
+    seen = {}
+    for mod, name, k_at in ((mk, "mips_topk", 2), (fk, "fused_topk", 5), (lk, "topk_large", 5)):
+        real = getattr(mod, name)
+
+        def spy(*a, real=real, k_at=k_at, name=name, **kw):
+            seen.setdefault(name, []).append(a[k_at])
+            return real(*a, **kw)
+        monkeypatch.setattr(mod, name, spy)
+    n, k = 3000, 2100
+    assert k > mk.MAX_K
+    if space.startswith("dense"):
+        kind = "l2" if space == "dense-l2" else "ip"
+        q, c, planted = planted_margin_corpus(n, 16, 3, k, seed=7)
+        js, ts, jq, jc, tq, tc = JDense(kind), DenseSpace(kind), q, c, to_torch(q), to_torch(c)
+    else:
+        (cd, ci, cv), (qd, qi, qv) = planted_fused_np(n, 40, 6, 8, 3, 16, seed=8)
+        jc, jq = jnp_fused((cd, ci, cv)), jnp_fused((qd, qi, qv))
+        js, ts, tq, tc = JFused(40, 0.6, 0.4), FusedSpace(40, 0.6, 0.4), fused_to_torch(jq), fused_to_torch(jc)
+        if space == "sparse":
+            jc, jq, js, ts = jc.sparse, jq.sparse, JSparseSpace(40), SparseSpace(40)
+            tc, tq = sparse_to_torch(jc), sparse_to_torch(jq)
+    want = jb.ReferenceBackend().topk(js, jq, jc, k)
+    got = tb.CudaBackend().topk(ts, tq, tc, k)
+    assert got.indices.shape == (3, k) and got.indices.dtype == torch.int32
+    assert_topk_match(want, got, ctx=space)
+    if space == "dense":
+        assert set(np.asarray(got.indices)[0].tolist()) == set(np.asarray(planted).tolist())
+    assert seen == {"topk_large": [k]}
+    # at MAX_K the scan kernels' wrappers serve
+    tb.CudaBackend().topk(ts, tq, tc, mk.MAX_K)
+    assert seen == {"topk_large": [k], ("mips_topk" if space.startswith("dense") else "fused_topk"): [mk.MAX_K]}
+
+
 def _learned_setup(n=300, v=50, nnz=8, dd=16, b=6, k=10):
     (cd, ci, cv), (qd, qi, qv) = planted_fused_np(n, v, nnz, dd, b, k, seed=11)
     jc, jq = jnp_fused((cd, ci, cv)), jnp_fused((qd, qi, qv))

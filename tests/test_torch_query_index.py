@@ -106,14 +106,19 @@ def test_bf16_table_upcasts():
 
 
 def test_lookup_of_out_of_range_ids():
-    """Ids outside [0, V] look up the pad column V, as the kernels clamp
-    them (negative ids as unsigned)."""
+    """Ids outside [0, V] look up the column repro's
+    ``qdensified[:, c_idx]`` reads: ids past V and -1 the pad column V, a
+    negative id its column counted from the end, ids below -(V+1) column
+    0."""
     v = 100
     table = torch.from_numpy(_table_np(4, v, 6, seed=11))       # column V nonzero in query 0
     words, _ = query_index(table, 4)
-    ids = torch.tensor([v, v + 1, 2 ** 31 - 1, -1, -(2 ** 31)], dtype=torch.int32)
+    ids = torch.tensor([v, v + 1, 2 ** 31 - 1, -1, -7, v - 6, -(v + 1), -(2 ** 31), 0],
+                       dtype=torch.int32)
     rows = index_rows(words, v, ids)
-    assert bool((rows == rows[:, :1]).all()) and int(rows[0, 0]) > 0
+    assert bool((rows[:, :4] == rows[:, :1]).all()) and int(rows[0, 0]) > 0
+    assert torch.equal(rows[:, 4], rows[:, 5])
+    assert bool((rows[:, 6:] == rows[:, 8:]).all())
 
 
 def _coo_np(n, v, nnz, seed, *, skew=False, out_of_range=False):
@@ -125,7 +130,7 @@ def _coo_np(n, v, nnz, seed, *, skew=False, out_of_range=False):
         ids = rng.integers(0, v, size=(n, nnz))
     ids[rng.uniform(size=(n, nnz)) < 0.2] = v                     # pad slots
     if out_of_range:
-        ids[0, 0], ids[1, 1], ids[2, 2] = v + 5, -1, 2 ** 31 - 1   # where the kernels and repro agree
+        ids[0, 0], ids[1, 1], ids[2, 2], ids[3, 3], ids[4, 4] = v + 5, -1, 2 ** 31 - 1, -7, -(v + 1)
     return ids.astype(np.int32), rng.uniform(size=(n, nnz)).astype(np.float32)
 
 
@@ -155,9 +160,8 @@ def test_emulation_matches_the_table_and_repro(case):
 
 
 def test_emulation_with_nonfinite_and_out_of_range():
-    """inf and NaN in the table and the values, and ids above V and -1,
-    give what the plain version's table gather gives (both read column V
-    for those ids)."""
+    """inf and NaN in the table and the values, and ids above V and
+    below 0, give what the plain version's table gather gives."""
     v = 80
     table = torch.from_numpy(_table_np(6, v, 8, seed=2, nonfinite=True))
     ids_np, vals_np = _coo_np(40, v, 9, seed=4, out_of_range=True)
