@@ -9,14 +9,18 @@ Phases, one line each: the card; the build of every kernel from
 against its plain version ("index"); the exact-scan kernels against their
 plain versions at small shapes, with the index's risky cases (Zipf-skewed
 and out-of-range ids, repeated query terms, an all-pad query, both
-launch plans, V = 250,000) ("small"), the beam-hop kernel against
+launch plans, V = 250,000) and exact scores that are NaN, +0 and -0
+("small"), the large-k kernels likewise, with the selection's refinement
+and ordered-fill paths ("large small"), the beam-hop kernel against
 its plain version hop for hop, and one traversal launch against the
 hop-by-hop launches bit for bit ("beam small"), and the fused score kernel
 against its plain version ("score small"); then the main path at MS
 MARCO passage v1 scale (8,841,823 passages, 768-d dense, 30,522-term
 sparse with 128 nnz per passage and 32 per query, batches of 16): fused
 dense+sparse retrieval through ``RetrievalPipeline`` on the ``cuda``
-backend and dense ip through ``mips_topk``; the scan kernels timed, the
+backend and dense ip through ``mips_topk``, and one dense request of
+k = 4096 through ``topk_large``; the scan kernels timed, ``topk_large``'s
+score and select passes apart and the fused space at k = 4096, the
 sparse part alone, and uniform against Zipf-skewed term ids over
 1,048,576 rows ("skew", not gated); then graph ANN over the same
 resident corpus ("graph full": ``GraphANNBackend(kernel=True)``, degree
@@ -37,7 +41,9 @@ non-zero.  The data is synthetic, made on the card from ``--seed``.
 Tolerance, kernel against plain version: f32 scores agree within
 ``TOL_REL`` times the row's largest |score| (summation order differs:
 sequential FMAs in the kernel, cuBLAS or a CPU reduction in the plain
-version); ids are equal wherever the construction plants a margin, and
+version), NaN and zero scores of exact data bit for bit (the order is
+``lax.top_k``'s: +0 above -0, NaN by its bits); ids are equal wherever
+the construction plants a margin, and
 elsewhere may differ only between neighbours whose plain scores lie
 within that tolerance of each other.  A hop's mark-deltas (words and
 addends: which candidates were valid) must be equal, and its beam is
@@ -85,11 +91,22 @@ def large_phase(torch, dev, check):
     2049 to n_valid; a sparse corpus of small integers (exact scores, so
     ties everywhere and the lower id must win) with rows scoring NaN
     (+inf at a term no query weighs) and COO ids out of range; and k past
-    n_valid through the backend, which adds the reference's tail."""
+    n_valid through the backend, which adds the reference's tail.  Then
+    the selection's paths: exact NaN / +0 / -0 scores (``exact_rows``)
+    through the dense tiles, the fused score kernel and the row kernel at
+    B = 1, 16 and 128; 40,000 scores sharing their top 12 bits, which the
+    refinement passes resolve at 22 and at 32 bits; and all-equal scores
+    on 40,000 rows, beyond the capacity, which take the ordered fill of
+    tied rows, at k = 2049 and k = n_valid."""
     from repro_torch.core.backends import CudaBackend, ReferenceBackend
     from repro_torch.core.spaces import DenseSpace
     from repro_torch.kernels import ref
     from repro_torch.kernels import topk_large as lk
+
+    def plain(table, q, c_idx, c_val, c_dense, k, n_valid=None, **kw):
+        """topk_large's plain version: the plain scan over rows [0, n_valid)."""
+        cut = lambda x: x if x is None or n_valid is None else x[:n_valid]
+        return ref.fused_topk_table_ref(table, q, cut(c_idx), cut(c_val), cut(c_dense), k, **kw)
 
     n, d, v, nnz, n_valid = 5003, 64, 1000, 16, 4900
     for dtype in (torch.float32, torch.bfloat16):
@@ -105,7 +122,7 @@ def large_phase(torch, dev, check):
                         ("dense l2", (None, qd, None, None, dense, k, None, None, "l2")),
                         ("fused", (table, qd, idx, val, dense, k, 0.6, 0.4, "ip"))):
                     kw = dict(w_dense=args[6], w_sparse=args[7], dense_kind=args[8], n_valid=n_valid)
-                    want = ref.fused_topk_table_ref(*args[:5], k, **kw)
+                    want = plain(*args[:5], k, **kw)
                     check("topk_large", f"large {label} {tag} b{b} k{k}", lk.topk_large(*args[:6], **kw),
                           want, exact_ids=False)
         got = CudaBackend().topk(DenseSpace("ip"), qd, dense, 5000, n_valid=n_valid)
@@ -120,11 +137,86 @@ def large_phase(torch, dev, check):
     idx[4::97, 2], val[4::97, 2] = v - 2, math.inf
     table = torch.randint(0, 3, (16, v + 1), generator=g, device=dev).float()
     table[:, v - 2] = 0.0
+    full = plain(table, None, idx, val, None, n_valid, n_valid=n_valid)[0]
+    assert bool(full.isnan().any()) and bool((full[:, 1:] == full[:, :-1]).any())
     for k in (2049, 4000, n_valid):
-        want = ref.fused_topk_table_ref(table, None, idx, val, None, k, n_valid=n_valid)
-        assert bool(want[0].isnan().any()) and bool((want[0][:, 1:] == want[0][:, :-1]).any())
+        want = plain(table, None, idx, val, None, k, n_valid=n_valid)
         check("topk_large", f"large sparse exact ties NaN k{k}",
               lk.topk_large(table, None, idx, val, None, k, n_valid=n_valid), want)
+    # NaN, +0 and -0 (exact_rows); bf16 holds the same integers exactly
+    for b in (1, 16, 128):
+        (cd, ci, cv), (qd, table) = exact_rows(torch, n, d, v, b, 81 + b, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            cdt = cd.to(dtype)
+            for k in (2049, n_valid):
+                for label, args in (
+                        ("dense ip", (None, qd, None, None, cdt, k, None, None, "ip")),
+                        ("dense l2", (None, qd, None, None, cdt, k, None, None, "l2")),
+                        ("dense ip d=61", (None, qd[:, :61].contiguous(), None, None, cdt[:, :61].contiguous(),
+                                           k, None, None, "ip")),
+                        ("fused", (table, qd, ci, cv.to(dtype), cdt, k, -0.5, -0.25, "ip")),
+                        ("sparse", (table, None, ci, cv.to(dtype), None, k, None, None, "ip"))):
+                    kw = dict(w_dense=args[6], w_sparse=args[7], dense_kind=args[8], n_valid=n_valid)
+                    want = plain(*args[:6], **kw)
+                    if k == n_valid:   # the case is what it claims to be
+                        assert bool(want[0].isnan().any()) and bool((want[0] == 0).any()), label
+                    check("topk_large", f"large {label} NaN/+-0 {tag} b{b} k{k}",
+                          lk.topk_large(*args[:6], **kw), want, signed_zeros=True)
+    # refinement: 40,000 rows whose scores (column q of a one-hot query q)
+    # share their top 12 bits beyond the capacity, so that the selection
+    # resolves the k-th key at 22 bits (query 0: 1 + j / 2**20) or at 32
+    # (query 1: 1 + (j % 1024) / 2**23, each score on about 39 rows)
+    m = 40_000
+    j = torch.arange(m, device=dev, dtype=torch.float32)
+    steps = torch.zeros((m, 64), device=dev)
+    steps[:, 0] = 1.0 + j[torch.randperm(m, generator=g, device=dev)] / 2 ** 20
+    steps[:, 1] = 1.0 + (j % 1024) / 2 ** 23
+    qd = torch.eye(2, 64, device=dev)
+    for k in (2049, m):
+        check("topk_large", f"large refine k{k}", lk.topk_large(None, qd, None, None, steps, k),
+              plain(None, qd, None, None, steps, k), signed_zeros=True)
+    # all-equal scores (+0 everywhere) beyond the capacity: the ordered fill
+    flat = torch.zeros((40_000, 64), device=dev)
+    for b in (1, 16, 128):
+        qd, _, _ = make_queries(torch, b, 64, v, 8, 57, dev)
+        for k in (2049, 40_000):
+            want = ref.fused_topk_table_ref(None, qd, None, None, flat, k)
+            got = lk.topk_large(None, qd, None, None, flat, k)
+            assert torch.equal(got[1].cpu(), torch.arange(k, dtype=torch.int32).expand(b, k)), \
+                f"all-equal b{b} k{k}: not the lowest rows in order"
+            check("topk_large", f"large all-equal b{b} k{k}", got, want, signed_zeros=True)
+
+
+def exact_rows(torch, n, d, v, b, seed, device):
+    """Small integers whose scores are exact, so that kernel and plain
+    version agree bit for bit and the order of NaN, +0 and -0 decides the
+    ids: dense values in {-1, 0, 1} (a third of the rows zero, every 13th
+    row equal to query 0's dense part, every 17th holding +inf in column 1,
+    where every query is 0: 0 * inf is NaN), one COO slot a row of value
+    +-1 or +-2 at a term in [0, 8) (every 19th row also +inf at term v - 1,
+    which no query weighs), the rest pad (id v, value 0); queries with
+    dense values in {0, 1, 2} and weights 1 or 2 on terms 0-7.  Dense ip
+    scores +0 on zero rows, l2 -0 on query 0's copies, and the fused mix
+    with negative weights -0 where both parts are zero and +0 where they
+    cancel.  Returns (dense, idx, val), (q_dense, table)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    dense = torch.randint(-1, 2, (n, d), generator=g, device=device).float()
+    dense[torch.rand(n, generator=g, device=device) < 0.35] = 0.0
+    qd = torch.randint(0, 3, (b, d), generator=g, device=device).float()
+    qd[:, 1] = 0.0
+    dense[::13] = qd[0]
+    dense[::17, 1] = math.inf
+    idx = torch.full((n, 4), v, dtype=torch.int32, device=device)
+    val = torch.zeros(n, 4, device=device)
+    idx[:, 0] = torch.randint(0, 8, (n,), generator=g, device=device, dtype=torch.int32)
+    sign = torch.where(torch.rand(n, generator=g, device=device) < 0.5, -1.0, 1.0)
+    val[:, 0] = sign * torch.randint(1, 3, (n,), generator=g, device=device).float()
+    idx[::19, 1], val[::19, 1] = v - 1, math.inf
+    table = torch.zeros(b, v + 1, device=device)
+    table[:, :8] = torch.randint(1, 3, (b, 8), generator=g, device=device).float()
+    table[:, :8] *= (torch.rand(b, 8, generator=g, device=device) < 0.6).float()
+    return (dense, idx, val), (qd, table)
 
 
 def make_corpus(torch, n, d, v, nnz, n_plant, seed, device, dtype):
@@ -211,13 +303,21 @@ class Checker:
         self.max_err = {}
         self.cases = 0
 
-    def __call__(self, kernel, name, got, want, exact_ids=True):
+    def __call__(self, kernel, name, got, want, exact_ids=True, signed_zeros=False):
+        """Scores and ids, kernel against plain version; with
+        ``signed_zeros`` (exact scores) the NaN and zero scores must also
+        be equal bit for bit."""
         torch = self.torch
         gs, gi = (x.cpu() for x in got)
         ws, wi = (x.cpu() for x in want)
         assert gs.shape == ws.shape and gi.shape == wi.shape, (name, gs.shape, ws.shape)
         fin = torch.isfinite(ws)
         assert torch.equal(fin, torch.isfinite(gs)), f"{name}: -inf tails differ"
+        if signed_zeros:
+            odd = ws.isnan() | (ws == 0)
+            assert torch.equal(odd, gs.isnan() | (gs == 0)), f"{name}: NaN / zero slots differ"
+            assert torch.equal(gs[odd].view(torch.int32), ws[odd].view(torch.int32)), \
+                f"{name}: NaN / zero bits differ"
         self._compare(kernel, name, gs, gi, ws, wi, fin, exact_ids)
 
     def hop(self, name, got, want, exact_ids=True):
@@ -387,6 +487,24 @@ def small_phase(torch, dev, check):
         args = (table, qd, idx, val, odd, 100)
         check("fused_topk", f"fused d=61 {tag}", fk.fused_topk(*args, w_dense=0.6, w_sparse=0.4),
               ref.fused_topk_table_ref(*args, w_dense=0.6, w_sparse=0.4))
+    # NaN, +0 and -0 scores (exact_rows): ids equal, so that the order of
+    # the kernels' threshold test and compaction is held to the plain one
+    for b in (5, 16):
+        (cd, ci, cv), (qd, table) = exact_rows(torch, n, d, v, b, 71 + b, dev)
+        for space in ("ip", "l2"):   # the cases are what they claim to be
+            full = ref.mips_topk_ref(qd, cd, n_valid, n_valid=n_valid, space=space)[0]
+            assert bool(full.isnan().any()) and bool((full == 0).any()), space
+        for k in (10, 100, 2048):
+            for space in ("ip", "l2"):
+                want = ref.mips_topk_ref(qd, cd, k, n_valid=n_valid, space=space)
+                check("mips_topk", f"mips {space} NaN/+-0 b{b} k{k}",
+                      mk.mips_topk(qd, cd, k, n_valid=n_valid, space=space), want, signed_zeros=True)
+            for label, args in (("fused", (table, qd, ci, cv, cd, k, -0.5, -0.25)),
+                                ("sparse-only", (table, None, ci, cv, None, k, None, None))):
+                kw = dict(w_dense=args[6], w_sparse=args[7], n_valid=n_valid)
+                want = ref.fused_topk_table_ref(*args[:6], **kw)
+                check("fused_topk", f"fused {label} NaN/+-0 b{b} k{k}", fk.fused_topk(*args[:6], **kw), want,
+                      signed_zeros=True)
     # the query-term index: Zipf-skewed and uniform ids, repeated query
     # terms, an all-pad query, ids out of range, both plans (qb 16 at
     # k <= 256, qb 4 at k = 2000), and a vocabulary whose index words
@@ -449,8 +567,8 @@ def beam_small_phase(torch, dev, check):
     (beam and final mask equal bit for bit): dense ip/l2, sparse and fused
     spaces, f32 and bf16, graphs with repeated ids, sentinel-padded rows
     and a starved beam, init beams with sentinel slots, COO ids out of
-    range (V+1, 2**31-1, -1, -7, -(V+1)), valid candidates scoring f32-min
-    and -inf and NaN from unsorted beams, a width that is not a multiple of 4,
+    range (V+1, 2**31-1, -1, -7, -(V+1)), valid candidates scoring f32-min,
+    -inf, NaN, +0 and -0 from unsorted beams, a width that is not a multiple of 4,
     clusters of 8, 3 and 1 blocks, and ef*R at the budget cap (the state
     in global scratch)."""
     from repro_torch.core.sparse import SparseVectors
@@ -537,6 +655,12 @@ def beam_small_phase(torch, dev, check):
                      dict(w_dense=0.7, w_sparse=0.3), rnd, n,
                      init_beam(torch.Generator(device=dev).manual_seed(11), n, 64, b, 60), 3, False)
     valid += extremes(torch, dev, run, n, v, nnz, b)
+    # candidates scoring NaN, +0 and -0 (exact_rows, fused with negative
+    # weights): ids equal, so the merge's order of them is the plain one's
+    (cd, ci, cv), (qd, table) = exact_rows(torch, n, 64, v, b, 91, dev)
+    beam = init_beam(torch.Generator(device=dev).manual_seed(92), n, 64, b, 60)
+    valid += run("beam fused f32 NaN/+-0", (table, qd, ci, cv, cd), dict(w_dense=-0.5, w_sparse=-0.25),
+                 rnd, n, beam, 3, True)
     # clusters of 3 (B = 40) and of 1 block (B = 200) a query
     for bq in (40, 200):
         (cd, _, _), (qd, _, _) = planted_cluster(torch, n, d, v, nnz, 16, bq, 6, dev)
@@ -1048,6 +1172,7 @@ def device_profile(torch, fn, by_kernel=False):
                "fused_score" if "fscore::" in e.key else
                "query index" if "topk::index_kernel" in e.key else
                "topk scan+merge" if "topk::scan_kernel" in e.key or "topk::merge_kernel" in e.key
+               else "topk_large" if "large::" in e.key
                else "pytorch ops")
         groups[key] = groups.get(key, 0.0) + us / 1e3
     return groups, span_ms, kspan_ms
@@ -1222,7 +1347,7 @@ def main() -> int:
     cases = check.cases
     large_phase(torch, dev, check)
     log(f"phase large small: {check.cases - cases} cases of k > 2048 agree (tolerance {TOL_REL} of row scale; "
-        f"sparse with exact scores: ids equal, ties and NaN included)")
+        f"exact scores: ids equal, ties, NaN, +0 and -0, refinement to 22 and 32 bits, all-equal rows)")
     cases = check.cases
     t0 = time.perf_counter()
     valid = beam_small_phase(torch, dev, check)
@@ -1299,10 +1424,15 @@ def main() -> int:
     check("mips_topk", "full dense k=100 (generator)", tuple(dense_results[0]), want_dense)
     want_deep = ref.mips_topk_ref(q.dense, dense, DEEP_K, tile_n=1 << 18)
     check("topk_large", f"full dense k={DEEP_K} (generator)", tuple(deep), want_deep, exact_ids=False)
+    want_deep = ref.fused_topk_table_ref(*fused_args, DEEP_K, tile_n=1 << 16, **fused_kw)
+    check("topk_large", f"full fused k={DEEP_K}", lk.topk_large(*fused_args, DEEP_K, **fused_kw), want_deep,
+          exact_ids=False)
+    del want_deep
     rq, _, _ = make_queries(torch, b, d, v, 8, args.seed + 7, dev, planted=False)
     check("mips_topk", "full dense k=100 random queries", mk.mips_topk(rq, dense, 100),
           ref.mips_topk_ref(rq, dense, 100, tile_n=1 << 18), exact_ids=False)
-    log(f"phase full check: fused k=100 and k=2000, dense k=100 (planted and random) and k={DEEP_K} agree")
+    log(f"phase full check: fused k=100, k=2000 and k={DEEP_K}, dense k=100 (planted and random) and "
+        f"k={DEEP_K} agree")
 
     # ---- timings ------------------------------------------------------
     reps = 5 if on_card else 1
@@ -1336,6 +1466,19 @@ def main() -> int:
     large_plain = timer(lambda: ref.mips_topk_ref(q.dense, dense, DEEP_K, tile_n=1 << 18), 1)
     large_lib = timer(lambda: library_topk(DEEP_K), reps)
     large_bytes = n * d * 4 + b * d * 4 + b * DEEP_K * 8
+    # topk_large's two steps apart, and the fused space at the same k
+    score_ms = timer(lambda: lk.large_scores(None, q.dense, None, None, dense), reps)
+    deep_scores = lk.large_scores(None, q.dense, None, None, dense)
+    select_ms = timer(lambda: lk.select_large(deep_scores, DEEP_K), reps)
+    del deep_scores
+    fused_large_ms = timer(lambda: lk.topk_large(*fused_args, DEEP_K, **fused_kw), reps)
+    score_bound = (n * d * 4 + b * d * 4 + b * n * 4) / HBM_BYTES_PER_S * 1e3
+    select_bound = (b * n * 4 + b * DEEP_K * 8) / HBM_BYTES_PER_S * 1e3
+    log(f"phase large timings (B={b}, k={DEEP_K}, f32, CUDA events, median of {reps}): topk_large dense ip "
+        f"{large_ms:.3f} ms = score pass {score_ms:.3f} ms (bound {score_bound:.3f} ms: the corpus read, the "
+        f"scores written) + select pass {select_ms:.3f} ms (bound {select_bound:.3f} ms: the scores read once); "
+        f"library {large_lib:.3f} ms; fused topk_large {fused_large_ms:.3f} ms (bound "
+        f"{bound(fused_bytes - b * 100 * 8 + b * DEEP_K * 8, fused_ops)[0]:.3f} ms)")
 
     kernels = []
     for name, source, replaces, ms, plain, lib, (bms, by) in (

@@ -1,9 +1,10 @@
 """Exact k-NN / maximum inner-product search by brute force (counterpart
 of ``repro/core/brute_force.py``).
 
-Selection breaks score ties toward the lower corpus row id, as
-``lax.top_k`` does.  ``torch.topk`` promises no order among ties, so
-selection here goes through a stable descending sort.
+Selection orders scores as ``lax.top_k`` does (+0 above -0, NaN by its
+bits) and breaks ties toward the lower corpus row id.  ``torch.topk``
+promises no order among ties, so selection here goes through a stable
+descending sort of integer keys.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from repro_torch.core.spaces import map_tensors, tensor_leaves
 
 __all__ = [
     "TopK",
+    "order_keys",
     "select_topk",
     "exact_topk",
     "streaming_topk",
@@ -30,14 +32,32 @@ class TopK(NamedTuple):
     indices: torch.Tensor  # i32[B, K] corpus row ids
 
 
+# The score that ranks below every other in lax.top_k's order: the NaN
+# with every bit set (order key INT32_MIN).
+LOWEST = float(torch.tensor(-1, dtype=torch.int32).view(torch.float32))
+
+
+def order_keys(scores: torch.Tensor) -> torch.Tensor:
+    """int32 keys in ``lax.top_k``'s order of f32 scores: the total order
+    of their bit patterns, so +0 ranks above -0, a NaN with the sign bit
+    clear above +inf and one with it set below -inf, NaNs by their bits."""
+    bits = scores.float().view(torch.int32)
+    key = bits >> 31
+    key &= 0x7FFFFFFF
+    key ^= bits
+    return key
+
+
 def select_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(values, positions) of the ``k`` largest entries of each row, score
-    descending, ties toward the lower position, NaN above +inf (NaNs by
-    position, as ``lax.top_k``), -0 equal to +0.  Every NaN becomes one
-    NaN first: PyTorch's stable sort on CUDA orders NaNs by their bits."""
-    x = torch.where(torch.isnan(scores), float("nan"), scores)
-    vals, pos = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], pos[..., :k]
+    """(values, positions) of the ``k`` largest entries of each row in
+    ``lax.top_k``'s order (:func:`order_keys`), ties toward the lower
+    position: a stable descending sort of the keys, with no host sync.  A
+    strided last dimension (the NAPP build's transposed scores) is copied
+    first: on the card the copy costs less than sorting along it."""
+    scores = scores.contiguous()
+    _, pos = torch.sort(order_keys(scores), dim=-1, descending=True, stable=True)
+    pos = pos[..., :k]
+    return torch.gather(scores, -1, pos), pos
 
 
 def pad_corpus(x, multiple: int, fill: float = 0.0):
@@ -78,15 +98,17 @@ def streaming_topk(space, queries, corpus, k: int, tile_n: int = 8192,
     score matrix never exists.  ``corpus`` is any row-major corpus (a
     tensor, ``SparseVectors`` or ``FusedVectors``) with N a multiple of
     ``tile_n`` (see :func:`pad_corpus`); each tile is scored through
-    ``space.score_batch``.  The heap starts as (-inf, id 0) slots and
-    precedes each tile in the merge, as the reference's does."""
+    ``space.score_batch``.  The heap starts as (LOWEST, id 0) slots, which
+    every row outranks, and precedes each tile in the merge.  (repro's heap
+    starts at -inf, which outranks a row scoring a NaN with the sign bit
+    set; its reference backend keeps such rows, and so does this.)"""
     n = int(tensor_leaves(corpus)[0].shape[0])
     if n % tile_n:
         raise ValueError(f"N={n} is not a multiple of tile_n={tile_n}")
     b = int(tensor_leaves(queries)[0].shape[0])
     n_valid = n if n_valid is None else n_valid
     dev = tensor_leaves(corpus)[0].device
-    heap_s = torch.full((b, k), -torch.inf, dtype=torch.float32, device=dev)
+    heap_s = torch.full((b, k), LOWEST, dtype=torch.float32, device=dev)
     heap_i = torch.zeros((b, k), dtype=torch.int32, device=dev)
     for base in range(0, n, tile_n):
         tile = map_tensors(lambda x: x[base:base + tile_n], corpus)

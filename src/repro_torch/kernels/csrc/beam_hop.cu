@@ -10,8 +10,8 @@
 //              valid or not: an invalid first copy kills a valid later one)
 //   score[p] = valid ? w_d*dense(q_b, c[cand]) + w_s*sparse(q_b, c[cand]) : NEG
 //   beam'    = top ef of [beam, (score, valid ? cand : n)] by (score
-//              descending, slot ascending), as lax.top_k orders them: NaN
-//              above +inf, NaNs by slot;
+//              descending, slot ascending) in lax.top_k's order of scores
+//              (topk_scan.cuh: order_key; +0 above -0, NaN by its bits);
 //   words[p] = clip(cand[p]) >> 5, addend[p] = valid ? 1 << (clip & 31) : 0.
 // With commit = 0 (one hop, beam_hop) the visited mask is read only and
 // the deltas are written out; with commit = 1 (a traversal, beam_search)
@@ -44,12 +44,12 @@
 //      valid candidates that score above the beam's worst entry (the
 //      others have all ef beam entries before them, whose slots are
 //      lower).  The C - V invalid ones are all (NEG, n); they rank among
-//      themselves by slot, after every entry scoring above NEG (NaN
-//      included), so when fewer than ef entries score above NEG the first
+//      themselves by slot, after every entry ranking above NEG (NaN with
+//      the sign bit clear included), so when fewer than ef entries do the first
 //      ef - (entries above NEG) of them join as (NEG, slot).  The top ef of
 //      these is the top ef of all ef + C entries.  Up to kRankMax entries,
 //      each entry's place is the count of entries ahead of it (the order is
-//      total: NaN above +inf, then slots); beyond, a bitonic sort.
+//      total: order keys, then slots); beyond, a bitonic sort.
 //
 // What bounds it on an H100 SXM (3.35 TB/s): the gathered rows.  Each
 // valid candidate reads D*4 dense bytes and NNZ*8 COO bytes once (4 KB at
@@ -129,8 +129,8 @@ __host__ __device__ inline Layout layout(int ef, int r) {
   if (L.hbits < 1) L.hbits = 1;
   L.sbits = log2_ceil(ef + L.c);           // the merge sorts at most ef + C entries
   const size_t c4 = size_t(L.c) * 4, h4 = (size_t(1) << L.hbits) * 4, s4 = (size_t(1) << L.sbits) * 4;
-  // header: [0] valid count, [1] entries above NEG, [2] the beam's worst
-  // score (f32), [3] candidates entering the merge
+  // header: [0] valid count, [1] entries above NEG, [2] the order key of
+  // the beam's worst score, [3] candidates entering the merge
   size_t o = 16;
   L.cand = o;   o = align16(o + c4);
   L.vid = o;    o = align16(o + c4);
@@ -175,8 +175,8 @@ struct HopArgs {
   unsigned* addend;
 };
 
-// An integer in the merge's order of (score, slot): topk::better_nan(sa,
-// la, sb, lb) iff rank_key(sa, la) > rank_key(sb, lb).
+// An integer in the merge's order of (score, slot): topk::ahead(order_key(sa),
+// la, order_key(sb), lb) iff rank_key(sa, la) > rank_key(sb, lb).
 __device__ __forceinline__ unsigned long long rank_key(float s, int slot) {
   return (static_cast<unsigned long long>(topk::order_key(s)) << 32) | static_cast<unsigned>(0x7fffffff - slot);
 }
@@ -232,7 +232,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) hop_kernel(HopArgs a) 
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float q2_s;
   __shared__ int warp_sums[kWarps];
-  __shared__ float warp_lo[kWarps];
+  __shared__ unsigned warp_lo[kWarps];
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -278,18 +278,16 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) hop_kernel(HopArgs a) 
       hkey[h] = kEmpty;
       hpos[h] = kPadSlot;
     }
-    // the worst score of the entry beam, which need not be sorted: fminf
-    // skips NaN, and an all-NaN beam gives +inf, below NaN in the merge's
-    // order, which only lets more candidates into the merge
-    float lo = INFINITY;
-    for (int j = tid; j < ef; j += kThreads) lo = fminf(lo, a.beam_s[size_t(q) * ef + j]);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    // the order key of the entry beam's worst score (the beam need not
+    // be sorted)
+    unsigned lo = 0xffffffffu;
+    for (int j = tid; j < ef; j += kThreads) lo = min(lo, topk::order_key(a.beam_s[size_t(q) * ef + j]));
+    lo = __reduce_min_sync(0xffffffffu, lo);
     if (lane == 0) warp_lo[warp] = lo;
     __syncthreads();
     if (tid == 0) {
-      for (int i = 1; i < kWarps; ++i) lo = fminf(lo, warp_lo[i]);
-      reinterpret_cast<float*>(hdr)[2] = lo;
+      for (int i = 1; i < kWarps; ++i) lo = min(lo, warp_lo[i]);
+      reinterpret_cast<unsigned*>(hdr)[2] = lo;
     }
   }
   __syncthreads();
@@ -387,18 +385,19 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) hop_kernel(HopArgs a) 
       // (the others have all ef beam entries before them), and as many
       // invalid ones (in slot order) as can reach the top ef
       const int nv = hdr[0];
-      const float worst = reinterpret_cast<const float*>(hdr)[2];
+      const unsigned worst = reinterpret_cast<const unsigned*>(hdr)[2];
+      const unsigned neg = topk::order_key(kNeg);
       int above = 0;
       for (int j = tid; j < ef; j += kThreads) {
         ks[j] = cur_s[j];
         kkey[j] = rank_key(cur_s[j], j);
         kslot[j] = j;
-        above += !(cur_s[j] <= kNeg);   // NaN ranks above NEG
+        above += topk::order_key(cur_s[j]) > neg;
       }
       for (int i = tid; i < nv; i += kThreads) {
         const float sc = vscore[i];
-        above += !(sc <= kNeg);
-        if (topk::better_nan(sc, 1, worst, 0)) {   // ahead of the worst beam entry, whose slot is lower
+        above += topk::order_key(sc) > neg;
+        if (topk::order_key(sc) > worst) {   // ahead of the worst beam entry, whose slot is lower
           const int k = ef + atomicAdd(hdr + 3, 1);
           ks[k] = sc;
           kkey[k] = rank_key(sc, ef + vpos[i]);
@@ -450,11 +449,11 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) hop_kernel(HopArgs a) 
       } else {
         const int size = 1 << log2_ceil(m);
         for (int j = m + tid; j < size; j += kThreads) {
-          ks[j] = -INFINITY;
+          ks[j] = topk::lowest();
           kslot[j] = kPadSlot;
         }
         __syncthreads();
-        topk::sort_best_first(ks, kslot, size, topk::BetterNan());
+        topk::sort_best_first(ks, kslot, size);
         for (int j = tid; j < ef; j += kThreads) {
           nxt_s[j] = ks[j];
           nxt_i[j] = id_of(kslot[j]);
@@ -465,7 +464,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) hop_kernel(HopArgs a) 
         hpos[h] = kPadSlot;
       }
       __syncthreads();
-      if (tid == 0) reinterpret_cast<float*>(hdr)[2] = nxt_s[ef - 1];   // the new beam is in merge order
+      if (tid == 0) reinterpret_cast<unsigned*>(hdr)[2] = topk::order_key(nxt_s[ef - 1]);   // in merge order
       cur ^= 1;
     }
   }

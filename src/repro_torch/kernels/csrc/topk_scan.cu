@@ -72,7 +72,7 @@ struct ScanArgs {
   int b, n, n_valid, k;
   int l2, weighted;
   float w_dense, w_sparse;
-  float* part_s;          // [B, n_splits, k]
+  float* part_s;          // [B, n_splits, k] the order keys' bits
   int* part_i;
   int n_splits, rows_per_split, buf;
   int stage_words;        // the block's index words fit in shared memory
@@ -123,11 +123,11 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
 
   extern __shared__ float4 smem4[];
   char* p = reinterpret_cast<char*>(smem4);
-  float* cand_s = reinterpret_cast<float*>(p);  p += align16(size_t(QB) * a.buf * 4);
-  int* cand_i = reinterpret_cast<int*>(p);      p += align16(size_t(QB) * a.buf * 4);
+  unsigned* cand_k = reinterpret_cast<unsigned*>(p);  p += align16(size_t(QB) * a.buf * 4);
+  int* cand_i = reinterpret_cast<int*>(p);            p += align16(size_t(QB) * a.buf * 4);
   int* cnt = reinterpret_cast<int*>(p);
-  float* th_s = reinterpret_cast<float*>(cnt + QB);
-  int* th_i = reinterpret_cast<int*>(th_s + QB);
+  unsigned* th_k = reinterpret_cast<unsigned*>(cnt + QB);
+  int* th_i = reinterpret_cast<int*>(th_k + QB);
   float* q2 = reinterpret_cast<float*>(th_i + QB);
   p += align16(QB * 16);
   float* c_tile = reinterpret_cast<float*>(p);               // [kDenseChunk][kRows], swizzled
@@ -150,7 +150,7 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
                     reinterpret_cast<uintptr_t>(a.c_val) % (4 * sizeof(TV)) == 0;
 
   auto cands = [&](int q) {
-    return Cands{cand_s + size_t(q) * a.buf, cand_i + size_t(q) * a.buf, cnt + q, th_s + q, th_i + q};
+    return Cands{cand_k + size_t(q) * a.buf, cand_i + size_t(q) * a.buf, cnt + q, th_k + q, th_i + q};
   };
   // the block's query group has one index; its words go to shared memory
   // when they fit (made visible by the first tile's barrier)
@@ -324,7 +324,7 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
           score = a.weighted ? __fmul_rn(a.w_sparse, sparse[r][j]) : sparse[r][j];
         }
         if (row >= a.n_valid) score = kNeg;
-        offer(cands(q), score, row);
+        offer(cands(q), order_key(score), row);
       }
     }
   }
@@ -334,34 +334,35 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
     compact(cands(q), a.buf, a.k);
     const size_t out = (size_t(q0 + q) * a.n_splits + split) * a.k;
     for (int j = tid; j < a.k; j += kThreads) {
-      a.part_s[out + j] = cand_s[size_t(q) * a.buf + j];
+      a.part_s[out + j] = __uint_as_float(cand_k[size_t(q) * a.buf + j]);   // keys, for merge_kernel
       a.part_i[out + j] = cand_i[size_t(q) * a.buf + j];
     }
   }
 }
 
-// One block per query: top-k of its m = n_splits*k partials.
+// One block per query: top-k of its m = n_splits*k partials (order keys
+// in part_s's bits).
 __global__ void __launch_bounds__(kThreads)
 merge_kernel(const float* part_s, const int* part_i, int m, int k, int buf, float* out_s, int* out_i) {
   extern __shared__ float4 smem4[];
-  float* s = reinterpret_cast<float*>(smem4);
-  int* id = reinterpret_cast<int*>(s + buf);
+  unsigned* key = reinterpret_cast<unsigned*>(smem4);
+  int* id = reinterpret_cast<int*>(key + buf);
   int* cnt = id + buf;
-  float* th_s = reinterpret_cast<float*>(cnt + 1);
-  int* th_i = reinterpret_cast<int*>(th_s + 1);
-  const Cands c{s, id, cnt, th_s, th_i};
+  unsigned* th_k = reinterpret_cast<unsigned*>(cnt + 1);
+  int* th_i = reinterpret_cast<int*>(th_k + 1);
+  const Cands c{key, id, cnt, th_k, th_i};
   const size_t q = blockIdx.x;
   if (threadIdx.x == 0) init_cands(c);
   for (int base = 0; base < m; base += kThreads) {
     __syncthreads();
     if (*cnt > buf - kThreads) compact(c, buf, k);
     const int p = base + threadIdx.x;
-    if (p < m) offer(c, part_s[q * m + p], part_i[q * m + p]);
+    if (p < m) offer(c, __float_as_uint(part_s[q * m + p]), part_i[q * m + p]);
   }
   __syncthreads();
   compact(c, buf, k);
   for (int j = threadIdx.x; j < k; j += kThreads) {
-    out_s[q * k + j] = s[j];
+    out_s[q * k + j] = from_key(key[j]);
     out_i[q * k + j] = id[j];
   }
 }

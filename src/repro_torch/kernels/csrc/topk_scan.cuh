@@ -1,15 +1,17 @@
 // Shared pieces of the exact top-k scan kernels (topk_scan.cu).
 //
 // Selection keeps, per query, a candidate list in shared memory together
-// with a threshold: the k-th best (score, id) pair seen at the last
+// with a threshold: the k-th best (key, id) pair seen at the last
 // compaction.  A scored row enters the list only if it beats the
 // threshold; when the list could overflow, one block-wide bitonic sort
 // keeps its best k and raises the threshold.  After the first few tiles
 // almost no row beats it, so selection costs one compare per scored row
 // instead of the K rounds of max/argmax per tile that the TPU kernel runs.
 //
-// Order everywhere is (score descending, id ascending): ties break toward
-// the lower corpus row id, as lax.top_k does.
+// Order everywhere is lax.top_k's (order_key below, then id ascending):
+// ties break toward the lower corpus row id.  The lists hold each score's
+// order key, so that a step of the threshold test or of the sort is one
+// integer compare.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,10 +37,30 @@ __device__ __forceinline__ int swizzle(int c, int r) {
 }
 
 constexpr float kNeg = -3.402823466e+38f;   // f32 min: the mask for rows >= n_valid
-constexpr int kSentinelId = 0x7fffffff;     // empty slot: (-inf, kSentinelId)
+constexpr int kSentinelId = 0x7fffffff;     // empty slot: (key 0, kSentinelId)
 
-__device__ __forceinline__ bool better(float sa, int ia, float sb, int ib) {
-  return sa > sb || (sa == sb && ia < ib);
+// The order of scores on every exact path, lax.top_k's: the total order
+// of the f32 bit patterns, so +0 ranks above -0, a NaN with the sign bit
+// clear above +inf and one with it set below -inf, NaNs by their bits
+// (the card's arithmetic makes NaN 0x7fffffff; negated, 0xffffffff).
+// order_key maps a score to an unsigned integer in that order.
+__device__ __forceinline__ unsigned order_key(float x) {
+  const unsigned u = __float_as_uint(x);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ unsigned order_key(unsigned key) { return key; }   // already a key
+// order_key's inverse
+__device__ __forceinline__ float from_key(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// The score with order_key 0 (the NaN of all bits set), below every
+// other: it fills empty slots.
+__device__ __forceinline__ float lowest() { return __uint_as_float(0xffffffffu); }
+
+// (key descending, id ascending): ties break toward the lower corpus row id.
+__device__ __forceinline__ bool ahead(unsigned ka, int ia, unsigned kb, int ib) {
+  return ka > kb || (ka == kb && ia < ib);
 }
 
 template <typename T>
@@ -229,46 +251,20 @@ index_kernel_rows(const T* qd, int b, int vocab, int group, uint2* words, float*
   }
 }
 
-struct Better {
-  __device__ __forceinline__ bool operator()(float sa, int ia, float sb, int ib) const {
-    return better(sa, ia, sb, ib);
-  }
-};
-
-// better() with NaN above +inf and NaNs ordered by id: the order of
-// lax.top_k and of torch.sort (descending, stable).
-__device__ __forceinline__ bool better_nan(float sa, int ia, float sb, int ib) {
-  const bool na = isnan(sa), nb = isnan(sb);
-  if (na || nb) return na && (!nb || ia < ib);
-  return better(sa, ia, sb, ib);
-}
-// An unsigned key in better_nan's order of scores: NaN above +inf, -0
-// equal to +0, else the float order.
-__device__ __forceinline__ unsigned order_key(float x) {
-  if (isnan(x)) return 0xffffffffu;
-  const unsigned u = __float_as_uint(x == 0.f ? 0.f : x);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-struct BetterNan {
-  __device__ __forceinline__ bool operator()(float sa, int ia, float sb, int ib) const {
-    return better_nan(sa, ia, sb, ib);
-  }
-};
-
-// Block-wide bitonic sort of s/id[0, size), best first by `cmp`; size is
-// a power of two.  Every thread of the block must call it.
-template <typename Cmp = Better>
-__device__ inline void sort_best_first(float* s, int* id, int size, Cmp cmp = Cmp()) {
+// Block-wide bitonic sort of s/id[0, size), best first; size is a power
+// of two; s holds scores (float) or their order keys (unsigned).  Every
+// thread of the block must call it.
+template <typename S>
+__device__ inline void sort_best_first(S* s, int* id, int size) {
   for (int len = 2; len <= size; len <<= 1) {
     for (int stride = len >> 1; stride > 0; stride >>= 1) {
       for (int p = threadIdx.x; p < size / 2; p += blockDim.x) {
         const int lo = 2 * stride * (p / stride) + (p % stride);
         const int hi = lo + stride;
         const bool best_first = (lo & len) == 0;
-        const float s_lo = s[lo], s_hi = s[hi];
+        const S s_lo = s[lo], s_hi = s[hi];
         const int i_lo = id[lo], i_hi = id[hi];
-        if (cmp(s_hi, i_hi, s_lo, i_lo) == best_first) {
+        if (ahead(order_key(s_hi), i_hi, order_key(s_lo), i_lo) == best_first) {
           s[lo] = s_hi; s[hi] = s_lo;
           id[lo] = i_hi; id[hi] = i_lo;
         }
@@ -278,19 +274,19 @@ __device__ inline void sort_best_first(float* s, int* id, int size, Cmp cmp = Cm
   }
 }
 
-// One query's candidate list: buf slots, cnt of them in use, and the
-// threshold a new candidate must beat.
+// One query's candidate list: buf slots of (order key, id), cnt of them
+// in use, and the threshold a new candidate must beat.
 struct Cands {
-  float* s;
+  unsigned* key;
   int* id;
   int* cnt;
-  float* th_s;
+  unsigned* th_key;
   int* th_i;
 };
 
 __device__ inline void init_cands(const Cands& c) {
   *c.cnt = 0;
-  *c.th_s = -INFINITY;
+  *c.th_key = 0;
   *c.th_i = kSentinelId;
 }
 
@@ -299,23 +295,23 @@ __device__ inline void init_cands(const Cands& c) {
 __device__ inline void compact(const Cands& c, int buf, int k) {
   const int used = *c.cnt;
   for (int p = used + threadIdx.x; p < buf; p += blockDim.x) {
-    c.s[p] = -INFINITY;
+    c.key[p] = 0;
     c.id[p] = kSentinelId;
   }
   __syncthreads();
-  sort_best_first(c.s, c.id, buf);
+  sort_best_first(c.key, c.id, buf);
   if (threadIdx.x == 0) {
     *c.cnt = k;
-    *c.th_s = c.s[k - 1];
+    *c.th_key = c.key[k - 1];
     *c.th_i = c.id[k - 1];
   }
   __syncthreads();
 }
 
-__device__ __forceinline__ void offer(const Cands& c, float score, int row) {
-  if (better(score, row, *c.th_s, *c.th_i)) {
+__device__ __forceinline__ void offer(const Cands& c, unsigned key, int row) {
+  if (ahead(key, row, *c.th_key, *c.th_i)) {
     const int p = atomicAdd(c.cnt, 1);
-    c.s[p] = score;
+    c.key[p] = key;
     c.id[p] = row;
   }
 }

@@ -243,34 +243,40 @@ def test_budget_and_argument_refusals(no_library):
     assert MAX_BEAM_CANDIDATES == tb.MAX_BEAM_CANDIDATES
 
 
+def _key(x):
+    """``topk::order_key``: int64 keys in ``lax.top_k``'s order of f32
+    scores, the total order of their bit patterns."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    return np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000)).astype(np.int64)
+
+
 def _kernel_merge(beam_s, beam_i, cand_s, cand_i, valid):
     """The kernel's merge (``csrc/beam_hop.cu``, step 4) for one query in
-    numpy: the ef beam entries, the valid candidates ahead of the beam's
-    worst score, and, when fewer than ef entries of the beam and the valid
-    candidates score above f32-min (NaN counts as above), that many of the
-    invalid candidates (f32-min, in slot order); the top ef of those, NaN
-    ranking above +inf.  Returns the top ef (scores, ids) and the number
-    of entries ranked."""
+    numpy: the ef beam entries, the valid candidates whose order key is
+    above the beam's worst, and, when fewer than ef entries of the beam and
+    the valid candidates rank above f32-min, that many of the invalid
+    candidates (f32-min, in slot order); the top ef of those by (order key
+    descending, slot ascending).  Returns the top ef (scores, ids) and the
+    number of entries ranked."""
     ef, c = beam_s.shape[0], cand_s.shape[0]
     pos = np.flatnonzero(valid)
-    above = int((~(beam_s <= NEG)).sum() + (~(cand_s[pos] <= NEG)).sum())
-    worst = np.fmin.reduce(np.append(beam_s, np.float32(np.inf)))   # fminf from +inf: skips NaN
-    ahead = (cand_s[pos] > worst) | (np.isnan(cand_s[pos]) & ~np.isnan(worst))
-    keep = pos[ahead]
+    neg = _key(NEG)
+    above = int((_key(beam_s) > neg).sum() + (_key(cand_s[pos]) > neg).sum())
+    keep = pos[_key(cand_s[pos]) > _key(beam_s).min()]
     need = min(max(ef - above, 0), c - pos.size)
     slot = np.concatenate([np.arange(ef), ef + keep, ef + np.flatnonzero(~valid)[:need]])
     s = np.concatenate([beam_s, cand_s[keep], np.full(need, NEG, np.float32)])
-    key = -np.where(np.isnan(s), 0.0, s.astype(np.float64))
-    order = np.lexsort((slot, key, ~np.isnan(s)))[:ef]   # NaN first, score descending, slot ascending
+    order = np.lexsort((slot, -_key(s)))[:ef]
     return s[order], np.concatenate([beam_i, cand_i])[slot[order]], slot.size
 
 
-def _merge_case(rng, ef, c, valid_share, extremes, nan=False):
+def _merge_case(rng, ef, c, valid_share, extremes, nan=False, zeros=False):
     """A beam in any order (random, f32-min and -inf scores, ids -1 and n
     among them) and C candidates, a share of them valid; invalid ones are
     (f32-min, n), ``extremes`` makes some valid ones score f32-min or
-    -inf, and ``nan`` some beam entries and valid candidates NaN (0 * inf
-    in a sparse part)."""
+    -inf, ``nan`` some beam entries and valid candidates NaN (0 * inf in a
+    sparse part: 0x7fffffff on the card, 0xffc00000 on an x86 CPU, and
+    NumPy's 0x7fc00000), ``zeros`` some of them +0 and -0."""
     n = 10_000
     beam_s = rng.standard_normal(ef).astype(np.float32)
     beam_i = rng.integers(0, n, ef).astype(np.int32)
@@ -285,22 +291,38 @@ def _merge_case(rng, ef, c, valid_share, extremes, nan=False):
         cand_s[valid & (x < 0.3)] = NEG
         cand_s[valid & (x > 0.8)] = -np.inf
     if nan:
-        beam_s[(pick >= 0.4) & (pick < 0.5)] = np.nan
-        cand_s[valid & (rng.uniform(size=c) < 0.3)] = np.nan
+        nans = np.array([0x7FFFFFFF, 0xFFC00000, 0x7FC00000], np.uint32).view(np.float32)
+        bn = (pick >= 0.4) & (pick < 0.5)
+        beam_s[bn] = nans[rng.integers(0, 3, int(bn.sum()))]
+        cn = valid & (rng.uniform(size=c) < 0.3)
+        cand_s[cn] = nans[rng.integers(0, 3, int(cn.sum()))]
         cand_s[valid & (rng.uniform(size=c) < 0.1)] = np.inf
+    if zeros:
+        bz, cz = rng.uniform(size=ef), rng.uniform(size=c)
+        beam_s[bz < 0.2], beam_s[(bz >= 0.2) & (bz < 0.4)] = 0.0, -0.0
+        cand_s[valid & (cz < 0.3)], cand_s[valid & (cz >= 0.3) & (cz < 0.6)] = 0.0, -0.0
     cand_i = np.where(valid, rng.integers(0, n, c), n).astype(np.int32)
     return beam_s, beam_i, cand_s, cand_i, valid
 
 
 def _assert_merge_is_top_k(beam_s, beam_i, cand_s, cand_i, valid):
-    """The emulated kernel merge against repro's: ``lax.top_k`` over the
-    whole [beam, candidates] row (``beam_hop_ref``)."""
+    """The emulated kernel merge and the plain hop's merge (``select_topk``
+    over [beam, candidates], ``ref._hop``) against repro's: ``lax.top_k``
+    over the whole row (``beam_hop_ref``), ids equal and scores bit for
+    bit."""
+    from repro_torch.core.brute_force import select_topk
+
     ef = beam_s.shape[0]
-    want_s, pos = jax.lax.top_k(jnp.asarray(np.concatenate([beam_s, cand_s])), ef)
-    want_i = np.concatenate([beam_i, cand_i])[np.asarray(pos)]
+    row = np.concatenate([beam_s, cand_s])
+    ids = np.concatenate([beam_i, cand_i])
+    want_s, pos = jax.lax.top_k(jnp.asarray(row), ef)
+    want_s, want_i = np.asarray(want_s).view(np.uint32), ids[np.asarray(pos)]
     got_s, got_i, _ = _kernel_merge(beam_s, beam_i, cand_s, cand_i, valid)
-    np.testing.assert_array_equal(np.asarray(want_s), got_s)
+    np.testing.assert_array_equal(want_s, got_s.view(np.uint32))
     np.testing.assert_array_equal(want_i, got_i)
+    plain_s, plain_pos = select_topk(torch.from_numpy(row)[None], ef)
+    np.testing.assert_array_equal(want_s, plain_s[0].numpy().view(np.uint32))
+    np.testing.assert_array_equal(want_i, ids[plain_pos[0].numpy()])
 
 
 @pytest.mark.parametrize("ef,r,valid_share,extremes", [
@@ -319,15 +341,19 @@ def test_merge_over_valid_candidates_equals_full_sort(ef, r, valid_share, extrem
 @pytest.mark.parametrize("ef,r,valid_share", [
     (64, 16, 0.04), (16, 4, 0.02), (8, 4, 1.0), (32, 8, 0.5), (2048, 16, 0.001), (4, 2, 0.0)])
 def test_merge_with_nan_scores_equals_lax_top_k(ef, r, valid_share):
-    """NaN scores (beam entries and valid candidates) rank above +inf, NaNs
-    by slot, as ``lax.top_k`` ranks them: the kernel's filter and rank
-    count keep them, and a starved beam still takes the right number of
-    invalid entries."""
+    """NaN scores (beam entries and valid candidates) and +0 / -0 rank as
+    ``lax.top_k`` ranks them, by their bits: a NaN with the sign bit clear
+    above +inf, one with it set below -inf, +0 above -0, then by slot.  The
+    kernel's filter and rank count keep them, a starved beam still takes
+    the right number of invalid entries, and the plain hop's merge agrees."""
     rng = np.random.default_rng(ef * 13 + r + int(1000 * valid_share))
-    for _ in range(4):
-        beam_s, beam_i, cand_s, cand_i, valid = _merge_case(rng, ef, ef * r, valid_share, True, nan=True)
+    for nan, zeros in ((True, False), (False, True), (True, True), (True, True)):
+        beam_s, beam_i, cand_s, cand_i, valid = _merge_case(rng, ef, ef * r, valid_share, True,
+                                                            nan=nan, zeros=zeros)
         _assert_merge_is_top_k(beam_s, beam_i, cand_s, cand_i, valid)
     beam_s[:] = np.nan       # an all-NaN beam: no candidate gets ahead of it
+    _assert_merge_is_top_k(beam_s, beam_i, cand_s, cand_i, valid)
+    beam_s[:] = -0.0         # an all -0 beam: +0 candidates get ahead of it
     _assert_merge_is_top_k(beam_s, beam_i, cand_s, cand_i, valid)
 
 

@@ -1,12 +1,13 @@
 """repro_torch's large-k top-k (``kernels/topk_large.py``, the kernels
 for k above the scan kernels' ``MAX_K``) on the CPU, its plain version,
 held against ``repro.kernels.ref`` on small corpora up to k = n_valid;
-and a numpy form of the select kernel's radix select held against
-``lax.top_k``.
+and a numpy form of the selection kernels (radix passes, refinement,
+ordered fill of tied rows, the final sort) held against ``lax.top_k``.
 
-The CUDA kernels cannot run here; ``chip_smoke.py`` (phase "small") holds
-them against this plain version on the card.  Tolerances: ids equal; f32
-scores within ``F32_RTOL`` (2e-6) of the row's largest |score|.
+The CUDA kernels cannot run here; ``chip_smoke.py`` (phase "large small")
+holds them against this plain version on the card.  Tolerances: ids
+equal; f32 scores within ``F32_RTOL`` (2e-6) of the row's largest
+|score|; selections of given scores bit for bit.
 """
 
 import jax
@@ -20,6 +21,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import topk_large as lk
+from repro_torch.kernels.ref import query_table
 
 from _precision import planted_margin_corpus
 from _torch_parity import (assert_topk_match, planted_fused_np, sparse_to_torch,
@@ -70,6 +72,18 @@ def test_topk_large_dense_kinds_match_repro(space, no_library):
         assert set(np.asarray(got.indices)[:, :8].ravel()) == set(np.asarray(planted).tolist())
 
 
+def test_query_groups_layout():
+    """The dense kernel reads query q's value of column c at [q // 16, c,
+    q % 16]; columns up to a multiple of 32 and queries up to a multiple of
+    16 are zero."""
+    q = torch.from_numpy(np.random.default_rng(3).standard_normal((19, 40)).astype(np.float32))
+    g = lk.query_groups(q)
+    assert g.shape == (2, 64, 16) and g.is_contiguous()
+    for b, c in ((0, 0), (5, 39), (16, 7), (18, 33)):
+        assert g[b // 16, c, b % 16] == q[b, c]
+    assert not g[:, 40:].any() and not g[1, :, 3:].any()
+
+
 def test_topk_large_refusals(no_library):
     c = torch.zeros((10, 4))
     q = torch.zeros((2, 4))
@@ -86,68 +100,141 @@ def test_topk_large_refusals(no_library):
 
 
 def _order_key(x):
-    """``order_key`` of ``csrc/topk_large.cu``: uint32 keys in score order,
-    NaN above +inf, -0 equal to +0."""
-    x = np.where(x == 0, np.float32(0), x).astype(np.float32)
-    u = x.view(np.uint32)
-    key = np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000)).astype(np.uint32)
-    return np.where(np.isnan(x), np.uint32(0xFFFFFFFF), key)
+    """``order_key`` of ``csrc/topk_scan.cuh``: uint32 keys in ``lax.top_k``'s
+    order, the total order of the f32 bit patterns (+0 above -0, NaN by its
+    bits)."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    return np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000)).astype(np.uint32)
 
 
-def _select(s, k):
-    """The select kernel for one query in numpy: a radix select of the
-    k-th key, 8 bits a pass; the rows above it, then the lowest-numbered
-    rows at it; sorted NaN first, score descending, row ascending."""
+LEVELS = ((20, 12), (10, 10), (0, 10))   # (shift, bits) of the selection's three passes
+
+
+def _select(s, k, cap, rng=None, modes=None):
+    """The selection kernels (``csrc/topk_large.cu``) for one query in
+    numpy: up to three histogram passes over 12, 10 and 10 bits of the
+    order keys, each over the rows matching the bits resolved so far, until
+    the k-th key's bin holds at most ``cap`` rows (mode 1: collect every row
+    above or in it) or all 32 bits are resolved (mode 2: the rows above, then
+    the first ``need`` rows of the k-th key in row order); the list, in the
+    atomic appends' arbitrary order, sorted by (key descending, row
+    ascending), and its first k."""
     key = _order_key(s)
-    prefix, mask, need = 0, 0, k
-    for shift in (24, 16, 8, 0):
-        hist = np.bincount((key[(key & mask) == prefix] >> shift) & 255, minlength=256)
-        b = 255
-        while b > 0 and hist[b] < need:
-            need -= hist[b]
-            b -= 1
-        prefix |= b << shift
-        mask |= 255 << shift
-    rows = np.concatenate([np.flatnonzero(key > prefix), np.flatnonzero(key == prefix)[:need]])
-    assert rows.size == k
-    sv = s[rows]
-    order = np.lexsort((rows, -np.where(np.isnan(sv), 0.0, sv.astype(np.float64)), ~np.isnan(sv)))
-    return sv[order], rows[order]
+    need, above, prefix = k, 0, 0
+    for level, (shift, bits) in enumerate(LEVELS):
+        match = np.ones(key.size, bool) if level == 0 else (key >> LEVELS[level - 1][0]) == prefix
+        hist = np.bincount((key[match] >> shift) & ((1 << bits) - 1), minlength=1 << bits)
+        suffix = np.cumsum(hist[::-1])[::-1]          # rows in bins >= t
+        t = int(np.flatnonzero(suffix >= need).max())
+        above_here = int(suffix[t] - hist[t])
+        prefix = t if level == 0 else (prefix << bits) | t
+        need -= above_here
+        above += above_here
+        count = int(hist[t])
+        mode = 1 if count <= cap else 2 if level == len(LEVELS) - 1 else 0
+        if mode:
+            break
+    if modes is not None:
+        modes.append((level, mode))
+    top = key >> shift
+    rows = np.flatnonzero(top > prefix)
+    assert rows.size == above
+    if mode == 1:
+        rows = np.concatenate([rows, np.flatnonzero(top == prefix)])
+        assert rows.size <= k - 1 + cap
+    else:
+        rows = np.concatenate([rows, np.flatnonzero(key == prefix)[:need]])
+        assert rows.size == k
+    if rng is not None:
+        rows = rng.permutation(rows)
+    order = np.lexsort((rows, -key[rows].astype(np.int64)))[:k]
+    return s[rows[order]], rows[order]
 
 
-@pytest.mark.parametrize("case", ["normal", "ties", "extremes", "nan"])
-def test_select_emulation_matches_lax_top_k(case):
-    """The radix select and its tie fill give ``lax.top_k``'s top k: ties
-    on the k-th score (quantised scores), +-inf and f32-min, NaN above
-    +inf, at k from 1 to N.  Signed zeros are left out: ``lax.top_k``
-    puts +0 above -0, the port's exact paths (the scan kernels, their
-    plain versions and this kernel) rank them equal (ROADMAP queue C)."""
-    rng = np.random.default_rng(["normal", "ties", "extremes", "nan"].index(case))
-    n = 3000
+def _scores(case, rng, n):
     s = rng.standard_normal(n).astype(np.float32)
     if case == "ties":
         s = np.round(s * 4).astype(np.float32) + np.float32(0.5)
+    if case == "all equal":
+        s = np.full(n, 0.25, np.float32)
     if case in ("extremes", "nan"):
         x = rng.uniform(size=n)
         s[x < 0.1] = np.inf
         s[(x >= 0.1) & (x < 0.2)] = -np.inf
         s[(x >= 0.2) & (x < 0.3)] = np.finfo(np.float32).min
         s[(x >= 0.3) & (x < 0.4)] = np.finfo(np.float32).max
-    if case == "nan":
-        s[rng.uniform(size=n) < 0.1] = np.nan
+    if case == "nan":   # both signs and two payloads: lax.top_k orders them by bits
+        bits = np.array([0x7FC00000, 0xFFC00000, 0x7FFFFFFF, 0xFFFFFFFF], np.uint32).view(np.float32)
+        pick = rng.uniform(size=n) < 0.1
+        s[pick] = bits[rng.integers(0, 4, int(pick.sum()))]
+    if case == "zeros":
+        x = rng.uniform(size=n)
+        s[x < 0.3] = 0.0
+        s[(x >= 0.3) & (x < 0.6)] = -0.0
+    return s
+
+
+@pytest.mark.parametrize("case", ["normal", "ties", "extremes", "nan", "zeros", "all equal"])
+def test_select_emulation_matches_lax_top_k(case):
+    """The selection kernels' passes, refinement and tie fill give
+    ``lax.top_k``'s top k, values bit for bit: ties on the k-th score
+    (quantised scores), +-inf and f32-min, NaN of both signs and two
+    payloads, +0 and -0, all-equal rows, at k from 1 to N = n_valid, with
+    the real capacity and with small ones that force the refinement passes
+    and the ordered fill of tied rows."""
+    rng = np.random.default_rng(["normal", "ties", "extremes", "nan", "zeros", "all equal"].index(case))
+    n = 3000
+    s = _scores(case, rng, n)
+    modes = []
     for k in (1, 7, 2049, 2100, n // 2, n):
         want_s, want_i = jax.lax.top_k(jnp.asarray(s), k)
-        got_s, got_i = _select(s, k)
-        np.testing.assert_array_equal(np.asarray(want_i), got_i, err_msg=f"{case} k={k}")
-        np.testing.assert_array_equal(np.asarray(want_s), got_s)
+        for cap in (lk.capacity(k), 64, 1):
+            got_s, got_i = _select(s, k, cap, rng, modes)
+            np.testing.assert_array_equal(np.asarray(want_i), got_i, err_msg=f"{case} k={k} cap={cap}")
+            np.testing.assert_array_equal(np.asarray(want_s).view(np.uint32), got_s.view(np.uint32))
+    assert any(level == 2 for level, _ in modes), modes        # every pass ran
+    if case in ("ties", "zeros", "all equal"):
+        assert any(mode == 2 for _, mode in modes), modes      # and the ordered fill
+
+
+@pytest.mark.parametrize("case", ["nan", "zeros", "all equal"])
+def test_select_large_plain_matches_lax_top_k(case, no_library):
+    """``select_large`` on CPU scores (its plain version, ``select_topk``)
+    gives ``lax.top_k``'s ids and values bit for bit, per row."""
+    rng = np.random.default_rng(7)
+    s = np.stack([_scores(case, rng, 500) for _ in range(3)])
+    for k in (1, 250, 500):
+        got_s, got_i = lk.select_large(torch.from_numpy(s), k)
+        want_s, want_i = jax.lax.top_k(jnp.asarray(s), k)
+        assert got_i.dtype == torch.int32
+        np.testing.assert_array_equal(np.asarray(want_i), got_i.numpy())
+        np.testing.assert_array_equal(np.asarray(want_s).view(np.uint32), got_s.numpy().view(np.uint32))
+
+
+def test_large_scores_plain_is_the_scan_before_selection(no_library):
+    """``large_scores`` on the CPU is the fused score function over the
+    first n_valid rows, and selecting from it gives ``topk_large``."""
+    (cd, ci, cv), (qd, qi, qv) = planted_fused_np(203, 40, 6, 8, 3, 6, seed=9)
+    q_sp = sparse_to_torch(JSparse(jnp.asarray(qi), jnp.asarray(qv)))
+    c_sp = sparse_to_torch(JSparse(jnp.asarray(ci), jnp.asarray(cv)))
+    table = query_table(q_sp, 40)
+    args = (table, to_torch(qd), c_sp.indices, c_sp.values, to_torch(cd))
+    scores = lk.large_scores(*args, w_dense=0.6, w_sparse=0.4, n_valid=150)
+    assert scores.shape == (3, 150)
+    got = lk.select_large(scores, 40)
+    want = lk.topk_large(*args, 40, w_dense=0.6, w_sparse=0.4, n_valid=150)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
 
 
 def test_signed_zeros_rank_equal_as_the_plain_version():
-    """+0 and -0 tie and go to the lower row, as the plain version's
-    stable sort (``select_topk``) has them."""
+    """+0 ranks above -0, as ``lax.top_k`` has them, in the selection's
+    emulation and in the plain version (``select_topk``); rows of the same
+    zero go to the lower row."""
     from repro_torch.core.brute_force import select_topk
 
-    s = np.array([0.0, -0.0, 1.0, -0.0, 0.0, -1.0], np.float32)
-    got_s, got_i = _select(s, 4)
-    np.testing.assert_array_equal(got_i, [2, 0, 1, 3])
-    np.testing.assert_array_equal(select_topk(torch.from_numpy(s)[None], 4)[1].numpy()[0], got_i)
+    s = np.array([-0.0, 0.0, -0.0, 0.0, 1.0, np.nan, -1.0], np.float32)
+    want = np.asarray(jax.lax.top_k(jnp.asarray(s), 7)[1])
+    np.testing.assert_array_equal(want, [5, 4, 1, 3, 0, 2, 6])
+    for cap in (lk.capacity(7), 1):
+        np.testing.assert_array_equal(_select(s, 7, cap)[1], want)
+    np.testing.assert_array_equal(select_topk(torch.from_numpy(s)[None], 7)[1].numpy()[0], want)
