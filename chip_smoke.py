@@ -29,7 +29,15 @@ over it ("napp full": ``NappBackend``, 128 pivots, index 8, search 8,
 the index built through the fused score kernel); the fused score kernel timed at B = 16 and at
 B = 128 ("score full"); and over a planted-cluster corpus of 1,048,576
 rows at full widths, graph ANN ("graph recall": an NN-descent index) and
-NAPP ("napp recall"), recall@10 against the exact answer.  Each served
+NAPP ("napp recall"), recall@10 against the exact answer.  Between "score
+full" and "graph recall", over the resident corpus: mixing weights learned
+on the card from planted training queries and served to held-out ones
+("fusion full"), and live corpora on those weights and on dense ip
+through ``LiveCorpus`` and ``LiveGenerator``, before and after inserts,
+deletes (the main fetch past 2048 rows takes ``topk_large``) and a
+compaction, each result equal to the plain live path ("live full");
+last, a live corpus with a graph-ANN main under churn and the background
+compactor, recall@10 gated before and after ("live ann").  Each served
 path runs with the launch counters set to 0 just before and read just
 after.  The last lines are the ``kernels`` JSON, the card's name and
 power limit, and ``{"ok": true, ...}``.  Any failure raises and exits
@@ -61,6 +69,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 TOL_REL = 1e-5
@@ -77,6 +87,12 @@ NAPP_DRAWS = 32                  # pivot draws whose recall "napp recall" prints
 RECALL_N = 1_048_576             # rows of the planted-cluster recall corpus
 SKEW_N = 1_048_576               # rows of the uniform / Zipf term-id timing
 CLUSTERS = 8
+FUSION_TRAIN, FUSION_HELD = 256, 128   # "fusion full": training and held-out queries
+LIVE_CAND = 100                  # "live full": cand_qty, as the main path
+LIVE_INSERTS, LIVE_PLANTED_INSERTS = 1024, 256   # state (b): rows inserted, of which planted
+LIVE_DELETES, LIVE_MORE_DELETES = 1000, 4000     # state (b) deletes, then state (c)'s
+LIVE_PLANTED_DELETES = (300, 500)                # of those, planted rows
+ANN_INSERTS, ANN_DELETES, ANN_MAIN_DELETES = 1024, 512, 48   # "live ann" churn; main deletes <= ef - k
 NEG = -3.4028234663852886e38     # f32 min, the mask of invalid candidates
 SLEEP_CYCLES = 2_000_000         # ~1 ms at an H100 SXM's 1.98 GHz boost clock: outlasts the host's enqueue of a traversal
 
@@ -1287,6 +1303,379 @@ def napp_recall_phase(torch, dev, space, corpus, q, exact, seed, on_card):
     assert recalls[0] >= ANN_RECALL_TARGET, recalls
 
 
+def median_ms(xs):
+    return 1e3 * statistics.median(xs)
+
+
+def fusion_full_phase(torch, dev, check, corpus, card, on_card, seed):
+    """Mixing weights learned on the card over the resident corpus, then
+    served.  Each of FUSION_TRAIN + FUSION_HELD queries gets three planted
+    rows (spread over the corpus, off make_corpus's planted rows): a
+    relevant row scoring 2.5 dense and 25 sparse, a dense decoy (3, 0) and
+    a sparse decoy (0, 29), so that neither part alone and not the uniform
+    mix ranks the relevant row first, while a mix with w_dense / w_sparse
+    between 1.6 and 50 does (no ratio the step grid reaches from the
+    uniform start lies on either boundary); random rows score below 0.3
+    dense and about 3 sparse.  Training: top-100 candidates per query
+    through the fused scan kernel at weights (1, 1) (the relevant row put
+    in the last slot if missing), each candidate's dense and sparse parts
+    scored with ``score_pairs`` on the card, ``learn_fused_weights`` on the
+    card and on the CPU over the same arrays (weights must be equal).
+    Held out: the pipeline on the learned weights and on (1, 1), MRR@10 of
+    each.  Returns the learned space and its ms/batch."""
+    from repro_torch.core import fusion, segments
+    from repro_torch.core.brute_force import TopK
+    from repro_torch.core.pipeline import BruteForceGenerator, RetrievalPipeline
+    from repro_torch.core.sparse import SparseVectors
+    from repro_torch.core.spaces import DenseSpace, FusedSpace, FusedVectors, SparseSpace
+    from repro_torch.kernels import fused_topk as fk
+    from repro_torch.kernels import ref
+
+    n, d = corpus.dense.shape
+    v, b, nnz_q = MSMARCO["v"], MSMARCO["b"], MSMARCO["nnz_q"]
+    nq = FUSION_TRAIN + FUSION_HELD
+    g = torch.Generator(device=dev).manual_seed(seed)
+    step = max(n // 2048, 2)          # make_corpus plants rows at multiples of this
+    rows = 1 + step * torch.randperm(min(2047, (n - 2) // step), generator=g, device=dev)[:3 * nq]
+    rel, dec_d, dec_s = rows.view(3, nq)
+    terms = (1 + torch.randperm(v - 1, generator=g, device=dev)[:4 * nq]).view(nq, 4).int()
+    u = torch.randn(nq, d, generator=g, device=dev)
+    u[:, 0] = 0.0
+    u /= u.norm(dim=1, keepdim=True)
+    qi = torch.randint(1, v, (nq, nnz_q), generator=g, device=dev, dtype=torch.int32)
+    qv = torch.rand(nq, nnz_q, generator=g, device=dev).mul_(0.1)
+    qi[:, :4], qv[:, :4] = terms, 1.0
+    queries = FusedVectors(u, SparseVectors(qi, qv))
+    for r, dense_w, sparse_w in ((rel, 2.5, 6.25), (dec_d, 3.0, 0.0), (dec_s, 0.0, 7.25)):
+        corpus.dense[r] = dense_w * u
+        corpus.sparse.indices[r] = v
+        corpus.sparse.values[r] = 0.0
+        if sparse_w:
+            corpus.sparse.indices[r, :4] = terms
+            corpus.sparse.values[r, :4] = sparse_w
+    batch = lambda i0: segments.take_rows(queries, torch.arange(i0, i0 + b, device=dev))
+
+    uniform = FusedSpace(v, 1.0, 1.0)
+    gen = BruteForceGenerator(uniform, corpus, backend="cuda")
+    t0 = time.perf_counter()
+    cands, dense_s, sparse_s = [], [], []
+    for i0 in range(0, FUSION_TRAIN, b):
+        q = batch(i0)
+        res = gen.generate(q, 100)
+        if i0 == 0:
+            plain = ref.fused_topk_table_ref(ref.query_table(q.sparse, v), q.dense, corpus.sparse.indices,
+                                             corpus.sparse.values, corpus.dense, 100, tile_n=1 << 16,
+                                             w_dense=1.0, w_sparse=1.0)
+            check("fused_topk", "fusion training candidates batch 0", tuple(res), plain, exact_ids=False)
+        c = res.indices.clone()
+        missing = ~(c == rel[i0:i0 + b, None]).any(1)
+        c[missing, -1] = rel[i0:i0 + b][missing].int()
+        docs = segments.take_rows(corpus, c.reshape(-1))
+        q_rep = segments.take_rows(q, torch.arange(b, device=dev).repeat_interleave(100))
+        dense_s.append(DenseSpace("ip").score_pairs(q_rep.dense, docs.dense).view(b, 100))
+        sparse_s.append(SparseSpace(v).score_pairs(q_rep.sparse, docs.sparse).view(b, 100))
+        cands.append(c)
+    cand = torch.cat(cands)
+    dense_s, sparse_s = torch.cat(dense_s), torch.cat(sparse_s)
+    labels = (cand == rel[:FUSION_TRAIN, None]).float()
+    valid = torch.ones_like(labels, dtype=torch.bool)
+    sync(torch, on_card)
+    cand_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    w_d, w_s, achieved = fusion.learn_fused_weights(dense_s, sparse_s, labels, valid)
+    sync(torch, on_card)
+    learn_s = time.perf_counter() - t0
+    host = fusion.learn_fused_weights(dense_s.cpu(), sparse_s.cpu(), labels.cpu(), valid.cpu())
+    assert (w_d, w_s) == host[:2], f"weights learned on {dev.type} {(w_d, w_s)} != on the cpu {host[:2]}"
+
+    learned = uniform.with_weights(w_d, w_s)
+    served = {}
+    fk.launches = 0
+    for name, space in (("learned", learned), ("uniform", uniform)):
+        pipe = RetrievalPipeline(BruteForceGenerator(space, corpus, backend="cuda"), cand_qty=100,
+                                 final_qty=10)
+        host_s, res = [], []
+        for i0 in range(FUSION_TRAIN, nq, b):
+            t0 = time.perf_counter()
+            res.append(pipe.run(batch(i0)))
+            sync(torch, on_card)
+            host_s.append(time.perf_counter() - t0)
+        got = TopK(torch.cat([r.scores for r in res]), torch.cat([r.indices for r in res]))
+        hit = (got.indices == rel[FUSION_TRAIN:, None]).float()
+        served[name] = (float(fusion.mrr(got.scores, hit, torch.ones_like(hit, dtype=torch.bool), 10)),
+                        median_ms(host_s), res[0])
+    launches = fk.launches
+    if on_card:
+        assert launches == 2 * FUSION_HELD // b, f"fused_topk launches {launches}"
+    q = batch(FUSION_TRAIN)
+    for name, space in (("learned", learned), ("uniform", uniform)):
+        want = ref.fused_topk_table_ref(ref.query_table(q.sparse, v), q.dense, corpus.sparse.indices,
+                                        corpus.sparse.values, corpus.dense, 10, tile_n=1 << 16,
+                                        w_dense=space.w_dense, w_sparse=space.w_sparse)
+        check("fused_topk", f"fusion held-out batch 0 {name}", tuple(served[name][2]), want, exact_ids=False)
+    (mrr_l, ms_l, _), (mrr_u, ms_u, _) = served["learned"], served["uniform"]
+    log(f"phase fusion full: {FUSION_TRAIN} training queries, top-100 candidates through fused_topk at (1, 1) in "
+        f"{cand_s:.3f} s; learn_fused_weights on {dev.type} {learn_s:.3f} s: w_dense {w_d!r}, w_sparse {w_s!r}, "
+        f"training MRR@10 {achieved!r} (cpu: the same weights, MRR@10 {host[2]!r}); {FUSION_HELD} held-out "
+        f"queries, {FUSION_HELD // b} batches of {b}: MRR@10 learned {mrr_l:.4f} vs uniform (1, 1) {mrr_u:.4f}; "
+        f"{ms_l:.3f} ms/batch learned, {ms_u:.3f} uniform (host clock, synchronised); fused_topk launches "
+        f"{launches}; {card}")
+    assert mrr_l >= mrr_u, (mrr_l, mrr_u)
+    return learned, ms_l
+
+
+def live_rows(torch, n, d, v, nnz, seed, device):
+    """State (b)'s inserted rows and the deletes of (b) and (c), as
+    logical ids of the main segment.  Inserted: LIVE_PLANTED_INSERTS rows
+    planted between make_corpus's planted rows (t = 1 + (j + 0.5) / 4096
+    dense, 6 - (j + 0.5) / 512 at term 0, distinct scores above every
+    random row), then random rows as make_corpus makes them.  Deleted:
+    planted rows drawn at random (LIVE_PLANTED_DELETES) and random rows
+    off the planted ones, every id once (so ``--n`` of 16,384 rows at the
+    least)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    step = max(n // 2048, 1)
+    planted = (torch.arange(2048, device=device) * step) % n
+    m = LIVE_INSERTS
+    dense = torch.randn(m, d, generator=g, device=device).mul_(1.0 / math.sqrt(d))
+    dense[:, 0] = 0.0
+    idx = torch.randint(1, v, (m, nnz), generator=g, device=device, dtype=torch.int32)
+    val = torch.rand(m, nnz, generator=g, device=device)
+    j = torch.arange(LIVE_PLANTED_INSERTS, device=device, dtype=torch.float32) * 8 + 3.5
+    dense[:LIVE_PLANTED_INSERTS] = 0.0
+    dense[:LIVE_PLANTED_INSERTS, 0] = 1.0 + j / 4096.0
+    idx[:LIVE_PLANTED_INSERTS] = v
+    val[:LIVE_PLANTED_INSERTS] = 0.0
+    idx[:LIVE_PLANTED_INSERTS, 0] = 0
+    val[:LIVE_PLANTED_INSERTS, 0] = 6.0 - j / 512.0
+    perm = torch.randperm(2048, generator=g, device=device)
+    pb, pc = LIVE_PLANTED_DELETES
+    is_planted = torch.zeros(n, dtype=torch.bool, device=device)
+    is_planted[planted] = True
+    others = torch.randperm(n, generator=g, device=device)
+    others = others[~is_planted[others]][:LIVE_DELETES + LIVE_MORE_DELETES - pb - pc]
+    rb = LIVE_DELETES - pb
+    dels_b = torch.cat([planted[perm[:pb]], others[:rb]])
+    dels_c = torch.cat([planted[perm[pb:pb + pc]], others[rb:]])
+    return (dense, idx, val), dels_b.cpu().numpy(), dels_c.cpu().numpy()
+
+
+def live_full_phase(torch, dev, check, corpus, batches, space, frozen_ms, timer, card, on_card, seed):
+    """Live corpora over the resident corpus: a fused one on the learned
+    weights and a dense-ip one, ``backend="cuda"`` and
+    ``append_backend="cuda"``, served through ``LiveGenerator`` in
+    ``RetrievalPipeline`` (cand_qty 100, final_qty 10), the main path's
+    planted batches at four states: (a) as built, (b) after LIVE_INSERTS
+    inserts and LIVE_DELETES deletes, (c) after LIVE_MORE_DELETES more
+    (the main fetch, 100 + 5000 rows, takes topk_large), (d) after
+    ``compact()``.  At each state every result must equal
+    ``live_topk(..., "reference", "reference")`` on the same pinned
+    snapshot, ids and score bits; the append scan is held against the
+    plain scan at k = 100 and k = its rows, and at (c) topk_large against
+    the plain scan at the main fetch's depth.  The main fetch (k + the
+    main's tombstones, through the ``cuda`` backend) is timed alone."""
+    import dataclasses
+
+    from repro_torch.core import segments
+    from repro_torch.core.backends import CudaBackend
+    from repro_torch.core.pipeline import RetrievalPipeline
+    from repro_torch.core.sparse import SparseVectors
+    from repro_torch.core.spaces import DenseSpace, FusedVectors
+    from repro_torch.kernels import fused_topk as fk
+    from repro_torch.kernels import mips_topk as mk
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import sparse_dense as sd
+    from repro_torch.kernels import topk_large as lk
+    from repro_torch.serving import LiveCorpus, LiveGenerator
+
+    n, d = corpus.dense.shape
+    v, nnz = space.vocab_size, corpus.sparse.indices.shape[1]
+    (ad, ai, av), dels_b, dels_c = live_rows(torch, n, d, v, nnz, seed, dev)
+    w = dict(w_dense=space.w_dense, w_sparse=space.w_sparse)
+    main_fetch = LIVE_CAND + LIVE_DELETES + LIVE_MORE_DELETES
+    kinds = {
+        "fused": (space, corpus, FusedVectors(ad, SparseVectors(ai, av)), lambda q: q,
+                  dataclasses.replace(space, tile_n=1 << 16), ("fused_topk", "topk_large", "fused_score")),
+        "dense": (DenseSpace("ip"), corpus.dense, ad, lambda q: q.dense, DenseSpace("ip"),
+                  ("mips_topk", "topk_large")),
+    }
+    counters = {"fused_topk": fk, "mips_topk": mk, "topk_large": lk, "fused_score": sd}
+    expect = {   # kernels each state's batches must launch, by corpus
+        "fused": {"a": ("fused_topk",), "b": ("fused_topk",), "c": ("topk_large", "fused_score", "fused_topk"),
+                  "d": ("fused_topk",)},
+        "dense": {"a": ("mips_topk",), "b": ("mips_topk",), "c": ("topk_large", "mips_topk"),
+                  "d": ("mips_topk",)}}
+    for name, (sp, corp, inserts, pick, ref_space, kernels) in kinds.items():
+        t0 = time.perf_counter()
+        live = LiveCorpus(sp, corp, backend="cuda", append_backend="cuda", max_append=10 ** 9, device=dev)
+        init_s = time.perf_counter() - t0
+        assert live.snapshot().main is corp
+        pipe = RetrievalPipeline(LiveGenerator(live), cand_qty=LIVE_CAND, final_qty=10)
+        parts = [f"LiveCorpus init {init_s:.3f} s"]
+        for state in "abcd":
+            if state == "b":
+                live.insert(inserts)
+                live.delete(dels_b)
+            elif state == "c":
+                live.delete(dels_c)
+            elif state == "d":
+                sync(torch, on_card)
+                if on_card:
+                    torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                assert live.compact()
+                sync(torch, on_card)
+                parts.append(f"compact {time.perf_counter() - t0:.3f} s, peak "
+                             + (f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB" if on_card else "not measured"))
+            snap = live.snapshot()
+            t0 = time.perf_counter()
+            segments._locator(snap)
+            locator_s = time.perf_counter() - t0
+            for kernel in counters.values():
+                kernel.launches = 0
+            host, results = [], []
+            for q in batches:
+                t0 = time.perf_counter()
+                results.append(pipe.run(pick(q)))
+                sync(torch, on_card)
+                host.append(time.perf_counter() - t0)
+            launches = {k: counters[k].launches for k in kernels}
+            assert pipe.generator.last_served_generation == snap.generation
+            if on_card:
+                assert all(launches[k] > 0 for k in expect[name][state]), (name, state, launches)
+            for i, (q, got) in enumerate(zip(batches, results)):
+                want = segments.live_topk(ref_space, snap, pick(q), LIVE_CAND, main_backend="reference",
+                                          append_backend="reference")
+                assert torch.equal(got.indices, want.indices[:, :10]), f"live {name} ({state}) batch {i}: ids"
+                assert torch.equal(got.scores.view(torch.int32), want.scores[:, :10].view(torch.int32)), \
+                    f"live {name} ({state}) batch {i}: score bits"
+            q = pick(batches[0])
+            if snap.n_append:
+                app = snap.append
+                for k in (LIVE_CAND, snap.n_append):
+                    if name == "fused":
+                        got = ops.fused_topk(q.sparse, q.dense, app.sparse, app.dense, v, k, **w)
+                        want = ref.fused_topk_table_ref(ref.query_table(q.sparse, v), q.dense, app.sparse.indices,
+                                                        app.sparse.values, app.dense, k, **w)
+                    else:
+                        got, want = mk.mips_topk(q, app, k), ref.mips_topk_ref(q, app, k)
+                    check(kernels[0], f"live {name} ({state}) append n={snap.n_append} k={k}", tuple(got), want,
+                          exact_ids=False)
+            if state == "c":
+                if name == "fused":
+                    args = (ref.query_table(q.sparse, v), q.dense, corp.sparse.indices, corp.sparse.values,
+                            corp.dense)
+                    got = lk.topk_large(*args, main_fetch, **w)
+                    want = ref.fused_topk_table_ref(*args, main_fetch, tile_n=1 << 16, **w)
+                else:
+                    got = lk.topk_large(None, q, None, None, corp, main_fetch)
+                    want = ref.mips_topk_ref(q, corp, main_fetch, tile_n=1 << 18)
+                check("topk_large", f"live {name} (c) main k={main_fetch}", got, want, exact_ids=False)
+            k_fetch = min(snap.n_main, LIVE_CAND + int(snap.main_dead.sum()))
+            fetch_ms = timer(lambda: CudaBackend().topk(sp, q, snap.main, k_fetch), 3)
+            live_ms = median_ms(host)
+            parts.append(f"({state}) gen {snap.generation}, main {snap.n_main} rows / {int(snap.main_dead.sum())} "
+                         f"dead, append {snap.n_append}: {live_ms:.3f} ms/batch ({live_ms - frozen_ms[name]:+.3f} "
+                         f"over frozen; the main fetch of {k_fetch} rows alone {fetch_ms:.3f} ms by CUDA events), "
+                         f"locator {locator_s:.3f} s, launches {launches}")
+        log(f"phase live full {name}: {len(batches)} batches of {batches[0].dense.shape[0]} per state, equal to "
+            f"the reference live path (ids and score bits); frozen {frozen_ms[name]:.3f} ms/batch; "
+            + "; ".join(parts) + f"; {card}")
+        del live, pipe, results, snap
+        if on_card:
+            torch.cuda.empty_cache()
+
+
+def live_ann_phase(torch, dev, check, space, corpus, q, card, on_card, seed):
+    """A live corpus over the planted-cluster corpus of "graph recall"
+    with a graph-ANN main (the kernel traversal, degree 16, ef 64; its
+    index is the one "graph recall" built) and a ``cuda`` append segment.
+    Churn: ANN_INSERTS new rows of the same law, each cluster's with
+    weights half a step above its best rows' (so that they rank between
+    them), and
+    ANN_DELETES deletes, ANN_MAIN_DELETES of them each cluster's best main
+    rows (the main fetch, k + main tombstones, must stay within ef) and
+    the rest appended rows.  recall@10 against ``frozen_topk`` on the exact
+    ``cuda`` backend, gated at ANN_RECALL_TARGET, before and after the
+    background compactor (``start()``/``close()``) rebuilds the index;
+    batches served while it runs must answer from their pinned snapshot."""
+    from repro_torch.core import segments
+    from repro_torch.core.backends import ANN_RECALL_TARGET, GraphANNBackend
+    from repro_torch.core.fusion import topk_recall
+    from repro_torch.core.pipeline import RetrievalPipeline
+    from repro_torch.core.sparse import SparseVectors
+    from repro_torch.core.spaces import FusedVectors
+    from repro_torch.kernels import beam_topk as bk
+    from repro_torch.kernels import fused_topk as fk
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving import LiveCorpus, LiveGenerator
+
+    n = corpus.dense.shape[0]
+    C, m = CLUSTERS, n // CLUSTERS
+    v = space.vocab_size
+    live = LiveCorpus(space, corpus, backend=GraphANNBackend(kernel=True, **GRAPH), append_backend="cuda",
+                      max_append=10 ** 9, compact_interval_s=0.25, device=dev)
+    pipe = RetrievalPipeline(LiveGenerator(live), cand_qty=10, final_qty=10)
+    # inserts: new rows of the planted-cluster law (fresh noise and terms),
+    # row r in cluster r % C with the weight of main row r, half a step up
+    (rd, ri, rv), _ = planted_cluster(torch, ANN_INSERTS, corpus.dense.shape[1], v,
+                                      corpus.sparse.indices.shape[1], MSMARCO["nnz_q"], C, seed, dev)
+    r = torch.arange(ANN_INSERTS, device=dev)
+    t = 2.0 - (r // C).float() / m + 0.5 / m
+    rd[r, r % C] = t
+    rv[:, 0] = t
+    new_ids = live.insert(FusedVectors(rd, SparseVectors(ri, rv)))
+    main_dels = (torch.arange(ANN_MAIN_DELETES // C, device=dev)[:, None] * C
+                 + torch.arange(C, device=dev)[None, :]).reshape(-1).cpu().numpy()
+    live.delete(np.concatenate([main_dels, new_ids[1::2][:ANN_DELETES - ANN_MAIN_DELETES]]))
+
+    def recall(label):
+        snap = live.snapshot()
+        want = segments.frozen_topk(space, *segments.materialize(snap), q, 10, backend="cuda")
+        bk.launches = fk.launches = 0
+        t0 = time.perf_counter()
+        got = pipe.run(q)
+        sync(torch, on_card)
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = {"beam_hop": bk.launches, "fused_topk": fk.launches}
+        r = topk_recall(want.indices, got.indices)
+        if on_card:
+            assert launches["beam_hop"] == 1 and launches["fused_topk"] >= 1, launches
+        assert r >= ANN_RECALL_TARGET, (label, r)
+        return snap, want, f"{label}: gen {snap.generation}, main {snap.n_main} / {int(snap.main_dead.sum())} " \
+                           f"dead, append {snap.n_append} / {int(snap.append_dead.sum())} dead: recall@10 {r:.4f}, " \
+                           f"{ms:.3f} ms, launches {launches}"
+
+    snap, want_pre, before = recall("before compaction")
+    k_app = min(snap.n_append, 10 + int(snap.append_dead.sum()))
+    app = snap.append
+    check("fused_topk", f"live ann append n={snap.n_append} k={k_app}",
+          tuple(ops.fused_topk(q.sparse, q.dense, app.sparse, app.dense, v, k_app, w_dense=space.w_dense,
+                               w_sparse=space.w_sparse)),
+          ref.fused_topk_table_ref(ref.query_table(q.sparse, v), q.dense, app.sparse.indices, app.sparse.values,
+                                   app.dense, k_app, w_dense=space.w_dense, w_sparse=space.w_sparse),
+          exact_ids=False)
+    gen0 = live.generation
+    live.start()
+    during = 0
+    t_wait = time.perf_counter()
+    while live.live_stats()["compactions"] == 0:
+        assert time.perf_counter() - t_wait < 600, "the background compaction did not finish in 600 s"
+        got = pipe.run(q)
+        if pipe.generator.last_served_generation == gen0:
+            during += 1
+            assert topk_recall(want_pre.indices, got.indices) >= ANN_RECALL_TARGET
+        time.sleep(0.05)
+    live.close()
+    rebuild_s = live.live_stats()["compaction_s"][0]
+    _, _, after = recall("after compaction")
+    log(f"phase live ann: n={n}, graph ANN main (kernel, degree {GRAPH['degree']}, ef {GRAPH['ef']}) + cuda "
+        f"append; churn {ANN_INSERTS} inserts, {ANN_DELETES} deletes ({ANN_MAIN_DELETES} in the main); "
+        f"{before}; background compaction (materialize + NN-descent rebuild + swap) {rebuild_s:.3f} s, "
+        f"{during} batches served from the pinned snapshot meanwhile; {after} (target {ANN_RECALL_TARGET}); "
+        f"{card}")
+
+
 def sync(torch, on_card):
     if on_card:
         torch.cuda.synchronize()
@@ -1516,16 +1905,26 @@ def main() -> int:
         graph_build(torch, dev, corpus, space, min(args.graph_build_n, n), on_card)
     napp_index, score_launches = napp_full_phase(torch, dev, check, corpus, batches, space, on_card)
     score = score_full_phase(torch, check, corpus, q, space, napp_index, timer, reps, bound)
+    # ---- learned weights and live corpora over the same resident corpus;
+    # the NAPP membership and the graphs go first: a compaction copies it
+    del napp_index
+    clear_ann_index_cache()
+    if on_card:
+        torch.cuda.empty_cache()
+    learned, learned_ms = fusion_full_phase(torch, dev, check, corpus, card, on_card, args.seed + 21)
+    live_full_phase(torch, dev, check, corpus, batches, learned,
+                    {"fused": learned_ms, "dense": 1e3 * statistics.median(dense_s)}, timer, card, on_card,
+                    args.seed + 22)
     # release the 36 GB corpus: the pipelines, the checks and the ANN
     # index cache all hold it
     del dense, idx, val, corpus, batches, q, pipe, dense_gen, results, dense_results, fused_args
-    del napp_index
     clear_ann_index_cache()
     if on_card:
         torch.cuda.empty_cache()
     recall_n = min(RECALL_N, n) // CLUSTERS * CLUSTERS
     recall_data = graph_recall_phase(torch, dev, recall_n, args.seed + 11, on_card)
     napp_recall_phase(torch, dev, *recall_data, args.seed + 12, on_card)
+    live_ann_phase(torch, dev, check, *recall_data[:3], card, on_card, args.seed + 13)
     kernels.append({"name": "beam_hop", "route": "cuda", "source": SOURCES[1],
                     "replaces": "src/repro/kernels/beam_topk.py:238", "launches": hop["launches"],
                     "max_abs_err": check.max_err["beam_hop"], "ms": hop["ms"],

@@ -4,8 +4,9 @@
 A candidate generator produces ``cand_qty`` documents; optional
 intermediate and final re-rankers narrow them to ``final_qty``.  Ported
 so far: the brute-force and streaming generators, the graph-ANN and NAPP
-generators, and the funnel tail for the no-reranker case; any object
-with ``rerank(q_tokens, cands, keep)`` still slots in as a re-ranker.
+generators, the live-snapshot seam (:func:`pin_snapshot`), and the
+funnel tail for the no-reranker case; any object with
+``rerank(q_tokens, cands, keep)`` still slots in as a re-ranker.
 """
 
 from __future__ import annotations
@@ -26,8 +27,21 @@ __all__ = [
     "NappGenerator",
     "Reranker",
     "apply_rerankers",
+    "pin_snapshot",
     "RetrievalPipeline",
 ]
+
+
+def pin_snapshot(generator: "CandidateGenerator") -> "CandidateGenerator":
+    """Resolve the live-corpus snapshot seam once for a unit of work.
+
+    A live-corpus generator (``repro_torch.serving.live.LiveGenerator``)
+    exposes ``bind_snapshot()``, which pins one immutable snapshot: the
+    candidate stage and every later stage that reads its row ids see one
+    corpus state while writers and the compactor race.  A frozen
+    generator has no such seam and is returned as it is."""
+    bind = getattr(generator, "bind_snapshot", None)
+    return generator if bind is None else bind()
 
 
 class CandidateGenerator(Protocol):
@@ -183,8 +197,10 @@ class RetrievalPipeline:
     final_qty: int = 10
 
     def generate_candidates(self, query_repr, k: Optional[int] = None) -> TopK:
-        return self.generator.generate(query_repr,
-                                       self.cand_qty if k is None else k)
+        """The candidate stage alone, with the live-snapshot seam resolved
+        (:func:`pin_snapshot`)."""
+        return pin_snapshot(self.generator).generate(
+            query_repr, self.cand_qty if k is None else k)
 
     def run(self, query_repr, q_tokens=None) -> TopK:
         cands = self.generate_candidates(query_repr)

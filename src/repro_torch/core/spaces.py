@@ -167,6 +167,23 @@ class DenseSpace:
     def score_batch(self, queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
         return dense_scores(self.kind, queries, corpus, self.p)
 
+    def score_pairs(self, queries: torch.Tensor, docs: torch.Tensor) -> torch.Tensor:
+        """Aligned scores: queries [B, D] vs docs [B, D] -> [B], in f32."""
+        q = accum_f32(queries)
+        d = accum_f32(docs)
+        if self.kind == "ip":
+            return torch.sum(q * d, dim=-1)
+        if self.kind == "cosine":
+            qn = q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=1e-12)
+            dn = d / torch.clamp(torch.linalg.norm(d, dim=-1, keepdim=True), min=1e-12)
+            return torch.sum(qn * dn, dim=-1)
+        if self.kind == "l2":
+            diff = q - d
+            return -torch.sum(diff * diff, dim=-1)
+        if self.kind == "lp":
+            return -torch.sum(torch.abs(q - d) ** self.p, dim=-1) ** (1.0 / self.p)
+        raise ValueError(f"unknown dense space kind: {self.kind}")
+
 
 @dataclasses.dataclass(frozen=True)
 class SparseSpace:
@@ -183,6 +200,13 @@ class SparseSpace:
         if self.tile_n:
             return sp.sparse_inner_tiled(q, d, self.vocab_size, self.tile_n)
         return sp.sparse_inner_qbatch_docs(q, d, self.vocab_size)
+
+    def score_pairs(self, queries: sp.SparseVectors,
+                    docs: sp.SparseVectors) -> torch.Tensor:
+        """Aligned scores [B] of queries [B] vs docs [B]."""
+        q = sp.l2_normalize_sparse(queries) if self.kind == "cosine" else queries
+        d = sp.l2_normalize_sparse(docs) if self.kind == "cosine" else docs
+        return sp.sparse_inner_one_to_one(q, d, self.vocab_size)
 
 
 def weighted_mix(parts, weights) -> torch.Tensor:
@@ -226,6 +250,20 @@ class FusedSpace:
         if queries.sparse is not None and corpus.sparse is not None:
             parts.append(SparseSpace(self.vocab_size, "ip", self.tile_n).score_batch(
                 queries.sparse, corpus.sparse))
+            weights.append(self.w_sparse)
+        if not parts:
+            raise ValueError("FusedSpace: no overlapping components to score")
+        return weighted_mix(parts, weights)
+
+    def score_pairs(self, queries: FusedVectors, docs: FusedVectors) -> torch.Tensor:
+        """Aligned scores [B] of queries [B] vs docs [B], mixed as
+        :meth:`score_batch` mixes."""
+        parts, weights = [], []
+        if queries.dense is not None and docs.dense is not None:
+            parts.append(DenseSpace(self.dense_kind).score_pairs(queries.dense, docs.dense))
+            weights.append(self.w_dense)
+        if queries.sparse is not None and docs.sparse is not None:
+            parts.append(SparseSpace(self.vocab_size).score_pairs(queries.sparse, docs.sparse))
             weights.append(self.w_sparse)
         if not parts:
             raise ValueError("FusedSpace: no overlapping components to score")

@@ -25,6 +25,7 @@ __all__ = [
     "sparse_inner_qbatch_docs",
     "sparse_inner_tiled",
     "l2_normalize_sparse",
+    "topk_truncate",
 ]
 
 
@@ -79,6 +80,21 @@ def densify(sp: SparseVectors, vocab_size: int) -> torch.Tensor:
 def l2_normalize_sparse(sp: SparseVectors, eps: float = 1e-12) -> SparseVectors:
     norm = torch.sqrt(torch.sum(sp.values * sp.values, dim=-1, keepdim=True))
     return SparseVectors(sp.indices, sp.values / torch.clamp(norm, min=eps))
+
+
+def topk_truncate(sp: SparseVectors, nnz: int, pad_id: int) -> SparseVectors:
+    """Reduce the nnz capacity to ``nnz``, keeping the entries of largest
+    |value| in ``lax.top_k``'s order (equal magnitudes keep the lower
+    slot first); zero entries become padding."""
+    from repro_torch.core.brute_force import select_topk   # brute_force imports this module
+
+    mag, pos = select_topk(sp.values.abs(), nnz)
+    idx = torch.gather(sp.indices, -1, pos)
+    val = torch.gather(sp.values, -1, pos)
+    keep = mag > 0.0
+    return SparseVectors(
+        torch.where(keep, idx, torch.full_like(idx, pad_id)).to(torch.int32),
+        torch.where(keep, val, torch.zeros_like(val)))
 
 
 def _query_table(q: SparseVectors, vocab_size: int) -> torch.Tensor:

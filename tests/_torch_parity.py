@@ -19,6 +19,7 @@ from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from repro_torch import interop
 
@@ -104,3 +105,26 @@ def jnp_fused(parts, dtype=jnp.float32):
     d, i, v = parts
     return FusedVectors(jnp.asarray(d, dtype),
                         SparseVectors(jnp.asarray(i, jnp.int32), jnp.asarray(v, dtype)))
+
+
+def apply_schedule_torch(live, ops, make_rows=lambda rows: rows):
+    """Drive a ``repro_torch`` ``LiveCorpus`` through a schedule of
+    ``tests/_mutation.py`` (rows as numpy, mapped through ``make_rows``)."""
+    for op in ops:
+        if op[0] == "insert":
+            live.insert(make_rows(op[1]))
+        elif op[0] == "delete":
+            live.delete(op[1])
+        elif op[0] == "upsert":
+            live.upsert(op[1], make_rows(op[2]))
+        else:
+            raise ValueError(f"unknown op {op[0]!r}")
+    return live
+
+
+def assert_torch_topk_equal(got, want, ctx=""):
+    """Bitwise equality of two port ``TopK`` results (score bits, ids)."""
+    assert got.scores.shape == want.scores.shape, (got.scores.shape, want.scores.shape, ctx)
+    assert torch.equal(got.indices, want.indices), f"ids diverge {ctx}"
+    assert torch.equal(got.scores.view(torch.int32), want.scores.view(torch.int32)), \
+        f"score bits diverge {ctx}"
