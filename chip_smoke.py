@@ -37,9 +37,19 @@ through ``LiveCorpus`` and ``LiveGenerator``, before and after inserts,
 deletes (the main fetch past 2048 rows takes ``topk_large``) and a
 compaction, each result equal to the plain live path ("live full");
 last, a live corpus with a graph-ANN main under churn and the background
-compactor, recall@10 gated before and after ("live ann").  Each served
-path runs with the launch counters set to 0 just before and read just
-after.  The last lines are the ``kernels`` JSON, the card's name and
+compactor, recall@10 gated before and after ("live ann").  After "live
+full", still over the resident corpus, the served path ("serve full"):
+a ``RetrievalService`` with six endpoints (fused, dense, dense at k =
+4096, fused over four row shards, a fused funnel with a dense rerank
+under a stage budget, a live dense corpus) flooded by four client
+threads with host queries, each endpoint alone and then all at once,
+every answer equal to the offline run of its batch; where a flood's host
+time goes ("serve split"); a live endpoint flooded while a writer
+upserts, every answer equal to the plain live path at the generation
+that served it ("serve churn"); and the scan
+kernels against ``topk_large`` at k = 100, 1,100 and 2,048
+("crossover").  Each served path runs with the launch counters set to 0
+just before and read just after.  The last lines are the ``kernels`` JSON, the card's name and
 power limit, and ``{"ok": true, ...}``.  Any failure raises and exits
 non-zero.  The data is synthetic, made on the card from ``--seed``.
 
@@ -93,6 +103,21 @@ LIVE_INSERTS, LIVE_PLANTED_INSERTS = 1024, 256   # state (b): rows inserted, of 
 LIVE_DELETES, LIVE_MORE_DELETES = 1000, 4000     # state (b) deletes, then state (c)'s
 LIVE_PLANTED_DELETES = (300, 500)                # of those, planted rows
 ANN_INSERTS, ANN_DELETES, ANN_MAIN_DELETES = 1024, 512, 48   # "live ann" churn; main deletes <= ef - k
+SERVE_QUERIES, SERVE_DEEP_QUERIES = 512, 64   # "serve full": distinct queries an endpoint
+SERVE_CLIENTS, SERVE_SHARDS, SERVE_UPSERT = 4, 4, 256
+CHURN_UPSERT, CHURN_PERIOD_S = 16, 0.01        # "serve churn": ids an upsert writes, the writer's pause
+SPLIT_VARIANTS = (   # "serve split": label, cache size, client work before each submit, clients, switch interval
+                     # in s (None: the interpreter's default)
+    ("cache", 4096, None, SERVE_CLIENTS, None),
+    ("no cache", 0, None, SERVE_CLIENTS, None),
+    ("no cache, clients compute the key", 0, "key", SERVE_CLIENTS, None),
+    ("no cache, clients compute the key from numpy copies", 0, "key on numpy", SERVE_CLIENTS, None),
+    ("no cache, clients make only the key's PyTorch calls", 0, "torch calls", SERVE_CLIENTS, None),
+    ("no cache, clients spin in Python for a key's time", 0, "spin", SERVE_CLIENTS, None),
+    ("cache, 1 client", 4096, None, 1, None),
+    ("cache, switch interval 0.1 ms", 4096, None, SERVE_CLIENTS, 1e-4),
+)
+CROSSOVER_K = (100, 1100, 2048)  # "crossover": the scan kernels against topk_large at these k
 NEG = -3.4028234663852886e38     # f32 min, the mask of invalid candidates
 SLEEP_CYCLES = 2_000_000         # ~1 ms at an H100 SXM's 1.98 GHz boost clock: outlasts the host's enqueue of a traversal
 
@@ -1676,6 +1701,619 @@ def live_ann_phase(torch, dev, check, space, corpus, q, card, on_card, seed):
         f"{card}")
 
 
+def offline_rows(torch, run, items, tokens, dev, b):
+    """Each request's row of ``run`` over the submission order cut into
+    batches of ``b`` (stacked as the batcher stacks them), as numpy
+    (``items`` is a multiple of ``b`` long)."""
+    from repro_torch.core.spaces import map_tensors
+    from repro_torch.serving.batcher import stack_requests
+
+    rows = []
+    for lo in range(0, len(items), b):
+        q = map_tensors(lambda t: t.to(dev), stack_requests(items[lo:lo + b]))
+        out = run(q) if tokens is None else run(q, stack_requests(tokens[lo:lo + b]).to(dev))
+        s, i = out[0].cpu().numpy(), out[1].cpu().numpy()
+        rows += [(s[r], i[r]) for r in range(b)]
+    return rows
+
+
+def same_row(got, want):
+    """A served answer (scores, ids) equal to an offline row in ids and
+    score bits."""
+    return (np.array_equal(got[1], want[1])
+            and np.array_equal(np.asarray(got[0]).view(np.int32), want[0].view(np.int32)))
+
+
+def flood(svc, name, items, tokens, clients):
+    """``clients`` threads submit ``items`` (thread c every c-th one) as fast
+    as admission lets them, then wait for their answers.  Returns the
+    answers in submission order and the pass's host seconds; a request
+    that fails raises here."""
+    import threading
+
+    results, errors = [None] * len(items), []
+
+    def client(c):
+        try:
+            futs = [(i, svc.submit(items[i], None if tokens is None else tokens[i], name))
+                    for i in range(c, len(items), clients)]
+            for i, f in futs:
+                results[i] = f.result(timeout=600)
+        except Exception as exc:          # noqa: BLE001 -- re-raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return results, wall
+
+
+def serve_split(torch, pipe, pad, spec, items, clients, counted):
+    """Where a cache-on flood's host time goes ("serve split"): the fused
+    endpoint flooded with ``items`` on a fresh service under each variant
+    of SPLIT_VARIANTS (cache on or off; before each submit, the clients
+    computing ``quantized_key`` themselves, on the query or on numpy
+    copies of it made beforehand, or making only the key's PyTorch calls
+    (``detach().cpu().numpy()`` of each leaf), or spinning in Python for
+    as long as one key takes alone; 1 or ``clients`` clients; the
+    interpreter's switch interval).  Timed on the host clock by wrapping
+    the batcher's methods: per batch, the stacking and copy to the card
+    (assemble), the pipeline's launches (run), the copy back (host copy)
+    and the rest of the batch (fan-out to the futures and the cache); per
+    request, the clients' key and the cache's get and put (each a call
+    under the cache's lock).  ``counted(label, batches)`` checks each
+    flood's launches.  Returns one line."""
+    from repro_torch.core.spaces import map_tensors, tensor_leaves
+    from repro_torch.serving import RetrievalService
+    from repro_torch.serving import batcher as bm
+    from repro_torch.serving.cache import quantized_key
+
+    def timed(fn, into):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                into.append(time.perf_counter() - t0)
+        return wrapper
+
+    as_numpy = {id(q): map_tensors(lambda t: t.numpy(), q) for q in items}
+    key_s = [0.0]
+
+    def spin():
+        end = time.perf_counter() + key_s[0]
+        while time.perf_counter() < end:
+            pass
+
+    works = {"key": lambda q: quantized_key("fused", (q, None)),
+             "key on numpy": lambda q: quantized_key("fused", (as_numpy[id(q)], None)),
+             "torch calls": lambda q: [leaf.detach().cpu().numpy() for leaf in tensor_leaves(q)],
+             "spin": lambda q: spin()}
+    alone = {}
+    for name, work in works.items():   # one thread, nothing else running
+        t0 = time.perf_counter()
+        for q in items:
+            work(q)
+        alone[name] = (time.perf_counter() - t0) / len(items)
+        if name == "key":
+            key_s[0] = alone[name]
+    host_fn, switch0 = bm._host, sys.getswitchinterval()
+    parts = ["client work alone, us a request: " + ", ".join(f"{k} {1e6 * v:.1f}" for k, v in alone.items())]
+    for label, cache_size, client_work, n_clients, switch_s in SPLIT_VARIANTS:
+        t = {k: [] for k in ("execute", "assemble", "run", "host", "key", "get", "put")}
+        bm._host = timed(host_fn, t["host"])
+        try:
+            with RetrievalService(cache_size=cache_size) as svc:
+                svc.register_pipeline("fused", pipe, pad, spec=spec)
+                bt = svc.router.resolve("fused")
+                bt._execute = timed(bt._execute, t["execute"])
+                bt._assemble = timed(bt._assemble, t["assemble"])
+                bt.run_fn = timed(bt.run_fn, t["run"])
+                if svc.cache is not None:
+                    for name in ("key", "get", "put"):
+                        setattr(svc.cache, name, timed(getattr(svc.cache, name), t[name]))
+                if client_work is not None:
+                    work = timed(works[client_work], t["key"])
+                    submit = svc.submit
+                    svc.submit = lambda q, tokens, name: (work(q), submit(q, tokens, name))[1]
+                sys.setswitchinterval(switch_s or switch0)
+                _, wall = flood(svc, "fused", items, None, n_clients)
+                sys.setswitchinterval(switch0)
+                ep = svc.snapshot().endpoints["fused"]
+                counted(label, ep.n_batches)
+        finally:
+            bm._host = host_fn
+            sys.setswitchinterval(switch0)
+        nb = ep.n_batches
+        per = {k: 1e3 * sum(v) / nb for k, v in t.items() if k in ("execute", "assemble", "run", "host")}
+        rest = per["execute"] - per["assemble"] - per["run"] - per["host"]
+        us = {k: (f"{1e6 * statistics.median(v):.1f} / {1e6 * max(v):.1f}" if v else "-")
+              for k, v in t.items() if k in ("key", "get", "put")}
+        parts.append(f"{label}: {len(items) / wall:.1f} qps, exec {per['execute']:.3f} ms a batch = assemble "
+                     f"{per['assemble']:.3f} + run {per['run']:.3f} + host copy {per['host']:.3f} + rest "
+                     f"{rest:.3f} (means of {nb} batches); per request median / max us: client work {us['key']}, "
+                     f"cache get {us['get']}, put {us['put']}")
+    return "; ".join(parts)
+
+
+def serve_churn(torch, dev, dense, seed, counted):
+    """Upserts racing a flood ("serve churn"): a ``LiveCorpus`` over the
+    dense part (``cuda`` main and append) behind a cached endpoint, and a
+    writer thread that upserts CHURN_UPSERT fresh ids every CHURN_PERIOD_S
+    while SERVE_CLIENTS clients flood it with SERVE_QUERIES host queries;
+    each upsert's rows are twins (2x) of the next queries in turn, so that
+    their answers change with the generation.  Every upsert replaces the
+    append segment and frees the one before, which batches still queued
+    on the worker's stream may be reading.  The served generation of each
+    answer is the one the cache stored it under (looked up between its
+    submit and its completion); the upserts are replayed on a second
+    ``LiveCorpus`` and every answer held against ``live_topk(...,
+    "reference", "reference")`` on the snapshot of that generation, ids
+    and score bits.  Returns one line."""
+    import threading
+
+    from repro_torch.core import segments
+    from repro_torch.core.spaces import DenseSpace
+    from repro_torch.serving import EndpointSpec, LiveCorpus, RetrievalService
+    from repro_torch.serving.batcher import stack_requests
+
+    n, d = dense.shape
+    b = MSMARCO["b"]
+    sp = DenseSpace("ip")
+    g = torch.Generator().manual_seed(seed)
+    items = list(torch.randn(SERVE_QUERIES, d, generator=g).mul_(1.0 / math.sqrt(d)))
+    twins = torch.stack(items) * 2.0
+
+    def upsert_args(t):
+        j = (np.arange(CHURN_UPSERT) + CHURN_UPSERT * t) % len(items)
+        return n + CHURN_UPSERT * t + np.arange(CHURN_UPSERT), twins[j]
+
+    live = LiveCorpus(sp, dense, backend="cuda", append_backend="cuda", max_append=10 ** 9, device=dev)
+    spec = EndpointSpec(batch_size=b, max_wait_s=0.01, max_queue=128, overload="block", live=live)
+    gens = [None] * len(items)
+    done, n_upserts = threading.Event(), [0]
+
+    def writer():
+        while not done.is_set():
+            ids, rows = upsert_args(n_upserts[0])
+            live.upsert(ids, rows.to(dev))
+            n_upserts[0] += 1
+            time.sleep(CHURN_PERIOD_S)
+
+    with RetrievalService(cache_size=4096) as svc:
+        svc.register_pipeline("churn", None, torch.zeros(d, device=dev), spec=spec)
+        submit = svc.submit
+
+        def stamped(q, tokens, name):
+            i = next(k for k, x in enumerate(items) if x is q)
+            g0 = live.generation
+            fut = submit(q, tokens, name)
+            fut.add_done_callback(lambda f: gens.__setitem__(i, (g0, live.generation)))
+            return fut
+
+        svc.submit = stamped
+        w = threading.Thread(target=writer)
+        w.start()
+        try:
+            got, wall = flood(svc, "churn", items, None, SERVE_CLIENTS)
+        finally:
+            done.set()
+            w.join()
+        snap = svc.snapshot()
+        ep = snap.endpoints["churn"]
+        assert snap.cache_hits == 0
+        counted("serve churn", ep.n_batches)
+        bt = svc.router.resolve("churn")
+        served = []
+        for i, (g0, g1) in enumerate(gens):
+            hit = [gen for gen in range(g0, g1 + 1)
+                   if svc.cache.get(svc.cache.key("churn", (items[i], None), backend=bt.backend,
+                                                  corpus_dtype=bt.corpus_dtype, generation=gen)) is not None]
+            assert len(hit) == 1, f"serve churn request {i}: stored under generations {hit} of [{g0}, {g1}]"
+            served.append(hit[0])
+    live.close()
+    del live
+    # replay the upserts and hold each answer at the generation it was served
+    replay = LiveCorpus(sp, dense, backend="cuda", append_backend="cuda", max_append=10 ** 9, device=dev)
+    by_gen = {}
+    for i, gen in enumerate(served):
+        by_gen.setdefault(gen, []).append(i)
+    changed = 0
+    for gen in range(max(served) + 1):
+        if gen:
+            ids, rows = upsert_args(gen - 1)
+            replay.upsert(ids, rows.to(dev))
+        assert replay.generation == gen
+        snap = replay.snapshot()
+        todo = by_gen.get(gen, [])
+        for lo in range(0, len(todo), b):
+            part = todo[lo:lo + b]
+            q = stack_requests([items[i] for i in part] + [torch.zeros(d)] * (b - len(part))).to(dev)
+            want = segments.live_topk(sp, snap, q, LIVE_CAND, main_backend="reference", append_backend="reference")
+            ws, wi = want.scores[:, :10].cpu().numpy(), want.indices[:, :10].cpu().numpy()
+            for r, i in enumerate(part):
+                assert same_row(got[i], (ws[r], wi[r])), \
+                    f"serve churn request {i} (generation {gen}): differs from the plain live path"
+                changed += int(wi[r][0] >= n)
+    del replay
+    return (f"{n_upserts[0]} upserts of {CHURN_UPSERT} ids (one every {1e3 * CHURN_PERIOD_S:.0f} ms) during a "
+            f"flood of {len(items)} by {SERVE_CLIENTS} clients, {len(items) / wall:.1f} qps, {ep.n_batches} "
+            f"batches over generations {min(served)}-{max(served)} ({len(by_gen)} distinct); every answer equal "
+            f"to the plain live path on the snapshot of its generation (ids and score bits), {changed} of them "
+            f"topped by an upserted twin")
+
+
+class DenseRescore:
+    """The served funnel's rerank stage in "serve full": the fused top-100
+    rescored on the dense part alone through ``DenseSpace.score_pairs``
+    (the query tokens are the queries' dense parts), the best ``keep``
+    kept in ``lax.top_k``'s order."""
+
+    def __init__(self, torch, dense):
+        from repro_torch.core.spaces import DenseSpace
+
+        self.torch, self.dense, self.space = torch, dense, DenseSpace("ip")
+
+    def rerank(self, q_tokens, cands, keep):
+        from repro_torch.core.brute_force import TopK, select_topk
+
+        b, k = cands.indices.shape
+        docs = self.dense[cands.indices.reshape(-1).long()]
+        scores = self.space.score_pairs(q_tokens.repeat_interleave(k, dim=0), docs).reshape(b, k)
+        vals, pos = select_topk(scores, keep)
+        return TopK(vals, self.torch.gather(cands.indices, 1, pos))
+
+
+def serve_full_phase(torch, dev, check, corpus, space, card, on_card, seed):
+    """The served main path: one ``RetrievalService(cache_size=4096)`` on
+    the resident corpus with six endpoints, each registered through
+    ``EndpointSpec(batch_size=16, max_wait_s=0.01, max_queue=128,
+    overload="block")``: "fused" and "dense" (cand_qty 100, final_qty 10,
+    the ``cuda`` backend: B2, B1), "dense_deep" (cand_qty 4096:
+    ``topk_large``), "fused_sharded" (SERVE_SHARDS row shards that are
+    views of the corpus: B2 per shard), "fused_funnel" (the fused
+    candidates, then ``DenseRescore`` under a ``StageBudget`` whose
+    end-to-end deadline skips the rerank once queueing eats the budget)
+    and "dense_live" (a ``LiveCorpus`` over the dense part, one upsert of
+    SERVE_UPSERT ids between its two passes).  Queries are host tensors
+    from the main path's generator, SERVE_QUERIES distinct ones an
+    endpoint (SERVE_DEEP_QUERIES for dense_deep).  Each endpoint alone:
+    a flood pass (SERVE_CLIENTS client threads, profiled on the card for
+    the device's idle share) and a replay pass of the same queries (from
+    the cache, except dense_live after its upsert).  Then every endpoint
+    at once on a second service without a cache.  Every answer is held to
+    the offline run of its batch of 16 (ids and score bits; the funnel's
+    to its full or its degraded answer), and the launches of every pass
+    to its batches.  Shapes only the served path gives: fused_sharded's
+    batch 0 against the plain fused scan of the whole corpus and the last
+    shard's B2 against its plain version; after the upsert, dense_live's
+    answers against the plain live path on the pinned snapshot (ids and
+    score bits) and B1 against its plain version at the main fetch's
+    depth (100 + the tombstones) and over the append segment.  Then "serve
+    split" (``serve_split``) and "serve churn" (``serve_churn``).  Last,
+    the ``launch/serve.py`` shim over a ``cuda`` runner.  Returns the
+    launches of all these passes by kernel."""
+    import dataclasses
+    import threading
+    import warnings
+
+    from repro_torch.core import segments
+    from repro_torch.core.pipeline import BruteForceGenerator, RetrievalPipeline
+    from repro_torch.core.sparse import SparseVectors
+    from repro_torch.core.spaces import DenseSpace, FusedVectors, map_tensors, tensor_leaves
+    from repro_torch.kernels import fused_topk as fk
+    from repro_torch.kernels import mips_topk as mk
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as plain
+    from repro_torch.kernels import topk_large as lk
+    from repro_torch.launch.serve import BatchingServer
+    from repro_torch.serving import (EndpointSpec, FunnelPipeline, LiveCorpus, LiveGenerator,
+                                     RetrievalService, ShardedPipeline, StageBudget)
+    from repro_torch.serving.batcher import stack_requests
+
+    t_phase = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    d = corpus.dense.shape[1]
+    v, b, nnz_q = space.vocab_size, MSMARCO["b"], MSMARCO["nnz_q"]
+    dense = corpus.dense
+    counters = {"mips_topk": mk, "fused_topk": fk, "topk_large": lk}
+    total = dict.fromkeys(counters, 0)
+
+    def launches():
+        return {k: m.launches for k, m in counters.items()}
+
+    def reset():
+        for m in counters.values():
+            m.launches = 0
+
+    def host_queries(count, base):
+        rows = []
+        for c in range(count // b):
+            qd, qi, qv = (t.cpu() for t in make_queries(torch, b, d, v, nnz_q, base + c, dev,
+                                                        planted=False))
+            rows += [FusedVectors(qd[i], SparseVectors(qi[i], qv[i])) for i in range(b)]
+        return rows
+
+    fused_pad = FusedVectors(torch.zeros(d, device=dev), SparseVectors(
+        torch.full((nnz_q,), v, dtype=torch.int32, device=dev), torch.zeros(nnz_q, device=dev)))
+    dense_pad = torch.zeros(d, device=dev)
+    pipe_f = RetrievalPipeline(BruteForceGenerator(space, corpus, backend="cuda"), cand_qty=100, final_qty=10)
+    pipe_d = RetrievalPipeline(BruteForceGenerator(DenseSpace("ip"), dense, backend="cuda"),
+                               cand_qty=100, final_qty=10)
+    pipe_deep = RetrievalPipeline(BruteForceGenerator(DenseSpace("ip"), dense, backend="cuda"),
+                                  cand_qty=DEEP_K, final_qty=10)
+    sharded = ShardedPipeline.from_corpus(space, corpus, SERVE_SHARDS, backend="cuda", cand_qty=100,
+                                          final_qty=10)
+    for s in sharded.shards:    # views of the resident corpus, not copies
+        for whole, part in zip(tensor_leaves(corpus), tensor_leaves(s.corpus)):
+            assert part.data_ptr() == whole.data_ptr() + s.offset * whole.stride(0) * whole.element_size()
+    funnel = FunnelPipeline(BruteForceGenerator(space, corpus, backend="cuda"),
+                            rerank=DenseRescore(torch, dense), cand_qty=100, fusion_qty=100, rerank_keep=10)
+    live = LiveCorpus(DenseSpace("ip"), dense, backend="cuda", append_backend="cuda", max_append=10 ** 9,
+                      device=dev)
+    assert live.snapshot().main is dense
+
+    funnel_q = host_queries(SERVE_QUERIES, seed + 4000)
+    queries = {
+        "fused": (host_queries(SERVE_QUERIES, seed), None),
+        "dense": ([r.dense for r in host_queries(SERVE_QUERIES, seed + 1000)], None),
+        "dense_deep": ([r.dense for r in host_queries(SERVE_DEEP_QUERIES, seed + 2000)], None),
+        "fused_sharded": (host_queries(SERVE_QUERIES, seed + 3000), None),
+        "fused_funnel": (funnel_q, [r.dense for r in funnel_q]),
+        "dense_live": ([r.dense for r in host_queries(SERVE_QUERIES, seed + 5000)], None),
+    }
+
+    # offline references, each batch of 16 run once
+    sync(torch, on_card)
+    t0 = time.perf_counter()
+    ref = {"fused": offline_rows(torch, pipe_f.run, queries["fused"][0], None, dev, b)}
+    sync(torch, on_card)
+    fused_batch_s = (time.perf_counter() - t0) / (SERVE_QUERIES // b)
+    ref["dense"] = offline_rows(torch, pipe_d.run, queries["dense"][0], None, dev, b)
+    ref["dense_deep"] = offline_rows(torch, pipe_deep.run, queries["dense_deep"][0], None, dev, b)
+    ref["fused_sharded"] = offline_rows(torch, sharded.run, queries["fused_sharded"][0], None, dev, b)
+    flat = offline_rows(torch, pipe_f.run, queries["fused_sharded"][0], None, dev, b)
+    assert all(np.array_equal(s[1], f[1]) for s, f in zip(ref["fused_sharded"], flat)), \
+        "fused_sharded ids differ from the unsharded fused answer"
+    # the sharded answer and a shard's B2 against the plain fused scan
+    w = dict(w_dense=space.w_dense, w_sparse=space.w_sparse)
+    q0 = map_tensors(lambda t: t.to(dev), stack_requests(queries["fused_sharded"][0][:b]))
+    table = plain.query_table(q0.sparse, v)
+    got = tuple(torch.from_numpy(np.stack([r[j] for r in ref["fused_sharded"][:b]])) for j in (0, 1))
+    check("fused_topk", f"serve fused_sharded batch 0 ({SERVE_SHARDS} shards) against the whole corpus", got,
+          plain.fused_topk_table_ref(table, q0.dense, corpus.sparse.indices, corpus.sparse.values, corpus.dense,
+                                     10, tile_n=1 << 16, **w), exact_ids=False)
+    last = sharded.shards[-1]
+    check("fused_topk", f"serve shard of {last.n_rows} rows at row {last.offset}",
+          tuple(ops.fused_topk(q0.sparse, q0.dense, last.corpus.sparse, last.corpus.dense, v, 100, **w)),
+          plain.fused_topk_table_ref(table, q0.dense, last.corpus.sparse.indices, last.corpus.sparse.values,
+                                     last.corpus.dense, 100, tile_n=1 << 16, **w), exact_ids=False)
+    full = offline_rows(torch, funnel.run, funnel_q, queries["fused_funnel"][1], dev, b)
+    degraded = offline_rows(torch, pipe_f.run, funnel_q, None, dev, b)
+    ref["fused_funnel"] = full
+    live_pipe = RetrievalPipeline(LiveGenerator(live))
+    ref["dense_live"] = offline_rows(torch, live_pipe.run, queries["dense_live"][0], None, dev, b)
+
+    def hold_live(items):
+        """dense_live's offline rows against the plain live path on the
+        pinned snapshot, ids and score bits; B1 against its plain version
+        at the depths the snapshot's segments are fetched at."""
+        snap = live.snapshot()
+        assert live_pipe.generator.last_served_generation == snap.generation
+        for lo in range(0, len(items), b):
+            want = segments.live_topk(DenseSpace("ip"), snap, stack_requests(items[lo:lo + b]).to(dev), LIVE_CAND,
+                                      main_backend="reference", append_backend="reference")
+            ws, wi = want.scores[:, :10].cpu().numpy(), want.indices[:, :10].cpu().numpy()
+            for r in range(b):
+                assert same_row(ref["dense_live"][lo + r], (ws[r], wi[r])), \
+                    f"serve dense_live request {lo + r}: differs from the plain live path"
+        q = stack_requests(items[:b]).to(dev)
+        for seg, n_dead, what in ((snap.main, int(snap.main_dead.sum()), "main"),
+                                  (snap.append, int(snap.append_dead.sum()), "append")):
+            k = min(seg.shape[0], LIVE_CAND + n_dead)
+            check("mips_topk", f"serve dense_live {what} n={seg.shape[0]} k={k}", tuple(mk.mips_topk(q, seg, k)),
+                  plain.mips_topk_ref(q, seg, k, tile_n=1 << 18), exact_ids=False)
+        return snap
+
+    def check_rows(name, got):
+        for i, row in enumerate(got):
+            if name == "fused_funnel":
+                assert same_row(row, full[i]) or same_row(row, degraded[i]), \
+                    f"serve full {name} request {i}: neither the full nor the degraded offline answer"
+            else:
+                assert same_row(row, ref[name][i]), f"serve full {name} request {i}: differs from its offline batch"
+
+    per_batch = {"fused": ("fused_topk", 1), "dense": ("mips_topk", 1), "dense_deep": ("topk_large", 2),
+                 "fused_sharded": ("fused_topk", SERVE_SHARDS), "fused_funnel": ("fused_topk", 1),
+                 "dense_live": ("mips_topk", 1)}
+
+    def check_launches(what, got, batches_by_name):
+        want = dict.fromkeys(counters, 0)
+        for name, batches in batches_by_name.items():
+            kernel, per = per_batch[name]
+            want[kernel] += per * batches
+        if on_card:
+            assert got == want, f"serve full {what}: launches {got}, expected {want} for {batches_by_name} batches"
+        for k, c in got.items():
+            total[k] += c
+
+    spec = EndpointSpec(batch_size=b, max_wait_s=0.01, max_queue=128, overload="block")
+    budget = StageBudget(total_s=4 * fused_batch_s)
+    pipelines = {"fused": (pipe_f, fused_pad, None, spec), "dense": (pipe_d, dense_pad, None, spec),
+                 "dense_deep": (pipe_deep, dense_pad, None, spec),
+                 "fused_sharded": (sharded, fused_pad, None, spec),
+                 "fused_funnel": (funnel, fused_pad, dense_pad, dataclasses.replace(spec, budget=budget)),
+                 "dense_live": (None, dense_pad, None, dataclasses.replace(spec, live=live))}
+
+    def register_all(svc):
+        for name, (pipe, pad, pad_tokens, sp) in pipelines.items():
+            svc.register_pipeline(name, pipe, pad, pad_tokens, spec=sp)
+
+    def profiled_flood(svc, name):
+        """A flood of ``name``'s queries, under the profiler on the card:
+        (answers, host seconds, the device's idle share of the pass)."""
+        box = {}
+
+        def run():
+            box["out"] = flood(svc, name, *queries[name], SERVE_CLIENTS)
+
+        idle = "not measured"
+        if on_card:
+            groups, span_ms, _ = device_profile(torch, run)
+            if groups:
+                idle = f"{max(0.0, 1.0 - sum(groups.values()) / span_ms):.3f}"
+        else:
+            run()
+        return (*box["out"], idle)
+
+    def line(name, ep, n_req, wall, idle):
+        return (f"{name}: exec {ep.execute.p50_ms:.3f} ms/batch (p50), {n_req / wall:.1f} qps, e2e p50 "
+                f"{ep.e2e.p50_ms:.3f} ms p99 {ep.e2e.p99_ms:.3f} ms, {ep.n_batches} batches, fill "
+                f"{ep.mean_batch_fill:.3f} (size {ep.closed_by_size} / deadline {ep.closed_by_deadline}), "
+                f"idle {idle}")
+
+    parts = []
+    with RetrievalService(cache_size=4096) as svc:
+        register_all(svc)
+        for name, (items, tokens) in queries.items():
+            svc.reset_stats()
+            reset()
+            got, wall, idle = profiled_flood(svc, name)
+            snap = svc.snapshot()
+            ep = snap.endpoints[name]
+            check_launches(name, launches(), {name: ep.n_batches})
+            check_rows(name, got)
+            assert snap.cache_misses == len(items) and ep.n_requests == len(items)
+            extra = ""
+            if name == "fused_funnel":
+                runs, fallbacks = ep.stages["rerank"].count, ep.stage_fallbacks["rerank"]
+                only_degraded = sum(same_row(r, degraded[i]) and not same_row(r, full[i])
+                                    for i, r in enumerate(got))
+                assert runs >= 1 and fallbacks >= 1, f"funnel budget: {runs} reranks, {fallbacks} fallbacks"
+                assert runs + fallbacks == ep.n_batches and only_degraded <= b * fallbacks
+                extra = (f", rerank run in {runs} batches and skipped in {fallbacks} (e2e budget "
+                         f"{1e3 * budget.total_s:.1f} ms), {only_degraded} degraded answers")
+            if name == "dense_live":   # one upsert between the passes
+                before = got
+                ids = np.unique(np.array([r[1][0] for r in got]))[:SERVE_UPSERT]
+                assert len(ids) == SERVE_UPSERT
+                live.upsert(ids, torch.zeros(SERVE_UPSERT, d, device=dev))
+                ref["dense_live"] = offline_rows(torch, live_pipe.run, items, None, dev, b)
+                live_snap = hold_live(items)
+                per_batch["dense_live"] = ("mips_topk", 2)   # main and append segments
+            svc.reset_stats()
+            reset()
+            again, _ = flood(svc, name, items, tokens, SERVE_CLIENTS)
+            snap2 = svc.snapshot()
+            ep2 = snap2.endpoints[name]
+            check_launches(name, launches(), {name: ep2.n_batches})
+            check_rows(name, again)
+            if name == "dense_live":
+                assert snap2.cache_hits == 0, "dense_live served a cached answer of the old generation"
+                changed = sum(not np.array_equal(a[1], o[1]) for a, o in zip(again, before))
+                assert changed >= 1, "the upsert changed no answer"
+                extra = (f", upsert of {SERVE_UPSERT} ids changed {changed} answers, generation {ep2.generation}, "
+                         f"main fetch k = {LIVE_CAND + int(live_snap.main_dead.sum())}, every answer equal to the "
+                         f"plain live path")
+            else:
+                assert snap2.cache_hits == len(items) and ep2.n_batches == 0
+            parts.append(line(name, ep, len(items), wall, idle)
+                         + f"; replay hit rate {snap2.cache_hit_rate:.3f}{extra}")
+    log(f"phase serve full: {SERVE_CLIENTS} clients an endpoint, each endpoint alone, host clock (the flood "
+        f"under the profiler); " + "; ".join(parts) + f"; {card}")
+
+    # without the cache: the fused endpoint alone (its clients hash no keys),
+    # then every endpoint at once, answers and launches under concurrency
+    outs, errors = {}, []
+    with RetrievalService(cache_size=0) as svc:
+        register_all(svc)
+        reset()
+        got, wall, idle = profiled_flood(svc, "fused")
+        ep = svc.snapshot().endpoints["fused"]
+        check_rows("fused", got)
+        check_launches("fused without the cache", launches(), {"fused": ep.n_batches})
+        log(f"phase serve nocache: the fused endpoint alone, no cache, {SERVE_CLIENTS} clients: "
+            + line("fused", ep, len(got), wall, idle) + f"; {card}")
+        svc.reset_stats()
+        reset()
+        t0 = time.perf_counter()
+
+        def endpoint(name):
+            try:
+                outs[name] = flood(svc, name, *queries[name], SERVE_CLIENTS)[0]
+            except Exception as exc:      # noqa: BLE001 -- re-raised below
+                errors.append(exc)
+
+        threads = [threading.Thread(target=endpoint, args=(name,)) for name in queries]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        wall = time.perf_counter() - t0
+        snap = svc.snapshot()
+    for name in queries:
+        check_rows(name, outs[name])
+    check_launches("all endpoints", launches(), {name: ep.n_batches for name, ep in snap.endpoints.items()})
+    n_req = sum(len(q[0]) for q in queries.values())
+    log(f"phase serve all: {len(queries)} endpoints at once, {n_req} requests in {wall:.3f} s "
+        f"({n_req / wall:.1f} qps), every answer equal to its offline batch, launches equal to the batches "
+        f"served, funnel fallbacks {snap.endpoints['fused_funnel'].stage_fallbacks['rerank']}; "
+        + ", ".join(f"{name} e2e p99 {ep.e2e.p99_ms:.3f} ms" for name, ep in snap.endpoints.items())
+        + f"; {card}")
+
+    def tally(label, batches, kernel, lo, hi):
+        """A pass's launches: only ``kernel``, ``lo`` to ``hi`` a batch."""
+        got = launches()
+        if on_card:
+            assert lo * batches <= got[kernel] <= hi * batches and sum(got.values()) == got[kernel], \
+                f"{label}: launches {got} for {batches} batches"
+        for k, c in got.items():
+            total[k] += c
+        reset()
+
+    reset()
+    split = serve_split(torch, pipe_f, fused_pad, spec, queries["fused"][0], SERVE_CLIENTS,
+                        lambda label, nb: tally(f"serve split {label}", nb, "fused_topk", 1, 1))
+    log(f"phase serve split: the fused endpoint, a flood of {SERVE_QUERIES} a variant, host clock; {split}; "
+        f"{card}")
+    reset()
+    churn = serve_churn(torch, dev, dense, seed + 6000, lambda label, nb: tally(label, nb, "mips_topk", 1, 2))
+    log(f"phase serve churn: {churn}; {card}")
+
+    # the deprecated shim over a cuda runner
+    items = queries["dense"][0][:b]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        srv = BatchingServer(lambda qb: ops.mips_topk(qb, dense, 10), batch_size=b, pad_query=dense_pad,
+                             window_s=0.01, backend="cuda")
+    reset()
+    out = srv.serve(items)
+    got = launches()
+    srv.close()
+    if on_card:
+        assert got["mips_topk"] == srv.stats.n_batches >= 1, got
+    for k, c in got.items():
+        total[k] += c
+    want = offline_rows(torch, lambda qb: ops.mips_topk(qb, dense, 10), items, None, dev, b)
+    assert all(same_row(o, w) for o, w in zip(out, want)), "BatchingServer differs from its offline batch"
+    log(f"phase serve shim: launch.serve.BatchingServer over ops.mips_topk, {srv.stats.n_requests} requests in "
+        f"{srv.stats.n_batches} batch(es), equal to the offline batch; serve phases "
+        f"{time.perf_counter() - t_phase:.1f} s"
+        + (f", peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated" if on_card else ""))
+    sharded.close()
+    del live
+    return total
+
+
 def sync(torch, on_card):
     if on_card:
         torch.cuda.synchronize()
@@ -1869,6 +2507,21 @@ def main() -> int:
         f"library {large_lib:.3f} ms; fused topk_large {fused_large_ms:.3f} ms (bound "
         f"{bound(fused_bytes - b * 100 * 8 + b * DEEP_K * 8, fused_ops)[0]:.3f} ms)")
 
+    # where topk_large overtakes the scan kernels as k grows, on batch 0
+    # (k = 100: the scan kernels and the library call as timed above)
+    cross = []
+    for k in CROSSOVER_K:
+        big = k > 100
+        cross.append((k, timer(lambda: mk.mips_topk(q.dense, dense, k), 3) if big else mips_ms,
+                      timer(lambda: fk.fused_topk(*fused_args, k, **fused_kw), 3) if big else fused_ms,
+                      timer(lambda: lk.topk_large(None, q.dense, None, None, dense, k), 3),
+                      timer(lambda: lk.topk_large(*fused_args, k, **fused_kw), 3),
+                      timer(lambda: library_topk(k), 3) if big else mips_lib))
+    log(f"phase crossover (B={b}, f32, CUDA events, median of 3; k=100 scan and library rows of median 5): "
+        + "; ".join(f"k={k}: B1 {b1:.3f} ms, topk_large dense {ld:.3f} ms, library {lib:.3f} ms, "
+                    f"B2 {b2:.3f} ms, topk_large fused {lf:.3f} ms" for k, b1, b2, ld, lf, lib in cross)
+        + f"; {card}")
+
     kernels = []
     for name, source, replaces, ms, plain, lib, (bms, by) in (
             ("mips_topk", SOURCES[0], "src/repro/kernels/mips_topk.py:92", mips_ms, mips_plain, mips_lib,
@@ -1915,6 +2568,7 @@ def main() -> int:
     live_full_phase(torch, dev, check, corpus, batches, learned,
                     {"fused": learned_ms, "dense": 1e3 * statistics.median(dense_s)}, timer, card, on_card,
                     args.seed + 22)
+    serve_launches = serve_full_phase(torch, dev, check, corpus, space, card, on_card, args.seed + 23)
     # release the 36 GB corpus: the pipelines, the checks and the ANN
     # index cache all hold it
     del dense, idx, val, corpus, batches, q, pipe, dense_gen, results, dense_results, fused_args
@@ -1933,6 +2587,8 @@ def main() -> int:
     kernels.append({"name": "fused_score", "route": "cuda", "source": SOURCES[2],
                     "replaces": "src/repro/kernels/sparse_dense.py:61", "launches": score_launches,
                     "max_abs_err": check.max_err["fused_score"], **score, "library_ms": None})
+    for k in kernels:    # the main path's launches and the served passes'
+        k["launches"] += serve_launches.get(k["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if not on_card:

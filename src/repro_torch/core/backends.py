@@ -62,6 +62,9 @@ __all__ = [
     "resolve_backend",
     "backend_identity",
     "legal_tile",
+    "auto_tile_n",
+    "tile_cache_info",
+    "clear_tile_cache",
 ]
 
 # The measured-recall tier: an approximate backend's recall@k against the
@@ -97,6 +100,75 @@ class ExecutionBackend(Protocol):
 def legal_tile(n_rows: int, requested: int) -> int:
     """Clamp a requested tile to the corpus: a tile never exceeds N."""
     return max(1, min(requested, n_rows))
+
+
+# Warm tile cache: the sweep is pure in its arguments, so it runs once per
+# distinct (rows, batch, k, bytes and flops per row, resident bytes) and
+# every later call is a dict hit.  Under a lock, because served endpoints
+# ask from batcher worker threads at once; the sweep is a handful of
+# closed-form evaluations, cheap enough to run under it, which keeps the
+# counters exact (each call is one hit or one miss).
+_TILE_CACHE: Dict[tuple, int] = {}
+_TILE_CACHE_LOCK = threading.Lock()
+_TILE_CACHE_HITS = 0
+_TILE_CACHE_MISSES = 0
+
+
+def tile_cache_info() -> Dict[str, int]:
+    """Entry count and lifetime hit/miss counters of the tile cache."""
+    with _TILE_CACHE_LOCK:
+        return {"size": len(_TILE_CACHE), "hits": _TILE_CACHE_HITS,
+                "misses": _TILE_CACHE_MISSES}
+
+
+def clear_tile_cache():
+    """Drop every warm tile and zero the counters."""
+    global _TILE_CACHE_HITS, _TILE_CACHE_MISSES
+    with _TILE_CACHE_LOCK:
+        _TILE_CACHE.clear()
+        _TILE_CACHE_HITS = 0
+        _TILE_CACHE_MISSES = 0
+
+
+def auto_tile_n(n_rows: int, *, b: int, k: int, bytes_per_row: float,
+                flops_per_row: float, resident_bytes: float = 0.0) -> int:
+    """The legal tile (a power of two from 128 to 16384, clamped to the
+    corpus) with the least estimated seconds per corpus row on the H100
+    model (``launch.roofline.topk_tile_seconds``), among the tiles whose
+    working set fits half a block's shared memory: the resident operands
+    (``resident_bytes``), the streamed tile double-buffered and the
+    ``[B, tile]`` f32 score block.  Ties go to the larger tile.  With no
+    tile fitting, 128.
+
+    The CUDA kernels choose their own launch shape and the streaming
+    backend keeps its fixed tile, as ``repro``'s does; the sweep is kept
+    so that snapshots carry the same warm-cache counters
+    (:func:`tile_cache_info`)."""
+    global _TILE_CACHE_HITS, _TILE_CACHE_MISSES
+    key = (int(n_rows), int(b), int(k), float(bytes_per_row),
+           float(flops_per_row), float(resident_bytes))
+    with _TILE_CACHE_LOCK:
+        cached = _TILE_CACHE.get(key)
+        if cached is not None:
+            _TILE_CACHE_HITS += 1
+            return cached
+        from repro_torch.launch.roofline import SMEM_BYTES, topk_tile_seconds
+
+        budget = SMEM_BYTES // 2      # headroom for the compiler's own use
+        best, best_cost = 128, None
+        tile = 128
+        while tile <= 16384:
+            if resident_bytes + tile * (2 * bytes_per_row + 4 * b) <= budget:
+                cost = topk_tile_seconds(
+                    tile, b=b, k=k, bytes_per_row=bytes_per_row,
+                    flops_per_row=flops_per_row) / tile
+                if best_cost is None or cost <= best_cost:
+                    best, best_cost = tile, cost
+            tile *= 2
+        result = legal_tile(n_rows, best)
+        _TILE_CACHE[key] = result
+        _TILE_CACHE_MISSES += 1
+        return result
 
 
 def _dense_rows(corpus) -> Optional[int]:
@@ -357,6 +429,11 @@ def _cached_ann_index(kind: str, space, corpus, n_valid: int, params: tuple,
             _ANN_INDEX_HITS += 1
             return hit[2]
     value = build()
+    dev = tensor_leaves(corpus)[0].device
+    if dev.type == "cuda":
+        # batcher workers run on streams of their own: the build must be
+        # complete before another stream can find it in the cache
+        torch.cuda.current_stream(dev).synchronize()
     with _ANN_INDEX_LOCK:
         _ANN_INDEX_MISSES += 1
         _ANN_INDEX_CACHE[key] = (space, corpus, value)

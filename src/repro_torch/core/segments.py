@@ -243,7 +243,10 @@ def _locator(snap: SegmentSnapshot):
 
 def _segment_state(snap: SegmentSnapshot, which: str, device):
     """A segment's logical ids (i32) and tombstone flags on ``device``
-    and its tombstone count, moved once per snapshot and memoised on it."""
+    and its tombstone count, moved once per snapshot and memoised on it.
+    On the card the memo is made on its first reader's stream and read on
+    others: each read marks it used by the current stream, so that it is
+    not reused while reads queued there are pending."""
     cache = getattr(snap, "_segment_cache", None)
     if cache is None:
         cache = {}
@@ -254,6 +257,10 @@ def _segment_state(snap: SegmentSnapshot, which: str, device):
         dead = getattr(snap, f"{which}_dead")
         cache[key] = (torch.from_numpy(ids.astype(np.int32)).to(device),
                       torch.from_numpy(dead.copy()).to(device), int(dead.sum()))
+    if device.type == "cuda":
+        stream = torch.cuda.current_stream(device)
+        for t in cache[key][:2]:
+            t.record_stream(stream)
     return cache[key]
 
 

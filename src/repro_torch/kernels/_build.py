@@ -26,6 +26,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+# The launchers set each kernel's shared-memory size (cudaFuncSetAttribute),
+# state of the process, to what the launch at hand needs, just before it:
+# two threads launching one kernel at two sizes would race between the two
+# calls.  Every launch from Python holds this lock for its enqueue (a few
+# microseconds) and counts itself under it.
+LAUNCH_LOCK = threading.Lock()
 PTXAS_LOG: dict[str, str] = {}   # nvcc's -Xptxas -v report per source built here
 
 

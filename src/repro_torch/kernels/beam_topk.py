@@ -184,7 +184,7 @@ def _launch(qdensified, q_dense, beam_s, beam_i, visited, neighbors, c_idx,
     if not commit:
         words = torch.empty((b, c), dtype=torch.int32, device=dev)
         addend = torch.empty((b, c), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _build.LAUNCH_LOCK:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(ptr(qd), vp1, ptr(qdt), d, ptr(beam_s), ptr(beam_i), b, ef,
                  ptr(visited), w, ptr(neighbors), r,
@@ -196,8 +196,8 @@ def _launch(qdensified, q_dense, beam_s, beam_i, visited, neighbors, c_idx,
                  int(commit), ptr(scratch),
                  ptr(out_s), ptr(out_i), ptr(words), ptr(addend),
                  ctypes.c_void_p(stream))
-    _build.check(err, "beam_hop_launch")
-    launches += 1
+        _build.check(err, "beam_hop_launch")
+        launches += 1
     return out_s, out_i, words, addend
 
 

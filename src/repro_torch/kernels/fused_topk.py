@@ -107,7 +107,7 @@ def fused_topk(qdensified, q_dense, c_idx, c_val, c_dense, k: int,
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     fn = _declare(_build.load("topk_scan"))
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _build.LAUNCH_LOCK:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(ptr(words), ptr(table), ptr(c_idx if has_sparse else None),
                  ptr(c_val if has_sparse else None),
@@ -116,6 +116,6 @@ def fused_topk(qdensified, q_dense, c_idx, c_val, c_dense, k: int,
                  d, b, n, n_valid, k, int(dense_kind == "l2"), int(weighted),
                  wd, ws, ptr(part_s), ptr(part_i), n_splits, rows, qb, buf,
                  ptr(out_s), ptr(out_i), ctypes.c_void_p(stream))
-    _build.check(err, "fused_topk_launch")
-    launches += 1
+        _build.check(err, "fused_topk_launch")
+        launches += 1
     return out_s, out_i

@@ -108,12 +108,12 @@ def mips_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     fn = _declare(_build.load("topk_scan"))
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _build.LAUNCH_LOCK:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(ptr(q), ptr(corpus), _DTYPES[corpus.dtype], b, n, d,
                  n_valid, k, int(space == "l2"), ptr(part_s), ptr(part_i),
                  n_splits, rows, qb, buf, ptr(out_s), ptr(out_i),
                  ctypes.c_void_p(stream))
-    _build.check(err, "mips_topk_launch")
-    launches += 1
+        _build.check(err, "mips_topk_launch")
+        launches += 1
     return out_s, out_i

@@ -98,11 +98,11 @@ def fused_score(qdensified, q_dense, c_idx, c_val, c_dense, w_dense: float = 1.0
     words, table = build_index(qdensified, INDEX_GROUP, qb)
     out = torch.empty((b, n), dtype=torch.float32, device=dev)
     fn = _declare(_build.load("fused_score"))
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _build.LAUNCH_LOCK:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(ptr(words), ptr(table), ptr(c_idx), ptr(c_val), _DTYPES[c_val.dtype], nnz,
                  vocab, ptr(q_t), q_t.shape[1], ptr(c_dense), _DTYPES[c_dense.dtype], d, b, n, qb,
                  float(w_dense), float(w_sparse), ptr(out), ctypes.c_void_p(stream))
-    _build.check(err, "fused_score_launch")
-    launches += 1
+        _build.check(err, "fused_score_launch")
+        launches += 1
     return out

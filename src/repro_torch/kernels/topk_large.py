@@ -131,7 +131,7 @@ def large_scores(qdensified, q_dense, c_idx, c_val, c_dense, w_dense=None, w_spa
     scores = torch.empty((b, n_valid), dtype=torch.float32, device=dev)
     lib = _declare(_build.load("topk_large"))
     bf16 = has_dense and c_dense.dtype == torch.bfloat16
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _build.LAUNCH_LOCK:
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         if has_dense and d % (8 if bf16 else 4) == 0 and c_dense.data_ptr() % 16 == 0:
             blocks = max(1, min(cdiv(n_valid, 256), _sms(dev)))
@@ -147,8 +147,8 @@ def large_scores(qdensified, q_dense, c_idx, c_val, c_dense, w_dense=None, w_spa
                 int(has_sparse and c_val.dtype == torch.bfloat16), nnz, ptr(c_dense), int(bf16),
                 int(dense_kind == "l2"), int(weighted), wd, ws, b, n_valid, blocks, ptr(scores), stream)
             what = "topk_large_rows_launch"
-    _build.check(err, what)
-    launches += 1
+        _build.check(err, what)
+        launches += 1
     return scores
 
 
@@ -175,13 +175,13 @@ def select_large(scores: torch.Tensor, k: int):
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     lib = _declare(_build.load("topk_large"))
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _build.LAUNCH_LOCK:
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         err = lib.topk_large_select_launch(ptr(scores), b, n, k, cap, chunk_rows, chunks, list_cap,
                                            ptr(ws), ptr(list_s), ptr(list_i), ptr(out_s), ptr(out_i),
                                            stream)
-    _build.check(err, "topk_large_select_launch")
-    launches += 1
+        _build.check(err, "topk_large_select_launch")
+        launches += 1
     return out_s, out_i
 
 

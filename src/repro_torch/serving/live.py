@@ -24,10 +24,16 @@ Concurrency:
 
 Device: the corpus lives on ``device`` (None means the CUDA card, and
 raises without one; pass ``device="cpu"`` for the plain versions), and
-inserted rows, numpy or tensors, move there.  The compactor thread's
-PyTorch calls share the default stream with the readers', so a swapped-in
-main is complete for every batch queued after the swap; nothing waits
-for the card under the lock.
+inserted rows, numpy or tensors, move there.  Writers, the compactor and
+readers may run on different CUDA streams (a served endpoint's batches
+run on its worker's own stream): every published snapshot carries an
+event recorded on the stream that built it, and :meth:`LiveCorpus.snapshot`
+makes the reader's current stream wait for it, so a batch never reads a
+segment still being written.  It also marks the snapshot's segments as
+used by the reader's stream (``record_stream``): a segment dropped by a
+swap while a batch's reads of it are still queued is not handed to
+another allocation until that stream has passed them.  Nothing waits for
+the card on the host.
 
 The logical-id bookkeeping (``repro``'s two Python dicts) is held in
 sorted numpy arrays, so building it over millions of rows, and the
@@ -51,7 +57,8 @@ from repro_torch.core.backends import (CudaBackend, ReferenceBackend, StreamingB
                                        resolve_backend)
 from repro_torch.core.brute_force import TopK
 from repro_torch.core.segments import SegmentSnapshot
-from repro_torch.core.spaces import canonical_dtype, cast_corpus, corpus_dtype, map_tensors
+from repro_torch.core.spaces import (canonical_dtype, cast_corpus, corpus_dtype, map_tensors,
+                                     tensor_leaves)
 from repro_torch.device import resolve_device
 
 __all__ = ["LiveCorpus", "LiveGenerator", "SnapshotGenerator"]
@@ -168,8 +175,8 @@ class LiveCorpus:
                 raise ValueError("ids must be unique and match the corpus row count")
         self._lock = threading.RLock()
         self._compact_lock = threading.Lock()
-        self._snapshot = SegmentSnapshot(generation=0, main=corpus, main_ids=ids,
-                                         main_dead=np.zeros(n, dtype=bool))
+        self._snapshot = self._published(SegmentSnapshot(
+            generation=0, main=corpus, main_ids=ids, main_dead=np.zeros(n, dtype=bool)))
         self._ids = _IdTable(ids)
         self._next_id = int(ids.max()) + 1 if n else 0
         self._swapped_at = self._time()
@@ -183,8 +190,17 @@ class LiveCorpus:
     def snapshot(self) -> SegmentSnapshot:
         """The current immutable state.  Hold the reference for the whole
         batch: everything computed from one snapshot is consistent and
-        survives any number of concurrent swaps."""
-        return self._snapshot
+        survives any number of concurrent swaps.  On the card, the
+        caller's current stream is ordered after the work that built it."""
+        snap = self._snapshot
+        ready = getattr(snap, "_ready", None)
+        if ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(ready)
+            if stream != snap._built_on:
+                for leaf in tensor_leaves(snap.main) + tensor_leaves(snap.append):
+                    leaf.record_stream(stream)
+        return snap
 
     @property
     def generation(self) -> int:
@@ -217,9 +233,20 @@ class LiveCorpus:
         }
 
     # -- mutation -----------------------------------------------------------
+    def _published(self, snap: SegmentSnapshot) -> SegmentSnapshot:
+        """``snap`` with the current stream, where its segments were built,
+        and an event recorded on it (on the card only)."""
+        if self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            ready = torch.cuda.Event()
+            ready.record(stream)
+            object.__setattr__(snap, "_ready", ready)
+            object.__setattr__(snap, "_built_on", stream)
+        return snap
+
     def _swap(self, snap: SegmentSnapshot):
         # caller holds self._lock
-        self._snapshot = snap
+        self._snapshot = self._published(snap)
         self._swapped_at = self._time()
 
     def _coerce_rows(self, rows):
@@ -238,7 +265,7 @@ class LiveCorpus:
         their newly assigned logical ids."""
         rows, m = self._coerce_rows(rows)
         with self._lock:
-            snap = self._snapshot
+            snap = self.snapshot()
             new_ids = np.arange(self._next_id, self._next_id + m, dtype=np.int64)
             self._next_id += m
             base = snap.n_append
@@ -263,7 +290,7 @@ class LiveCorpus:
         tombstoned."""
         ids = np.atleast_1d(np.asarray(ids, dtype=np.int64))
         with self._lock:
-            snap = self._snapshot
+            snap = self.snapshot()
             slots = self._ids.find(ids)
             dead = slots < 0
             dead[~dead] = self._ids.seg[slots[~dead]] == _GONE
@@ -296,7 +323,7 @@ class LiveCorpus:
         if len(ids) != m:
             raise ValueError(f"{len(ids)} ids for {m} rows")
         with self._lock:
-            snap = self._snapshot
+            snap = self.snapshot()
             main_dead = snap.main_dead.copy()
             append_dead = snap.append_dead.copy()
             base = snap.n_append
@@ -344,7 +371,7 @@ class LiveCorpus:
         with self._compact_lock:
             t0 = self._time()
             with self._lock:
-                snap0 = self._snapshot
+                snap0 = self.snapshot()
                 if snap0.n_append == 0 and snap0.n_dead == 0:
                     return False
                 vers0 = self._ids.ver[self._ids.find(snap0.live_ids())]
@@ -354,7 +381,7 @@ class LiveCorpus:
                 # new main is servable the moment it is swapped in
                 self.main_backend._index(self.space, corpus, len(ids))
             with self._lock:
-                cur = self._snapshot
+                cur = self.snapshot()
                 slots = self._ids.find(ids)
                 main_dead = (self._ids.seg[slots] == _GONE) | (self._ids.ver[slots] != vers0)
                 tail_lo = snap0.n_append

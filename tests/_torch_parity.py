@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch import interop
+from repro_torch.serving.batcher import stack_requests
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))  # benchmarks/
 
@@ -128,3 +129,51 @@ def assert_torch_topk_equal(got, want, ctx=""):
     assert torch.equal(got.indices, want.indices), f"ids diverge {ctx}"
     assert torch.equal(got.scores.view(torch.int32), want.scores.view(torch.int32)), \
         f"score bits diverge {ctx}"
+
+
+class FrozenClock:
+    """A serving clock that moves only when a test moves it: batches close
+    on size, and a partial batch closes on its deadline only once the
+    clock is advanced, so that batch composition is deterministic."""
+
+    def __init__(self, t: float = 0.0):
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+    def advance(self, dt: float):
+        self.t += dt
+
+
+def serve_in_order(svc, endpoint, queries, clock, q_tokens=None, timeout=120.0):
+    """Submit ``queries`` to ``endpoint`` of a service running on
+    ``clock`` and return the futures once done.  The batches are the
+    submission order cut into ``batch_size`` pieces: full ones close on
+    size; the partial tail closes on its deadline, which the clock reaches
+    only after the worker has taken every queued request."""
+    import time
+
+    batcher = svc.router.resolve(endpoint)
+    futs = svc.submit_many(queries, q_tokens, endpoint)
+    end = time.monotonic() + timeout
+    while not all(f.done() for f in futs):
+        if batcher.queue_depth() == 0:
+            clock.advance(1.0)
+        time.sleep(0.002)
+        assert time.monotonic() < end, "served requests did not finish"
+    return futs
+
+
+def batched_offline(run, items, pad, batch_size):
+    """``run`` over per-request queries ``items`` in the batches a served
+    endpoint forms from them in submission order (the tail padded with
+    ``pad``): each request's row of its batch's result, as numpy."""
+    rows = []
+    for lo in range(0, len(items), batch_size):
+        part = list(items[lo:lo + batch_size])
+        n_real = len(part)
+        out = run(stack_requests(part + [pad] * (batch_size - n_real)))
+        for i in range(n_real):
+            rows.append(type(out)(*(np.asarray(x[i]) for x in out)))
+    return rows

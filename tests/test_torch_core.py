@@ -213,7 +213,15 @@ def test_package_imports_no_jax_or_repro(path):
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.core.pipeline, repro_torch.interop, "
             "repro_torch.kernels.ops, repro_torch.core.fusion, repro_torch.core.graph_ann, "
-            "repro_torch.kernels.beam_topk; "
+            "repro_torch.kernels.beam_topk, repro_torch.serving, repro_torch.serving.stats, "
+            "repro_torch.serving.batcher, repro_torch.serving.router, repro_torch.serving.funnel, "
+            "repro_torch.serving.autotune, repro_torch.serving.spec, repro_torch.serving.service, "
+            "repro_torch.serving.sharded, repro_torch.launch.serve, repro_torch.launch.roofline; "
+            "from repro_torch.serving import (RetrievalService, ContinuousBatcher, Router, "
+            "EndpointSpec, FunnelPipeline, StageBudget, ShardedPipeline, shard_corpus, "
+            "ServingStats, ServiceSnapshot, EndpointSnapshot, LatencySummary, ServingConfig, "
+            "TunedProfile, check_config); "
+            "from repro_torch.launch.serve import BatchingServer; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
