@@ -10,8 +10,12 @@ against its plain version ("index"); the exact-scan kernels against their
 plain versions at small shapes, with the index's risky cases (Zipf-skewed
 and out-of-range ids, repeated query terms, an all-pad query, both
 launch plans, V = 250,000) and exact scores that are NaN, +0 and -0
-("small"), the large-k kernels likewise, with the selection's refinement
-and ordered-fill paths ("large small"), the beam-hop kernel against
+("small"), B1 where its ring route can break, bit for bit on exact
+scores (a sorted corpus, all scores equal, NaN / +0 / -0 at the k-th,
+n_valid below k, a sample that misses every good row, so that the filter's
+lists overflow; "b1 small"), the large-k kernels likewise, with the
+selection's refinement and ordered-fill paths ("large small"), the
+beam-hop kernel against
 its plain version hop for hop, and one traversal launch against the
 hop-by-hop launches bit for bit ("beam small"), and the fused score kernel
 against its plain version ("score small"); then the main path at MS
@@ -46,10 +50,13 @@ threads with host queries, each endpoint alone and then all at once,
 every answer equal to the offline run of its batch; where a flood's host
 time goes ("serve split"); a live endpoint flooded while a writer
 upserts, every answer equal to the plain live path at the generation
-that served it ("serve churn"); and the scan
-kernels against ``topk_large`` at k = 100, 1,100 and 2,048
-("crossover").  Each served path runs with the launch counters set to 0
-just before and read just after.  The last lines are the ``kernels`` JSON, the card's name and
+that served it ("serve churn"); and B1
+against ``topk_large``, the library call and its own scan route (the
+parent's kernel) at k = 10, 100, 356, 1,100, 2,000 and 2,048 and B = 1, 16
+and 64, B2 against ``topk_large`` at B = 16
+("crossover"), with B1's extra device memory ("b1 memory").  Each
+served path runs with the launch counters set to 0 just before and read
+just after.  The last lines are the ``kernels`` JSON, the card's name and
 power limit, and ``{"ok": true, ...}``.  Any failure raises and exits
 non-zero.  The data is synthetic, made on the card from ``--seed``.
 
@@ -90,7 +97,8 @@ BATCHES = 8                      # served batches on the main path
 DEEP_K = 4096                    # the main path's one deep dense request: k above the scan kernels' 2048
 MSMARCO = dict(n=8_841_823, d=768, v=30_522, nnz=128, nnz_q=32, b=16)
 SOURCES = ("src/repro_torch/kernels/csrc/topk_scan.cu", "src/repro_torch/kernels/csrc/beam_hop.cu",
-           "src/repro_torch/kernels/csrc/fused_score.cu", "src/repro_torch/kernels/csrc/topk_large.cu")
+           "src/repro_torch/kernels/csrc/fused_score.cu", "src/repro_torch/kernels/csrc/topk_large.cu",
+           "src/repro_torch/kernels/csrc/mips_topk.cu")
 GRAPH = dict(degree=16, ef=64)   # configs/paper_retrieval.py ann_degree / ann_ef
 NAPP = dict(num_pivots=128, num_index=8, num_search=8, min_times=2, rerank_qty=256)  # paper_retrieval.py:36-38
 NAPP_DRAWS = 32                  # pivot draws whose recall "napp recall" prints beside the gated one
@@ -105,6 +113,7 @@ LIVE_PLANTED_DELETES = (300, 500)                # of those, planted rows
 ANN_INSERTS, ANN_DELETES, ANN_MAIN_DELETES = 1024, 512, 48   # "live ann" churn; main deletes <= ef - k
 SERVE_QUERIES, SERVE_DEEP_QUERIES = 512, 64   # "serve full": distinct queries an endpoint
 SERVE_CLIENTS, SERVE_SHARDS, SERVE_UPSERT = 4, 4, 256
+SERVE_ALL_PASSES = 6                           # "serve all": every endpoint at once, this many times
 CHURN_UPSERT, CHURN_PERIOD_S = 16, 0.01        # "serve churn": ids an upsert writes, the writer's pause
 SPLIT_VARIANTS = (   # "serve split": label, cache size, client work before each submit, clients, switch interval
                      # in s (None: the interpreter's default)
@@ -117,7 +126,7 @@ SPLIT_VARIANTS = (   # "serve split": label, cache size, client work before each
     ("cache, 1 client", 4096, None, 1, None),
     ("cache, switch interval 0.1 ms", 4096, None, SERVE_CLIENTS, 1e-4),
 )
-CROSSOVER_K = (100, 1100, 2048)  # "crossover": the scan kernels against topk_large at these k
+CROSSOVER_K = (10, 100, 356, 1100, 2000, 2048)  # "crossover": B1 and B2 against topk_large at these k
 NEG = -3.4028234663852886e38     # f32 min, the mask of invalid candidates
 SLEEP_CYCLES = 2_000_000         # ~1 ms at an H100 SXM's 1.98 GHz boost clock: outlasts the host's enqueue of a traversal
 
@@ -566,6 +575,98 @@ def small_phase(torch, dev, check):
                     check("fused_topk", f"index {label} {tag} b{b} k{k}",
                           fk.fused_topk(table, qq, idx, val, dn, k, **kw),
                           ref.fused_topk_table_ref(table, qq, idx, val, dn, k, **kw))
+
+
+def b1_phase(torch, dev, check):
+    """B1 (``mips_topk``) where its ring route can break, against the plain
+    version on small integers, whose scores are exact, so that ids and
+    score bits must be equal: B = 1, 5, 16 and 37, k from 1 to 2048, rows
+    past n_valid, ip and l2, f32 and bf16; a corpus sorted by query 0's
+    score (both ways); all scores equal (the k lowest rows); NaN, +0 and -0
+    at the threshold; n_valid below k with a valid row at -inf, and
+    n_valid = 0; a sample whose tiles all score 0 under scores above it, so
+    that the filter's lists overflow and are sorted (asserted from the
+    route's stats); the graph entry set's shape (2,973 rows of 768 at
+    k = 64); and the scan route for rows a tensor map cannot describe (d =
+    61, a pointer 4 bytes off).  Returns (cases, list sorts on the
+    sample-blind corpus, route launches)."""
+    from repro_torch.kernels import mips_topk as mk
+    from repro_torch.kernels import ref
+
+    def ints(shape, lo, hi, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randint(lo, hi, shape, generator=g, device=dev).float()
+
+    def run(label, q, c, k, n_valid=None, space="ip", **over):
+        s, i, st = mk.mips_filter(q, c, k, n_valid, space, **over)
+        check("mips_topk", f"b1 {label} b{q.shape[0]} k{k} {space}", (s, i),
+              ref.mips_topk_ref(q, c, k, n_valid=n_valid, space=space), signed_zeros=True)
+        return st
+
+    cases, before = check.cases, (mk.ring_launches, mk.scan_launches)
+    n, d = 50_003, 64
+    c = ints((n, d), -2, 3, 1)
+    for b in (1, 5, 16, 37):
+        q = ints((b, d), -3, 4, 2 + b)
+        for k in (1, 10, 100, 356, 2048):
+            for n_valid in (None, 49_000):
+                for space in ("ip", "l2"):
+                    run("ints", q, c, k, n_valid, space)
+        for k, space in ((100, "ip"), (2048, "l2")):
+            run("ints bf16", q, c.bfloat16(), k, 40_000, space)
+    q = ints((16, d), -3, 4, 5)
+    order = torch.argsort(q[0] @ c.T, stable=True)
+    for k in (10, 2048):
+        run("sorted ascending", q, c[order].contiguous(), k)
+        run("sorted descending", q, c[order.flip(0)].contiguous(), k)
+        s, i, _ = mk.mips_filter(ints((16, d), 1, 2, 0), torch.ones(n, d, device=dev), k)
+        assert bool((i == torch.arange(k, device=dev, dtype=torch.int32)).all()), "all equal: not the lowest rows"
+        run("all equal", ints((16, d), 1, 2, 0), torch.ones(n, d, device=dev), k)
+    # NaN (0 * inf), +0 (zero rows in ip) and -0 (query 0's copies in l2) at
+    # the k-th: every ip score <= 0 but theirs
+    z = ints((n, d), -1, 1, 6)
+    z[torch.rand(n, generator=torch.Generator(device=dev).manual_seed(6), device=dev) < 0.35] = 0.0
+    qz = ints((16, d), 1, 3, 7)
+    qz[:, 1] = 0.0
+    z[::53] = qz[0]
+    z[::101, 1] = math.inf
+    for k in (10, 700, 2048):
+        for space in ("ip", "l2"):
+            st = run("NaN/+-0", qz, z, k, None, space)
+    for space in ("ip", "l2"):   # the case is what it claims (a CPU ranks its NaN, 0xffc00000, last)
+        full = ref.mips_topk_ref(qz, z, n, space=space)[0]
+        assert bool(full.isnan().any()) and bool((full == 0).any()), f"the NaN/+-0 case has no NaN or zero: {space}"
+    # n_valid below k, a valid row at -inf; no valid row
+    m = ints((5000, d), -2, 3, 8)
+    m[3, 0] = -math.inf
+    qm = ints((4, d), 1, 3, 9)
+    for space in ("ip", "l2"):
+        run("n_valid < k", qm, m, 300, 200, space)
+    run("n_valid = 0", qm, m, 50, 0)
+    # the sample's tiles score 0, every other row more: the lists overflow
+    blind = ints((n, d), 0, 3, 10)
+    blind[(torch.arange(n, device=dev) // mk.TILE) % mk.SAMPLE_STRIDE == 0] = 0.0
+    sorts = 0
+    for k in (10, 300, 2048):
+        run("sample-blind", ints((16, d), 1, 3, 11), blind, k, stride=mk.SAMPLE_STRIDE)
+        # 7 filter blocks: 26 tiles each, more than a list holds
+        st = run("sample-blind, 7 blocks", ints((16, d), 1, 3, 11), blind, k, stride=mk.SAMPLE_STRIDE, blocks=7)
+        sorts += int(st[:, 0].sum())
+        assert bool((st[:, 0] > 0).all()), f"sample-blind k={k}: the lists were never sorted"
+    run("graph entry set", ints((16, 768), -2, 3, 12), ints((2973, 768), -2, 3, 13), 64)
+    # rows a tensor map cannot describe take the scan route
+    scan0 = mk.scan_launches
+    odd, qo = ints((5003, 61), -2, 3, 14), ints((16, 61), -3, 4, 15)
+    check("mips_topk", "b1 scan route d=61", mk.mips_topk(qo, odd, 100), ref.mips_topk_ref(qo, odd, 100),
+          signed_zeros=True)
+    off = torch.empty(5003 * 64 + 1, device=dev)[1:].view(5003, 64)
+    off.copy_(c[:5003])
+    assert not mk.ring_fits(off)
+    check("mips_topk", "b1 scan route unaligned", mk.mips_topk(q, off, 100), ref.mips_topk_ref(q, off, 100),
+          signed_zeros=True)
+    if dev.type == "cuda":
+        assert mk.scan_launches == scan0 + 2, "d=61 and an unaligned corpus must take the scan route"
+    return check.cases - cases, sorts, (mk.ring_launches - before[0], mk.scan_launches - before[1])
 
 
 def index_phase(torch, dev):
@@ -1987,7 +2088,8 @@ def serve_full_phase(torch, dev, check, corpus, space, card, on_card, seed):
     a flood pass (SERVE_CLIENTS client threads, profiled on the card for
     the device's idle share) and a replay pass of the same queries (from
     the cache, except dense_live after its upsert).  Then every endpoint
-    at once on a second service without a cache.  Every answer is held to
+    at once, SERVE_ALL_PASSES times, each pass on a fresh service without a
+    cache.  Every answer is held to
     the offline run of its batch of 16 (ids and score bits; the funnel's
     to its full or its degraded answer), and the launches of every pass
     to its batches.  Shapes only the served path gives: fused_sharded's
@@ -2230,8 +2332,8 @@ def serve_full_phase(torch, dev, check, corpus, space, card, on_card, seed):
         f"under the profiler); " + "; ".join(parts) + f"; {card}")
 
     # without the cache: the fused endpoint alone (its clients hash no keys),
-    # then every endpoint at once, answers and launches under concurrency
-    outs, errors = {}, []
+    # then every endpoint at once, answers and launches under concurrency,
+    # SERVE_ALL_PASSES times (a race between streams need not show in one)
     with RetrievalService(cache_size=0) as svc:
         register_all(svc)
         reset()
@@ -2241,32 +2343,37 @@ def serve_full_phase(torch, dev, check, corpus, space, card, on_card, seed):
         check_launches("fused without the cache", launches(), {"fused": ep.n_batches})
         log(f"phase serve nocache: the fused endpoint alone, no cache, {SERVE_CLIENTS} clients: "
             + line("fused", ep, len(got), wall, idle) + f"; {card}")
-        svc.reset_stats()
-        reset()
-        t0 = time.perf_counter()
+    walls = []
+    for _ in range(SERVE_ALL_PASSES):
+        outs, errors = {}, []
+        with RetrievalService(cache_size=0) as svc:
+            register_all(svc)
+            reset()
+            t0 = time.perf_counter()
 
-        def endpoint(name):
-            try:
-                outs[name] = flood(svc, name, *queries[name], SERVE_CLIENTS)[0]
-            except Exception as exc:      # noqa: BLE001 -- re-raised below
-                errors.append(exc)
+            def endpoint(name):
+                try:
+                    outs[name] = flood(svc, name, *queries[name], SERVE_CLIENTS)[0]
+                except Exception as exc:      # noqa: BLE001 -- re-raised below
+                    errors.append(exc)
 
-        threads = [threading.Thread(target=endpoint, args=(name,)) for name in queries]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-        if errors:
-            raise errors[0]
-        wall = time.perf_counter() - t0
-        snap = svc.snapshot()
-    for name in queries:
-        check_rows(name, outs[name])
-    check_launches("all endpoints", launches(), {name: ep.n_batches for name, ep in snap.endpoints.items()})
+            threads = [threading.Thread(target=endpoint, args=(name,)) for name in queries]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            if errors:
+                raise errors[0]
+            walls.append(time.perf_counter() - t0)
+            snap = svc.snapshot()
+        for name in queries:
+            check_rows(name, outs[name])
+        check_launches("all endpoints", launches(), {name: ep.n_batches for name, ep in snap.endpoints.items()})
     n_req = sum(len(q[0]) for q in queries.values())
-    log(f"phase serve all: {len(queries)} endpoints at once, {n_req} requests in {wall:.3f} s "
-        f"({n_req / wall:.1f} qps), every answer equal to its offline batch, launches equal to the batches "
-        f"served, funnel fallbacks {snap.endpoints['fused_funnel'].stage_fallbacks['rerank']}; "
+    log(f"phase serve all: {len(queries)} endpoints at once, {n_req} requests a pass, {SERVE_ALL_PASSES} passes in "
+        + ", ".join(f"{w:.3f}" for w in walls) + f" s ({n_req / statistics.median(walls):.1f} qps, median), every "
+        f"answer equal to its offline batch, launches equal to the batches served; the last pass: funnel "
+        f"fallbacks {snap.endpoints['fused_funnel'].stage_fallbacks['rerank']}, "
         + ", ".join(f"{name} e2e p99 {ep.e2e.p99_ms:.3f} ms" for name, ep in snap.endpoints.items())
         + f"; {card}")
 
@@ -2372,6 +2479,13 @@ def main() -> int:
     small_phase(torch, dev, check)
     log(f"phase small: {check.cases} cases agree (tolerance {TOL_REL} of row scale)")
     cases = check.cases
+    t0 = time.perf_counter()
+    b1_cases, b1_sorts, b1_routes = b1_phase(torch, dev, check)
+    log(f"phase b1 small: {b1_cases} cases of B1 agree bit for bit (exact integer scores: sorted, all equal, "
+        f"NaN/+0/-0 at the k-th, n_valid < k with a row at -inf, bf16, l2, the graph entry set's shape, the "
+        f"scan route for d=61 and an unaligned corpus); the sample-blind corpus sorted the filter's lists "
+        f"{b1_sorts} times; launches: ring {b1_routes[0]}, scan {b1_routes[1]}; {time.perf_counter() - t0:.1f} s")
+    cases = check.cases
     large_phase(torch, dev, check)
     log(f"phase large small: {check.cases - cases} cases of k > 2048 agree (tolerance {TOL_REL} of row scale; "
         f"exact scores: ids equal, ties, NaN, +0 and -0, refinement to 22 and 32 bits, all-equal rows)")
@@ -2409,7 +2523,7 @@ def main() -> int:
     dense_gen = BruteForceGenerator(DenseSpace("ip"), dense, backend="cuda")
     assert type(resolve_backend("cuda", space, corpus)).__name__ == "CudaBackend"
 
-    mk.launches = 0
+    mk.launches = mk.ring_launches = mk.scan_launches = 0
     fk.launches = 0
     lk.launches = 0
     fused_s, dense_s, results, dense_results = [], [], [], []
@@ -2427,11 +2541,13 @@ def main() -> int:
     # one deep request: k above the scan kernels' 2048 (a reranking pool)
     deep = dense_gen.generate(batches[0].dense, DEEP_K)
     launches = {"mips_topk": mk.launches, "fused_topk": fk.launches, "topk_large": lk.launches}
-    log(f"phase main path: {BATCHES} batches of {b} and one dense request of k = {DEEP_K}; launches {launches}; "
+    log(f"phase main path: {BATCHES} batches of {b} and one dense request of k = {DEEP_K}; launches {launches} "
+        f"(mips_topk: ring {mk.ring_launches}, scan {mk.scan_launches}); "
         f"fused pipeline median {1e3 * statistics.median(fused_s):.3f} ms/batch, "
         f"dense median {1e3 * statistics.median(dense_s):.3f} ms/batch (host clock, synchronised)")
     if on_card:
         assert all(c > 0 for c in launches.values()), f"a kernel was not launched: {launches}"
+        assert mk.ring_launches > 0, "the main path did not take B1's ring route"
 
     # correctness at full scale, against the plain versions
     for r in results:
@@ -2458,8 +2574,21 @@ def main() -> int:
     rq, _, _ = make_queries(torch, b, d, v, 8, args.seed + 7, dev, planted=False)
     check("mips_topk", "full dense k=100 random queries", mk.mips_topk(rq, dense, 100),
           ref.mips_topk_ref(rq, dense, 100, tile_n=1 << 18), exact_ids=False)
-    log(f"phase full check: fused k=100, k=2000 and k={DEEP_K}, dense k=100 (planted and random) and "
-        f"k={DEEP_K} agree")
+    # B1 at the paper's candQty = 2000 (configs/paper_retrieval.py:24): against the plain version, and
+    # bit for bit against topk_large (the same arithmetic); a zero query scores every row +0: the k
+    # lowest rows
+    b1_2000 = mk.mips_topk(q.dense, dense, 2000)
+    check("mips_topk", "full dense k=2000", b1_2000, ref.mips_topk_ref(q.dense, dense, 2000, tile_n=1 << 18))
+    deep_2000 = lk.topk_large(None, q.dense, None, None, dense, 2000)
+    assert torch.equal(b1_2000[1], deep_2000[1]) and torch.equal(b1_2000[0].view(torch.int32),
+                                                                 deep_2000[0].view(torch.int32)), \
+        "B1 and topk_large disagree at k=2000"
+    zq = torch.zeros(b, d, device=dev)
+    check("mips_topk", "full dense k=2048 all scores equal", mk.mips_topk(zq, dense, 2048),
+          ref.mips_topk_ref(zq, dense, 2048, tile_n=1 << 18), signed_zeros=True)
+    del b1_2000, deep_2000
+    log(f"phase full check: fused k=100, k=2000 and k={DEEP_K}, dense k=100 (planted and random), k=2000 "
+        f"(equal to topk_large bit for bit), k=2048 with every score +0 and k={DEEP_K} agree")
 
     # ---- timings ------------------------------------------------------
     reps = 5 if on_card else 1
@@ -2467,10 +2596,10 @@ def main() -> int:
     mips_ms = timer(lambda: mk.mips_topk(q.dense, dense, 100), reps)
     mips_plain = timer(lambda: ref.mips_topk_ref(q.dense, dense, 100, tile_n=1 << 18), 1)
 
-    def library_topk(k):
+    def library_topk(k, qq=q.dense):
         parts_s, parts_i = [], []
         for r0 in range(0, n, 1 << 20):
-            s, i = torch.topk(q.dense @ dense[r0:r0 + (1 << 20)].T, k)
+            s, i = torch.topk(qq @ dense[r0:r0 + (1 << 20)].T, k)
             parts_s.append(s)
             parts_i.append(i + r0)
         s, p = torch.topk(torch.cat(parts_s, 1), k)
@@ -2507,24 +2636,52 @@ def main() -> int:
         f"library {large_lib:.3f} ms; fused topk_large {fused_large_ms:.3f} ms (bound "
         f"{bound(fused_bytes - b * 100 * 8 + b * DEEP_K * 8, fused_ops)[0]:.3f} ms)")
 
-    # where topk_large overtakes the scan kernels as k grows, on batch 0
-    # (k = 100: the scan kernels and the library call as timed above)
-    cross = []
-    for k in CROSSOVER_K:
-        big = k > 100
-        cross.append((k, timer(lambda: mk.mips_topk(q.dense, dense, k), 3) if big else mips_ms,
-                      timer(lambda: fk.fused_topk(*fused_args, k, **fused_kw), 3) if big else fused_ms,
-                      timer(lambda: lk.topk_large(None, q.dense, None, None, dense, k), 3),
-                      timer(lambda: lk.topk_large(*fused_args, k, **fused_kw), 3),
-                      timer(lambda: library_topk(k), 3) if big else mips_lib))
-    log(f"phase crossover (B={b}, f32, CUDA events, median of 3; k=100 scan and library rows of median 5): "
-        + "; ".join(f"k={k}: B1 {b1:.3f} ms, topk_large dense {ld:.3f} ms, library {lib:.3f} ms, "
-                    f"B2 {b2:.3f} ms, topk_large fused {lf:.3f} ms" for k, b1, b2, ld, lf, lib in cross)
-        + f"; {card}")
+    # B1 against topk_large dense and the library call as k grows, at B = 1, 16 and 64 (batch 0's first
+    # query, batch 0, batches 0-3), B2 against topk_large fused at B = 16 (k = 100: the scan kernels and
+    # the library call as timed above); B1's extra device memory at B = 16
+    def extra_gb(fn):
+        if not on_card:
+            return float("nan")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    cross, b1_gb = [], {}
+    for bq, qq in ((1, q.dense[:1].contiguous()), (b, q.dense),
+                   (4 * b, torch.cat([x.dense for x in batches[:4]]))):
+        for k in CROSSOVER_K:
+            seen = bq == b and k == 100
+            row = [bq, k, mips_ms if seen else timer(lambda: mk.mips_topk(qq, dense, k), 3),
+                   timer(lambda: lk.topk_large(None, qq, None, None, dense, k), 3),
+                   mips_lib if seen else timer(lambda: library_topk(k, qq), 3), None, None,
+                   timer(lambda: mk.mips_scan(qq, dense, k), 1 if bq > b else 3)]
+            if bq == b:
+                row[5] = fused_ms if seen else timer(lambda: fk.fused_topk(*fused_args, k, **fused_kw), 3)
+                row[6] = timer(lambda: lk.topk_large(*fused_args, k, **fused_kw), 3)
+                b1_gb[k] = extra_gb(lambda: mk.mips_topk(qq, dense, k))
+            cross.append(tuple(row))
+    # the scan route is the parent's B1 kernel (topk_scan.cu, unchanged): B1's time before the ring
+    for bq in (1, b, 4 * b):
+        log(f"phase crossover B={bq} (f32, CUDA events, median of 3; B=16 k=100 rows of median 5; the scan "
+            f"route at B=64 one run): "
+            + "; ".join(f"k={k}: B1 {b1:.3f} ms, topk_large dense {ld:.3f} ms, library {lib:.3f} ms, "
+                        f"B1's scan route {sc:.3f} ms"
+                        + ("" if b2 is None else f", B2 {b2:.3f} ms, topk_large fused {lf:.3f} ms")
+                        for bb, k, b1, ld, lib, b2, lf, sc in cross if bb == bq)
+            + f"; {card}")
+    ahead = all(b1 < lib and b1 <= ld for bb, k, b1, ld, lib, _, _, _ in cross if bb == b)
+    faster = all(b1 <= sc for _, _, b1, _, _, _, _, sc in cross)
+    log(f"phase b1 memory (B={b}, max_memory_allocated over one call): "
+        + ", ".join(f"k={k}: {gb:.4f} GB" for k, gb in b1_gb.items())
+        + f"; B1 faster than the library call and no slower than topk_large dense at every k at B={b}: {ahead}; "
+        f"no slower than its scan route at every k and B: {faster}")
 
     kernels = []
     for name, source, replaces, ms, plain, lib, (bms, by) in (
-            ("mips_topk", SOURCES[0], "src/repro/kernels/mips_topk.py:92", mips_ms, mips_plain, mips_lib,
+            ("mips_topk", SOURCES[4], "src/repro/kernels/mips_topk.py:92", mips_ms, mips_plain, mips_lib,
              bound(dense_bytes, dense_ops)),
             ("fused_topk", SOURCES[0], "src/repro/kernels/fused_topk.py:146", fused_ms, fused_plain, None,
              bound(fused_bytes, fused_ops)),

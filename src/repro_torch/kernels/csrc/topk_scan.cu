@@ -1,9 +1,11 @@
 // Exact top-k scan over a dense, sparse (padded COO) or fused dense+sparse
 // corpus, for sm_90a.  Two C entry points share one kernel:
 //
-//   mips_topk_launch   replaces src/repro/kernels/mips_topk.py
-//                      mips_topk_pallas (with _kernel and _fold_topk):
-//                      dense ip or negated l2 scores plus a running top-k;
+//   mips_topk_launch   dense ip or negated l2 scores plus a running top-k
+//                      (src/repro/kernels/mips_topk.py mips_topk_pallas), for
+//                      the corpora B1's ring route (mips_topk.cu) cannot
+//                      take: rows a tensor map cannot describe (D not a
+//                      multiple of 16 bytes, an unaligned pointer);
 //   fused_topk_launch  replaces src/repro/kernels/fused_topk.py
 //                      fused_topk_pallas (with _kernel):
 //                      w_d*dense_kind(q_d, c_d) + w_s*sum_j qd[b, idx[n,j]]*val[n,j]
@@ -46,7 +48,8 @@
 // the second block an SM at qb = 16.  What bounds the fused kernel now is
 // the dense part's memory pipeline (B1's, 55% of HBM) plus the per-slot
 // staging (PERF.md holds what was measured).  The dense-only instantiation
-// (mips_topk_launch) compiles to the same code as before the index.
+// (mips_topk_launch) compiles to the same code as before the index; it now
+// serves only B1's corpora whose rows a tensor map cannot describe.
 //
 // Numerics.  Every score is IEEE f32: no TF32, bf16 loads converted with
 // __bfloat162float before the first multiply.  The mix is computed as
@@ -355,7 +358,12 @@ merge_kernel(const float* part_s, const int* part_i, int m, int k, int buf, floa
   if (threadIdx.x == 0) init_cands(c);
   for (int base = 0; base < m; base += kThreads) {
     __syncthreads();
-    if (*cnt > buf - kThreads) compact(c, buf, k);
+    const bool crowded = *cnt > buf - kThreads;
+    // no offer may move the count before every thread has read it: a warp
+    // that read it late would enter compact's barriers alone (a delayed
+    // warp, as under another stream's kernel on the same SMs, did so)
+    __syncthreads();
+    if (crowded) compact(c, buf, k);
     const int p = base + threadIdx.x;
     if (p < m) offer(c, __float_as_uint(part_s[q * m + p]), part_i[q * m + p]);
   }
@@ -445,7 +453,9 @@ int query_index_launch(const void* qd, int bf16, int b, int vocab, int group, in
   return int(topk::query_index(static_cast<const float*>(qd), b, vocab, group, groups, w, table, st));
 }
 
-// Dense ip (l2 = 0) or negated l2 (l2 = 1) top-k.  Returns a cudaError_t.
+// Dense ip (l2 = 0) or negated l2 (l2 = 1) top-k: B1's scan route, for rows
+// the ring route (mips_topk.cu) cannot copy by tensor map.  Returns a
+// cudaError_t.
 int mips_topk_launch(const float* q, const void* c, int c_bf16, int b, int n, int d, int n_valid,
                      int k, int l2, float* part_s, int* part_i, int n_splits, int rows_per_split,
                      int qb, int buf, float* out_s, int* out_i, void* stream) {

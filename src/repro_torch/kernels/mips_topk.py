@@ -1,39 +1,59 @@
-"""Exact dense ip / l2 top-k through the CUDA kernel in
-``csrc/topk_scan.cu`` (``mips_topk_launch``), the counterpart of
-``repro/kernels/mips_topk.py: mips_topk_pallas``.
+"""Exact dense ip / l2 top-k (B1), the counterpart of
+``repro/kernels/mips_topk.py: mips_topk_pallas``, through one of two
+CUDA routes:
+
+- **ring** (``csrc/mips_topk.cu``, ``mips_filter_launch``): a corpus whose
+  rows a tensor map can describe (16-byte aligned, D a multiple of 16
+  bytes).  A sample of tiles is scored and its top k taken; its k-th
+  (score, row) is a threshold no row of the answer lies behind; one scan of
+  every other tile keeps only the rows ahead of each block's threshold in
+  per-block lists, sorted in place when one could overflow; one block a
+  query merges the sample's top k, the lists and the masked rows.  Plan:
+  :func:`filter_plan`.
+- **scan** (``csrc/topk_scan.cu``, ``mips_topk_launch``): any other corpus
+  (D = 61, a sliced view).  Each block scans a row range and keeps a
+  candidate list per query in shared memory; B2 (``fused_topk``) shares
+  this kernel and its plan (:func:`plan`).
 
 For tensors on the CPU the wrapper runs the plain version
-(``ref.mips_topk_ref``); for CUDA tensors it launches the kernel or
-raises.  ``launches`` counts kernel launches, nowhere else.
+(``ref.mips_topk_ref``); for CUDA tensors it launches a kernel or raises.
+``launches`` counts B1's launches on either route, ``ring_launches`` and
+``scan_launches`` each route's, nowhere else.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build, ref
 
 MAX_K = 2048
-TILE = 256          # corpus rows per tile (kThreads in topk_scan.cuh)
-_BLOCKS_PER_SM = 4  # scan blocks to aim for, per SM
+TILE = 256          # corpus rows per tile: the scan kernels' kRows, the ring's kTileRows
+_BLOCKS_PER_SM = 4  # scan route: scan blocks to aim for, per SM
+SAMPLE_STRIDE = 16  # ring route: at most every 16th tile is the sample's ...
+SAMPLE_PER_K = 32   # ... and the sample holds at least 32 k rows where the corpus allows
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
+ring_launches = 0
+scan_launches = 0
 
 
 def check_k(k: int, n: int):
     if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k} outside 1..{MAX_K}; the kernel's shared-"
-                         "memory candidate list holds at most "
-                         f"{MAX_K} results per query")
+        raise ValueError(f"k={k} outside 1..{MAX_K}: the scan route's shared-"
+                         "memory candidate lists hold at most "
+                         f"{MAX_K} results per query (k above it is topk_large's)")
     if k > n:
         raise ValueError(f"k={k} exceeds the {n} corpus rows")
 
 
 def plan(b: int, n: int, k: int, n_sms: int):
-    """Launch shape: (queries per block, candidate-list slots, corpus
+    """The scan route's launch shape (B1 on corpora the tensor map cannot
+    describe, and B2): (queries per block, candidate-list slots, corpus
     splits, rows per split).  The list holds k plus one tile, rounded up
     to a power of two for the bitonic sort; 16 queries share a block
     while their lists stay within 64 KB of shared memory, else 4."""
@@ -43,6 +63,38 @@ def plan(b: int, n: int, k: int, n_sms: int):
     n_splits = max(1, min(cdiv(n, 4 * TILE), target))
     rows = cdiv(cdiv(n, n_splits), TILE) * TILE
     return qb, buf, cdiv(n, rows), rows
+
+
+class FilterPlan(NamedTuple):
+    stride: int          # the sample is tiles 0, stride, 2 * stride, ...
+    cols: int            # its rows below n_valid: the sample buffer's width
+    k_sample: int        # the sample's top list, min(k, cols); at stride 1 every sampled row, cols
+    sample_blocks: int   # ring blocks of the sample pass
+    blocks: int          # ring blocks of the filter pass (0: every tile is the sample's)
+    slots: int           # a filter block's list per query: a power of two >= k + TILE
+    masked: int          # rows past n_valid that may enter the answer: min(k, n - n_valid)
+
+
+def filter_plan(n: int, n_valid: int, k: int, n_sms: int, stride: int | None = None,
+                blocks: int | None = None) -> FilterPlan:
+    """The ring route's plan.  The sample takes every ``stride``-th tile,
+    ``stride`` at most SAMPLE_STRIDE and at most n_valid / (32 k), so that
+    the sample holds 32 k rows where it can (every row of a small corpus);
+    on exchangeable data about k * (stride - 1) rows a query then pass the
+    filter.  A filter block's list holds k plus one tile, rounded up to a
+    power of two: sorted down to k, it has room for the next tile.
+    ``stride`` and ``blocks`` (the filter's blocks, at most the SMs by
+    default) may be given, as the checks do to make the lists overflow."""
+    tiles = cdiv(n_valid, TILE)
+    if stride is None:
+        stride = max(1, min(SAMPLE_STRIDE, n_valid // (SAMPLE_PER_K * k)))
+    sampled = cdiv(tiles, stride)
+    cols = 0 if tiles == 0 else (sampled - 1) * TILE + min(TILE, n_valid - (sampled - 1) * stride * TILE)
+    units = tiles - sampled
+    blocks = min(n_sms if blocks is None else blocks, units)
+    slots = 1 << (k + TILE - 1).bit_length()
+    k_sample = cols if stride == 1 else min(k, cols)
+    return FilterPlan(stride, cols, k_sample, min(n_sms, sampled), blocks, slots, min(k, n - n_valid))
 
 
 def cdiv(a: int, b: int) -> int:
@@ -70,31 +122,43 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
 
-def _declare(lib):
-    fn = lib.mips_topk_launch
+def query_groups(q: torch.Tensor) -> torch.Tensor:
+    """The dense queries [B, D] as the ring's stages copy them:
+    [ceil(B / 16), D rounded up to 32, 16], a group's 16 values of a column
+    contiguous, zero past B and D."""
+    b, d = q.shape
+    groups, d_pad = cdiv(b, 16), cdiv(d, 32) * 32
+    out = torch.zeros((groups * 16, d_pad), dtype=torch.float32, device=q.device)
+    out[:b, :d] = q
+    return out.view(groups, 16, d_pad).transpose(1, 2).contiguous()
+
+
+def ring_fits(corpus: torch.Tensor) -> bool:
+    """Whether a tensor map can describe the corpus's rows: 16-byte aligned
+    rows of a multiple of 16 bytes."""
+    return (corpus.dim() == 2 and corpus.shape[1] % (16 // corpus.element_size()) == 0
+            and corpus.data_ptr() % 16 == 0)
+
+
+def _declare(lib, name):
+    fn = getattr(lib, name)
     if fn.argtypes is None:
-        v, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [v, v, i, i, i, i, i, i, i, v, v, i, i, i, i, v, v, v]
+        v, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = {
+            "mips_topk_launch": [v, v, i, i, i, i, i, i, i, v, v, i, i, i, i, v, v, v],
+            "mips_filter_launch": [v, v, i, i, i, i, i, i, i, i, i, i, i, v, v, i, i, i, ll, v, v, v, v,
+                                   i, i, v, v, v, v, v, v]}[name]
         fn.restype = ctypes.c_int
     return fn
 
 
-def mips_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
-              n_valid: int | None = None, space: str = "ip"):
-    """queries [B, D], corpus [N, D] (f32 or bf16) -> (scores f32[B, K],
-    ids i32[B, K]), score descending, ties toward the lower row id.  Rows
-    at or past ``n_valid`` score f32-min.  Any N: no padding needed."""
-    global launches
-    if corpus.device.type == "cpu":
-        return ref.mips_topk_ref(queries, corpus, k, n_valid=n_valid,
-                                 space=space)
+def _check(queries, corpus, k, n_valid, space):
     if corpus.device.type != "cuda":
         raise ValueError(f"mips_topk runs on cpu or cuda, not {corpus.device}")
     if space not in ("ip", "l2"):
         raise ValueError(f"mips_topk serves ip/l2, not {space!r}")
     dev = corpus.device
     n, d = corpus.shape
-    b = queries.shape[0]
     check_k(k, n)
     n_valid = n if n_valid is None else max(0, min(int(n_valid), n))
     q = queries.float().contiguous()      # upcast before the first multiply
@@ -102,12 +166,78 @@ def mips_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     require_cuda("corpus", corpus, _DTYPES, 2, dev)
     if q.shape[1] != d:
         raise ValueError(f"queries have {q.shape[1]} dims, corpus {d}")
+    return q, n_valid
+
+
+def mips_filter(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+                n_valid: int | None = None, space: str = "ip", *, stride: int | None = None,
+                blocks: int | None = None):
+    """The ring route: (scores f32[B, K], ids i32[B, K], stats i32[B, 2]),
+    stats holding per query the filter's list sorts and the candidates
+    merged.  ``stride`` and ``blocks`` override :func:`filter_plan`.  On
+    the CPU: the plain emulation (``ref.mips_filter_ref``) of the same
+    plan, at 132 SMs."""
+    global launches, ring_launches
+    if corpus.device.type == "cpu":
+        n = corpus.shape[0]
+        nv = n if n_valid is None else max(0, min(int(n_valid), n))
+        check_k(k, n)
+        p = filter_plan(n, nv, k, 132, stride, blocks)
+        return ref.mips_filter_ref(queries, corpus, k, p, n_valid=nv, space=space)
+    q, n_valid = _check(queries, corpus, k, n_valid, space)
+    if not ring_fits(corpus):
+        raise ValueError("the ring route needs 16-byte aligned rows of a multiple of 16 bytes")
+    dev = corpus.device
+    n, d = corpus.shape
+    b = q.shape[0]
+    p = filter_plan(n, n_valid, k, _sms(dev), stride, blocks)
+    qg = query_groups(q)
+    f32, i32 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.int32, device=dev)
+    sample = torch.empty((b, p.cols), **f32)
+    ks = p.k_sample
+    ws = sel_s = sel_i = top_s = top_i = None
+    cap = chunk_rows = chunks = list_cap = 0
+    if p.stride > 1:   # the sample's top k through topk_large's selection (imported here:
+        # topk_large imports this module); at stride 1 the merge reads the sample
+        from repro_torch.kernels.topk_large import HIST_INTS, select_shape
+        cap, chunk_rows, chunks, list_cap = select_shape(b, p.cols, ks, _sms(dev))
+        ws = torch.empty((b * (HIST_INTS + chunks),), **i32)
+        sel_s, sel_i = torch.empty((b, list_cap), **f32), torch.empty((b, list_cap), **i32)
+        top_s, top_i = torch.empty((b, ks), **f32), torch.empty((b, ks), **i32)
+    lists = torch.empty((b, p.blocks, p.slots), dtype=torch.int64, device=dev)
+    counts = torch.empty((b, p.blocks), **i32)
+    stats = torch.empty((b, 2), **i32)
+    out_s, out_i = torch.empty((b, k), **f32), torch.empty((b, k), **i32)
+    fn = _declare(_build.load("mips_topk"), "mips_filter_launch")
+    with torch.cuda.device(dev), _build.LAUNCH_LOCK:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(ptr(qg), ptr(corpus), _DTYPES[corpus.dtype], d, b, n, n_valid, k, int(space == "l2"),
+                 p.stride, p.cols, ks, p.sample_blocks, ptr(sample), ptr(ws), cap, chunk_rows, chunks,
+                 list_cap, ptr(sel_s), ptr(sel_i), ptr(top_s), ptr(top_i), p.blocks, p.slots, ptr(lists),
+                 ptr(counts), ptr(stats), ptr(out_s), ptr(out_i), ctypes.c_void_p(stream))
+        _build.check(err, "mips_filter_launch")
+        launches += 1
+        ring_launches += 1
+    return out_s, out_i, stats
+
+
+def mips_scan(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+              n_valid: int | None = None, space: str = "ip"):
+    """The scan route (``topk_scan.cu``), for any corpus: what
+    :func:`mips_topk` runs where :func:`ring_fits` is false."""
+    global launches, scan_launches
+    if corpus.device.type == "cpu":
+        return ref.mips_topk_ref(queries, corpus, k, n_valid=n_valid, space=space)
+    q, n_valid = _check(queries, corpus, k, n_valid, space)
+    dev = corpus.device
+    n, d = corpus.shape
+    b = q.shape[0]
     qb, buf, n_splits, rows = plan(b, n, k, _sms(dev))
     part_s = torch.empty((b, n_splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((b, n_splits, k), dtype=torch.int32, device=dev)
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
-    fn = _declare(_build.load("topk_scan"))
+    fn = _declare(_build.load("topk_scan"), "mips_topk_launch")
     with torch.cuda.device(dev), _build.LAUNCH_LOCK:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(ptr(q), ptr(corpus), _DTYPES[corpus.dtype], b, n, d,
@@ -116,4 +246,18 @@ def mips_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
                  ctypes.c_void_p(stream))
         _build.check(err, "mips_topk_launch")
         launches += 1
+        scan_launches += 1
     return out_s, out_i
+
+
+def mips_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+              n_valid: int | None = None, space: str = "ip"):
+    """queries [B, D], corpus [N, D] (f32 or bf16) -> (scores f32[B, K],
+    ids i32[B, K]), score descending, ties toward the lower row id.  Rows
+    at or past ``n_valid`` score f32-min.  Any N: no padding needed."""
+    if corpus.device.type == "cpu":
+        return ref.mips_topk_ref(queries, corpus, k, n_valid=n_valid,
+                                 space=space)
+    if corpus.device.type == "cuda" and ring_fits(corpus):
+        return mips_filter(queries, corpus, k, n_valid, space)[:2]
+    return mips_scan(queries, corpus, k, n_valid, space)

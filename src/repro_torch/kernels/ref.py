@@ -13,9 +13,10 @@ scale; the result does not depend on it.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from repro_torch.core.brute_force import select_topk
+from repro_torch.core.brute_force import order_keys, select_topk
 from repro_torch.core.sparse import SparseVectors, accum_f32, densify
 from repro_torch.core.spaces import dense_scores, ieee_f32, weighted_mix
 from repro_torch.kernels.query_index import index_rows
@@ -52,6 +53,64 @@ def mips_topk_ref(queries: torch.Tensor, corpus: torch.Tensor, k: int,
         raise ValueError(f"mips_topk serves ip/l2, not {space!r}")
     return _scan(lambda r0, r1: dense_scores(space, queries, corpus[r0:r1]),
                  corpus.shape[0], k, n_valid, NEG, tile_n)
+
+
+def _pairs(scores: torch.Tensor, rows: np.ndarray) -> np.ndarray:
+    """uint64 (order key << 32 | ~row): the order of ``csrc/mips_topk.cu``'s
+    pairs, lax.top_k's (a higher key first, then the lower row)."""
+    key = order_keys(scores).numpy().astype(np.int64) + (1 << 31)
+    return (key.astype(np.uint64) << np.uint64(32)) | (np.uint64(0xFFFFFFFF) - rows.astype(np.uint64))
+
+
+def _unpair(pairs: np.ndarray):
+    key = (pairs >> np.uint64(32)).astype(np.int64) - (1 << 31)
+    bits = key ^ ((key >> 31) & 0x7FFFFFFF)          # order_keys is its own inverse
+    scores = torch.from_numpy(bits.astype(np.int32)).view(torch.float32)
+    rows = (np.uint64(0xFFFFFFFF) - (pairs & np.uint64(0xFFFFFFFF))).astype(np.int32)
+    return scores, torch.from_numpy(rows)
+
+
+def mips_filter_ref(queries: torch.Tensor, corpus: torch.Tensor, k: int, plan,
+                    n_valid: int | None = None, space: str = "ip"):
+    """Plain emulation of B1's ring route (``csrc/mips_topk.cu``) under
+    ``plan`` (``mips_topk.filter_plan``), step for step: the sample's top
+    k, its k-th pair as every block's first threshold, each filter block's
+    tiles in its order with its lists sorted to their best k (the threshold
+    raised to the k-th) when they hold more than slots - 256 pairs before a
+    tile, and the merge of the sample's top k, the lists and the rows past
+    n_valid.  Returns (scores f32[B, k], ids i32[B, k], stats i32[B, 2]: the
+    lists' sorts and the candidates merged); scores and ids equal
+    :func:`mips_topk_ref`'s."""
+    n = corpus.shape[0]
+    n_valid = n if n_valid is None else n_valid
+    b, tile = queries.shape[0], 256
+    scores = dense_scores(space, queries, corpus[:n_valid]).cpu()
+    pairs = _pairs(scores, np.arange(n_valid))                         # [B, n_valid]
+    tiles = -(-n_valid // tile)
+    in_sample = (np.arange(n_valid) // tile) % plan.stride == 0
+    sample = np.sort(pairs[:, in_sample], axis=1)[:, ::-1][:, :plan.k_sample]   # best first (stride 1: all)
+    th = sample[:, k - 1].copy() if plan.k_sample >= k else np.zeros(b, np.uint64)
+    units = [t for t in range(tiles) if t % plan.stride]
+    found, sorts = [sample], np.zeros(b, np.int32)
+    for x in range(plan.blocks):
+        lists = [np.zeros(0, np.uint64) for _ in range(b)]
+        block_th = th.copy()
+        for u in range(x, len(units), plan.blocks):
+            t = units[u]
+            got = pairs[:, t * tile:(t + 1) * tile]
+            for q in range(b):
+                if lists[q].size > plan.slots - tile:
+                    lists[q] = np.sort(lists[q])[::-1][:k]
+                    block_th[q] = lists[q][k - 1]
+                    sorts[q] += 1
+                lists[q] = np.concatenate([lists[q], got[q][got[q] >= block_th[q]]])
+        width = max(x.size for x in lists)
+        found.append(np.stack([np.pad(x, (0, width - x.size)) for x in lists]))   # pads as 0: below every pair
+    masked = _pairs(torch.full((b, plan.masked), NEG), n_valid + np.arange(plan.masked))
+    cands = np.concatenate(found + [masked], axis=1)
+    merged = (cands != 0).sum(axis=1).astype(np.int32)
+    best_s, best_i = _unpair(np.ascontiguousarray(np.sort(cands, axis=1)[:, ::-1][:, :k]))
+    return best_s, best_i, torch.from_numpy(np.stack([sorts, merged], axis=1))
 
 
 def fused_table_scores(qdensified, q_dense, c_idx, c_val, c_dense,

@@ -34,14 +34,14 @@ from repro_torch.core.brute_force import select_topk
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import sparse_dense as _score
 from repro_torch.kernels.fused_topk import _weights
-from repro_torch.kernels.mips_topk import _DTYPES, _sms, cdiv, ptr, require_cuda
+from repro_torch.kernels.mips_topk import _DTYPES, _sms, cdiv, ptr, query_groups, require_cuda
 
 SORT_SMEM = 16384          # kSortSmem: list entries the finish kernel sorts in shared memory
 MIN_CAPACITY = 2048        # rows of the k-th key's bin collected without refining, at the least
 PASS_ROWS = 2048           # kPassRows: a pass block's rows are a multiple of this
 _PASS_BLOCKS_PER_SM = 8    # (query, chunk) blocks of a selection pass, per SM
 _ROW_BLOCKS_PER_SM = 8     # 256-thread blocks of the one-warp-a-row kernel, per SM
-_HIST_INTS = 4096 + 2 * 1024 + 8   # kHistInts + State, per query
+HIST_INTS = 4096 + 2 * 1024 + 8    # kHistInts + State, per query
 
 launches = 0
 
@@ -66,15 +66,13 @@ def capacity(k: int) -> int:
     return max(SORT_SMEM - k, MIN_CAPACITY)
 
 
-def query_groups(q: torch.Tensor) -> torch.Tensor:
-    """The dense queries [B, D] as the dense score kernel's stages copy
-    them: [ceil(B / 16), D rounded up to 32, 16], a group's 16 values of a
-    column contiguous, zero past B and D."""
-    b, d = q.shape
-    groups, d_pad = cdiv(b, 16), cdiv(d, 32) * 32
-    out = torch.zeros((groups * 16, d_pad), dtype=torch.float32, device=q.device)
-    out[:b, :d] = q
-    return out.view(groups, 16, d_pad).transpose(1, 2).contiguous()
+def select_shape(b: int, n: int, k: int, n_sms: int):
+    """The selection's launch shape over a [b, n] buffer: (capacity, rows
+    a pass block, pass blocks a query, list entries a query)."""
+    cap = capacity(k)
+    per_query = max(1, _PASS_BLOCKS_PER_SM * n_sms // b)
+    chunk_rows = cdiv(cdiv(n, per_query), PASS_ROWS) * PASS_ROWS
+    return cap, chunk_rows, cdiv(n, chunk_rows), 1 << (k + cap - 1).bit_length()
 
 
 def _check(qdensified, q_dense, c_idx, c_dense, w_dense, w_sparse, n_valid, dense_kind):
@@ -164,12 +162,8 @@ def select_large(scores: torch.Tensor, k: int):
         return vals, pos.to(torch.int32)
     dev = scores.device
     require_cuda("scores", scores, (torch.float32,), 2, dev)
-    cap = capacity(k)
-    per_query = max(1, _PASS_BLOCKS_PER_SM * _sms(dev) // b)
-    chunk_rows = cdiv(cdiv(n, per_query), PASS_ROWS) * PASS_ROWS
-    chunks = cdiv(n, chunk_rows)
-    list_cap = 1 << (k + cap - 1).bit_length()
-    ws = torch.empty((b * (_HIST_INTS + chunks),), dtype=torch.int32, device=dev)
+    cap, chunk_rows, chunks, list_cap = select_shape(b, n, k, _sms(dev))
+    ws = torch.empty((b * (HIST_INTS + chunks),), dtype=torch.int32, device=dev)
     list_s = torch.empty((b, list_cap), dtype=torch.float32, device=dev)
     list_i = torch.empty((b, list_cap), dtype=torch.int32, device=dev)
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
