@@ -41,7 +41,10 @@ through ``LiveCorpus`` and ``LiveGenerator``, before and after inserts,
 deletes (the main fetch past 2048 rows takes ``topk_large``) and a
 compaction, each result equal to the plain live path ("live full");
 last, a live corpus with a graph-ANN main under churn and the background
-compactor, recall@10 gated before and after ("live ann").  After "live
+compactor, recall@10 gated before and after ("live ann"), and the
+autotuner's search over that corpus, each genome load-tested under a
+fresh ``RetrievalService`` (graph-ANN genomes through the beam-hop kernel,
+NAPP genomes through the fused score kernel; "autotune").  After "live
 full", still over the resident corpus, the served path ("serve full"):
 a ``RetrievalService`` with six endpoints (fused, dense, dense at k =
 4096, fused over four row shards, a fused funnel with a dense rerank
@@ -54,7 +57,13 @@ that served it ("serve churn"); and B1
 against ``topk_large``, the library call and its own scan route (the
 parent's kernel) at k = 10, 100, 356, 1,100, 2,000 and 2,048 and B = 1, 16
 and 64, B2 against ``topk_large`` at B = 16
-("crossover"), with B1's extra device memory ("b1 memory").  Each
+("crossover"), with B1's extra device memory ("b1 memory").  Then the
+FlexNeuART feature side over the same corpus ("flexneuart full"): the
+forward index of its COO ids, BM25 vectors and the inverted index built
+on the card, Model 1 trained at full vocabulary, a linear and a tree
+reranker learned on planted queries, and held-out batches served through
+the pipeline of a Fig. 4 experiment descriptor (B2's candidates, then the
+rerankers), the inverted index alone, and the paper's candQty = 2,000.  Each
 served path runs with the launch counters set to 0 just before and read
 just after.  The last lines are the ``kernels`` JSON, the card's name and
 power limit, and ``{"ok": true, ...}``.  Any failure raises and exits
@@ -114,6 +123,11 @@ ANN_INSERTS, ANN_DELETES, ANN_MAIN_DELETES = 1024, 512, 48   # "live ann" churn;
 SERVE_QUERIES, SERVE_DEEP_QUERIES = 512, 64   # "serve full": distinct queries an endpoint
 SERVE_CLIENTS, SERVE_SHARDS, SERVE_UPSERT = 4, 4, 256
 SERVE_ALL_PASSES = 6                           # "serve all": every endpoint at once, this many times
+# "serve full": fused_funnel's e2e budget in offline fused batches.  The flood's first batch must
+# fit it (the rerank runs) and the full queue's must not (it is skipped).  Each run logs every
+# batch's time before its rerank decision (PreRerankClock), the margins this constant keeps: under
+# 4 clients computing cache keys the first batch once spent more than 4 batches' time there
+SERVE_FUNNEL_BATCHES = 8
 CHURN_UPSERT, CHURN_PERIOD_S = 16, 0.01        # "serve churn": ids an upsert writes, the writer's pause
 SPLIT_VARIANTS = (   # "serve split": label, cache size, client work before each submit, clients, switch interval
                      # in s (None: the interpreter's default)
@@ -127,6 +141,23 @@ SPLIT_VARIANTS = (   # "serve split": label, cache size, client work before each
     ("cache, switch interval 0.1 ms", 4096, None, SERVE_CLIENTS, 1e-4),
 )
 CROSSOVER_K = (10, 100, 356, 1100, 2000, 2048)  # "crossover": B1 and B2 against topk_large at these k
+FLEX = dict(cand=100, interm=50, final=10, k1=1.2, b=0.75, model1_iters=5, model1_lambda=0.1,   # configs/
+            trees=50, depth=3, ca_rounds=4, ca_restarts=3)                                      # paper_retrieval.py
+FLEX_TRAIN, FLEX_HELD, FLEX_MARGIN = 256, 128, 16   # "flexneuart full": training, held-out and margin queries
+FLEX_TOPICS, FLEX_EMBED = 8, 300                    # a planted query's topic terms; avgWordEmbed's width E
+FLEX_PREFIX, FLEX_DEEP = 4096, 2000                 # rows of the plain builds' prefix; the paper's candQty
+FLEX_EXTRACTORS = (                                 # the composite extractor, a Fig. 3 configuration
+    {"type": "TFIDFSimilarity", "params": {"k1": 1.2, "b": 0.75}},
+    {"type": "proximity", "params": {"window": 5}},
+    {"type": "avgWordEmbed", "params": {"use_idf": True, "dist_type": "cosine"}},
+    {"type": "model1", "params": {"lam": 0.1}},
+    {"type": "rm3", "params": {"fb_docs": 10, "fb_terms": 32}},
+)
+# card vs cpu, of each row's largest |feature| (tests/test_torch_scorers.py states why log and exp need more)
+FLEX_FEATURE_TOL = {"TFIDFSimilarity": TOL_REL, "proximity": TOL_REL, "avgWordEmbed": TOL_REL,
+                    "model1": 1e-5, "rm3": 1e-5}
+AUTOTUNE = dict(generations=2, population=16, measure_budget=4)   # "autotune": the search's settings
+AUTOTUNE_QUERIES, AUTOTUNE_WARM, AUTOTUNE_REQUESTS = 256, 16, 256   # distinct queries, warm-up, workload
 NEG = -3.4028234663852886e38     # f32 min, the mask of invalid candidates
 SLEEP_CYCLES = 2_000_000         # ~1 ms at an H100 SXM's 1.98 GHz boost clock: outlasts the host's enqueue of a traversal
 
@@ -2071,6 +2102,28 @@ class DenseRescore:
         return TopK(vals, self.torch.gather(cands.indices, 1, pos))
 
 
+class PreRerankClock:
+    """A funnel pipeline that records, for each batch it runs, the seconds
+    spent before its rerank decision (the queue's wait plus the candidate
+    stage) and whether the rerank was skipped; a budget rebind keeps the
+    record."""
+
+    def __init__(self, funnel, record=None):
+        self.funnel = funnel
+        self.record = [] if record is None else record
+
+    def __getattr__(self, name):
+        return getattr(self.__dict__["funnel"], name)
+
+    def with_budget(self, budget):
+        return PreRerankClock(self.funnel.with_budget(budget), self.record)
+
+    def run_timed(self, query_repr, q_tokens=None, *, elapsed_s=0.0):
+        out, trace = self.funnel.run_timed(query_repr, q_tokens, elapsed_s=elapsed_s)
+        self.record.append((elapsed_s + trace.candgen_s + (trace.fusion_s or 0.0), trace.fallback))
+        return out, trace
+
+
 def serve_full_phase(torch, dev, check, corpus, space, card, on_card, seed):
     """The served main path: one ``RetrievalService(cache_size=4096)`` on
     the resident corpus with six endpoints, each registered through
@@ -2247,11 +2300,12 @@ def serve_full_phase(torch, dev, check, corpus, space, card, on_card, seed):
             total[k] += c
 
     spec = EndpointSpec(batch_size=b, max_wait_s=0.01, max_queue=128, overload="block")
-    budget = StageBudget(total_s=4 * fused_batch_s)
+    budget = StageBudget(total_s=SERVE_FUNNEL_BATCHES * fused_batch_s)
+    clocked = PreRerankClock(funnel)
     pipelines = {"fused": (pipe_f, fused_pad, None, spec), "dense": (pipe_d, dense_pad, None, spec),
                  "dense_deep": (pipe_deep, dense_pad, None, spec),
                  "fused_sharded": (sharded, fused_pad, None, spec),
-                 "fused_funnel": (funnel, fused_pad, dense_pad, dataclasses.replace(spec, budget=budget)),
+                 "fused_funnel": (clocked, fused_pad, dense_pad, dataclasses.replace(spec, budget=budget)),
                  "dense_live": (None, dense_pad, None, dataclasses.replace(spec, live=live))}
 
     def register_all(svc):
@@ -2287,6 +2341,7 @@ def serve_full_phase(torch, dev, check, corpus, space, card, on_card, seed):
         for name, (items, tokens) in queries.items():
             svc.reset_stats()
             reset()
+            clocked.record.clear()
             got, wall, idle = profiled_flood(svc, name)
             snap = svc.snapshot()
             ep = snap.endpoints[name]
@@ -2295,13 +2350,20 @@ def serve_full_phase(torch, dev, check, corpus, space, card, on_card, seed):
             assert snap.cache_misses == len(items) and ep.n_requests == len(items)
             extra = ""
             if name == "fused_funnel":
-                runs, fallbacks = ep.stages["rerank"].count, ep.stage_fallbacks["rerank"]
+                runs = ep.stages["rerank"].count if "rerank" in ep.stages else 0
+                fallbacks = ep.stage_fallbacks["rerank"]
                 only_degraded = sum(same_row(r, degraded[i]) and not same_row(r, full[i])
                                     for i, r in enumerate(got))
                 assert runs >= 1 and fallbacks >= 1, f"funnel budget: {runs} reranks, {fallbacks} fallbacks"
                 assert runs + fallbacks == ep.n_batches and only_degraded <= b * fallbacks
+                ran = [1e3 * t for t, skipped in clocked.record if not skipped]
+                skipped = [1e3 * t for t, skipped in clocked.record if skipped]
                 extra = (f", rerank run in {runs} batches and skipped in {fallbacks} (e2e budget "
-                         f"{1e3 * budget.total_s:.1f} ms), {only_degraded} degraded answers")
+                         f"{1e3 * budget.total_s:.1f} ms = {SERVE_FUNNEL_BATCHES} offline batches of "
+                         f"{1e3 * fused_batch_s:.1f} ms), {only_degraded} degraded answers; time before the "
+                         f"rerank decision (queue wait + candidates): first batch "
+                         f"{1e3 * clocked.record[0][0]:.1f} ms, batches that reranked at most {max(ran):.1f} ms, "
+                         f"skipped ones at least {min(skipped):.1f} ms")
             if name == "dense_live":   # one upsert between the passes
                 before = got
                 ids = np.unique(np.array([r[1][0] for r in got]))[:SERVE_UPSERT]
@@ -2419,6 +2481,609 @@ def serve_full_phase(torch, dev, check, corpus, space, card, on_card, seed):
     sharded.close()
     del live
     return total
+
+
+def flex_plant(torch, corpus, v, seed, dev):
+    """Plant the rows and queries of "flexneuart full" in the resident
+    corpus (rows at an offset of 2 or more from make_corpus's planted grid,
+    so off its planted rows and off "fusion full"'s).
+
+    FLEX_TRAIN + FLEX_HELD ranked queries: FLEX_TOPICS topic terms (weight
+    0.5) then random ids (weight 0.05) up to 32, over a unit dense part u.
+    Each gets a relevant row (0.9 u; the topic terms in the query's order,
+    then random ids, weight 0.05 each), three dense decoys (1.5, 1.6, 1.7 u;
+    random ids) that outrank it in the fused space at (1, 1), and a BM25
+    decoy (-u; each topic term 4 times, then padding) that outranks it
+    under BM25 alone and never enters the fused candidates.  So the fused
+    top-100 holds the relevant row at rank 4, and among the candidates the
+    relevant row leads in BM25 and in bigram proximity.
+
+    FLEX_MARGIN margin queries for the inverted-index check: a term a
+    (16 times) and 16 random ids; 100 rows hold a alone, 28 to 127 times,
+    so their BM25 scores rise strictly with the count and lie far above
+    every other row's: the BM25 top-100 is these rows, with margins.
+    Returns (query tokens i32[Q, 32], dense parts, sparse values, relevant
+    rows) of the ranked queries and the margin queries' tokens."""
+    n, d = corpus.dense.shape
+    nnz, nq_len = corpus.sparse.indices.shape[1], MSMARCO["nnz_q"]
+    nq, t = FLEX_TRAIN + FLEX_HELD, FLEX_TOPICS
+    g = torch.Generator(device=dev).manual_seed(seed)
+    step = max(n // 2048, 2)
+    rows = torch.randperm(n, generator=g, device=dev)
+    rows = rows[rows % step >= 2][:5 * nq + 100 * FLEX_MARGIN]
+    assert rows.numel() == 5 * nq + 100 * FLEX_MARGIN, "corpus too small for the planted rows"
+    rel, dec1, dec2, dec3, bm_dec = rows[:5 * nq].view(5, nq)
+    idx, val, dense = corpus.sparse.indices, corpus.sparse.values, corpus.dense
+
+    terms = (1 + torch.randperm(v - 1, generator=g, device=dev)[:nq * t]).view(nq, t).int()
+    q_tok = torch.randint(1, v, (nq, nq_len), generator=g, device=dev, dtype=torch.int32)
+    q_tok[:, :t] = terms
+    q_val = torch.full((nq, nq_len), 0.05, device=dev)
+    q_val[:, :t] = 0.5
+    u = torch.randn(nq, d, generator=g, device=dev)
+    u /= u.norm(dim=1, keepdim=True)
+    for r, scale in ((rel, 0.9), (dec1, 1.5), (dec2, 1.6), (dec3, 1.7), (bm_dec, -1.0)):
+        dense[r] = scale * u
+        idx[r] = torch.randint(1, v, (nq, nnz), generator=g, device=dev, dtype=torch.int32)
+        val[r] = 0.05
+    idx[rel, :t] = terms
+    idx[bm_dec] = v
+    val[bm_dec] = 0.0
+    idx[bm_dec, :4 * t] = terms.repeat_interleave(4, dim=1)
+    val[bm_dec, :4 * t] = 0.05
+
+    margin = rows[5 * nq:].view(FLEX_MARGIN, 100)
+    a = (1 + torch.randperm(v - 1, generator=g, device=dev)[:FLEX_MARGIN]).int()
+    m_tok = torch.randint(1, v, (FLEX_MARGIN, nq_len), generator=g, device=dev, dtype=torch.int32)
+    m_tok[:, :nq_len // 2] = a[:, None]
+    idx[margin] = v
+    val[margin] = 0.0
+    reps = torch.arange(28, 128, device=dev)
+    slot = torch.arange(nnz, device=dev)
+    fill = slot[None, None, :] < reps[None, :, None]                 # [1, 100, nnz]
+    idx[margin] = torch.where(fill, a[:, None, None], idx[margin])
+    val[margin] = torch.where(fill, torch.full_like(val[margin], 0.01), val[margin])
+    return (q_tok, u, q_val, rel), m_tok
+
+
+def plain_inverted_index(idx, val, v, max_posting=None):
+    """The reference's host build of an inverted index, step for step
+    (``src/repro/core/inverted_index.py``): a double loop over documents
+    and slots, each term's list in that order, and a longer list than
+    ``max_posting`` cut by ``np.argsort`` of its float64 weights."""
+    n_docs = idx.shape[0]
+    term_docs = [[] for _ in range(v)]
+    term_wts = [[] for _ in range(v)]
+    for dd in range(n_docs):
+        for t, w in zip(idx[dd], val[dd]):
+            if t < v and w != 0.0:
+                term_docs[int(t)].append(dd)
+                term_wts[int(t)].append(float(w))
+    longest = max((len(p) for p in term_docs), default=0)
+    maxp = max(longest if max_posting is None else max_posting, 1)
+    docs_arr = np.full((v, maxp), n_docs, dtype=np.int32)
+    wts_arr = np.zeros((v, maxp), dtype=np.float32)
+    truncated = 0
+    for t in range(v):
+        p = len(term_docs[t])
+        if p > maxp:
+            truncated += 1
+            order = np.argsort(-np.abs(np.asarray(term_wts[t])))[:maxp]
+            docs_arr[t] = np.asarray(term_docs[t], dtype=np.int32)[order]
+            wts_arr[t] = np.asarray(term_wts[t], dtype=np.float32)[order]
+        elif p:
+            docs_arr[t, :p] = term_docs[t]
+            wts_arr[t, :p] = term_wts[t]
+    return docs_arr, wts_arr, truncated
+
+
+def flexneuart_full_phase(torch, dev, check, corpus, card, on_card, seed, timer):
+    """The FlexNeuART feature side over the resident corpus (settings of
+    ``configs/paper_retrieval.py``): the forward index of the corpus's own
+    COO ids (tokens share the corpus's storage), BM25 document vectors,
+    the inverted index, Model 1 at full vocabulary on a bitext of
+    (training query, relevant row), a Fig. 3 ``CompositeExtractor`` of
+    BM25, proximity, avgWordEmbed, Model 1 and RM3, a ``LinearReranker``
+    (coordinate ascent) and a ``TreeReranker`` (LambdaMART) learned on
+    FLEX_TRAIN planted training queries, and the pipeline built by
+    ``RetrievalPipeline.from_descriptor`` from a Fig. 4 descriptor (B2
+    candidates, the linear model over 50, the tree over 10), serving
+    FLEX_HELD // 16 held-out batches of 16; ``InvertedIndexGenerator``
+    alone (BM25 top-100); one batch at candQty 2,000 through the
+    intermediate extractors.  Checks: the index builds against their plain
+    ways on a FLEX_PREFIX-row prefix; the generator's top-100 against exact
+    sparse scoring through the ``reference`` backend on margin queries;
+    batch 0's features and reranked ids against the CPU path; Model 1's
+    likelihood and column sums; the descriptor's round trip.  Returns the
+    launches of the served batches and the inverted-index check by kernel."""
+    from repro_torch.core import fusion
+    from repro_torch.core import inverted_index as inv
+    from repro_torch.core.backends import ReferenceBackend
+    from repro_torch.core.brute_force import TopK, select_topk
+    from repro_torch.core.model1 import train_model1
+    from repro_torch.core.pipeline import (BruteForceGenerator, InvertedIndexGenerator,
+                                           RetrievalPipeline)
+    from repro_torch.core.scorers import (CompositeExtractor, ForwardIndex, _term_counts,
+                                          bm25_doc_vectors, build_forward_index,
+                                          forward_index_from_padded, query_sparse_vectors)
+    from repro_torch.core.sparse import SparseVectors, from_dense
+    from repro_torch.core.spaces import FusedSpace, FusedVectors, SparseSpace
+    from repro_torch.kernels import fused_topk as fk
+    from repro_torch.kernels import topk_large as lk
+
+    t_phase = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    n = corpus.dense.shape[0]
+    v, b = MSMARCO["v"], MSMARCO["b"]
+    (q_tok, q_dense, q_val, rel), m_tok = flex_plant(torch, corpus, v, seed, dev)
+    ids = corpus.sparse.indices
+
+    # ---- builds: forward index, BM25 vectors, inverted index
+    stamps = {}
+    t0 = time.perf_counter()
+    fwd = forward_index_from_padded(ids, v)
+    sync(torch, on_card)
+    stamps["forward index"] = time.perf_counter() - t0
+    assert fwd.tokens.data_ptr() == ids.data_ptr(), "the forward index copied the corpus's ids"
+    t0 = time.perf_counter()
+    bm25 = bm25_doc_vectors(fwd, MSMARCO["nnz"], FLEX["k1"], FLEX["b"])
+    sync(torch, on_card)
+    stamps["BM25 vectors"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = inv.build_inverted_index(bm25, v)
+    sync(torch, on_card)
+    stamps["inverted index"] = time.perf_counter() - t0
+    maxp = index.postings_docs.shape[1]
+    peak_build = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
+
+    # prefix checks against the plain ways
+    p = FLEX_PREFIX
+    host_ids = ids[:p].cpu().numpy()
+    ragged = [r[r < v] for r in host_ids]
+    want = build_forward_index(ragged, v, device=dev)
+    got = forward_index_from_padded(ids[:p], v)
+    for name in ("tokens", "length", "df"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), f"forward index prefix: {name} differs"
+    assert got.avg_len == want.avg_len, (got.avg_len, want.avg_len)
+    assert torch.equal(fwd.length[:p], want.length), "forward index: lengths differ on the prefix"
+    # the BM25 vectors against the reference's dense form on the prefix
+    pf = ForwardIndex(fwd.tokens[:p], fwd.length[:p], fwd.df, v, fwd.avg_len)
+    idf = torch.clamp(torch.log(1.0 + (n - fwd.df + 0.5) / (fwd.df + 0.5)), min=0.0)
+    tf = _term_counts(pf.tokens, v)
+    norm = FLEX["k1"] * (1.0 - FLEX["b"] + FLEX["b"] * pf.length[:, None] / fwd.avg_len)
+    w = idf[None, :] * tf * (FLEX["k1"] + 1.0) / (tf + norm)
+    dense_bm25 = from_dense(torch.where(tf > 0, w, torch.zeros_like(w)), MSMARCO["nnz"], pad_id=v)
+    del tf, w
+    assert torch.equal(dense_bm25.indices, bm25.indices[:p]), "BM25 vectors: ids differ from the dense form"
+    assert torch.equal(dense_bm25.values.view(torch.int32), bm25.values[:p].view(torch.int32)), \
+        "BM25 vectors: weights differ from the dense form"
+    host_val = bm25.values[:p].cpu().numpy()
+    host_idx = bm25.indices[:p].cpu().numpy()
+    truncs = []
+    for max_posting in (None, 8):
+        pd_, pw_, tr_ = plain_inverted_index(host_idx, host_val, v, max_posting)
+        got = inv.build_inverted_index(SparseVectors(bm25.indices[:p], bm25.values[:p]), v, max_posting)
+        assert np.array_equal(got.postings_docs.cpu().numpy(), pd_), f"inverted index prefix docs ({max_posting})"
+        assert np.array_equal(got.postings_wts.cpu().numpy(), pw_), f"inverted index prefix weights ({max_posting})"
+        assert got.truncated_terms == tr_, (got.truncated_terms, tr_)
+        truncs.append(tr_)
+    log(f"phase flexneuart full: builds over n={n}: forward index {stamps['forward index']:.3f} s (tokens are "
+        f"the corpus's ids, shared), BM25 vectors {stamps['BM25 vectors']:.3f} s "
+        f"({bm25.indices.numel() * 8 / 1e9:.2f} GB), inverted index {stamps['inverted index']:.3f} s (maxp "
+        f"{maxp}, {2 * index.postings_docs.numel() * 4 / 1e9:.2f} GB, truncated terms {index.truncated_terms}); "
+        f"peak {peak_build:.2f} GB; prefix of {p} rows: forward index equal to build_forward_index, BM25 "
+        f"vectors equal to the dense form bit for bit, inverted index equal to the host loop (truncated "
+        f"terms {truncs[0]} and {truncs[1]} at max_posting None and 8)")
+
+    # ---- InvertedIndexGenerator against exact scoring through the reference backend
+    gen_bm25 = InvertedIndexGenerator(index)
+    mq = query_sparse_vectors(m_tok, v, MSMARCO["nnz_q"])
+    lk.launches = 0
+    got = gen_bm25.generate(mq, FLEX["cand"])
+    inv_launches = lk.launches
+    want = ReferenceBackend().topk(SparseSpace(v, "ip", 1 << 16), mq, bm25, FLEX["cand"])
+    check("topk_large", "inverted index top-100 vs the reference backend (margin queries)", tuple(got), tuple(want))
+    del bm25, want, dense_bm25
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- Model 1 on (training query, relevant row) at full vocabulary
+    train = slice(0, FLEX_TRAIN)
+    t0 = time.perf_counter()
+    ttable, lls = train_model1(q_tok[train], fwd.tokens[rel[train]], v, v, iters=FLEX["model1_iters"])
+    sync(torch, on_card)
+    stamps["Model 1"] = time.perf_counter() - t0
+    lls = lls.tolist()
+    assert all(lls[i + 1] >= lls[i] - 1e-4 for i in range(len(lls) - 1)), f"EM likelihood fell: {lls}"
+    col_err = float((ttable.sum(0) - 1.0).abs().max())
+    assert col_err <= 1e-5, f"a Model 1 column sums to 1 +- {col_err}"
+    coll = torch.clamp(fwd.df, min=1.0)
+    background = coll / coll.sum()
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    embeds = []
+    for _ in range(2):
+        e = torch.randn(v + 1, FLEX_EMBED, generator=g, device=dev) / math.sqrt(FLEX_EMBED)
+        e[v] = 0.0
+        embeds.append(e)
+    context = {"fwd": fwd, "query_embed": embeds[0], "doc_embed": embeds[1], "ttable": ttable,
+               "background": background}
+    comp = CompositeExtractor.from_config(FLEX_EXTRACTORS, **context)
+
+    # ---- training features over B2's candidates, LETOR models
+    space = FusedSpace(v, 1.0, 1.0)
+    b2 = BruteForceGenerator(space, corpus, backend="cuda")
+
+    def fused_batch(i0, nb=b):
+        sel = slice(i0, i0 + nb)
+        return FusedVectors(q_dense[sel], SparseVectors(q_tok[sel], q_val[sel])), q_tok[sel]
+
+    t0 = time.perf_counter()
+    feats, labels = [], []
+    for i0 in range(0, FLEX_TRAIN, b):
+        qr, qt = fused_batch(i0)
+        c = b2.generate(qr, FLEX["cand"]).indices.clone()
+        r = rel[i0:i0 + b]
+        missing = ~(c == r[:, None]).any(1)
+        c[missing, -1] = r[missing].int()
+        feats.append(comp.extract(qt, c))
+        labels.append((c == r[:, None]).float())
+    feats, labels = torch.cat(feats), torch.cat(labels)
+    valid = torch.ones_like(labels, dtype=torch.bool)
+    weights, ca_mrr = fusion.coordinate_ascent(feats, labels, valid, n_rounds=FLEX["ca_rounds"],
+                                               n_restarts=FLEX["ca_restarts"],
+                                               generator=torch.Generator(dev).manual_seed(seed))
+    ensemble = fusion.lambdamart(feats, labels, valid, n_trees=FLEX["trees"], depth=FLEX["depth"])
+    sync(torch, on_card)
+    stamps["LETOR"] = time.perf_counter() - t0
+    context.update(fused_b2=b2, linear=weights, tree=ensemble)
+    desc = {"candProv": "fused_b2", "backend": "pallas", "candQty": FLEX["cand"],
+            "intermQty": FLEX["interm"], "finalQty": FLEX["final"],
+            "extrTypeInterm": list(FLEX_EXTRACTORS), "modelInterm": "linear",
+            "extrType": list(FLEX_EXTRACTORS), "model": "tree"}
+    pipe = RetrievalPipeline.from_descriptor(desc, context)
+    canon = pipe.descriptor
+    assert "backend" not in canon and canon["execBackend"] == "pallas", canon
+    assert RetrievalPipeline.from_descriptor(canon, context).descriptor == canon, "descriptor round trip"
+    assert type(pipe.generator.backend).__name__ == "CudaBackend", pipe.generator.backend
+
+    # ---- serve the held-out batches, stage by stage and end to end
+    fk.launches = lk.launches = 0
+    stage_ms = {"candidates (B2)": [], "features": [], "rerank": [], "pipeline": [], "inverted index": []}
+    inter, final = pipe.intermediate, pipe.final
+    rerank_split = []
+    served, bm25_only, fused_only, linear_only = [], [], [], []
+
+    def clock(fn):
+        sync(torch, on_card)
+        t = time.perf_counter()
+        out = fn()
+        sync(torch, on_card)
+        return out, 1e3 * (time.perf_counter() - t)
+
+    for i0 in range(FLEX_TRAIN, FLEX_TRAIN + FLEX_HELD, b):
+        qr, qt = fused_batch(i0)
+        cands, ms_c = clock(lambda: pipe.generate_candidates(qr))
+        f1, ms_f1 = clock(lambda: inter.extractor.extract(qt, cands.indices))
+        mid = inter.rerank_features(cands, f1, FLEX["interm"])
+        ms_r1 = timer(lambda: inter.rerank_features(cands, f1, FLEX["interm"]), 5)
+        f2, ms_f2 = clock(lambda: final.extractor.extract(qt, mid.indices))
+        out = final.rerank_features(mid, f2, FLEX["final"])
+        ms_r2 = timer(lambda: final.rerank_features(mid, f2, FLEX["final"]), 5)
+        whole, ms_p = clock(lambda: pipe.run(qr, qt))
+        assert torch.equal(whole.indices, out.indices), "pipeline.run differs from its stages"
+        qs = query_sparse_vectors(qt, v, MSMARCO["nnz_q"])
+        alone, ms_i = clock(lambda: gen_bm25.generate(qs, FLEX["final"]))
+        stage_ms["candidates (B2)"].append(ms_c)
+        stage_ms["features"].append(ms_f1 + ms_f2)
+        stage_ms["rerank"].append(ms_r1 + ms_r2)
+        rerank_split.append((ms_r1, ms_r2))
+        stage_ms["pipeline"].append(ms_p)
+        stage_ms["inverted index"].append(ms_i)
+        served.append(out)
+        bm25_only.append(alone)
+        fused_only.append(TopK(cands.scores[:, :FLEX["final"]], cands.indices[:, :FLEX["final"]]))
+        linear_only.append(TopK(mid.scores[:, :FLEX["final"]], mid.indices[:, :FLEX["final"]]))
+        if i0 == FLEX_TRAIN:
+            batch0 = (qr, qt, cands, mid, out)
+    served_launches = {"fused_topk": fk.launches, "topk_large": lk.launches + inv_launches}
+    n_batches = FLEX_HELD // b
+    if on_card:
+        assert fk.launches == 2 * n_batches and lk.launches == n_batches, served_launches
+    held = rel[FLEX_TRAIN:]
+
+    def mrr_of(results):
+        got = TopK(torch.cat([r.scores for r in results]), torch.cat([r.indices for r in results]))
+        hit = (got.indices == held[:, None]).float()
+        return float(fusion.mrr(got.scores, hit, torch.ones_like(hit, dtype=torch.bool), 10))
+
+    mrrs = {name: mrr_of(r) for name, r in (("BM25 alone (inverted index)", bm25_only),
+                                            ("fused candidates alone (B2)", fused_only),
+                                            ("linear stage", linear_only), ("tree stage", served))}
+
+    # ---- batch 0 against the CPU path on the same inputs
+    qr, qt, cands, mid, out = batch0
+    cpu = torch.device("cpu")
+    host_fwd = ForwardIndex(fwd.tokens.cpu(), fwd.length.cpu(), fwd.df.cpu(), v, fwd.avg_len)
+    host_ctx = {"fwd": host_fwd, "query_embed": embeds[0].cpu(), "doc_embed": embeds[1].cpu(),
+                "ttable": ttable.cpu(), "background": background.cpu()}
+    host_comp = CompositeExtractor.from_config(FLEX_EXTRACTORS, **host_ctx)
+    feat_err = {}
+    for e_card, e_host, desc_e in zip(comp.extractors, host_comp.extractors, FLEX_EXTRACTORS):
+        f_card = e_card.extract(qt, cands.indices).cpu()
+        f_host = e_host.extract(qt.cpu(), cands.indices.cpu())
+        scale = f_host.abs().amax(dim=(1, 2), keepdim=True).clamp_min(1e-30)
+        ratio = float(((f_card - f_host).abs() / scale).max())
+        feat_err[desc_e["type"]] = ratio
+        assert ratio <= FLEX_FEATURE_TOL[desc_e["type"]], \
+            f"{desc_e['type']} features: card vs cpu {ratio:.3g} of row scale"
+    from repro_torch.core.pipeline import LinearReranker, TreeReranker
+    host_ens = fusion.ObliviousTreeEnsemble(*(x.cpu() for x in ensemble[:3]), ensemble.lr)
+    host_cands = TopK(cands.scores.cpu(), cands.indices.cpu())
+    # the tree's precondition for equal ids: no feature within the tolerance of a split threshold
+    near = thresholds_near(torch, host_comp.extract(qt.cpu(), mid.indices.cpu()), host_ens)
+    assert near[1] == 0, f"{near[1]} (feature, threshold) pairs within 1e-5 but not equal: ids may part"
+    host_mid = LinearReranker(host_comp, weights.cpu()).rerank(qt.cpu(), host_cands, FLEX["interm"])
+    check("rerank", "linear rerank batch 0 (card vs cpu)", tuple(mid), tuple(host_mid))
+    host_out = TreeReranker(host_comp, host_ens).rerank(qt.cpu(), TopK(mid.scores.cpu(), mid.indices.cpu()),
+                                                        FLEX["final"])
+    check("rerank", "tree rerank batch 0 (card vs cpu)", tuple(out), tuple(host_out))
+    del host_fwd, host_ctx, host_comp
+
+    # ---- InvertedIndexGenerator's time against its byte bound; its two selections
+    qs = query_sparse_vectors(batch0[1], v, MSMARCO["nnz_q"])
+    inv_ms = timer(lambda: gen_bm25.generate(qs, FLEX["cand"]), 5)
+    score_buf = inv.daat_score(index, qs).contiguous()
+    sel_large_ms = timer(lambda: lk.select_large(score_buf, FLEX["cand"]), 5)
+    sel_sort_ms = timer(lambda: select_topk(score_buf, FLEX["cand"]), 5)
+    del score_buf
+    live_terms = int((qs.indices < v).sum())
+    inv_bytes = live_terms * maxp * 8 + 2 * b * n * 4
+    inv_bound = inv_bytes / HBM_BYTES_PER_S * 1e3
+
+    # ---- one batch at the paper's candQty = 2,000 through the intermediate extractors
+    qr, qt = fused_batch(FLEX_TRAIN)
+    peak_pre = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    deep = pipe.generate_candidates(qr, FLEX_DEEP)           # warm-up: the first [B, 2000, V] RM3 buffers
+    deep_mid = inter.rerank(qt, deep, FLEX["interm"])
+    reps_deep = [(clock(lambda: pipe.generate_candidates(qr, FLEX_DEEP))[1],
+                  clock(lambda: inter.rerank(qt, deep, FLEX["interm"]))[1],
+                  clock(lambda: inter.extractor.extract(qt, deep.indices))[1]) for _ in range(3)]
+    ms_deep_c, ms_deep_r, ms_deep_f = (statistics.median(x) for x in zip(*reps_deep))
+    f_deep = inter.extractor.extract(qt, deep.indices)
+    ms_deep_m = timer(lambda: inter.rerank_features(deep, f_deep, FLEX["interm"]), 5)
+    del f_deep
+    assert deep_mid.indices.shape == (b, FLEX["interm"])
+    deep_hit = (deep_mid.indices[:, :10] == held[:b, None]).float()
+    deep_mrr = float(fusion.mrr(deep_mid.scores[:, :10], deep_hit, torch.ones_like(deep_hit, dtype=torch.bool), 10))
+    peak_deep = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
+    med = {k: statistics.median(x) for k, x in stage_ms.items()}
+    log(f"  Model 1: table {v}x{v} f32 ({v * v * 4 / 1e9:.2f} GB), {FLEX['model1_iters']} EM iterations on "
+        f"{FLEX_TRAIN} pairs in {stamps['Model 1']:.3f} s, mean log-likelihood " + " ".join(f"{x:.5f}" for x in lls)
+        + f" (non-decreasing), columns sum to 1 within {col_err:.2e}; embeddings E={FLEX_EMBED}; LETOR on "
+        f"{FLEX_TRAIN} training queries in {stamps['LETOR']:.3f} s (coordinate ascent {FLEX['ca_rounds']} rounds, "
+        f"{FLEX['ca_restarts']} restarts, training MRR@10 {ca_mrr:.4f}; LambdaMART {FLEX['trees']} trees of depth "
+        f"{FLEX['depth']}); weights " + " ".join(f"{x:.4f}" for x in weights.tolist()))
+    log(f"  served {n_batches} batches of {b} from the Fig. 4 descriptor (candidates B2 k={FLEX['cand']}, linear "
+        f"over {FLEX['interm']}, tree over {FLEX['final']}), median ms/batch (host clock, synchronised, but rerank: "
+        f"the two models and selections on precomputed features, CUDA events, median of 5 a batch): "
+        + ", ".join(f"{k} {x:.3f}" for k, x in med.items())
+        + f" (of the rerank: linear {statistics.median(x[0] for x in rerank_split):.3f}, tree "
+        f"{statistics.median(x[1] for x in rerank_split):.3f})"
+        + f"; held-out MRR@10: " + ", ".join(f"{k} {x:.4f}" for k, x in mrrs.items()))
+    log(f"  InvertedIndexGenerator top-{FLEX['cand']} (B={b}, {live_terms} live query terms): {inv_ms:.3f} ms "
+        f"(CUDA events, median of 5) against a bound of {inv_bound:.3f} ms (bytes: postings gathered "
+        f"{live_terms * maxp * 8 / 1e9:.3f} GB + the [B, N] buffer written and read {2 * b * n * 4 / 1e9:.3f} GB); "
+        f"its selection over the [B, N] scores: topk_large.select_large {sel_large_ms:.3f} ms, "
+        f"brute_force.select_topk {sel_sort_ms:.3f} ms; select_large launches {inv_launches} on the check")
+    log(f"  candQty {FLEX_DEEP} (after a warm-up; medians of 3, host clock, synchronised): candidates "
+        f"{ms_deep_c:.3f} ms, linear stage over {FLEX_DEEP} ({len(FLEX_EXTRACTORS)} extractors, RM3's [B, C, V] "
+        f"counts {b * FLEX_DEEP * v * 4 / 1e9:.2f} GB) {ms_deep_r:.3f} ms, of it features {ms_deep_f:.3f} ms and the "
+        f"model and selection on precomputed features {ms_deep_m:.3f} ms (CUDA events, median of 5); peak "
+        f"{peak_deep:.2f} GB; MRR@10 of the linear stage's top 10 {deep_mrr:.4f}")
+    log(f"  batch 0 card vs cpu: features (worst |card - cpu| of row scale) "
+        + ", ".join(f"{k} {x:.2e}" for k, x in feat_err.items())
+        + f"; reranked ids equal, scores within {TOL_REL} of the row scale (linear, tree); (feature, threshold) "
+        f"pairs of the tree's inputs equal {near[0]} (exact zeros on both), within 1e-5 but not equal {near[1]} "
+        f"(must be 0); descriptor round-trips; launches on the served batches and the check {served_launches}; "
+        f"max_memory_allocated over the phase {max(peak_pre, peak_deep):.2f} GB (the builds {peak_build:.2f}, the "
+        f"candQty {FLEX_DEEP} batch {peak_deep:.2f}); phase {time.perf_counter() - t_phase:.1f} s; {card}")
+    assert mrrs["tree stage"] >= mrrs["fused candidates alone (B2)"], mrrs
+    del index, gen_bm25, ttable, comp, pipe, context, feats, fwd
+    if on_card:
+        torch.cuda.empty_cache()
+    return served_launches
+
+
+def thresholds_near(torch, feats, ensemble, tol=1e-5):
+    """(pairs of a feature value and a split threshold on that feature that
+    are equal, pairs within ``tol`` of the feature's scale but not equal):
+    the second are where the card and the CPU may branch apart."""
+    x = feats.reshape(-1, feats.shape[-1])
+    scale = x.abs().amax(0).clamp_min(1e-30)
+    f = ensemble.feat.long().reshape(-1)
+    gap = (x[:, f] - ensemble.thresh.reshape(-1)[None, :]).abs()
+    return int((gap == 0).sum()), int(((gap > 0) & (gap <= tol * scale[f][None, :])).sum())
+
+
+def autotune_phase(torch, dev, check, space, corpus, card, on_card, seed):
+    """The autotuner's search over the planted-cluster fused corpus of
+    "graph recall" (full widths; ``reduced``: 1,048,576 rows): AUTOTUNE_QUERIES
+    distinct queries (the phase's own, made as ``planted_cluster`` makes
+    them) and a workload of AUTOTUNE_REQUESTS requests with repeats, each
+    genome measured by ``measure_config`` (a fresh ``RetrievalService``, a
+    warm-up, 2 passes); ``autotune`` with AUTOTUNE settings and three
+    explore genomes (f32 ``pallas``, ``graph_ann`` with ``kernel=True``,
+    ``napp``), on a copy of the space whose sparse scoring is tiled, so
+    that a reference genome at batch 128 stays within memory.  The recall
+    oracle is the plain fused scan, not B2.  Checks every measured point's
+    identity and dtype, recall@10 1.0 for exact f32 genomes, B2 against
+    its plain version at every (batch, dtype, shards) a served ``pallas``
+    genome ran it at, the counts, a replay of the search on the first
+    run's numbers, and B3 and B4 launched from served genomes.  Returns
+    the launches of the measured genomes by kernel."""
+    import dataclasses
+
+    from repro_torch.core.backends import ann_index_cache_info, CudaBackend
+    from repro_torch.core.sparse import SparseVectors
+    from repro_torch.core.spaces import FusedVectors, canonical_dtype, cast_corpus
+    from repro_torch.kernels import beam_topk as bk
+    from repro_torch.kernels import fused_topk as fk
+    from repro_torch.kernels import mips_topk as mk
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sparse_dense as sd
+    from repro_torch.kernels import topk_large as lk
+    from repro_torch.serving.sharded import ShardedPipeline
+    from repro_torch.serving.autotune import (ServingConfig, _served_as_declared, autotune,
+                                              measure_config, pareto_front, proxy_objectives)
+
+    t_phase = time.perf_counter()
+    n, d = corpus.dense.shape
+    v, k = space.vocab_size, 10
+    tuned_space = dataclasses.replace(space, tile_n=1 << 13)
+    nq = AUTOTUNE_QUERIES + AUTOTUNE_WARM
+    _, (qd, qi, qv) = planted_cluster(torch, CLUSTERS, d, v, corpus.sparse.indices.shape[1], MSMARCO["nnz_q"],
+                                      nq, seed, dev)
+    take = lambda lo, hi: FusedVectors(qd[lo:hi], SparseVectors(qi[lo:hi], qv[lo:hi]))
+    queries, warm = take(0, AUTOTUNE_QUERIES), take(AUTOTUNE_QUERIES, nq)
+    w = dict(w_dense=space.w_dense, w_sparse=space.w_sparse)
+
+    def plain_topk(c, nq_):
+        """The plain fused scan of the first ``nq_`` queries over ``c``, 64 at a time."""
+        parts = []
+        for lo in range(0, nq_, 64):
+            qq = take(lo, min(lo + 64, nq_))
+            parts.append(ref.fused_topk_ref(qq.sparse, qq.dense, c.sparse, c.dense, v, k, tile_n=1 << 13, **w))
+        return tuple(torch.cat([x[j] for x in parts]) for j in (0, 1))
+
+    t0 = time.perf_counter()
+    oracle_s, oracle = plain_topk(corpus, AUTOTUNE_QUERIES)
+    sync(torch, on_card)
+    oracle_secs = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    workload = rng.integers(0, AUTOTUNE_QUERIES // 4, AUTOTUNE_REQUESTS)    # a hot set: repeats
+    workload[::2] = rng.integers(0, AUTOTUNE_QUERIES, AUTOTUNE_REQUESTS // 2)
+    counters = {"fused_topk": fk, "beam_hop": bk, "fused_score": sd, "mips_topk": mk, "topk_large": lk}
+    launches = dict.fromkeys(counters, 0)
+    rows, builds = [], {"graph_ann": 0, "napp": 0}
+
+    def measure(cfg):
+        for m in counters.values():
+            m.launches = 0
+        misses = ann_index_cache_info()["misses"]
+        t0 = time.perf_counter()
+        point = measure_config(cfg, space=tuned_space, corpus=corpus, queries=queries, warmup_queries=warm,
+                               workload=workload, k=k, oracle_indices=oracle, check_n=16, passes=2)
+        sync(torch, on_card)
+        got = {name: m.launches for name, m in counters.items()}
+        for name, c in got.items():
+            launches[name] += c
+        if cfg.backend in builds:
+            builds[cfg.backend] += ann_index_cache_info()["misses"] - misses
+        rows.append((cfg, point, time.perf_counter() - t0, got))
+        return point
+
+    explore = [ServingConfig(backend="pallas", batch_size=16),
+               ServingConfig(backend="graph_ann", ef=64, kernel=True, batch_size=16),
+               ServingConfig(backend="napp", num_search=8, rerank_qty=256, batch_size=16)]
+    n_replayed = 2 * len(workload)
+    repeat_fraction = 1.0 - len(set(workload.tolist())) / n_replayed
+    kw = dict(k=k, n_docs=n, dim=d, seed=seed, repeat_fraction=repeat_fraction,
+              explore_configs=explore, space=tuned_space, corpus=corpus, **AUTOTUNE)
+    gen_log = []
+    result = autotune(measure, log=gen_log.append, **kw)
+    measured = [(cfg, p) for cfg, p, _, _ in rows]
+    # the explore genomes the proxy pruned, measured outside the search
+    searched = {cfg.key() for cfg, _ in measured}
+    extra = [cfg for cfg in explore if cfg.key() not in searched]
+    for cfg in extra:
+        measure(cfg)
+
+    # checks
+    for cfg, p, _, got in rows:
+        if p is None:      # served nothing: a point autotune skips as unmeasurable
+            continue
+        assert _served_as_declared(cfg, p.identity), (cfg.backend, p.identity)
+        assert p.corpus_dtype == cfg.corpus_dtype, (cfg, p.corpus_dtype)
+        if cfg.backend in ("reference", "streaming", "pallas") and cfg.corpus_dtype == "float32":
+            assert p.recall == 1.0, f"exact f32 genome {cfg} recall@10 {p.recall}"
+    c = result.counts
+    assert c["pruned"] + c["measured"] == c["generated"], c
+    recorded = {cfg.key(): p for cfg, p in measured}
+    replayed = []
+    again = autotune(lambda cfg: replayed.append(cfg) or recorded[cfg.key()], **kw)
+    assert replayed == [cfg for cfg, _ in measured], "the search is not repeatable on the same numbers"
+    assert again.counts == c
+    served_b3 = sum(got["beam_hop"] for cfg, _, _, got in rows if cfg.backend == "graph_ann")
+    served_b4 = sum(got["fused_score"] for cfg, _, _, got in rows if cfg.backend == "napp")
+    if on_card:
+        assert served_b3 > 0 and served_b4 > 0, (served_b3, served_b4)
+
+    # the batch axis: the pallas genome at batch 1, 16, 64 and 128, measured against its proxy
+    axis = []
+    for bs in (1, 16, 64, 128):
+        cfg = ServingConfig(backend="pallas", batch_size=bs, max_wait_s=0.002)
+        p = measure(cfg)
+        axis.append((bs, p, proxy_objectives(cfg, n_docs=n, dim=d, k=k)[0]))
+    proxy_rank = np.argsort([x[2] for x in axis]).tolist()
+
+    # B2 against its plain version at the shapes the served pallas genomes gave it: the
+    # batch (a batch closes padded to its size), the residency dtype, a shard's rows
+    b2_shapes = sorted({(cfg.batch_size, cfg.corpus_dtype, cfg.n_shards) for cfg, p, _, _ in rows
+                        if cfg.backend == "pallas" and p is not None})
+    for bs, dt, shards in b2_shapes:
+        resident = corpus if dt == "float32" else cast_corpus(corpus, canonical_dtype(dt))
+        part = resident
+        if shards > 1:
+            sharded = ShardedPipeline.from_corpus(tuned_space, resident, shards, backend="cuda", cand_qty=k,
+                                                  final_qty=k)
+            part = sharded.shards[-1].corpus
+            sharded.close()
+        want = (oracle_s[:bs], oracle[:bs]) if part is corpus else plain_topk(part, bs)
+        check("fused_topk", f"autotune pallas genome B={bs} {dt} shard of {part.dense.shape[0]} rows",
+              tuple(CudaBackend().topk(tuned_space, take(0, bs), part, k)), want, exact_ids=False)
+        del resident, part
+    measured_rank = np.argsort([x[1].qps if x[1] else 0.0 for x in axis]).tolist()
+
+    def show(cfg, p, secs, got):
+        genes = {f: getattr(cfg, f) for f in ("backend", "corpus_dtype", "n_shards", "batch_size", "max_wait_s",
+                                              "cache_size", "max_queue", "overload", "tile_n", "ef", "hops",
+                                              "kernel", "num_search", "rerank_qty")
+                 if getattr(cfg, f) not in (None, False)}
+        if p is None:
+            return f"{genes} -> served nothing ({secs:.1f} s)"
+        return (f"{genes} -> qps {p.qps:.1f}, p50 {p.p50_ms:.2f} ms, p99 {p.p99_ms:.2f} ms, recall@10 "
+                f"{p.recall:.4f}, identity {p.identity} ({secs:.1f} s; launches "
+                + ", ".join(f"{name} {x}" for name, x in got.items() if x) + ")")
+
+    log(f"phase autotune: n={n} fused (the graph recall corpus), {AUTOTUNE_QUERIES} queries, workload "
+        f"{AUTOTUNE_REQUESTS} requests x 2 passes (repeat fraction {repeat_fraction:.3f}), {AUTOTUNE}; "
+        + "; ".join(gen_log) + f"; counts {c}; explore genomes pruned by the proxy and measured after the "
+        f"search: {len(extra)}; graph builds {builds['graph_ann']}, NAPP builds {builds['napp']}; the replay "
+        f"on the first run's numbers measured the same {len(replayed)} genomes in the same order")
+    for cfg, p, secs, got in rows[:len(rows) - len(axis)]:
+        log("  measured " + show(cfg, p, secs, got))
+    everything = pareto_front([p for _, p, _, _ in rows if p is not None])
+    for label, front in (("the search's front", result.front), ("front of every measured genome", everything)):
+        for p in front:
+            log(f"  {label}: {p.config.backend} b={p.config.batch_size} {p.config.corpus_dtype}: qps "
+                f"{p.qps:.1f}, p50 {p.p50_ms:.2f} ms, p99 {p.p99_ms:.2f} ms, recall@10 {p.recall:.4f}")
+    for bs in (64, 128):
+        at = [p for p in result.archive if p.config.batch_size == bs]
+        best = max(at, key=lambda p: p.qps) if at else None
+        log(f"  the search at batch {bs}: " + (show(best.config, best, 0.0, {}) if best else
+                                               "no measured genome at this batch size"))
+    log(f"  batch axis (pallas f32, max_wait 2 ms): " + ", ".join(
+        f"b={bs} qps {p.qps:.1f} (proxy {px:.1f}), p99 {p.p99_ms:.2f} ms" if p else f"b={bs} served nothing"
+        for bs, p, px in axis)
+        + f"; proxy qps rank {proxy_rank}, measured rank {measured_rank} (not gated); B2 held against the "
+        f"plain fused scan at (batch, dtype, shards) {b2_shapes}; recall oracle: the plain fused scan "
+        f"({oracle_secs:.1f} s); served B3 launches "
+        f"{served_b3}, B4 launches {served_b4}; the phase's launches {launches}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    return launches
 
 
 def sync(torch, on_card):
@@ -2726,6 +3391,7 @@ def main() -> int:
                     {"fused": learned_ms, "dense": 1e3 * statistics.median(dense_s)}, timer, card, on_card,
                     args.seed + 22)
     serve_launches = serve_full_phase(torch, dev, check, corpus, space, card, on_card, args.seed + 23)
+    flex_launches = flexneuart_full_phase(torch, dev, check, corpus, card, on_card, args.seed + 24, timer)
     # release the 36 GB corpus: the pipelines, the checks and the ANN
     # index cache all hold it
     del dense, idx, val, corpus, batches, q, pipe, dense_gen, results, dense_results, fused_args
@@ -2736,6 +3402,7 @@ def main() -> int:
     recall_data = graph_recall_phase(torch, dev, recall_n, args.seed + 11, on_card)
     napp_recall_phase(torch, dev, *recall_data, args.seed + 12, on_card)
     live_ann_phase(torch, dev, check, *recall_data[:3], card, on_card, args.seed + 13)
+    tune_launches = autotune_phase(torch, dev, check, *recall_data[:2], card, on_card, args.seed + 14)
     kernels.append({"name": "beam_hop", "route": "cuda", "source": SOURCES[1],
                     "replaces": "src/repro/kernels/beam_topk.py:238", "launches": hop["launches"],
                     "max_abs_err": check.max_err["beam_hop"], "ms": hop["ms"],
@@ -2744,8 +3411,9 @@ def main() -> int:
     kernels.append({"name": "fused_score", "route": "cuda", "source": SOURCES[2],
                     "replaces": "src/repro/kernels/sparse_dense.py:61", "launches": score_launches,
                     "max_abs_err": check.max_err["fused_score"], **score, "library_ms": None})
-    for k in kernels:    # the main path's launches and the served passes'
-        k["launches"] += serve_launches.get(k["name"], 0)
+    for k in kernels:    # the main path's launches, the served passes', FlexNeuART's and the search's
+        k["launches"] += (serve_launches.get(k["name"], 0) + flex_launches.get(k["name"], 0)
+                          + tune_launches.get(k["name"], 0))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if not on_card:

@@ -235,16 +235,16 @@ class ObliviousTreeEnsemble(NamedTuple):
 
     def predict(self, x: torch.Tensor) -> torch.Tensor:
         """x f32[..., F] -> f32[...]: the trees' leaves summed in tree
-        order, times ``lr``."""
+        order, times ``lr``.  Every tree's leaf is found at once; only the
+        sum goes tree by tree, so that it rounds as the reference's does."""
         m, d = self.feat.shape
-        feat = self.feat.long()
+        cols = torch.index_select(x, -1, self.feat.reshape(-1).long())
+        bits = (cols.unflatten(-1, (m, d)) > self.thresh).long()
+        code = (bits * (1 << torch.arange(d - 1, -1, -1, device=x.device))).sum(-1)
+        vals = self.leaves[torch.arange(m, device=x.device), code]          # [..., M]
         out = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
         for t in range(m):
-            code = torch.zeros(x.shape[:-1], dtype=torch.long, device=x.device)
-            for lvl in range(d):
-                col = torch.index_select(x, -1, feat[t, lvl:lvl + 1]).squeeze(-1)
-                code = code * 2 + (col > self.thresh[t, lvl]).long()
-            out = out + self.leaves[t][code]
+            out = out + vals[..., t]
         return self.lr * out
 
 

@@ -1,12 +1,15 @@
 """Multi-stage retrieval pipeline (counterpart of
-``repro/core/pipeline.py``).
+``repro/core/pipeline.py``; paper Fig. 1 / §3.2).
 
 A candidate generator produces ``cand_qty`` documents; optional
-intermediate and final re-rankers narrow them to ``final_qty``.  Ported
-so far: the brute-force and streaming generators, the graph-ANN and NAPP
-generators, the live-snapshot seam (:func:`pin_snapshot`), and the
-funnel tail for the no-reranker case; any object with
-``rerank(q_tokens, cands, keep)`` still slots in as a re-ranker.
+intermediate and final re-rankers narrow them to ``final_qty``.
+Generators: brute force and streaming over any execution backend, graph
+ANN, NAPP and the inverted file (:class:`InvertedIndexGenerator`, exact
+BM25, Lucene's role).  Re-rankers: a composite FlexNeuART extractor
+(``core.scorers``) feeding a linear LETOR model (:class:`LinearReranker`)
+or a LambdaMART ensemble (:class:`TreeReranker`); any object with
+``rerank(q_tokens, cands, keep)`` slots in too.  The paper's Fig. 4
+experiment descriptor maps onto :meth:`RetrievalPipeline.from_descriptor`.
 """
 
 from __future__ import annotations
@@ -14,9 +17,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Protocol
 
+import torch
+
 from repro_torch.core import graph_ann, napp
 from repro_torch.core.backends import ReferenceBackend, StreamingBackend, resolve_backend
-from repro_torch.core.brute_force import TopK
+from repro_torch.core.brute_force import TopK, select_topk
+from repro_torch.core.inverted_index import InvertedIndex, daat_topk
+from repro_torch.core.scorers import CompositeExtractor
 from repro_torch.core.spaces import canonical_dtype, cast_corpus, corpus_dtype
 
 __all__ = [
@@ -25,7 +32,10 @@ __all__ = [
     "StreamingGenerator",
     "GraphANNGenerator",
     "NappGenerator",
+    "InvertedIndexGenerator",
     "Reranker",
+    "LinearReranker",
+    "TreeReranker",
     "apply_rerankers",
     "pin_snapshot",
     "RetrievalPipeline",
@@ -172,6 +182,64 @@ class NappGenerator:
             rerank_qty=max(self.rerank_qty, k))
 
 
+@dataclasses.dataclass(frozen=True)
+class InvertedIndexGenerator:
+    """Lucene's role in the paper: exact sparse scoring via inverted file."""
+
+    index: InvertedIndex
+
+    def generate(self, query_repr, k: int) -> TopK:
+        return daat_topk(self.index, query_repr, k)
+
+
+# ---------------------------------------------------------------------------
+# Re-rankers: composite features -> model score -> reorder candidates.
+# ---------------------------------------------------------------------------
+
+def _reorder(cands: TopK, new_scores: torch.Tensor, keep: int) -> TopK:
+    """The ``keep`` best candidates by ``new_scores`` in ``lax.top_k``'s
+    order (ties toward the earlier candidate)."""
+    vals, pos = select_topk(new_scores, keep)
+    return TopK(vals, torch.gather(cands.indices, 1, pos))
+
+
+def _masked(cands: TopK, scores: torch.Tensor) -> torch.Tensor:
+    """-inf at candidates whose generator score is not finite."""
+    return torch.where(torch.isfinite(cands.scores), scores,
+                       torch.full_like(scores, -torch.inf))
+
+
+@dataclasses.dataclass(frozen=True)
+class LinearReranker:
+    """Composite extractor + linear LETOR model (coordinate-ascent output)."""
+
+    extractor: CompositeExtractor
+    weights: torch.Tensor   # f32[F]
+
+    def rerank(self, q_tokens, cands: TopK, keep: int) -> TopK:
+        return self.rerank_features(cands, self.extractor.extract(q_tokens, cands.indices), keep)
+
+    def rerank_features(self, cands: TopK, feats: torch.Tensor, keep: int) -> TopK:
+        """The model and the selection on ``feats`` f32[Q, C, F] of ``cands``."""
+        s = torch.einsum("qcf,f->qc", feats, self.weights.to(feats))
+        return _reorder(cands, _masked(cands, s), keep)
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeReranker:
+    """Composite extractor + LambdaMART oblivious-tree ensemble."""
+
+    extractor: CompositeExtractor
+    ensemble: object   # fusion.ObliviousTreeEnsemble
+
+    def rerank(self, q_tokens, cands: TopK, keep: int) -> TopK:
+        return self.rerank_features(cands, self.extractor.extract(q_tokens, cands.indices), keep)
+
+    def rerank_features(self, cands: TopK, feats: torch.Tensor, keep: int) -> TopK:
+        """The model and the selection on ``feats`` f32[Q, C, F] of ``cands``."""
+        return _reorder(cands, _masked(cands, self.ensemble.predict(feats)), keep)
+
+
 def apply_rerankers(cands: TopK, q_tokens=None, *,
                     intermediate: Optional[Reranker] = None,
                     final: Optional[Reranker] = None,
@@ -229,3 +297,96 @@ class RetrievalPipeline:
                             "not take a corpus residency dtype")
         return dataclasses.replace(
             self, generator=self.generator.with_corpus_dtype(dtype))
+
+    # Historical descriptors spelled the execution-backend keys
+    # inconsistently with the rest of the camelCase vocabulary: lowercase
+    # "backend" and "backendParams".  They are still read (and rewritten)
+    # so that archived experiment descriptors keep loading.
+    _LEGACY_DESCRIPTOR_KEYS = {"backend": "execBackend",
+                               "backendParams": "execBackendParams"}
+
+    @classmethod
+    def canonicalize_descriptor(cls, desc: dict) -> dict:
+        """Rewrite legacy descriptor keys to their canonical camelCase
+        spellings (``backend`` -> ``execBackend``, ``backendParams`` ->
+        ``execBackendParams``).  A descriptor carrying both spellings
+        with different values is ambiguous and rejected."""
+        canon = dict(desc)
+        for old, new in cls._LEGACY_DESCRIPTOR_KEYS.items():
+            if old in canon:
+                if new in canon and canon[new] != canon[old]:
+                    raise ValueError(
+                        f"descriptor carries both {old!r} and its canonical "
+                        f"spelling {new!r} with different values")
+                canon[new] = canon.pop(old)
+        return canon
+
+    @property
+    def descriptor(self) -> dict:
+        """The canonical experiment descriptor for this pipeline: the
+        canonicalized source descriptor of a pipeline built by
+        :meth:`from_descriptor`; for a hand-built one the funnel
+        quantities, the generator's execution-backend identity and its
+        corpus residency dtype."""
+        stored = getattr(self, "_descriptor", None)
+        if stored is not None:
+            return dict(stored)
+        from repro_torch.core.backends import backend_identity
+
+        desc = {"candQty": self.cand_qty, "intermQty": self.interm_qty,
+                "finalQty": self.final_qty}
+        label = backend_identity(self.backend)
+        if label is not None:
+            desc["execBackend"] = label
+        if self.corpus_dtype is not None:
+            desc["corpusDtype"] = self.corpus_dtype
+        return desc
+
+    @classmethod
+    def from_descriptor(cls, desc: dict, context: dict) -> "RetrievalPipeline":
+        """Paper Fig. 4 experiment descriptor.  Keys: candProv (name into
+        ``context``), execBackend (the candidate stage's execution
+        backend; legacy ``backend``), execBackendParams (constructor
+        kwargs for the named backend, requires execBackend; legacy
+        ``backendParams``), corpusDtype, extrType / extrTypeInterm
+        (extractor configs), model / modelInterm (names into ``context``
+        of weight vectors or ensembles), candQty / intermQty / finalQty."""
+        from repro_torch.core.backends import make_backend
+        from repro_torch.core.fusion import ObliviousTreeEnsemble
+
+        desc = cls.canonicalize_descriptor(desc)
+        gen = context[desc.get("candProv", "candidate_provider")]
+        if "corpusDtype" in desc:            # cast before backend resolution
+            gen = gen.with_corpus_dtype(desc["corpusDtype"])
+        params = desc.get("execBackendParams")
+        if params and "execBackend" not in desc:
+            raise ValueError("descriptor key 'execBackendParams' (legacy "
+                             "spelling 'backendParams') requires "
+                             "'execBackend' to name the backend it "
+                             "configures")
+        if "execBackend" in desc:
+            gen = gen.with_backend(
+                make_backend(desc["execBackend"], **params)
+                if params else desc["execBackend"])
+
+        def build(extr_key, model_key):
+            if extr_key not in desc:
+                return None
+            extractor = CompositeExtractor.from_config(desc[extr_key], **context)
+            model = context[desc[model_key]]
+            if isinstance(model, ObliviousTreeEnsemble):
+                return TreeReranker(extractor, model)
+            return LinearReranker(extractor, torch.as_tensor(model, dtype=torch.float32))
+
+        pipe = cls(
+            generator=gen,
+            intermediate=build("extrTypeInterm", "modelInterm"),
+            final=build("extrType", "model"),
+            cand_qty=int(desc.get("candQty", 100)),
+            interm_qty=int(desc.get("intermQty", 50)),
+            final_qty=int(desc.get("finalQty", 10)),
+        )
+        # remember the canonical source descriptor so that .descriptor
+        # round-trips exactly (frozen dataclass: bypass __setattr__)
+        object.__setattr__(pipe, "_descriptor", dict(desc))
+        return pipe

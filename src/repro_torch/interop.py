@@ -11,14 +11,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.fusion import ObliviousTreeEnsemble
 from repro_torch.core.graph_ann import GraphIndex
+from repro_torch.core.inverted_index import InvertedIndex
 from repro_torch.core.napp import NappIndex
+from repro_torch.core.scorers import ForwardIndex
 from repro_torch.core.sparse import SparseVectors
 from repro_torch.core.spaces import FusedSpace, FusedVectors
 from repro_torch.device import resolve_device
 
 __all__ = ["tensor", "to_numpy", "sparse_vectors", "fused_vectors",
-           "fused_space", "graph_index", "napp_index"]
+           "fused_space", "graph_index", "napp_index", "forward_index",
+           "inverted_index", "tree_ensemble"]
 
 
 def tensor(array, device=None, *, bf16: bool = False) -> torch.Tensor:
@@ -78,3 +82,32 @@ def napp_index(pivot_ids, membership, num_index: int, device=None) -> NappIndex:
     same index."""
     return NappIndex(tensor(np.asarray(pivot_ids, np.int32), device),
                      tensor(np.asarray(membership, np.float32), device), int(num_index))
+
+
+def forward_index(tokens, length, df, vocab_size: int, avg_len: float,
+                  device=None) -> ForwardIndex:
+    """``ForwardIndex`` from a ``repro`` forward index's numpy tokens
+    [N, L] and lengths [N] (cast to i32) and document frequencies [V]
+    (f32), so that both packages extract from the same index."""
+    return ForwardIndex(tensor(np.asarray(tokens, np.int32), device),
+                        tensor(np.asarray(length, np.int32), device),
+                        tensor(np.asarray(df, np.float32), device),
+                        int(vocab_size), float(avg_len))
+
+
+def inverted_index(docs, wts, n_docs: int, truncated: int = 0,
+                   device=None) -> InvertedIndex:
+    """``InvertedIndex`` from a ``repro`` index's numpy postings: doc ids
+    [V, MAXP] (cast to i32) and weights [V, MAXP] (f32)."""
+    return InvertedIndex(tensor(np.asarray(docs, np.int32), device),
+                         tensor(np.asarray(wts, np.float32), device),
+                         int(n_docs), int(truncated))
+
+
+def tree_ensemble(feat, thresh, leaves, lr: float, device=None) -> ObliviousTreeEnsemble:
+    """``ObliviousTreeEnsemble`` from a ``repro`` ensemble's numpy split
+    features [M, D] (cast to i32), thresholds [M, D] and leaves
+    [M, 2^D] (f32)."""
+    return ObliviousTreeEnsemble(tensor(np.asarray(feat, np.int32), device),
+                                 tensor(np.asarray(thresh, np.float32), device),
+                                 tensor(np.asarray(leaves, np.float32), device), float(lr))

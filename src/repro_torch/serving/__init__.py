@@ -1,12 +1,14 @@
 """Serving layer of the port (counterpart of ``repro/serving``): bounded
 admission queue -> continuous batcher (one CUDA stream per endpoint) ->
-(optionally sharded or staged) pipeline -> cache -> stats.  The
-autotuner's genome and tuned profiles are ported; its search half
-(``autotune``, ``measure_config``, ``pareto_front``, ``proxy_objectives``,
-``roofline_prune``) is still to come."""
+(optionally sharded or staged) pipeline -> cache -> stats, and the
+roofline-pruned Pareto autotuner over the serving config space."""
 
-from repro_torch.serving.autotune import (MeasuredPoint, ServingConfig,
-                                          TunedProfile, check_config)
+from repro_torch.serving.autotune import (AutotuneResult, MeasuredPoint, ServingConfig,
+                                          TunedProfile, autotune, check_config,
+                                          crossover, crowding_distance, dominates,
+                                          measure_config, mutate, nondominated_sort,
+                                          pareto_front, proxy_objectives, random_config,
+                                          roofline_prune)
 from repro_torch.serving.batcher import (OVERLOAD_POLICIES, ContinuousBatcher,
                                          Request, ServiceOverloaded)
 from repro_torch.serving.cache import QueryCache, quantized_key
@@ -47,5 +49,17 @@ __all__ = [
     "ServingConfig",
     "TunedProfile",
     "MeasuredPoint",
+    "AutotuneResult",
     "check_config",
+    "random_config",
+    "mutate",
+    "crossover",
+    "proxy_objectives",
+    "roofline_prune",
+    "dominates",
+    "nondominated_sort",
+    "crowding_distance",
+    "pareto_front",
+    "measure_config",
+    "autotune",
 ]

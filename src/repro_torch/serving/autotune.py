@@ -1,23 +1,48 @@
-"""The serving config genome and tuned profiles (counterpart of the genome
-half of ``repro/serving/autotune.py``).
+"""Roofline-pruned Pareto autotuner over the serving config space
+(counterpart of ``repro/serving/autotune.py``).
 
 * :class:`ServingConfig` — a typed genome over every serving knob, with
   per-knob legality (:func:`check_config`) derived from the capability
   matrix in :mod:`repro_torch.core.backends`.
-* :class:`MeasuredPoint` — one load-tested genome and the identity string
-  of the path that served it.
+* Genome operators (:func:`random_config`, :func:`mutate`,
+  :func:`crossover`), deterministic in their ``np.random.Generator``.
+* A zero-cost **roofline proxy** (:func:`proxy_objectives`, on the Hopper
+  model of :mod:`repro_torch.launch.roofline`) estimates each genome's
+  (throughput, latency, recall); candidates are pruned to a measurement
+  budget by non-dominated proxy rank + crowding (:func:`roofline_prune`).
+* :func:`measure_config` load-tests a survivor under a fresh
+  :class:`~repro_torch.serving.service.RetrievalService` and checks, from
+  the endpoint snapshot's identity, that the declared path served.
+* :func:`autotune` evolves the population (mutation + crossover +
+  NSGA-II-style non-dominated sorting) toward the measured
+  latency/throughput/recall Pareto front.
 * :class:`TunedProfile` — a serializable front row that
   ``RetrievalService.register_pipeline(profile=...)`` /
   ``register_runner(profile=...)`` accept; a profile written by ``repro``
   loads here (same fields, same ``tag``).
 
 The gene ``"pallas"`` stays legal and names the ``cuda`` backend, which
-answers to it.  One rule differs from ``repro`` on purpose: a ``tile_n``
-gene on ``"pallas"`` is refused, because the CUDA kernels choose their own
-launch shape.  The search half (``random_config``, ``mutate``,
-``crossover``, ``proxy_objectives``, the non-dominated sort,
-``roofline_prune``, ``pareto_front``, ``measure_config``, ``autotune``)
-has no counterpart yet.
+answers to it.  Differences from ``repro``, on purpose:
+
+* a ``tile_n`` gene on a kernel genome is refused, because the CUDA
+  kernels choose their own launch shape.  The operators still draw it
+  where ``repro``'s draw it, and :func:`_repair` drops it, so both
+  packages consume a generator alike: every genome on which the two
+  legality rules agree is drawn equal.  The sequences part where
+  :func:`mutate` picks the ``tile_n`` gene of a kernel genome (here the
+  repaired genome equals its parent and the loop draws again), where
+  :func:`crossover` gives a streaming child a kernel parent's tile
+  (``repro``'s child keeps it), and where ``autotune`` deduplicates
+  kernel genomes that ``repro`` tells apart by their tile;
+* :func:`measure_config` accepts the identity ``"cuda"`` for a kernel
+  genome (``CudaBackend`` serves ``"pallas"``), and only for one;
+* :func:`measure_config` takes queries of any row-major form (a tensor,
+  ``SparseVectors`` or ``FusedVectors``) and sends row ``i`` of every
+  leaf as request ``i``; ``repro`` indexes a dense array only.
+
+The proxy's modelling constants (:data:`_PROXY_BATCH_OVERHEAD_S`,
+:data:`_PROXY_FLOOD_BACKLOG`) are ``repro``'s: model constants, not
+measurements.
 """
 
 from __future__ import annotations
@@ -25,15 +50,37 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
-from typing import Any, Dict, Optional, Tuple
+import math
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from repro_torch.core import backends as backends_lib
 from repro_torch.core.backends import (CudaBackend, GraphANNBackend, NappBackend,
                                        ReferenceBackend, StreamingBackend)
-from repro_torch.core.spaces import CORPUS_DTYPES, canonical_dtype, cast_corpus
-from repro_torch.serving.batcher import OVERLOAD_POLICIES
+from repro_torch.core.spaces import (CORPUS_DTYPES, canonical_dtype, cast_corpus,
+                                     map_tensors, tensor_leaves)
+from repro_torch.serving.batcher import OVERLOAD_POLICIES, ServiceOverloaded
 
-__all__ = ["ServingConfig", "check_config", "MeasuredPoint", "TunedProfile"]
+__all__ = [
+    "ServingConfig",
+    "check_config",
+    "random_config",
+    "mutate",
+    "crossover",
+    "proxy_objectives",
+    "roofline_prune",
+    "dominates",
+    "pareto_front",
+    "nondominated_sort",
+    "crowding_distance",
+    "MeasuredPoint",
+    "measure_config",
+    "autotune",
+    "AutotuneResult",
+    "TunedProfile",
+]
 
 # Knob domains the genome operators sample from (search menus, not
 # legality bounds: legality is check_config).
@@ -53,9 +100,16 @@ GENOME_RERANK = (64, 128, 256)
 GENOME_RERANK_KEEP = (10, 20, 50)
 GENOME_RERANK_BUDGETS_MS = (None, 2.0, 5.0, 20.0)
 
-# GraphANNBackend's default graph degree: the kernel beam-budget legality
-# check needs it.
+# GraphANNBackend's default graph degree: the proxy's candidate-visit
+# count and the kernel beam-budget legality check both need it.
 _GRAPH_DEGREE = 16
+
+# Model constants of the proxy, repro's: the host's per-batch overhead
+# folded into the proxy's batch time (without it the ranking would be
+# driven by differences no measurement can reproduce), and the queue depth
+# in batches assumed for an unbounded admission queue under a flood.
+_PROXY_BATCH_OVERHEAD_S = 1e-3
+_PROXY_FLOOD_BACKLOG = 8.0
 
 # The genes that name the CUDA kernels (``"pallas"`` in repro's profiles).
 _KERNEL_GENES = ("pallas", "cuda")
@@ -229,6 +283,301 @@ def check_config(cfg: ServingConfig, k: int, space=None,
     return None
 
 
+# ---------------------------------------------------------------------------
+# Genome operators (mutation / crossover), deterministic in their rng.
+# ---------------------------------------------------------------------------
+
+_TILED_GENES = ("streaming",) + _KERNEL_GENES   # the genomes repro gives a tile gene
+
+
+def _choice(rng: np.random.Generator, domain: Sequence):
+    return domain[int(rng.integers(len(domain)))]
+
+
+def _knobs_for(backend: str, funnel: bool = False) -> List[str]:
+    """The genes :func:`mutate` may pick, ``repro``'s list: a kernel
+    genome keeps its ``tile_n`` entry, so that the pick draws alike."""
+    knobs = ["backend", "corpus_dtype", "n_shards", "batch_size",
+             "max_wait_s", "cache_size", "max_queue", "overload"]
+    if backend in _TILED_GENES:
+        knobs.append("tile_n")
+    if backend == "graph_ann":
+        knobs += ["ef", "hops", "kernel"]
+    if backend == "napp":
+        knobs += ["num_search", "rerank_qty"]
+    if funnel:
+        knobs += ["rerank_keep", "rerank_budget_ms"]
+    return knobs
+
+
+def _resample(knob: str, rng: np.random.Generator, k: int):
+    if knob == "backend":
+        return _choice(rng, GENOME_BACKENDS)
+    if knob == "corpus_dtype":
+        return _choice(rng, CORPUS_DTYPES)
+    if knob == "n_shards":
+        return _choice(rng, GENOME_SHARDS)
+    if knob == "batch_size":
+        return _choice(rng, GENOME_BATCH_SIZES)
+    if knob == "max_wait_s":
+        return _choice(rng, GENOME_WAITS_S)
+    if knob == "cache_size":
+        return _choice(rng, GENOME_CACHE_SIZES)
+    if knob == "max_queue":
+        return _choice(rng, GENOME_QUEUES)
+    if knob == "overload":
+        return _choice(rng, OVERLOAD_POLICIES)
+    if knob == "tile_n":
+        return _choice(rng, GENOME_TILES)
+    if knob == "ef":
+        return _choice(rng, [e for e in GENOME_EFS if e >= k])
+    if knob == "hops":
+        return _choice(rng, GENOME_HOPS)
+    if knob == "kernel":
+        return bool(rng.integers(2))
+    if knob == "num_search":
+        return _choice(rng, GENOME_NUM_SEARCH)
+    if knob == "rerank_qty":
+        return _choice(rng, [r for r in GENOME_RERANK if r >= k])
+    if knob == "rerank_keep":
+        return _choice(rng, [r for r in GENOME_RERANK_KEEP if r >= k])
+    if knob == "rerank_budget_ms":
+        return _choice(rng, GENOME_RERANK_BUDGETS_MS)
+    raise KeyError(knob)
+
+
+def _repair(d: Dict[str, Any], rng: np.random.Generator,
+            k: int) -> Optional[ServingConfig]:
+    """Re-scope backend-specific genes after a backend flip / crossover,
+    then run the full legality check.  Returns None when irreparable.
+    The tile gene survives on streaming only (repro keeps it on
+    ``"pallas"`` too); dropping it draws nothing."""
+    backend = d["backend"]
+    if backend != "streaming":
+        d["tile_n"] = None
+    if backend != "graph_ann":
+        d["ef"], d["hops"], d["kernel"] = None, None, False
+    else:
+        if d["ef"] is None or d["ef"] < k:
+            d["ef"] = _resample("ef", rng, k)
+    if backend != "napp":
+        d["num_search"], d["rerank_qty"] = None, None
+    else:
+        if d["num_search"] is None:
+            d["num_search"] = _resample("num_search", rng, k)
+        if d["rerank_qty"] is None or d["rerank_qty"] < k:
+            d["rerank_qty"] = _resample("rerank_qty", rng, k)
+    if backend in ("graph_ann", "napp"):
+        d["n_shards"] = 1
+    if d["max_queue"] is not None and d["max_queue"] < d["batch_size"]:
+        d["max_queue"] = None
+    if d.get("rerank_keep") is None:
+        # a stage budget without a rerank stage is a dead gene
+        d["rerank_budget_ms"] = None
+    elif d["rerank_keep"] < k:
+        d["rerank_keep"] = _resample("rerank_keep", rng, k)
+    cfg = ServingConfig(**d)
+    return cfg if check_config(cfg, k) is None else None
+
+
+def random_config(rng: np.random.Generator, k: int) -> ServingConfig:
+    """One uniformly-sampled legal genome."""
+    for _ in range(128):
+        d = {knob: _resample(knob, rng, k)
+             for knob in ("backend", "corpus_dtype", "n_shards",
+                          "batch_size", "max_wait_s", "cache_size",
+                          "max_queue", "overload")}
+        d.update(tile_n=None, ef=None, hops=None, kernel=False,
+                 num_search=None, rerank_qty=None,
+                 rerank_keep=None, rerank_budget_ms=None)
+        if d["backend"] in _TILED_GENES:
+            d["tile_n"] = _resample("tile_n", rng, k)
+        if d["backend"] == "graph_ann":
+            d["ef"] = _resample("ef", rng, k)
+            d["hops"] = _resample("hops", rng, k)
+            d["kernel"] = _resample("kernel", rng, k)
+        if d["backend"] == "napp":
+            d["num_search"] = _resample("num_search", rng, k)
+            d["rerank_qty"] = _resample("rerank_qty", rng, k)
+        cfg = _repair(d, rng, k)
+        if cfg is not None:
+            return cfg
+    raise RuntimeError("could not sample a legal serving config")
+
+
+def mutate(cfg: ServingConfig, rng: np.random.Generator,
+           k: int) -> ServingConfig:
+    """Resample one applicable knob (repairing scoped genes); returns a
+    legal genome, falling back to ``cfg`` itself if 64 attempts fail."""
+    for _ in range(64):
+        knob = _choice(rng, _knobs_for(cfg.backend,
+                                       funnel=cfg.rerank_keep is not None))
+        d = cfg.to_dict()
+        d[knob] = _resample(knob, rng, k)
+        new = _repair(d, rng, k)
+        if new is not None and new != cfg:
+            return new
+    return cfg
+
+
+def crossover(a: ServingConfig, b: ServingConfig, rng: np.random.Generator,
+              k: int) -> ServingConfig:
+    """Uniform crossover: each gene from either parent, then repair.
+    Falls back to parent ``a`` when the blend is irreparable."""
+    da, db = a.to_dict(), b.to_dict()
+    d = {key: (da[key] if rng.integers(2) else db[key]) for key in da}
+    new = _repair(d, rng, k)
+    return new if new is not None else a
+
+
+# ---------------------------------------------------------------------------
+# Zero-cost roofline proxy.
+# ---------------------------------------------------------------------------
+
+def proxy_objectives(cfg: ServingConfig, *, n_docs: int, dim: int, k: int,
+                     repeat_fraction: float = 0.0) -> Tuple[float, float, float]:
+    """Estimated maximization objectives ``(qps, -latency_s, recall)`` for
+    one genome from the roofline model alone, ``repro``'s formulas on the
+    Hopper terms of :mod:`repro_torch.launch.roofline`.
+
+    Exact backends: the whole-config scan
+    (:func:`~repro_torch.launch.roofline.serving_scan_seconds`).
+    graph_ann: ``sqrt(N) + hops * ef * degree`` candidate visits through
+    the gather roofline
+    (:func:`~repro_torch.launch.roofline.serving_visit_seconds`).  napp:
+    the pivot-count pass plus the exact re-rank of ``rerank_qty`` rows.
+    Proxy recall is 1 for exact paths and falls as ``k`` nears the
+    declared budget for approximate ones (a rank signal, not a
+    calibration).  A cache makes the repeated fraction of the workload
+    free; an unbounded queue backs up :data:`_PROXY_FLOOD_BACKLOG`
+    batches under a flood, a bounded one ``max_queue / batch_size``."""
+    from repro_torch.launch.roofline import serving_scan_seconds, serving_visit_seconds
+
+    itemsize = 2 if cfg.corpus_dtype == "bfloat16" else 4
+    bytes_per_row = float(dim * itemsize)
+    b = cfg.batch_size
+    if cfg.backend == "graph_ann":
+        hops = (cfg.hops if cfg.hops is not None
+                else max(4, int(2 * math.log(max(n_docs, 2)))))
+        visits = math.sqrt(n_docs) + hops * cfg.ef * _GRAPH_DEGREE
+        batch_s = serving_visit_seconds(visits, b=b, bytes_per_row=bytes_per_row,
+                                        flops_per_visit=2.0 * dim)
+        recall = 1.0 - 0.5 * k / cfg.ef
+    elif cfg.backend == "napp":
+        # count pass: every row contributes one num_search-wide integer
+        # dot against the query's pivot set (4 bytes of posting data per
+        # row), then rerank_qty gathered rows are scored exactly
+        count_s = serving_scan_seconds(
+            n_docs, b=b, k=k, bytes_per_row=4.0,
+            flops_per_row=2.0 * b * cfg.num_search)
+        rerank_s = serving_visit_seconds(
+            cfg.rerank_qty, b=b, bytes_per_row=bytes_per_row,
+            flops_per_visit=2.0 * dim)
+        batch_s = count_s + rerank_s
+        recall = 1.0 - 0.5 * k / cfg.rerank_qty
+    else:
+        batch_s = serving_scan_seconds(
+            n_docs, b=b, k=k, bytes_per_row=bytes_per_row,
+            flops_per_row=2.0 * b * dim, tile_n=cfg.tile_n,
+            n_shards=cfg.n_shards)
+        recall = 1.0
+    step_s = batch_s + _PROXY_BATCH_OVERHEAD_S
+    miss = 1.0 - (repeat_fraction if cfg.cache_size > 0 else 0.0)
+    qps = b / (step_s * max(miss, 0.05))
+    backlog = (cfg.max_queue / b if cfg.max_queue is not None
+               else _PROXY_FLOOD_BACKLOG)
+    latency_s = cfg.max_wait_s + (1.0 + backlog) * step_s
+    return (qps, -latency_s, recall)
+
+
+# ---------------------------------------------------------------------------
+# Non-dominated sorting + crowding (NSGA-II machinery).
+# ---------------------------------------------------------------------------
+
+def dominates(a: Sequence[float], b: Sequence[float]) -> bool:
+    """True iff maximization vector ``a`` Pareto-dominates ``b``: no
+    worse on every objective, strictly better on at least one."""
+    return (all(x >= y for x, y in zip(a, b))
+            and any(x > y for x, y in zip(a, b)))
+
+
+def nondominated_sort(objectives: Sequence[Sequence[float]]) -> List[List[int]]:
+    """Fast non-dominated sort: list of fronts (index lists), front 0
+    first.  Deterministic — indices keep input order within a front."""
+    n = len(objectives)
+    dominated_by = [0] * n            # how many points dominate i
+    dominates_set: List[List[int]] = [[] for _ in range(n)]
+    for i in range(n):
+        for j in range(i + 1, n):
+            if dominates(objectives[i], objectives[j]):
+                dominates_set[i].append(j)
+                dominated_by[j] += 1
+            elif dominates(objectives[j], objectives[i]):
+                dominates_set[j].append(i)
+                dominated_by[i] += 1
+    fronts = [[i for i in range(n) if dominated_by[i] == 0]]
+    while fronts[-1]:
+        nxt = []
+        for i in fronts[-1]:
+            for j in dominates_set[i]:
+                dominated_by[j] -= 1
+                if dominated_by[j] == 0:
+                    nxt.append(j)
+        fronts.append(sorted(nxt))
+    return fronts[:-1]
+
+
+def crowding_distance(objectives: Sequence[Sequence[float]],
+                      front: Sequence[int]) -> Dict[int, float]:
+    """Per-index crowding distance within one front.  Boundary points of
+    every objective get +inf, so budget truncation keeps each axis's
+    extreme before filling in the middle."""
+    dist = {i: 0.0 for i in front}
+    if len(front) <= 2:
+        return {i: math.inf for i in front}
+    n_obj = len(objectives[front[0]])
+    for m in range(n_obj):
+        order = sorted(front, key=lambda i: objectives[i][m])
+        lo, hi = objectives[order[0]][m], objectives[order[-1]][m]
+        dist[order[0]] = dist[order[-1]] = math.inf
+        if hi == lo:
+            continue
+        for pos in range(1, len(order) - 1):
+            gap = (objectives[order[pos + 1]][m]
+                   - objectives[order[pos - 1]][m])
+            dist[order[pos]] += gap / (hi - lo)
+    return dist
+
+
+def _rank_order(objectives: Sequence[Sequence[float]]) -> List[int]:
+    """All indices, best-first: by front rank, then crowding distance
+    (descending), ties by index — the NSGA-II survivor ordering."""
+    order: List[int] = []
+    for front in nondominated_sort(objectives):
+        dist = crowding_distance(objectives, front)
+        order.extend(sorted(front, key=lambda i: (-dist[i], i)))
+    return order
+
+
+def roofline_prune(configs: Sequence[ServingConfig], budget: int, *,
+                   n_docs: int, dim: int, k: int,
+                   repeat_fraction: float = 0.0,
+                   ) -> Tuple[List[ServingConfig], int]:
+    """Keep the ``budget`` best candidates by proxy Pareto rank +
+    crowding; returns (kept, n_pruned).  No measurement happens here."""
+    if len(configs) <= budget:
+        return list(configs), 0
+    objs = [proxy_objectives(c, n_docs=n_docs, dim=dim, k=k,
+                             repeat_fraction=repeat_fraction)
+            for c in configs]
+    keep = _rank_order(objs)[:budget]
+    return [configs[i] for i in keep], len(configs) - budget
+
+
+# ---------------------------------------------------------------------------
+# Measurement under the real load generator.
+# ---------------------------------------------------------------------------
+
 @dataclasses.dataclass(frozen=True)
 class MeasuredPoint:
     """One load-tested genome: measured objectives + the endpoint
@@ -261,6 +610,226 @@ class MeasuredPoint:
                    p99_ms=row["p99_ms"], recall=row["recall"],
                    identity=row["identity"],
                    corpus_dtype=row.get("corpus_dtype"))
+
+
+def pareto_front(points: Sequence[MeasuredPoint]) -> List[MeasuredPoint]:
+    """The non-dominated subset of measured points, best-qps first."""
+    objs = [p.objectives() for p in points]
+    front = nondominated_sort(objs)[0] if points else []
+    return [points[i] for i in sorted(front, key=lambda i: -objs[i][0])]
+
+
+def _served_as_declared(cfg: ServingConfig, identity: Optional[str]) -> bool:
+    """Whether an endpoint's backend identity names the genome's path:
+    ``repro``'s prefix rule, and ``"cuda"`` for a kernel genome."""
+    identity = identity or ""
+    return (identity.startswith(cfg.backend)
+            or (cfg.backend in _KERNEL_GENES and identity.startswith("cuda")))
+
+
+def _measure_once(cfg: ServingConfig, *, space, corpus, queries,
+                  warmup_queries, workload, k: int, passes: int,
+                  check_n: int):
+    """One cold load test: fresh pipeline + service, warm-up off the
+    clock, ``passes`` replays of the workload (futures drained between
+    passes so that pass 2+ hits a warm cache), then a one-at-a-time
+    spot-check retrieval.  Returns None when the config served nothing,
+    else ``(qps, p50_ms, p99_ms, identity, corpus_dtype, got_indices)``."""
+    from repro_torch.core.pipeline import BruteForceGenerator, RetrievalPipeline
+    from repro_torch.serving.service import RetrievalService
+    from repro_torch.serving.sharded import ShardedPipeline
+
+    def row(batch, i):
+        return map_tensors(lambda x: x[i], batch)
+
+    backend = cfg.make_backend()
+    if cfg.n_shards > 1:
+        pipe = ShardedPipeline.from_corpus(space, corpus, cfg.n_shards,
+                                           cand_qty=k, final_qty=k)
+    else:
+        pipe = RetrievalPipeline(BruteForceGenerator(space, corpus),
+                                 cand_qty=k, final_qty=k)
+    n_unique = int(tensor_leaves(queries)[0].shape[0])
+    try:
+        svc = RetrievalService(cache_size=cfg.cache_size)
+        svc.register_pipeline(
+            "tuned", pipe, row(queries, 0),
+            batch_size=cfg.batch_size, max_wait_s=cfg.max_wait_s,
+            max_queue=cfg.max_queue, overload=cfg.overload,
+            backend=backend, corpus_dtype=cfg.corpus_dtype)
+        with svc:
+            # warm-up off the clock (index builds, kernel builds); one
+            # request at a time, so that a small queue bound cannot reject
+            n_warm = int(tensor_leaves(warmup_queries)[0].shape[0])
+            for i in range(min(cfg.batch_size, n_warm)):
+                svc.retrieve([row(warmup_queries, i)], endpoint="tuned")
+            svc.reset_stats()
+            t0 = time.perf_counter()
+            served = 0
+            for _ in range(passes):
+                futs = []
+                for i in workload:
+                    try:
+                        futs.append(svc.submit(row(queries, int(i) % n_unique),
+                                               endpoint="tuned"))
+                    except ServiceOverloaded:
+                        pass      # counted in the endpoint's rejected stat
+                for f in futs:
+                    try:
+                        f.result()
+                        served += 1
+                    except ServiceOverloaded:
+                        pass      # shed_oldest eviction
+            wall = time.perf_counter() - t0
+            snap = svc.snapshot()
+            ep = snap.endpoints["tuned"]
+            if served == 0 or ep.e2e.count == 0:
+                return None
+            # recall spot-check after the timing window, one request at a
+            # time (stays under any admission bound)
+            m = min(check_n, n_unique)
+            got = np.stack([
+                np.asarray(svc.retrieve([row(queries, i)], endpoint="tuned")[0].indices)
+                for i in range(m)])
+    finally:
+        if hasattr(pipe, "close"):
+            pipe.close()
+    if not _served_as_declared(cfg, ep.backend):
+        raise RuntimeError(
+            f"config requested backend {cfg.backend!r} but the endpoint "
+            f"served {ep.backend!r} — refusing to publish a fallback "
+            f"measurement")
+    if ep.corpus_dtype != cfg.corpus_dtype:
+        raise RuntimeError(
+            f"config requested corpus_dtype {cfg.corpus_dtype!r} but the "
+            f"endpoint served {ep.corpus_dtype!r}")
+    return (served / wall, ep.e2e.p50_ms, ep.e2e.p99_ms, ep.backend,
+            ep.corpus_dtype, got)
+
+
+def measure_config(cfg: ServingConfig, *, space, corpus, queries,
+                   warmup_queries, workload, k: int, oracle_indices,
+                   check_n: int = 16, passes: int = 2,
+                   repeats: int = 1) -> Optional[MeasuredPoint]:
+    """Load-test one genome under a real RetrievalService.
+
+    Builds the genome's pipeline (sharded when ``n_shards > 1``),
+    registers it with the genome's backend instance / dtype / batching /
+    admission knobs, replays the hot-set ``workload`` (indices into the
+    rows of ``queries``) ``passes`` times per cold run, then measures
+    recall@k against ``oracle_indices`` on the first ``check_n`` queries
+    (submitted one at a time).  ``repeats`` cold runs are aggregated by
+    per-objective median.
+
+    Returns None when the config served nothing in any repeat.  Raises if
+    the endpoint snapshot shows another backend or dtype than the genome
+    declared: a capability fallback never publishes a measurement under
+    the requested path's name."""
+    from repro_torch.core.fusion import topk_recall
+
+    samples = []
+    for _ in range(max(repeats, 1)):
+        sample = _measure_once(cfg, space=space, corpus=corpus, queries=queries,
+                               warmup_queries=warmup_queries, workload=workload,
+                               k=k, passes=passes, check_n=check_n)
+        if sample is None:
+            return None
+        samples.append(sample)
+    qps = float(np.median([s[0] for s in samples]))
+    p50 = float(np.median([s[1] for s in samples]))
+    p99 = float(np.median([s[2] for s in samples]))
+    identity, corpus_dtype, got = samples[-1][3], samples[-1][4], samples[-1][5]
+    m = got.shape[0]
+    oracle = oracle_indices.cpu().numpy() if hasattr(oracle_indices, "cpu") else oracle_indices
+    recall = float(topk_recall(np.asarray(oracle)[:m], got))
+    return MeasuredPoint(config=cfg, qps=qps, p50_ms=p50, p99_ms=p99,
+                         recall=recall, identity=identity,
+                         corpus_dtype=corpus_dtype)
+
+
+# ---------------------------------------------------------------------------
+# The evolution loop.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class AutotuneResult:
+    front: List[MeasuredPoint]
+    archive: List[MeasuredPoint]
+    counts: Dict[str, int]          # generated / measured / pruned
+
+
+def autotune(measure_fn: Callable[[ServingConfig], Optional[MeasuredPoint]],
+             *, k: int, n_docs: int, dim: int, seed: int = 0,
+             generations: int = 3, population: int = 32,
+             measure_budget: int = 8, repeat_fraction: float = 0.0,
+             seed_points: Sequence[MeasuredPoint] = (),
+             explore_configs: Sequence[ServingConfig] = (),
+             space=None, corpus=None,
+             log: Optional[Callable[[str], None]] = None) -> AutotuneResult:
+    """Evolve the measured latency/throughput/recall Pareto front.
+
+    Per generation: ``population`` unique legal candidates (generation 0
+    from ``explore_configs`` + uniform sampling; later from crossover +
+    mutation of front-ranked archive parents), pruned to
+    ``measure_budget`` by the roofline proxy (:func:`roofline_prune`),
+    the survivors measured with ``measure_fn`` and folded into the
+    archive.  ``seed_points`` (already measured) start the archive.
+
+    Deterministic in ``seed`` for a deterministic ``measure_fn``: every
+    random draw flows from one ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    archive: List[MeasuredPoint] = list(seed_points)
+    seen = {p.config.key() for p in archive}
+    generated = len(archive)
+    measured = len(archive)
+    pruned = 0
+    for gen in range(generations):
+        pool: List[ServingConfig] = []
+        ranked: List[MeasuredPoint] = []
+        if archive:
+            objs = [p.objectives() for p in archive]
+            ranked = [archive[i] for i in _rank_order(objs)]
+        if gen == 0:
+            for cfg in explore_configs:
+                if (check_config(cfg, k, space, corpus) is None
+                        and cfg.key() not in seen):
+                    seen.add(cfg.key())
+                    pool.append(cfg)
+        tries = 0
+        while len(pool) < population and tries < population * 40:
+            tries += 1
+            if gen == 0 or not ranked or rng.random() < 0.25:
+                cand = random_config(rng, k)
+            else:
+                # tournament-of-ranked parents: earlier archive rows are
+                # better (front rank, then crowding)
+                half = max(1, len(ranked) // 2)
+                pa = ranked[int(rng.integers(half))]
+                pb = ranked[int(rng.integers(len(ranked)))]
+                cand = mutate(crossover(pa.config, pb.config, rng, k), rng, k)
+            if check_config(cand, k, space, corpus) is not None:
+                continue
+            if cand.key() in seen:
+                continue
+            seen.add(cand.key())
+            pool.append(cand)
+        generated += len(pool)
+        kept, n_pruned = roofline_prune(
+            pool, measure_budget, n_docs=n_docs, dim=dim, k=k,
+            repeat_fraction=repeat_fraction)
+        pruned += n_pruned
+        if log:
+            log(f"gen {gen}: {len(pool)} candidates, "
+                f"{n_pruned} proxy-pruned, measuring {len(kept)}")
+        for cfg in kept:
+            point = measure_fn(cfg)
+            measured += 1
+            if point is not None:
+                archive.append(point)
+    front = pareto_front(archive)
+    counts = {"generated": generated, "measured": measured, "pruned": pruned}
+    assert counts["pruned"] + counts["measured"] == counts["generated"]
+    return AutotuneResult(front=front, archive=archive, counts=counts)
 
 
 @dataclasses.dataclass(frozen=True)

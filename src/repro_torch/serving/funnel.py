@@ -12,9 +12,10 @@ budgets and per-stage observability:
   :class:`~repro_torch.serving.sharded.ShardedPipeline`; a live-corpus
   generator), an optional learned-weight *fusion* re-ranker, and an
   optional *neural rerank* stage: any objects with
-  ``rerank(q_tokens, cands, keep)`` (``repro``'s ``LinearReranker`` /
-  ``TreeReranker`` and its cross-encoder have no counterparts in the
-  port yet).
+  ``rerank(q_tokens, cands, keep)``, such as
+  :class:`~repro_torch.core.pipeline.LinearReranker` and
+  :class:`~repro_torch.core.pipeline.TreeReranker` (``repro``'s
+  cross-encoder has no counterpart in the port yet).
   ``run`` is bit-identical to the offline
   :func:`~repro_torch.core.pipeline.apply_rerankers` composition —
   verified in ``tests/test_torch_funnel.py`` — so serving through the

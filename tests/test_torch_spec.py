@@ -23,13 +23,13 @@ from repro.serving import spec as jspec
 from repro.serving.funnel import StageBudget as JStageBudget
 from repro_torch.core.backends import CudaBackend, StreamingBackend
 from repro_torch.core.spaces import DenseSpace, FusedSpace
-from repro_torch.serving import autotune as ta
 from repro_torch.serving import (EndpointSpec, MeasuredPoint, RetrievalService, ServingConfig,
                                  StageBudget, TunedProfile, check_config)
 
 pytestmark = pytest.mark.torch
 
 ja = importlib.import_module("repro.serving.autotune")   # repro.serving.autotune is also a function
+ta = importlib.import_module("repro_torch.serving.autotune")   # and so is the port's
 
 # every gene's menu, with values outside it that a legality rule refuses
 DOMAINS = {
