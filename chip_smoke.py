@@ -87,6 +87,7 @@ held to the same rule, f32-min entries aligned exactly.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import statistics
@@ -102,6 +103,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 TOL_REL = 1e-5
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOPS = 67e12                # H100 SXM data sheet, f32 on CUDA cores
+BF16_FLOPS = 989.4e12            # H100 SXM data sheet, dense bf16 on the tensor cores
 BATCHES = 8                      # served batches on the main path
 DEEP_K = 4096                    # the main path's one deep dense request: k above the scan kernels' 2048
 MSMARCO = dict(n=8_841_823, d=768, v=30_522, nnz=128, nnz_q=32, b=16)
@@ -156,6 +158,15 @@ FLEX_EXTRACTORS = (                                 # the composite extractor, a
 # card vs cpu, of each row's largest |feature| (tests/test_torch_scorers.py states why log and exp need more)
 FLEX_FEATURE_TOL = {"TFIDFSimilarity": TOL_REL, "proximity": TOL_REL, "avgWordEmbed": TOL_REL,
                     "model1": 1e-5, "rm3": 1e-5}
+CROSS = dict(arch="smollm-360m", cand=50, keep=10, out_dim=768)   # "cross full": configs/paper_retrieval.py
+                                                                   # interm_qty / final_qty; the dense width
+CROSS_BATCHES, CROSS_QUERIES, CROSS_CLIENTS = 8, 256, 4   # offline batches timed; served host queries; clients
+# "cross full": bf16 against f32 scores of the same weights, of each pair's sum_i |pooled_i * head_i|: a score is
+# the head's dot with the pooled state, so a relative error e of every pooled component moves it by at most e times
+# that sum.  bf16 keeps 8 significant bits (a rounding moves a value by at most 2^-9 of it) and the residual stream
+# takes 2 rounded adds a layer: over smollm's 32 layers the 64 roundings add up to about sqrt(64) x 2^-9 = 2^-6 of
+# the stream as a random walk (1% measured for the pooled state's norm on the CPU at full width), so 2^-6
+CROSS_BF16_TOL = 2.0 ** -6
 AUTOTUNE = dict(generations=2, population=16, measure_budget=4)   # "autotune": the search's settings
 AUTOTUNE_QUERIES, AUTOTUNE_WARM, AUTOTUNE_REQUESTS = 256, 16, 256   # distinct queries, warm-up, workload
 NEG = -3.4028234663852886e38     # f32 min, the mask of invalid candidates
@@ -1844,7 +1855,7 @@ def offline_rows(torch, run, items, tokens, dev, b):
     for lo in range(0, len(items), b):
         q = map_tensors(lambda t: t.to(dev), stack_requests(items[lo:lo + b]))
         out = run(q) if tokens is None else run(q, stack_requests(tokens[lo:lo + b]).to(dev))
-        s, i = out[0].cpu().numpy(), out[1].cpu().numpy()
+        s, i = out[0].float().cpu().numpy(), out[1].cpu().numpy()   # bf16 scores widened, as served
         rows += [(s[r], i[r]) for r in range(b)]
     return rows
 
@@ -2897,6 +2908,294 @@ def flexneuart_full_phase(torch, dev, check, corpus, card, on_card, seed, timer)
     return served_launches
 
 
+class EventTimed:
+    """A reranker whose ``rerank`` calls are bracketed by CUDA events (on
+    the card) while ``events`` is a list; ``ms()`` reads their times."""
+
+    def __init__(self, torch, inner, on_card):
+        self.torch, self.inner, self.on_card, self.events = torch, inner, on_card, []
+
+    def rerank(self, q_tokens, cands, keep):
+        if self.events is None or not self.on_card:
+            return self.inner.rerank(q_tokens, cands, keep)
+        start, end = (self.torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = self.inner.rerank(q_tokens, cands, keep)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def ms(self):
+        if not self.events:
+            return [float("nan")]
+        self.torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+class BatchRecorder:
+    """A funnel pipeline that keeps, for each batch it serves, a copy of
+    its inputs (queries and tokens as the batcher stacked them) and of its
+    answer, so that each served batch can be run again offline."""
+
+    def __init__(self, funnel):
+        self.funnel = funnel
+        self.batches = []
+
+    def __getattr__(self, name):
+        return getattr(self.__dict__["funnel"], name)
+
+    def run_timed(self, query_repr, q_tokens=None, *, elapsed_s=0.0):
+        from repro_torch.core.spaces import map_tensors
+
+        out, trace = self.funnel.run_timed(query_repr, q_tokens, elapsed_s=elapsed_s)
+        self.batches.append((map_tensors(lambda t: t.clone(), query_repr), q_tokens.clone(),
+                             map_tensors(lambda t: t.clone(), out)))
+        return out, trace
+
+
+def cross_flops(cfg, pairs, seq):
+    """Operations of the cross-encoder on ``pairs`` (query ++ passage)
+    sequences of ``seq`` tokens: the projections and the FFN (2 a
+    multiply-add), causal attention (the S(S+1)/2 query-key pairs its mask
+    keeps, twice: scores and values), the head's dot."""
+    d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    per_token = 2 * d * (h * dh + 2 * hkv * dh) + 2 * h * dh * d + 3 * 2 * d * cfg.d_ff
+    attention = 2 * 2 * h * dh * seq * (seq + 1) // 2
+    return pairs * (cfg.n_layers * (seq * per_token + attention) + 2 * d)
+
+
+def cross_full_phase(torch, dev, check, corpus, space, card, on_card, seed, timer, cfg=None, queries=CROSS_QUERIES):
+    """The funnel's neural stage over the resident corpus: smollm-360m as
+    published (``configs/smollm_360m.py``, bf16, random weights from
+    ``init_transformer`` with ``seed``) as a ``CrossEncoderReranker`` over
+    B2's top CROSS["cand"] of each fused query, keeping CROSS["keep"].  A
+    query's tokens are its 32 sparse ids, a passage's its 128 COO ids (the
+    resident ``idx``); the fused query's dense part is ``encode`` of its
+    tokens (out_dim 768).  Batch 0's encoded queries through B1 (dense) and
+    B2 (fused) against their plain versions; the funnel offline, batch by
+    batch after a warm-up (stage times on the host clock; the rerank
+    stage by CUDA events against the cross-encoder's FLOP bound, and the
+    cross-encoder by kernel under the profiler); the same funnel served
+    (``RetrievalService(cache_size=0)``, no budget) to CROSS_CLIENTS
+    threads sending ``queries`` host queries, every answer held to the
+    offline batch of the submission order (where one differs,
+    every served batch is run again on its own inputs and must equal its
+    answer; the difference is reported); batch 0's bf16 scores against the
+    same weights in f32 (TF32 off) within CROSS_BF16_TOL, top-``keep`` ids
+    (and sets) equal on rows with no near tie.
+    ``cfg`` (default: the published config) cuts the model for a CPU
+    rehearsal.  Returns the launches by kernel."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import BruteForceGenerator
+    from repro_torch.core.sparse import SparseVectors
+    from repro_torch.core.spaces import FusedVectors, map_tensors
+    from repro_torch.distributed.sharding import ParallelCtx
+    from repro_torch.kernels import fused_topk as fk
+    from repro_torch.kernels import mips_topk as mk
+    from repro_torch.kernels import ref as plain
+    from repro_torch.models.encoder import CrossEncoderReranker, encode, make_proxy_scorer
+    from repro_torch.models.transformer import init_transformer
+    from repro_torch.serving import EndpointSpec, FunnelPipeline, RetrievalService
+
+    t_phase = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(CROSS["arch"]) if cfg is None else cfg
+    n, d = corpus.dense.shape
+    v, b, nnz_q = space.vocab_size, MSMARCO["b"], MSMARCO["nnz_q"]
+    cand, keep = CROSS["cand"], CROSS["keep"]
+    idx = corpus.sparse.indices
+    assert int(idx.max()) < cfg.vocab_size, "passage ids beyond the model's vocabulary"
+    t0 = time.perf_counter()
+    model, _ = init_transformer(cfg, seed=seed, device=dev)
+    model.requires_grad_(False)
+    sync(torch, on_card)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    ctx = ParallelCtx(None, cfg.rules)
+    counters = {"mips_topk": mk, "fused_topk": fk}
+    for m in counters.values():
+        m.launches = 0
+
+    # ---- the encoder path: each query's dense part is encode(its tokens)
+    def fused_batch(i):
+        _, qi, qv = make_queries(torch, b, d, v, nnz_q, seed + 100 + i, dev, planted=False)
+        qe = encode(model, qi, cfg, ctx, out_dim=CROSS["out_dim"])
+        return FusedVectors(qe.float(), SparseVectors(qi, qv)), qi
+
+    q0, tok0 = fused_batch(0)
+    encode_ms = timer(lambda: encode(model, tok0, cfg, ctx, out_dim=CROSS["out_dim"]), 5)
+    assert q0.dense.shape == (b, d) and bool(torch.isfinite(q0.dense).all())
+    norms = q0.dense.norm(dim=1)
+    assert bool(((norms - 1).abs() < 2e-2).all()), f"encoded queries are not unit vectors: {norms.tolist()}"
+    w = dict(w_dense=space.w_dense, w_sparse=space.w_sparse)
+    table = plain.query_table(q0.sparse, v)
+    b1 = mk.mips_topk(q0.dense, corpus.dense, 100)
+    b2 = fk.fused_topk(table, q0.dense, idx, corpus.sparse.values, corpus.dense, 100, **w)
+    check("mips_topk", "cross full: encoded queries, dense k=100", b1,
+          plain.mips_topk_ref(q0.dense, corpus.dense, 100, tile_n=1 << 18), exact_ids=False)
+    check("fused_topk", "cross full: encoded fused queries k=100", b2,
+          plain.fused_topk_table_ref(table, q0.dense, idx, corpus.sparse.values, corpus.dense, 100,
+                                     tile_n=1 << 16, **w), exact_ids=False)
+
+    # ---- the funnel offline: B2's top `cand`, then the cross-encoder
+    gen = BruteForceGenerator(space, corpus, backend="cuda")
+    reranker = EventTimed(torch, CrossEncoderReranker(model, cfg, ctx, idx), on_card)
+    funnel = FunnelPipeline(gen, rerank=reranker, cand_qty=cand, fusion_qty=cand, rerank_keep=keep)
+    batches = [fused_batch(1 + i) for i in range(queries // b)]
+    funnel.run(*batches[0])                                        # warm-up
+    reranker.events.clear()
+    stages, results = [], []
+    for q, tok in batches:
+        sync(torch, on_card)
+        t0 = time.perf_counter()
+        out, trace = funnel.run_timed(q, tok)
+        sync(torch, on_card)
+        stages.append((1e3 * (time.perf_counter() - t0), 1e3 * trace.candgen_s, 1e3 * trace.rerank_s))
+        results.append(out)
+        assert out.indices.shape == (b, keep) and bool(torch.isfinite(out.scores).all())
+    timed = stages[:CROSS_BATCHES]
+    ce_ms = statistics.median(reranker.ms()[:CROSS_BATCHES])
+    reranker.events = None                 # served batches are not timed
+    # the cross-encoder alone on batch 0's candidates under the profiler, by kernel; its bf16 scores (all
+    # `cand` a query) are kept for the f32 comparison below
+    tok0, ids0 = batches[0][1], gen.generate(batches[0][0], cand).indices
+    scorer, box = make_proxy_scorer(model, cfg, ctx, idx), {}
+    if on_card:
+        kernels_ms = device_profile(torch, lambda: box.__setitem__("s16", scorer(tok0, ids0)), by_kernel=True)[0]
+    else:
+        kernels_ms, box["s16"] = {}, scorer(tok0, ids0)
+    s16 = box["s16"].float()
+    flops = cross_flops(cfg, b * cand, nnz_q + MSMARCO["nnz"])
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    bound_ms = max(flops / BF16_FLOPS, weight_bytes / HBM_BYTES_PER_S) * 1e3
+    peak_offline = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
+
+    # ---- served: one endpoint, no budget, every batch reranked
+    items, tokens = [], []
+    for q, tok in batches:
+        host = map_tensors(lambda t: t.cpu(), q)
+        items += [FusedVectors(host.dense[r], SparseVectors(host.sparse.indices[r], host.sparse.values[r]))
+                  for r in range(b)]
+        tokens += list(tok.cpu())
+    offline = [(r.scores[i].float().cpu().numpy(), r.indices[i].cpu().numpy()) for r in results for i in range(b)]
+    pad = FusedVectors(torch.zeros(d, device=dev), SparseVectors(
+        torch.full((nnz_q,), v, dtype=torch.int32, device=dev), torch.zeros(nnz_q, device=dev)))
+    pad_tok = torch.full((nnz_q,), v, dtype=torch.int32, device=dev)
+    recorder = BatchRecorder(funnel)
+    spec = EndpointSpec(batch_size=b, max_wait_s=0.01, max_queue=128, overload="block")
+    before_serve = fk.launches
+    with RetrievalService(cache_size=0) as svc:
+        svc.register_pipeline("cross", recorder, pad, pad_tok, spec=spec)
+        box = {}
+
+        def run():
+            box["out"] = flood(svc, "cross", items, tokens, CROSS_CLIENTS)
+
+        idle = "not measured"
+        if on_card:
+            groups, span_ms, _ = device_profile(torch, run)
+            if groups:
+                idle = f"{max(0.0, 1.0 - sum(groups.values()) / span_ms):.3f}"
+        else:
+            run()
+        got, wall = box["out"]
+        ep = svc.snapshot().endpoints["cross"]
+    launches = {k: m.launches for k, m in counters.items()}
+    served_b2 = fk.launches - before_serve
+    reranks = ep.stages["rerank"].count
+    assert reranks == ep.n_batches == len(recorder.batches), (reranks, ep.n_batches, len(recorder.batches))
+    assert ep.stage_fallbacks["rerank"] == 0 and ep.n_requests == len(items)
+    if on_card:
+        assert served_b2 == ep.n_batches, f"served B2 launches {served_b2} for {ep.n_batches} batches"
+        assert all(c > 0 for c in launches.values()), launches
+    # every answer against the offline batch of the submission order; where one differs, the pairs'
+    # results may depend on their place in the batch: every served batch is then run again offline on its
+    # own inputs and must equal its served answer bit for bit, and the difference is reported
+    differ = [i for i, row in enumerate(got) if not same_row(row, offline[i])]
+    worst = max((float(np.abs(got[i][0].astype(np.float64) - offline[i][0]).max()) for i in differ), default=0.0)
+    ids_differ = sum(not np.array_equal(got[i][1], offline[i][1]) for i in differ)
+    if differ:
+        sync(torch, on_card)          # the copies were made on the worker's stream
+        for q, tok, out in recorder.batches:
+            again = funnel.run(q, tok)
+            assert torch.equal(again.indices, out.indices) and torch.equal(
+                again.scores.float().view(torch.int32), out.scores.float().view(torch.int32)), \
+                "cross full: a served batch differs from its offline run on the same inputs"
+
+    # ---- batch 0's bf16 scores against the same weights in f32, TF32 off
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 is on: the f32 reference would round to 10 bits"
+    model32 = copy.deepcopy(model).float()
+    model32.cfg = dataclasses.replace(cfg, dtype="float32")
+    with torch.no_grad():   # cross_encoder_score in f32, and each pair's sum_i |pooled_i * head_i|
+        joint = torch.cat([tok0.repeat_interleave(cand, dim=0), idx[ids0.reshape(-1).long()]], 1)
+        pooled = model32(joint)[0].mean(1)
+        head = model32.embed[0]
+        s32, scale = (pooled @ head).reshape(b, cand), (pooled.abs() @ head.abs()).reshape(b, cand)
+    del model32, pooled, joint
+    err = (s16 - s32).abs()
+    ratio = float((err / scale).max())
+    assert ratio <= CROSS_BF16_TOL, f"cross full: bf16 vs f32 error {ratio:.3g} of the dot's scale > {CROSS_BF16_TOL}"
+    order16 = torch.argsort(s16, dim=1, descending=True, stable=True)
+    order32 = torch.argsort(s32, dim=1, descending=True, stable=True)
+    # a near tie, where the errors measured could swap two candidates: two neighbours among a row's best
+    # keep f32 scores closer than their two errors, or the keep-th closer to the next than its error plus
+    # the row's largest; on a row without one, the bf16 top-keep ids must equal the f32 ones
+    top32 = torch.gather(s32, 1, order32[:, :keep + 1])
+    e_top = torch.gather(err, 1, order32[:, :keep + 1])
+    gaps = top32[:, :-1] - top32[:, 1:]
+    near = (gaps[:, :-1] <= e_top[:, :-2] + e_top[:, 1:-1]).any(1) | (gaps[:, -1] <= e_top[:, -2] + err.amax(1))
+    same = (order16[:, :keep] == order32[:, :keep]).all(1)
+    assert bool((same | near).all()), "cross full: bf16 and f32 top ids differ on a row with no near tie"
+    # the top-keep as a set: only the keep-th against the next can part them
+    near_set = gaps[:, -1] <= e_top[:, -2] + err.amax(1)
+    same_set = (order16[:, :keep].sort(1).values == order32[:, :keep].sort(1).values).all(1)
+    assert bool((same_set | near_set).all()), "cross full: bf16 and f32 top sets differ with no near tie"
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
+
+    med = [statistics.median(x) for x in zip(*timed)]
+    e2e = ep.e2e
+    log(f"phase cross full: {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads / "
+        f"{cfg.n_kv_heads} KV, head dim {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}, tied: {cfg.tie_embeddings}), {n_params:,} parameters ({weight_bytes / 1e9:.3f} GB) drawn on "
+        f"{dev} in {init_s:.2f} s from seed {seed}; over the resident corpus (n={n}), B2 top {cand} -> "
+        f"cross-encoder top {keep}: {b * cand} pairs of {nnz_q} + {MSMARCO['nnz']} tokens a batch of {b}")
+    log(f"  encode (B={b}, {nnz_q} tokens, out_dim {CROSS['out_dim']}; CUDA events, median of 5) {encode_ms:.3f} ms; "
+        f"batch 0's encoded queries: B1 dense and B2 fused top-100 equal their plain versions (tolerance "
+        f"{TOL_REL} of row scale)")
+    log(f"  offline funnel, {len(timed)} batches after a warm-up (host clock, synchronised, median): whole "
+        f"{med[0]:.3f} ms, candidates (B2) {med[1]:.3f} ms, rerank {med[2]:.3f} ms; the rerank stage by CUDA "
+        f"events (median of the same batches) {ce_ms:.3f} ms against a bound of {bound_ms:.3f} ms "
+        f"({flops / 1e12:.2f} TFLOP at {BF16_FLOPS / 1e12:.1f} TFLOP/s dense bf16: projections, FFN, the causal "
+        f"half of attention; the plain attention computes every query-key pair in f32): "
+        f"{flops / (ce_ms / 1e3) / 1e12 if ce_ms == ce_ms else float('nan'):.1f} TFLOP/s; peak "
+        f"{peak_offline:.2f} GB allocated; under the profiler, device ms by kernel (the 8 largest of "
+        f"{sum(kernels_ms.values()):.1f}): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:8]))
+    log(f"  served ({CROSS_CLIENTS} clients, {len(items)} host queries, no cache, no budget): "
+        f"{len(items) / wall:.1f} qps, e2e p50 {e2e.p50_ms:.3f} ms p99 {e2e.p99_ms:.3f} ms, exec "
+        f"{ep.execute.p50_ms:.3f} ms/batch (p50), {ep.n_batches} batches (fill {ep.mean_batch_fill:.3f}), "
+        f"rerank run in {reranks}, idle {idle}; against the offline batches of the submission order: "
+        f"{len(items) - len(differ)} of {len(items)} answers equal in ids and score bits"
+        + (f", {len(differ)} differ (ids in {ids_differ}; worst |score difference| {worst:.6g}): the pairs' "
+           f"scores depend on their place in the batch; every served batch equals its offline run on the same "
+           f"inputs" if differ else "")
+        + f"; launches {launches} (B2 {served_b2} served)")
+    log(f"  bf16 vs f32 (batch 0, {b * cand} pairs, TF32 off): worst |error| {float(err.max()):.6g}, "
+        f"{ratio:.4g} of the pair's sum |pooled_i head_i| (bound {CROSS_BF16_TOL}); top-{keep} ids equal on "
+        f"{int(same.sum())} of {b} rows, {int((~same & near).sum())} differing rows near a tie, "
+        f"{int(near.sum())} rows with a near tie (neighbours among the best {keep + 1} f32 scores within their "
+        f"errors); top-{keep} sets equal on {int(same_set.sum())} rows, {int(near_set.sum())} rows near a tie at "
+        f"the {keep}-th; peak {peak:.2f} GB allocated; phase "
+        f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    del model, reranker, funnel, recorder, gen
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches
+
+
 def thresholds_near(torch, feats, ensemble, tol=1e-5):
     """(pairs of a feature value and a split threshold on that feature that
     are equal, pairs within ``tol`` of the feature's scale but not equal):
@@ -3392,6 +3691,14 @@ def main() -> int:
                     args.seed + 22)
     serve_launches = serve_full_phase(torch, dev, check, corpus, space, card, on_card, args.seed + 23)
     flex_launches = flexneuart_full_phase(torch, dev, check, corpus, card, on_card, args.seed + 24, timer)
+    # the funnel's neural stage: smollm-360m as published on the card; a rehearsal on the CPU cuts it to one
+    # layer of a narrow FFN (the dense width stays 960 >= the encoded 768)
+    cross_cfg = None
+    if not on_card:
+        from repro_torch.configs import get_config
+        cross_cfg = dataclasses.replace(get_config(CROSS["arch"]), n_layers=1, d_ff=64)
+    cross_launches = cross_full_phase(torch, dev, check, corpus, space, card, on_card, args.seed + 25, timer,
+                                      cross_cfg, CROSS_QUERIES if on_card else 2 * MSMARCO["b"])
     # release the 36 GB corpus: the pipelines, the checks and the ANN
     # index cache all hold it
     del dense, idx, val, corpus, batches, q, pipe, dense_gen, results, dense_results, fused_args
@@ -3411,9 +3718,9 @@ def main() -> int:
     kernels.append({"name": "fused_score", "route": "cuda", "source": SOURCES[2],
                     "replaces": "src/repro/kernels/sparse_dense.py:61", "launches": score_launches,
                     "max_abs_err": check.max_err["fused_score"], **score, "library_ms": None})
-    for k in kernels:    # the main path's launches, the served passes', FlexNeuART's and the search's
+    for k in kernels:    # the main path's launches, the served passes', FlexNeuART's, the cross-encoder's, the search's
         k["launches"] += (serve_launches.get(k["name"], 0) + flex_launches.get(k["name"], 0)
-                          + tune_launches.get(k["name"], 0))
+                          + cross_launches.get(k["name"], 0) + tune_launches.get(k["name"], 0))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if not on_card:

@@ -22,7 +22,7 @@ from repro_torch.device import resolve_device
 
 __all__ = ["tensor", "to_numpy", "sparse_vectors", "fused_vectors",
            "fused_space", "graph_index", "napp_index", "forward_index",
-           "inverted_index", "tree_ensemble"]
+           "inverted_index", "tree_ensemble", "transformer_params"]
 
 
 def tensor(array, device=None, *, bf16: bool = False) -> torch.Tensor:
@@ -111,3 +111,66 @@ def tree_ensemble(feat, thresh, leaves, lr: float, device=None) -> ObliviousTree
     return ObliviousTreeEnsemble(tensor(np.asarray(feat, np.int32), device),
                                  tensor(np.asarray(thresh, np.float32), device),
                                  tensor(np.asarray(leaves, np.float32), device), float(lr))
+
+
+def transformer_params(params, cfg, device=None):
+    """The port's ``models.transformer.Transformer`` holding the weights of
+    ``repro``'s parameter tree ``params`` (nested dicts of numpy arrays,
+    bf16 as ``uint16`` bits) for the config ``cfg``.
+
+    The reference stacks the blocks on a leading layer axis
+    (``init_transformer``'s vmap); they are split here, one ``Block`` a
+    layer.  Layouts stay the reference's einsum layouts (``wq [d, h, dh]``,
+    ``wo [h, dh, d]``, ``wq_b [r, h, k]``), so no array is transposed.
+    Every array must have the shape and dtype that the port's own
+    ``init_transformer(cfg)`` gives, and no name may be missing or extra;
+    anything else raises ``ValueError``."""
+    from repro_torch.models import transformer as T
+
+    want, _ = T.init_transformer(cfg, device="meta")
+    dev = resolve_device(device)
+    dtype = T.torch_dtype(cfg.dtype)
+
+    def carry(tree, like, where):
+        if isinstance(like, torch.Tensor):
+            a = np.asarray(tree)
+            t = tensor(a, dev, bf16=dtype == torch.bfloat16)
+            if tuple(t.shape) != tuple(like.shape) or t.dtype != like.dtype:
+                raise ValueError(f"{where}: {t.dtype}{tuple(t.shape)} where the port "
+                                 f"keeps {like.dtype}{tuple(like.shape)}")
+            return t
+        if not isinstance(tree, dict) or set(tree) != set(like.keys()):
+            raise ValueError(f"{where}: names {sorted(tree) if isinstance(tree, dict) else tree!r} "
+                             f"where the port keeps {sorted(like.keys())}")
+        return {k: carry(tree[k], like[k], f"{where}.{k}") for k in like.keys()}
+
+    top = {"embed", "blocks", "ln_f"} | ({"lm_head"} if want.lm_head is not None else set())
+    if set(params) != top:
+        raise ValueError(f"params: names {sorted(params)} where the port keeps {sorted(top)}")
+
+    def layer(tree, i):
+        if not isinstance(tree, dict):
+            a = np.asarray(tree)
+            if a.ndim == 0 or a.shape[0] != cfg.n_layers:
+                raise ValueError(f"blocks: a leaf of shape {a.shape} where the port splits "
+                                 f"a leading layer axis of {cfg.n_layers}")
+            return a[i]
+        return {k: layer(v, i) for k, v in tree.items()}
+
+    blocks = [T.Block(carry(layer(params["blocks"], i), _tree(want.blocks[i]), f"blocks[{i}]"))
+              for i in range(cfg.n_layers)]
+    lm_head = None if want.lm_head is None else carry(params["lm_head"], want.lm_head, "lm_head")
+    return T.Transformer(cfg, carry(params["embed"], want.embed, "embed"), blocks,
+                         carry(params["ln_f"], _tree(want.ln_f), "ln_f"), lm_head)
+
+
+def _tree(module) -> dict:
+    """A module's parameters as the nested dict of its names."""
+    out = {}
+    for name, p in module.named_parameters():
+        *path, leaf = name.split(".")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = p
+    return out

@@ -1,0 +1,285 @@
+"""Composable transformer layers: norms, SwiGLU, RoPE, GQA + MLA attention
+(counterpart of ``repro/models/layers.py``).
+
+``init_*`` returns ``(params, axes)``: two parallel nested dicts, the
+first of tensors, the second of *logical axis names* per parameter dim
+(see ``repro_torch.distributed.sharding``).  Draws come from an explicit
+``torch.Generator`` with the reference's distributions and scales; they
+cannot reproduce ``jax.random``, so parity with ``repro`` goes through
+``interop.transformer_params``, never through equal draws.  The apply
+functions take any mapping of tensors (a dict, an ``nn.ParameterDict``)
+in the reference's einsum layouts (``wq [d, h, dh]``, ``wo [h, dh, d]``)
+and a ``ParallelCtx``.
+
+Attention is the reference's chunked online-softmax ("flash")
+formulation in plain PyTorch, with its arithmetic: ``q`` scaled in its
+own dtype, f32 scores and probabilities, masks at f32-min (not -inf),
+the probabilities cast to ``v``'s dtype before the PV product (which
+accumulates in f32), the output divided by ``max(l, 1e-30)``.  A bf16
+product with an f32 result is taken as an f32 product of the widened
+operands: a product of two bf16 values is exact in f32.  Head-count
+padding multiplies padded heads by a zero mask, so semantics match the
+unpadded model exactly.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import TransformerConfig
+from repro_torch.distributed.sharding import ParallelCtx
+
+__all__ = ["dense_init", "rmsnorm_init", "rmsnorm", "apply_rope", "flash_attention",
+           "gqa_init", "gqa_apply", "mla_init", "mla_apply", "swiglu_init", "swiglu_apply"]
+
+
+# ---------------------------------------------------------------------------
+# Param init helpers.
+# ---------------------------------------------------------------------------
+
+def _normal(gen: torch.Generator, shape, scale: float, dtype, device=None) -> torch.Tensor:
+    """f32 standard normal draws times ``scale``, cast to ``dtype``, on
+    ``device`` (default: the generator's; a CPU generator serves the
+    ``meta`` device, which draws nothing)."""
+    device = gen.device if device is None else device
+    return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+
+
+def dense_init(gen, in_dim: int, out_shape: Tuple[int, ...], axes, dtype, device=None):
+    shape = (in_dim, *out_shape)
+    return _normal(gen, shape, 1.0 / math.sqrt(in_dim), dtype, device), axes
+
+
+# ---------------------------------------------------------------------------
+# Norms.
+# ---------------------------------------------------------------------------
+
+def rmsnorm_init(d: int, dtype, device=None) -> Tuple[dict, dict]:
+    return {"scale": torch.ones(d, dtype=dtype, device=device)}, {"scale": ("embed",)}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Normalised in f32, cast back to ``x``'s dtype, then scaled in it."""
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps)).to(dt) * params["scale"]
+
+
+# ---------------------------------------------------------------------------
+# RoPE.
+# ---------------------------------------------------------------------------
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [B, S, H, D] (D even), positions: [B, S] or [S].  Half-split
+    rotation (the first half of D pairs with the second), in f32."""
+    d = x.shape[-1]
+    freqs = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d))
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].float() * freqs                   # [B, S, D/2]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Chunked (flash-style) attention — plain PyTorch online softmax.
+# ---------------------------------------------------------------------------
+
+def flash_attention(
+    q: torch.Tensor,            # [B, Sq, H, Dk]
+    k: torch.Tensor,            # [B, Skv, H, Dk]
+    v: torch.Tensor,            # [B, Skv, H, Dv]
+    *,
+    causal: bool = True,
+    q_offset: int = 0,
+    chunk_q: int = 1024,
+    chunk_kv: int = 1024,
+    kv_valid_len: Optional[torch.Tensor] = None,   # [B]: mask keys >= this
+) -> torch.Tensor:
+    b, sq, h, dk = q.shape
+    skv, dv = k.shape[1], v.shape[-1]
+    cq = min(chunk_q, sq)
+    ckv = min(chunk_kv, skv)
+    assert sq % cq == 0 and skv % ckv == 0, (sq, cq, skv, ckv)
+    nq, nk = sq // cq, skv // ckv
+    dev = q.device
+    # the scale rounded to q's dtype first, as JAX rounds a Python scalar
+    # into a bf16 product (rounded on the host: no copy to the card)
+    q = q * torch.tensor(1.0 / math.sqrt(dk), dtype=q.dtype).item()
+    neg = torch.finfo(torch.float32).min
+
+    outs = []
+    for qi in range(nq):
+        qc = q[:, qi * cq:(qi + 1) * cq].float()
+        qpos = q_offset + qi * cq + torch.arange(cq, device=dev)
+        m = torch.full((b, h, cq), -torch.inf, device=dev)
+        l = torch.zeros((b, h, cq), device=dev)
+        acc = torch.zeros((b, h, cq, dv), device=dev)
+        for ki in range(nk):
+            kc = k[:, ki * ckv:(ki + 1) * ckv].float()
+            vc = v[:, ki * ckv:(ki + 1) * ckv]
+            s = torch.einsum("bqhd,bkhd->bhqk", qc, kc)
+            kpos = ki * ckv + torch.arange(ckv, device=dev)
+            if causal:
+                s = s.masked_fill_(qpos[:, None] < kpos[None, :], neg)
+            if kv_valid_len is not None:
+                s = s.masked_fill_(kpos[None, None, None, :] >= kv_valid_len[:, None, None, None], neg)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(v.dtype).float(), vc.float())
+            m = m_new
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]
+        outs.append(out.permute(0, 2, 1, 3).to(v.dtype))          # [B, cq, H, Dv]
+    return outs[0] if nq == 1 else torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention (with optional QKV bias — qwen2.5).
+# ---------------------------------------------------------------------------
+
+def gqa_init(gen, cfg: TransformerConfig, dtype, device=None):
+    d, dh = cfg.d_model, cfg.resolved_head_dim
+    hp, hkv = cfg.padded_heads, cfg.n_kv_heads
+    dev = gen.device if device is None else device
+    p, a = {}, {}
+    p["wq"], a["wq"] = dense_init(gen, d, (hp, dh), ("embed", "heads", None), dtype, dev)
+    p["wk"], a["wk"] = dense_init(gen, d, (hkv, dh), ("embed", "kv_heads", None), dtype, dev)
+    p["wv"], a["wv"] = dense_init(gen, d, (hkv, dh), ("embed", "kv_heads", None), dtype, dev)
+    p["wo"], _ = dense_init(gen, hp * dh, (d,), None, dtype, dev)
+    p["wo"] = p["wo"].reshape(hp, dh, d)
+    a["wo"] = ("heads", None, "embed")
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((hp, dh), dtype=dtype, device=dev); a["bq"] = ("heads", None)
+        p["bk"] = torch.zeros((hkv, dh), dtype=dtype, device=dev); a["bk"] = ("kv_heads", None)
+        p["bv"] = torch.zeros((hkv, dh), dtype=dtype, device=dev); a["bv"] = ("kv_heads", None)
+    return p, a
+
+
+def _head_mask(cfg: TransformerConfig, dtype, device=None) -> Optional[torch.Tensor]:
+    """Zero-mask for TP head padding.  GQA pads *within each KV group* so
+    the padded head -> KV group mapping (h // group_size) matches the
+    unpadded model exactly: real head (g, w) sits at g*gpad + w."""
+    hp = cfg.padded_heads
+    if hp == cfg.n_heads:
+        return None
+    heads = torch.arange(hp, device=device)
+    if cfg.attention == "mla":
+        return (heads < cfg.n_heads).to(dtype)
+    hkv = cfg.n_kv_heads
+    assert hp % hkv == 0, f"pad_heads_to {hp} must be a multiple of kv heads {hkv}"
+    gpad = hp // hkv
+    rep_real = cfg.n_heads // hkv
+    return ((heads % gpad) < rep_real).to(dtype)
+
+
+def _attend_out(params, out, cfg: TransformerConfig) -> torch.Tensor:
+    """Padded heads zeroed, then the output projection ``wo [h, dv, d]``."""
+    hm = _head_mask(cfg, out.dtype, out.device)
+    if hm is not None:
+        out = out * hm[None, None, :, None]
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+
+
+def gqa_apply(params, x, positions, cfg: TransformerConfig, ctx: ParallelCtx,
+              causal=True, q_offset=0):
+    """Training/prefill attention over full sequences."""
+    hp, hkv = cfg.padded_heads, cfg.n_kv_heads
+    rep = hp // hkv
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    q = ctx.constrain(q, "batch", None, "heads", None)
+    k = torch.repeat_interleave(k, rep, dim=2)      # jnp.repeat: each KV head rep times in place
+    v = torch.repeat_interleave(v, rep, dim=2)
+    out = flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                          chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
+    return _attend_out(params, out, cfg)
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (MiniCPM3 / DeepSeek-V2 style).
+# ---------------------------------------------------------------------------
+
+def mla_init(gen, cfg: TransformerConfig, dtype, device=None):
+    d = cfg.d_model
+    hp = cfg.padded_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    dev = gen.device if device is None else device
+    p, a = {}, {}
+    p["wq_a"], a["wq_a"] = dense_init(gen, d, (qr,), ("embed", None), dtype, dev)
+    p["q_norm"], a["q_norm"] = {"scale": torch.ones(qr, dtype=dtype, device=dev)}, {"scale": (None,)}
+    p["wq_b"], a["wq_b"] = dense_init(gen, qr, (hp, dn + dr), (None, "heads", None), dtype, dev)
+    p["wkv_a"], a["wkv_a"] = dense_init(gen, d, (kvr + dr,), ("embed", None), dtype, dev)
+    p["kv_norm"], a["kv_norm"] = {"scale": torch.ones(kvr, dtype=dtype, device=dev)}, {"scale": (None,)}
+    p["wk_b"], a["wk_b"] = dense_init(gen, kvr, (hp, dn), (None, "heads", None), dtype, dev)
+    p["wv_b"], a["wv_b"] = dense_init(gen, kvr, (hp, dv), (None, "heads", None), dtype, dev)
+    p["wo"], _ = dense_init(gen, hp * dv, (d,), None, dtype, dev)
+    p["wo"] = p["wo"].reshape(hp, dv, d)
+    a["wo"] = ("heads", None, "embed")
+    return p, a
+
+
+def _mla_qkv(params, x, positions, cfg: TransformerConfig):
+    dn = cfg.qk_nope_head_dim
+    kvr = cfg.kv_lora_rank
+    cq = rmsnorm(params["q_norm"], torch.einsum("bsd,dr->bsr", x, params["wq_a"]), cfg.norm_eps)
+    q = torch.einsum("bsr,rhk->bshk", cq, params["wq_b"])
+    q_nope, q_pe = q[..., :dn], q[..., dn:]
+    q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
+
+    ckv_pe = torch.einsum("bsd,dr->bsr", x, params["wkv_a"])
+    ckv, k_pe = ckv_pe[..., :kvr], ckv_pe[..., kvr:]
+    ckv = rmsnorm(params["kv_norm"], ckv, cfg.norm_eps)
+    k_pe = apply_rope(k_pe[:, :, None, :], positions, cfg.rope_theta)  # [B,S,1,dr]
+    return q_nope, q_pe, ckv, k_pe
+
+
+def mla_apply(params, x, positions, cfg: TransformerConfig, ctx: ParallelCtx,
+              causal=True, q_offset=0):
+    """Training/prefill MLA: expand latents to per-head K/V, flash attend."""
+    dr = cfg.qk_rope_head_dim
+    q_nope, q_pe, ckv, k_pe = _mla_qkv(params, x, positions, cfg)
+    k_nope = torch.einsum("bsr,rhk->bshk", ckv, params["wk_b"])
+    v = torch.einsum("bsr,rhk->bshk", ckv, params["wv_b"])
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([k_nope, k_pe.expand(*k_nope.shape[:3], dr)], dim=-1)
+    q = ctx.constrain(q, "batch", None, "heads", None)
+    out = flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                          chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
+    return _attend_out(params, out, cfg)
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU FFN.
+# ---------------------------------------------------------------------------
+
+def swiglu_init(gen, d: int, d_ff: int, dtype, device=None):
+    dev = gen.device if device is None else device
+    p, a = {}, {}
+    p["w_in"], a["w_in"] = dense_init(gen, d, (d_ff,), ("embed", "ff"), dtype, dev)
+    p["w_gate"], a["w_gate"] = dense_init(gen, d, (d_ff,), ("embed", "ff"), dtype, dev)
+    p["w_out"], a["w_out"] = dense_init(gen, d_ff, (d,), ("ff", "embed"), dtype, dev)
+    return p, a
+
+
+def swiglu_apply(params, x):
+    """``silu(x @ w_gate) * (x @ w_in) @ w_out``; silu as ``jax.nn.silu``
+    writes it, ``g * sigmoid(g)``, each step rounded to ``x``'s dtype."""
+    g = x @ params["w_gate"]
+    h = g * torch.sigmoid(g) * (x @ params["w_in"])
+    return h @ params["w_out"]

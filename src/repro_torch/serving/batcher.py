@@ -132,9 +132,14 @@ def _pad_out(real, pad, n_pad: int):
 
 def _host(x) -> np.ndarray:
     """One leaf of a batch's result as numpy; a CUDA tensor's copy waits
-    for the current stream, which is where the worker synchronises."""
+    for the current stream, which is where the worker synchronises.
+    numpy has no bf16: a sub-f32 float (a bf16 cross-encoder's scores) is
+    widened to f32, which is exact."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach()
+        if x.is_floating_point() and x.element_size() < 4:
+            x = x.float()
+        return x.cpu().numpy()
     return np.asarray(x)
 
 

@@ -13,9 +13,9 @@ budgets and per-stage observability:
   generator), an optional learned-weight *fusion* re-ranker, and an
   optional *neural rerank* stage: any objects with
   ``rerank(q_tokens, cands, keep)``, such as
-  :class:`~repro_torch.core.pipeline.LinearReranker` and
-  :class:`~repro_torch.core.pipeline.TreeReranker` (``repro``'s
-  cross-encoder has no counterpart in the port yet).
+  :class:`~repro_torch.core.pipeline.LinearReranker`,
+  :class:`~repro_torch.core.pipeline.TreeReranker` and the
+  cross-encoder :class:`~repro_torch.models.encoder.CrossEncoderReranker`.
   ``run`` is bit-identical to the offline
   :func:`~repro_torch.core.pipeline.apply_rerankers` composition —
   verified in ``tests/test_torch_funnel.py`` — so serving through the
