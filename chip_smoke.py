@@ -63,7 +63,13 @@ forward index of its COO ids, BM25 vectors and the inverted index built
 on the card, Model 1 trained at full vocabulary, a linear and a tree
 reranker learned on planted queries, and held-out batches served through
 the pipeline of a Fig. 4 experiment descriptor (B2's candidates, then the
-rerankers), the inverted index alone, and the paper's candQty = 2,000.  Each
+rerankers), the inverted index alone, and the paper's candQty = 2,000.  After the corpus's release, the
+recommendation family ("recsys full": DIN as published, 100M items, user
+queries through B1 in f32 and bf16 and B2 over item tags, the example's
+funnel served; wide-deep, DIEN and BST's logits against f64) and the
+molecule family ("molecule full": SchNet as published embedding 1,048,576
+molecules, searched through B3 with B1 on the entry set, the funnel
+served).  Each
 served path runs with the launch counters set to 0 just before and read
 just after.  The last lines are the ``kernels`` JSON, the card's name and
 power limit, and ``{"ok": true, ...}``.  Any failure raises and exits
@@ -88,6 +94,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -167,6 +174,21 @@ CROSS_BATCHES, CROSS_QUERIES, CROSS_CLIENTS = 8, 256, 4   # offline batches time
 # takes 2 rounded adds a layer: over smollm's 32 layers the 64 roundings add up to about sqrt(64) x 2^-9 = 2^-6 of
 # the stream as a random walk (1% measured for the pooled state's norm on the CPU at full width), so 2^-6
 CROSS_BF16_TOL = 2.0 ** -6
+# "recsys full": DIN as published (configs/din.py) serving candidate generation, the examples/recsys_candidates.py
+# settings: users a batch, tag vocabulary, tags a user, the fused space's weights, k, the candidates of the
+# retrieval_cand shape (configs/base.py RECSYS_SHAPES), served users and clients, the funnel's widths
+RECSYS = dict(arch="din", b=16, tags=50, user_tags=3, w_dense=1.0, w_sparse=0.5, k=100, cand=1_000_000,
+              served=256, clients=4, cand_qty=50, fusion_qty=30, keep=20)
+RECSYS_OTHERS, RECSYS_OTHER_B = ("wide-deep", "dien", "bst"), 512   # forward_logits at serve_p99's batch
+# "molecule full": SchNet as published (configs/schnet.py), the examples/molecule_retrieval.py settings: molecules,
+# atoms a molecule, template families, the perturbation, radius_graph's k, molecules an embedding batch, served
+# queries and clients, the funnel's widths
+MOLECULE = dict(mols=1_048_576, atoms=30, families=1024, sigma=0.05, k_graph=6, batch=4096, queries=256,
+                clients=4, served_b=32, cand_qty=24, keep=6)
+# the graph over the molecules' half-embeddings keeps one component a family (near duplicates link only to
+# each other): an evenly spread entry set of sqrt(N) = 1,024 ids misses a family with probability e^-1, 16 ids
+# a family (16,384) with e^-16
+MOLECULE_ENTRIES = 16_384
 AUTOTUNE = dict(generations=2, population=16, measure_budget=4)   # "autotune": the search's settings
 AUTOTUNE_QUERIES, AUTOTUNE_WARM, AUTOTUNE_REQUESTS = 256, 16, 256   # distinct queries, warm-up, workload
 NEG = -3.4028234663852886e38     # f32 min, the mask of invalid candidates
@@ -3385,6 +3407,567 @@ def autotune_phase(torch, dev, check, space, corpus, card, on_card, seed):
     return launches
 
 
+def recsys_batch(torch, cfg, b, g, dev, n_cand=0):
+    """``tests/test_models_smoke.py``'s ``_recsys_batch`` on ``dev`` from
+    ``g``: single-valued fields in [0, vocab), multi-hot ones in [0, vocab]
+    (the pad id included), target items in [0, item_vocab); each user's
+    history holds a uniform number of real items in [0, seq_len], the
+    rest pads (so that some histories are all padding); ``n_cand`` random
+    candidate items a user."""
+    from repro_torch.models.recsys import RecBatch
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev, dtype=torch.int32)
+
+    fields = {f.name: ints(0, f.vocab + 1, (b, f.multi_hot)) if f.multi_hot > 1 else ints(0, f.vocab, (b,))
+              for f in cfg.fields}
+    history = None
+    if cfg.seq_len:
+        history = ints(0, cfg.item_vocab, (b, cfg.seq_len))
+        real = ints(0, cfg.seq_len + 1, (b, 1))
+        history[torch.arange(cfg.seq_len, device=dev)[None] >= real] = cfg.item_vocab
+    target = ints(0, cfg.item_vocab, (b,)) if cfg.item_vocab else None
+    candidates = ints(0, cfg.item_vocab, (b, n_cand)) if n_cand else None
+    return RecBatch(fields, history, target, ints(0, 2, (b,)).float(), candidates)
+
+
+def chunked_library_topk(torch, q, corpus, k, rows=1 << 22):
+    """The library call for B1's function: ``torch.topk(q @ c.T)`` over row
+    chunks (a bf16 chunk widened to f32 first), then over the chunks' bests."""
+    parts_s, parts_i = [], []
+    for r0 in range(0, corpus.shape[0], rows):
+        s, i = torch.topk(q @ corpus[r0:r0 + rows].float().T, k)
+        parts_s.append(s)
+        parts_i.append(i + r0)
+    s, p = torch.topk(torch.cat(parts_s, 1), k)
+    return s, torch.gather(torch.cat(parts_i, 1), 1, p)
+
+
+def served_equals_offline(torch, recorder, got, tokens, on_card):
+    """Every recorded served batch run again offline on its own inputs must
+    equal its answer in ids and score bits, and every answer must be its
+    request's row of its batch (found by its tokens).  Returns the batches
+    held."""
+    sync(torch, on_card)          # the copies were made on the worker's stream
+    rows = {}
+    for q, tok, out in recorder.batches:
+        again = recorder.funnel.run(q, tok)
+        assert torch.equal(again.indices, out.indices) and torch.equal(
+            again.scores.float().view(torch.int32), out.scores.float().view(torch.int32)), \
+            "a served batch differs from its offline run on the same inputs"
+        s, i = out.scores.float().cpu().numpy(), out.indices.cpu().numpy()
+        for r, t in enumerate(tok.cpu().numpy()):
+            rows.setdefault(t.tobytes(), (s[r], i[r]))
+    for n, (row, tok) in enumerate(zip(got, tokens)):
+        want = rows[tok.numpy().tobytes()]
+        assert same_row((np.asarray(row.scores), np.asarray(row.indices)), want), f"served answer {n} differs"
+    return len(recorder.batches)
+
+
+def recsys_full_phase(torch, dev, check, card, on_card, seed, timer, cfg=None, others=None):
+    """DIN as published (``configs/din.py``: embed 18, history 100, 100M
+    items; 8.0 GB of f32 tables drawn on the card from ``seed``) serving
+    the candidate generation of ``examples/recsys_candidates.py``.  Offline,
+    on batches of RECSYS["b"] users: the user query (``user_query``),
+    B1 (``mips_topk``) over the item table in f32 and bf16 and B2
+    (``fused_topk``) over the items with one tag each, through
+    ``BruteForceGenerator`` on the ``cuda`` backend, each held against its
+    plain version (ids up to near-ties: the random tables plant no margin),
+    and ``retrieval_scores`` at the retrieval_cand shape; the user tower
+    and ``retrieval_scores`` held against the CPU on a copy of the weights.
+    Served: the example's funnel (bf16 B1, tag fusion, exact f32 rescore)
+    on one endpoint, RECSYS["served"] users from RECSYS["clients"] clients,
+    every answer equal to its batch's offline run.  Then ``forward_logits``
+    of each of ``others`` (default: wide-deep, dien, bst as published) at a
+    batch of RECSYS_OTHER_B, against the same run in f64.  ``cfg`` and
+    ``others`` (configs) cut the models for a CPU rehearsal.  Returns the
+    launches by kernel of the offline and served paths."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import BruteForceGenerator
+    from repro_torch.core.sparse import SparseVectors
+    from repro_torch.core.spaces import DenseSpace, FusedSpace, FusedVectors
+    from repro_torch.distributed.sharding import ParallelCtx
+    from repro_torch.kernels import fused_topk as fk
+    from repro_torch.kernels import mips_topk as mk
+    from repro_torch.kernels import ref as plain
+    from repro_torch.models import recsys as R
+    from repro_torch.serving import EndpointSpec, FunnelPipeline, RetrievalService, StageBudget
+
+    t_phase = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9 if on_card else float("nan")
+    cfg = get_config(RECSYS["arch"]) if cfg is None else cfg
+    others = [get_config(a) for a in RECSYS_OTHERS] if others is None else others
+    b, k, tags, ut = RECSYS["b"], RECSYS["k"], RECSYS["tags"], RECSYS["user_tags"]
+    d, n = cfg.embed_dim, cfg.item_vocab
+    ctx = ParallelCtx(None, cfg.rules)
+    t0 = time.perf_counter()
+    model, _ = R.init_recsys(cfg, seed=seed, device=dev)
+    model.requires_grad_(False)
+    sync(torch, on_card)
+    init_s = time.perf_counter() - t0
+    table_gb = sum(t.numel() * t.element_size() for t in model.tables.values()) / 1e9
+    item = model.tables["item"]
+    g = torch.Generator(dev).manual_seed(seed)
+    batches = [recsys_batch(torch, cfg, b, g, dev) for _ in range(RECSYS["served"] // b)]
+    tag_idx = torch.randint(0, tags, (n, 1), generator=g, device=dev, dtype=torch.int32)
+    tag_val = torch.ones(n, 1, device=dev)
+    user_tags = [torch.randint(0, tags, (b, ut), generator=g, device=dev, dtype=torch.int32) for _ in batches]
+    user_one = torch.ones(b, ut, device=dev)
+    cand_batch = recsys_batch(torch, cfg, 1, g, dev, n_cand=min(RECSYS["cand"], n))
+    space = FusedSpace(tags, RECSYS["w_dense"], RECSYS["w_sparse"])
+    items = FusedVectors(item, SparseVectors(tag_idx, tag_val))
+    dense_gen = BruteForceGenerator(DenseSpace("ip"), item, backend="cuda")
+    fused_gen = BruteForceGenerator(space, items, backend="cuda")
+    counters = {"mips_topk": mk, "fused_topk": fk}
+
+    # ---- the offline path, counted: queries, B1 f32 and bf16, B2, the retrieval_cand shape
+    for m in counters.values():
+        m.launches = 0
+    mk.ring_launches = mk.scan_launches = 0
+    with torch.no_grad():
+        tower_s, uq = [], []
+        for batch in batches:
+            sync(torch, on_card)
+            t0 = time.perf_counter()
+            uq.append(R.user_query(model, cfg, batch, ctx))
+            sync(torch, on_card)
+            tower_s.append(time.perf_counter() - t0)
+        q0 = uq[0]
+        assert q0.shape == (b, d) and bool(torch.isfinite(q0).all())
+        t0 = time.perf_counter()
+        b1 = dense_gen.generate(q0, k)
+        sync(torch, on_card)
+        b1_s = time.perf_counter() - t0
+        gen16 = dense_gen.with_corpus_dtype("bfloat16")
+        item16 = gen16.corpus
+        t0 = time.perf_counter()
+        b1_16 = gen16.generate(q0, k)
+        sync(torch, on_card)
+        b1_16_s = time.perf_counter() - t0
+        users0 = FusedVectors(q0, SparseVectors(user_tags[0], user_one))
+        t0 = time.perf_counter()
+        b2 = fused_gen.generate(users0, k)
+        sync(torch, on_card)
+        b2_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rs = R.retrieval_scores(model, cfg, cand_batch, ctx, k)
+        sync(torch, on_card)
+        rs_s = time.perf_counter() - t0
+    offline = {name: m.launches for name, m in counters.items()}
+    routes = (mk.ring_launches, mk.scan_launches)
+    if on_card:
+        assert offline == {"mips_topk": 2, "fused_topk": 1}, offline
+        assert routes == (0, 2), f"B1 at D = 18 did not take the scan route: ring, scan {routes}"
+
+    # the kernels against their plain versions (ids up to near-ties: random tables plant no margin)
+    check("mips_topk", "recsys full: DIN items f32 k=100", tuple(b1),
+          plain.mips_topk_ref(q0, item, k, tile_n=1 << 22), exact_ids=False)
+    check("mips_topk", "recsys full: DIN items bf16 k=100", tuple(b1_16),
+          plain.mips_topk_ref(q0, item16, k, tile_n=1 << 22), exact_ids=False)
+    qtable = plain.query_table(users0.sparse, tags)
+    w = dict(w_dense=space.w_dense, w_sparse=space.w_sparse)
+    check("fused_topk", "recsys full: DIN items + 50 tags k=100", tuple(b2),
+          plain.fused_topk_table_ref(qtable, q0, tag_idx, tag_val, item, k, tile_n=1 << 22, **w), exact_ids=False)
+    match = lambda ids: float((tag_idx[ids.long(), 0] == user_tags[0][:, :1]).float().mean())
+    tag_match = (match(b1.indices), match(b2.indices))
+    assert tag_match[1] >= tag_match[0], f"fusion lowered the tag-match rate: {tag_match}"
+    assert rs[0].shape == (1, k) and bool(torch.isfinite(rs[0]).all())
+
+    # ---- the card against the CPU on a copy of the weights: the user tower and retrieval_scores
+    t0 = time.perf_counter()
+    cpu_model, _ = R.init_recsys(cfg, device="meta")
+    cpu_model = cpu_model.to_empty(device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+
+    def host(batch):
+        return R.RecBatch({f: v.cpu() for f, v in batch.fields.items()},
+                          *(None if x is None else x.cpu() for x in batch[1:]))
+
+    with torch.no_grad():
+        u_card = R.user_tower(model, cfg, batches[0], ctx)
+        u_cpu = R.user_tower(cpu_model, cfg, host(batches[0]), ctx)
+        rs_cpu = R.retrieval_scores(cpu_model, cfg, host(cand_batch), ctx, k)
+    check.scores("recsys", "recsys full: user tower card vs cpu", u_card.cpu(), u_cpu)
+    check("recsys", "recsys full: retrieval_scores card vs cpu", tuple(rs), rs_cpu, exact_ids=False)
+    tower_err = float(((u_card.cpu() - u_cpu).abs() / u_cpu.abs().amax(1, keepdim=True)).max())
+    del cpu_model, u_cpu, rs_cpu
+    cpu_s = time.perf_counter() - t0
+
+    # ---- served: the example's funnel on one endpoint (bf16 B1 candidates, tag fusion, exact f32 rescore)
+    funnel = FunnelPipeline(BruteForceGenerator(DenseSpace("ip"), item, backend="cuda"),
+                            fusion=R.TagFusion(tag_idx[:, 0], d, RECSYS["w_sparse"]),
+                            rerank=R.ExactRescore(item, d), cand_qty=RECSYS["cand_qty"],
+                            fusion_qty=RECSYS["fusion_qty"], rerank_keep=RECSYS["keep"])
+    del gen16, item16
+    funnel = funnel.with_corpus_dtype("bfloat16").with_budget(StageBudget(rerank_s=5.0))
+    recorder = BatchRecorder(funnel)
+    queries = [row for x in uq for row in x.cpu()]
+    tokens = [row for x, t in zip(uq, user_tags) for row in torch.cat([x, t.float()], 1).cpu()]
+    pad, pad_tok = torch.zeros(d, device=dev), torch.zeros(d + ut, device=dev)
+    before = {name: m.launches for name, m in counters.items()}
+    with RetrievalService(cache_size=0) as svc:
+        svc.register_pipeline("recs", recorder, pad, pad_tok,
+                              spec=EndpointSpec(batch_size=b, max_wait_s=0.005, max_queue=128, overload="block"))
+        box = {}
+
+        def run():
+            box["out"] = flood(svc, "recs", queries, tokens, RECSYS["clients"])
+
+        idle = "not measured"
+        if on_card:
+            groups, span_ms, _ = device_profile(torch, run)
+            if groups:
+                idle = f"{max(0.0, 1.0 - sum(groups.values()) / span_ms):.3f}"
+        else:
+            run()
+        got, wall = box["out"]
+        ep = svc.snapshot().endpoints["recs"]
+    served = {name: m.launches - before[name] for name, m in counters.items()}
+    launches = {name: offline[name] + served[name] for name in counters}
+    assert ep.corpus_dtype == "bfloat16" and ep.stage_fallbacks["rerank"] == 0 and ep.n_requests == len(queries)
+    if on_card:
+        assert served["mips_topk"] == ep.n_batches, f"served B1 launches {served} for {ep.n_batches} batches"
+    held = served_equals_offline(torch, recorder, got, tokens, on_card)
+    served_ids = np.stack([np.asarray(r.indices) for r in got])
+    all_tags = torch.cat(user_tags).cpu().numpy()
+    tag_served = float(np.mean(tag_idx[:, 0].cpu().numpy()[served_ids] == all_tags[:, :1]))
+
+    # ---- timings (CUDA events, median): B1 at B = 16 and 1, f32 and bf16, against the byte bound and the
+    # library call; B2; the tower; retrieval_scores
+    item16 = item.bfloat16()
+    q1 = q0[:1].contiguous()
+    b1_ms, lib_ms, plain_ms, bounds = {}, {}, {}, {}
+    for dt, corpus in (("f32", item), ("bf16", item16)):
+        for bq, qq in ((b, q0), (1, q1)):
+            b1_ms[dt, bq] = timer(lambda: mk.mips_topk(qq, corpus, k), 5)
+            lib_ms[dt, bq] = timer(lambda: chunked_library_topk(torch, qq, corpus, k), 3)
+            nbytes = corpus.numel() * corpus.element_size() + bq * d * 4 + bq * k * 8
+            t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, 2 * bq * n * d / F32_FLOPS * 1e3
+            bounds[dt, bq] = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+        plain_ms[dt] = timer(lambda: plain.mips_topk_ref(q0, corpus, k, tile_n=1 << 22), 1)
+    del item16
+    b2_ms = timer(lambda: fk.fused_topk(qtable, q0, tag_idx, tag_val, item, k, **w), 5)
+    b2_plain = timer(lambda: plain.fused_topk_table_ref(qtable, q0, tag_idx, tag_val, item, k, tile_n=1 << 22, **w), 1)
+    b2_bytes = n * d * 4 + n * 8 + b * d * 4 + b * (tags + 1) * 4 + b * k * 8
+    b2_ops = 2 * (b * n * d + sparse_fmas(torch, qtable, tag_idx)) + 3 * b * n
+    b2_bound = max(b2_bytes / HBM_BYTES_PER_S, b2_ops / F32_FLOPS) * 1e3
+    with torch.no_grad():
+        tower_ms = timer(lambda: R.user_query(model, cfg, batches[0], ctx), 5)
+        rs_ms = timer(lambda: R.retrieval_scores(model, cfg, cand_batch, ctx, k), 5)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
+    ms = lambda xs: 1e3 * statistics.median(xs)
+    log(f"phase recsys full: {cfg.name} (embed {d}, history {cfg.seq_len}, attention MLP "
+        f"{'-'.join(map(str, cfg.attn_mlp))}, MLP {'-'.join(map(str, cfg.mlp))}, {n:,} items, fields "
+        + ", ".join(f"{f.name} {f.vocab:,}" for f in cfg.fields)
+        + f", {cfg.dtype}), {table_gb:.2f} GB of tables drawn on {dev} in {init_s:.2f} s from seed {seed}; "
+        f"{len(batches)} batches of {b} users (histories of a uniform 0..{cfg.seq_len} real items, pads after)")
+    log(f"  offline (host clock, synchronised): user tower + projection median {ms(tower_s):.3f} ms/batch; "
+        f"B1 f32 {1e3 * b1_s:.3f} ms, bf16 {1e3 * b1_16_s:.3f} ms, B2 (FusedSpace({tags}, {space.w_dense}, "
+        f"{space.w_sparse}), one tag an item, {ut} a user) {1e3 * b2_s:.3f} ms, retrieval_scores (1 user, "
+        f"{cand_batch.candidates.shape[1]:,} candidates, k={k}) {1e3 * rs_s:.3f} ms; launches {offline} (B1 ring, scan "
+        f"route {routes}); B1 f32 and bf16 and B2 equal their plain versions (tolerance {TOL_REL} of row "
+        f"scale, ids up to near-ties); tag-match rate of the top-{k}: dense {tag_match[0]:.3f}, fused "
+        f"{tag_match[1]:.3f}; card vs cpu (weights copied in {cpu_s:.1f} s): user tower worst {tower_err:.3g} of "
+        f"row scale, retrieval_scores scores within {TOL_REL} of row scale, ids up to near-ties")
+    log(f"  timings (CUDA events, median of 5; library of 3; plain 1): "
+        + "; ".join(f"B1 {dt} B={bq} {b1_ms[dt, bq]:.3f} ms vs bound {bounds[dt, bq][0]:.3f} ms "
+                    f"({bounds[dt, bq][1]}), library {lib_ms[dt, bq]:.3f} ms" for dt, bq in b1_ms)
+        + f"; plain B1 f32 {plain_ms['f32']:.3f} ms, bf16 {plain_ms['bf16']:.3f} ms; B2 B={b} {b2_ms:.3f} ms vs "
+        f"bound {b2_bound:.3f} ms ({b2_bytes / 1e9:.2f} GB), plain {b2_plain:.3f} ms; user tower + projection "
+        f"{tower_ms:.3f} ms/batch; retrieval_scores {rs_ms:.3f} ms; {card}")
+    e2e = ep.e2e
+    log(f"  served funnel (bf16 B1 top {RECSYS['cand_qty']} -> tag fusion top {RECSYS['fusion_qty']} -> exact f32 "
+        f"rescore top {RECSYS['keep']}; {RECSYS['clients']} clients, {len(queries)} users, no cache): "
+        f"{len(queries) / wall:.1f} qps, e2e p50 {e2e.p50_ms:.3f} ms p99 {e2e.p99_ms:.3f} ms, exec "
+        f"{ep.execute.p50_ms:.3f} ms/batch (p50), stages "
+        + " ".join(f"{s} {ep.stages[s].p50_ms:.3f}" for s in ("candgen", "fusion", "rerank"))
+        + f" ms (p50), {ep.n_batches} batches (fill {ep.mean_batch_fill:.3f}), idle {idle}; every answer equals "
+        f"its batch's offline run in ids and score bits ({held} batches run again); tag-match {tag_served:.3f}; "
+        f"launches {served}; peak {peak:.2f} GB allocated ({held_gb:.2f} GB held at the phase's start)")
+    del svc, funnel, recorder, dense_gen, fused_gen, items, model, item, tag_idx, tag_val, batches, uq, b1, b1_16, b2
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- the other kinds as published, one at a time: forward_logits at serve_p99's batch against f64
+    for ocfg in others:
+        import copy
+
+        t0 = time.perf_counter()
+        om, _ = R.init_recsys(ocfg, seed=seed, device=dev)
+        om.requires_grad_(False)
+        ob = recsys_batch(torch, ocfg, RECSYS_OTHER_B, g, dev)
+        octx = ParallelCtx(None, ocfg.rules)
+        with torch.no_grad():
+            logits = R.forward_logits(om, ocfg, ob, octx)
+            o_ms = timer(lambda: R.forward_logits(om, ocfg, ob, octx), 3)
+            om64 = copy.deepcopy(om).double()
+            l64 = R.forward_logits(om64, ocfg, ob, octx)
+        assert logits.shape == (RECSYS_OTHER_B,) and bool(torch.isfinite(logits).all())
+        ratio = float((logits.double() - l64).abs().max() / l64.abs().max().clamp_min(1e-30))
+        assert ratio <= TOL_REL, f"recsys full: {ocfg.name} f32 vs f64 {ratio:.3g} of the batch's largest |logit|"
+        gb = sum(t.numel() * t.element_size() for t in om.parameters()) / 1e9
+        log(f"  {ocfg.name} ({ocfg.kind}, embed {ocfg.embed_dim}, {len(ocfg.fields)} fields, {ocfg.item_vocab:,} "
+            f"items, {gb:.2f} GB): forward_logits B={RECSYS_OTHER_B} {o_ms:.3f} ms/batch (CUDA events, median of 3); "
+            f"f32 vs f64 worst {ratio:.3g} of the batch's largest |logit| (bound {TOL_REL}); "
+            f"{time.perf_counter() - t0:.1f} s")
+        del om, om64, ob, logits, l64
+        if on_card:
+            torch.cuda.empty_cache()
+    log(f"  phase {time.perf_counter() - t_phase:.1f} s; {card}")
+    return launches
+
+
+def schnet_flops(cfg, atoms, edges):
+    """Operations of ``molecule_embeddings``' network on ``atoms`` nodes and
+    ``edges`` edges: per interaction the filter network on every edge (the
+    radial basis [E, n_rbf] times [n_rbf, d], then [d, d]), the message
+    product, and the three atom-wise [d, d] layers, 2 a multiply-add."""
+    d, r = cfg.d_hidden, cfg.n_rbf
+    per = 2 * edges * (r * d + d * d) + edges * d + 3 * 2 * atoms * d * d
+    return cfg.n_interactions * per
+
+
+def molecule_full_phase(torch, dev, check, card, on_card, seed, timer, cfg=None, mols=None):
+    """SchNet as published (``configs/schnet.py``: 3 interactions, d 64,
+    300 radial bases, cutoff 10, random weights from ``seed``) embedding
+    MOLECULE["mols"] molecules of MOLECULE["atoms"] atoms (perturbed copies,
+    sigma MOLECULE["sigma"], of MOLECULE["families"] template families, as
+    ``examples/molecule_retrieval.py`` makes them, on the card) in batches
+    of MOLECULE["batch"]: each molecule's ``radius_graph`` (k 6), the
+    network, mean ++ std pooling, L2-normalised (``molecule_embeddings``);
+    batch 0 held against the CPU port on the same weights.  Over the
+    normalised 64-d mean halves in ip space (cosine's ranking on unit
+    vectors, which the kernels do not serve), an NN-descent graph (degree
+    16, 6 rounds, MOLECULE_ENTRIES entry ids) searched at ef 64 through B3
+    (``GraphANNBackend(kernel=True)``; its entry set scored by B1) for
+    MOLECULE["queries"] corpus molecules: recall@10 against B1's exact scan;
+    one traversal replayed hop by hop against the plain hop.  Served: the
+    example's funnel (graph-ANN candidates on the half, rescored by the
+    full vector) on one endpoint, every answer equal to its batch's offline
+    run.  ``cfg`` and ``mols`` cut the model and the corpus for a CPU
+    rehearsal.  Returns the launches by kernel of the search and served
+    paths, and B3's numbers at this shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import graph_ann
+    from repro_torch.core.backends import (ANN_RECALL_TARGET, CudaBackend, GraphANNBackend,
+                                           clear_ann_index_cache)
+    from repro_torch.core.fusion import topk_recall
+    from repro_torch.core.pipeline import BruteForceGenerator
+    from repro_torch.core.spaces import DenseSpace
+    from repro_torch.distributed.sharding import ParallelCtx
+    from repro_torch.kernels import beam_topk as bk
+    from repro_torch.kernels import mips_topk as mk
+    from repro_torch.kernels import ref as plain
+    from repro_torch.models import schnet as S
+    from repro_torch.serving import EndpointSpec, FunnelPipeline, RetrievalService, StageBudget
+
+    t_phase = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9 if on_card else float("nan")
+    cfg = get_config("schnet") if cfg is None else cfg
+    m_total = MOLECULE["mols"] if mols is None else mols
+    a, fams, kg, mb = MOLECULE["atoms"], MOLECULE["families"], MOLECULE["k_graph"], MOLECULE["batch"]
+    ctx = ParallelCtx(None, cfg.rules)
+    model, _ = S.init_schnet(cfg, seed=seed, device=dev)
+    model.requires_grad_(False)
+    g = torch.Generator(dev).manual_seed(seed)
+    templates = torch.randn(fams, a, 3, generator=g, device=dev) * 3.0
+    types = torch.randint(1, 10, (fams, a), generator=g, device=dev, dtype=torch.int32)
+    fam = torch.randint(0, fams, (m_total,), generator=g, device=dev)
+    pos = templates[fam] + torch.randn(m_total, a, 3, generator=g, device=dev) * MOLECULE["sigma"]
+    z = types[fam]
+
+    # ---- embedding, batch by batch
+    emb = torch.empty(m_total, 2 * cfg.d_hidden, device=dev)
+    sync(torch, on_card)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for lo in range(0, m_total, mb):
+            emb[lo:lo + mb] = S.molecule_embeddings(model, pos[lo:lo + mb], z[lo:lo + mb], cfg, ctx, k=kg)
+    sync(torch, on_card)
+    embed_s = time.perf_counter() - t0
+    assert bool(torch.isfinite(emb).all())
+    flops = schnet_flops(cfg, m_total * a, m_total * a * kg)
+    embed_bound_s = flops / F32_FLOPS
+    # batch 0 against the CPU port on the same weights
+    t0 = time.perf_counter()
+    cpu_model, _ = S.init_schnet(cfg, device="meta")
+    cpu_model = cpu_model.to_empty(device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        emb_cpu = S.molecule_embeddings(cpu_model, pos[:mb].cpu(), z[:mb].cpu(), cfg, ctx, k=kg)
+    check.scores("schnet", "molecule full: embeddings card vs cpu", emb[:mb].cpu(), emb_cpu)
+    emb_err = float(((emb[:mb].cpu() - emb_cpu).abs() / emb_cpu.abs().amax(1, keepdim=True)).max())
+    cpu_s = time.perf_counter() - t0
+    del cpu_model, emb_cpu
+
+    # ---- search over the normalised mean halves in ip space
+    half = emb[:, :cfg.d_hidden]
+    half = half / half.norm(dim=1, keepdim=True).clamp_min(1e-9)
+    space = DenseSpace("ip")
+    qid = torch.arange(MOLECULE["queries"], device=dev) * (m_total // MOLECULE["queries"])
+    q_half, q_full = half[qid], emb[qid]
+    backend = GraphANNBackend(kernel=True, degree=GRAPH["degree"], rounds=6, ef=GRAPH["ef"],
+                              entry_count=min(MOLECULE_ENTRIES, m_total))
+    t0 = time.perf_counter()
+    search_corpus, index = backend._index(space, half, m_total)
+    sync(torch, on_card)
+    build_s = time.perf_counter() - t0
+    same_family = float((fam[index.neighbors.long()] == fam[:, None]).float().mean())
+    counters = {"mips_topk": mk, "beam_hop": bk}
+    for m in counters.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    ann = backend.topk(space, q_half, half, 10)
+    sync(torch, on_card)
+    search_s = time.perf_counter() - t0
+    exact = CudaBackend().topk(space, q_half, half, 10)
+    searched = {name: m.launches for name, m in counters.items()}
+    plain_ann = graph_ann.beam_search(space, q_half, search_corpus, index, m_total, k=10, ef=GRAPH["ef"])
+    check("mips_topk", "molecule full: exact top-10 of the half-embeddings", tuple(exact),
+          plain.mips_topk_ref(q_half, half, 10, tile_n=1 << 20), exact_ids=False)
+    # recall@10: strict (ids), and counting a returned row whose exact score lies within TOL_REL of the row
+    # scale of the exact 10th (the near-tie rule of the Checker: family members score within a few ULPs)
+    strict, strict_plain = topk_recall(exact.indices, ann.indices), topk_recall(exact.indices, plain_ann.indices)
+
+    def near_recall(got):
+        s = space.score_pairs(q_half.repeat_interleave(10, 0), half[got.indices.reshape(-1).long()]).reshape(-1, 10)
+        floor = exact.scores[:, 9:10] - TOL_REL * exact.scores.abs().amax(1, keepdim=True)
+        return float((s >= floor).float().mean())
+
+    recall, recall_plain = near_recall(ann), near_recall(plain_ann)
+    gap = float((exact.scores[:, 8] - exact.scores[:, 9]).median())
+    fam_prec = lambda ids: float((fam[ids[:, 1:6].long()] == fam[qid][:, None]).float().mean())
+    precision = (fam_prec(exact.indices), fam_prec(ann.indices))
+    assert recall >= ANN_RECALL_TARGET and recall_plain >= ANN_RECALL_TARGET, (recall, recall_plain)
+
+    # ---- one traversal (batch of 32 queries) timed by CUDA events and replayed hop by hop through beam_hop,
+    # each hop against the plain hop
+    hops = graph_ann.default_hops(m_total)
+    orig, rec = bk.beam_search, []
+
+    def timed(*args, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if on_card else None
+        if on_card:
+            torch.cuda._sleep(SLEEP_CYCLES)
+            ev[0].record()
+        out = orig(*args, **kw)
+        if on_card:
+            ev[1].record()
+        rec.append((ev, args, kw, out))
+        return out
+
+    bk.beam_search = timed
+    try:
+        for _ in range(4):
+            backend.topk(space, q_half[:MOLECULE["served_b"]], half, 10)
+        sync(torch, on_card)
+    finally:
+        bk.beam_search = orig
+    b3_ms = statistics.median(ev[0].elapsed_time(ev[1]) for ev, _, _, _ in rec[1:]) if on_card else float("nan")
+    ev, args, kw, out = rec[-1]
+    kw = {key: val for key, val in kw.items() if key != "hops"}
+    beam_s, beam_i, vis = args[2], args[3], args[4].clone()
+    valid, b3_plain = 0, 0.0
+    for h in range(hops):
+        hop_args = (args[0], args[1], beam_s, beam_i, vis, *args[5:])
+        got = bk.beam_hop(*hop_args, **kw)
+        pe = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if on_card else None
+        if on_card:
+            pe[0].record()
+        want = plain.beam_hop_plain(*hop_args, **kw)
+        if on_card:
+            pe[1].record()
+            pe[1].synchronize()
+            b3_plain += pe[0].elapsed_time(pe[1])
+        check.hop(f"molecule full hop {h}", got, want, exact_ids=False)
+        valid += int((got[3] != 0).sum())
+        beam_s, beam_i = got[0], got[1]
+        vis.scatter_add_(1, got[2].long(), got[3])
+    for what, x, y in (("scores", out[0], beam_s), ("ids", out[1], beam_i), ("mask", out[2], vis)):
+        assert torch.equal(x, y), f"molecule full: the traversal and its replay differ in {what}"
+    d_half, slots = cfg.d_hidden, hops * MOLECULE["served_b"] * GRAPH["ef"] * GRAPH["degree"]
+    t_b = (valid * d_half * 4 + slots * 8) / HBM_BYTES_PER_S * 1e3
+    t_o = valid * 2 * d_half / F32_FLOPS * 1e3
+    b3_bound = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+    # ---- served: graph-ANN candidates on the half, the full vector's rescore, one endpoint
+    funnel = FunnelPipeline(BruteForceGenerator(space, half, backend=backend), rerank=S.FullRescore(emb),
+                            cand_qty=MOLECULE["cand_qty"], fusion_qty=MOLECULE["cand_qty"],
+                            rerank_keep=MOLECULE["keep"]).with_budget(StageBudget(rerank_s=5.0))
+    recorder = BatchRecorder(funnel)
+    queries, tokens = list(q_half.cpu()), list(q_full.cpu())
+    pad, pad_tok = torch.zeros(d_half, device=dev), torch.zeros(2 * d_half, device=dev)
+    before = {name: m.launches for name, m in counters.items()}
+    with RetrievalService(cache_size=0) as svc:
+        svc.register_pipeline("mols", recorder, pad, pad_tok,
+                              spec=EndpointSpec(batch_size=MOLECULE["served_b"], max_wait_s=0.005, max_queue=128,
+                                                overload="block"))
+        box = {}
+
+        def run():
+            box["out"] = flood(svc, "mols", queries, tokens, MOLECULE["clients"])
+
+        idle = "not measured"
+        if on_card:
+            groups, span_ms, _ = device_profile(torch, run)
+            if groups:
+                idle = f"{max(0.0, 1.0 - sum(groups.values()) / span_ms):.3f}"
+        else:
+            run()
+        got, wall = box["out"]
+        ep = svc.snapshot().endpoints["mols"]
+    served = {name: m.launches - before[name] for name, m in counters.items()}
+    launches = {name: searched[name] + served[name] for name in counters}   # not the timing and replay's
+    assert ep.stage_fallbacks["rerank"] == 0 and ep.n_requests == len(queries)
+    if on_card:
+        assert served["beam_hop"] == ep.n_batches, f"served B3 launches {served} for {ep.n_batches} batches"
+        assert searched == {"mips_topk": 2, "beam_hop": 1}, searched
+    held = served_equals_offline(torch, recorder, got, tokens, on_card)
+    served_ids = torch.from_numpy(np.stack([np.asarray(r.indices) for r in got])).to(dev)
+    p_served = fam_prec(served_ids)
+    search_ms = timer(lambda: backend.topk(space, q_half[:MOLECULE["served_b"]], half, 10), 5)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
+    log(f"phase molecule full: {cfg.name} ({cfg.n_interactions} interactions, d {cfg.d_hidden}, {cfg.n_rbf} radial "
+        f"bases, cutoff {cfg.cutoff}, {cfg.dtype}) over {m_total:,} molecules of {a} atoms ({fams} families, "
+        f"sigma {MOLECULE['sigma']}), radius_graph k {kg}, batches of {mb}: embedded in {embed_s:.2f} s (host "
+        f"clock, synchronised) against an f32 bound of {embed_bound_s:.3f} s ({flops / 1e12:.2f} TFLOP at "
+        f"{F32_FLOPS / 1e12:.0f} TFLOP/s: filter network, messages, atom-wise layers); batch 0 card vs cpu "
+        f"(weights copied, cpu run {cpu_s:.1f} s) worst {emb_err:.3g} of row scale (bound {TOL_REL})")
+    log(f"  search ({2 * cfg.d_hidden}-d embeddings, the {cfg.d_hidden}-d mean half normalised, ip): NN-descent "
+        f"(degree {GRAPH['degree']}, 6 rounds, {backend.entry_count} entries) in {build_s:.1f} s, "
+        f"{same_family:.4f} of the edges within a family; {len(qid)} queries, ef {GRAPH['ef']}, {hops} hops: "
+        f"{1e3 * search_s:.3f} ms (host clock), a batch of {MOLECULE['served_b']} {search_ms:.3f} ms (CUDA events, "
+        f"median of 5); recall@10 (a row within {TOL_REL} of row scale of the exact 10th counts) kernel "
+        f"{recall:.4f}, plain traversal {recall_plain:.4f} (target {ANN_RECALL_TARGET}); strict id recall@10 kernel "
+        f"{strict:.4f}, plain {strict_plain:.4f} (median gap of the exact 9th and 10th scores {gap:.3g}); "
+        f"same-family precision@5 exact {precision[0]:.3f}, ANN {precision[1]:.3f}; launches {searched}")
+    log(f"  B3 at this shape (B={MOLECULE['served_b']}, d {d_half}, ef {GRAPH['ef']}, {hops} hops; one traversal, "
+        f"CUDA events, median of 3) {b3_ms:.4f} ms vs bound {b3_bound[0]:.4f} ms ({b3_bound[1]}: {valid} valid "
+        f"candidates); plain hops {b3_plain:.3f} ms; each of the {hops} hops equals the plain hop (tolerance "
+        f"{TOL_REL} of row scale, mark-deltas equal) and the one launch equals the replay bit for bit")
+    e2e = ep.e2e
+    log(f"  served funnel (graph-ANN top {MOLECULE['cand_qty']} on the half -> full-vector rescore top "
+        f"{MOLECULE['keep']}; {MOLECULE['clients']} clients, {len(queries)} queries, batches of "
+        f"{MOLECULE['served_b']}, no cache): {len(queries) / wall:.1f} qps, e2e p50 {e2e.p50_ms:.3f} ms p99 "
+        f"{e2e.p99_ms:.3f} ms, exec {ep.execute.p50_ms:.3f} ms/batch (p50), {ep.n_batches} batches (fill "
+        f"{ep.mean_batch_fill:.3f}), idle {idle}; every answer equals its batch's offline run in ids and score "
+        f"bits ({held} batches run again); same-family precision@5 {p_served:.3f}; launches {served}; peak "
+        f"{peak:.2f} GB allocated ({held_gb:.2f} GB held at the phase's start); phase "
+        f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    b3 = {"ms": b3_ms, "plain_ms": b3_plain, "bound_ms": b3_bound[0], "bound_by": b3_bound[1]}
+    del svc, funnel, recorder, emb, half, pos, z, model, index, search_corpus
+    gc.collect()
+    clear_ann_index_cache()
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches, b3
+
+
 def sync(torch, on_card):
     if on_card:
         torch.cuda.synchronize()
@@ -3700,11 +4283,26 @@ def main() -> int:
     cross_launches = cross_full_phase(torch, dev, check, corpus, space, card, on_card, args.seed + 25, timer,
                                       cross_cfg, CROSS_QUERIES if on_card else 2 * MSMARCO["b"])
     # release the 36 GB corpus: the pipelines, the checks and the ANN
-    # index cache all hold it
+    # index cache all hold it, and so do the closed services of the served
+    # phases until the cyclic collector runs (a service and its endpoints
+    # refer to each other)
     del dense, idx, val, corpus, batches, q, pipe, dense_gen, results, dense_results, fused_args
+    gc.collect()
     clear_ann_index_cache()
     if on_card:
         torch.cuda.empty_cache()
+    # ---- the recommendation and molecule families at published widths; a CPU rehearsal cuts them to the
+    # smoke configs, 5,000 items and 4,096 molecules
+    rec_cfg = rec_others = mol_cfg = mol_n = None
+    if not on_card:
+        from repro_torch.configs import get_smoke_config
+        rec_cfg = dataclasses.replace(get_smoke_config(RECSYS["arch"]), item_vocab=5000)
+        rec_others = [get_smoke_config(a) for a in RECSYS_OTHERS]
+        mol_cfg, mol_n = get_smoke_config("schnet"), 4096
+    recsys_launches = recsys_full_phase(torch, dev, check, card, on_card, args.seed + 26, timer, rec_cfg,
+                                        rec_others)
+    molecule_launches, _ = molecule_full_phase(torch, dev, check, card, on_card, args.seed + 27, timer, mol_cfg,
+                                               mol_n)
     recall_n = min(RECALL_N, n) // CLUSTERS * CLUSTERS
     recall_data = graph_recall_phase(torch, dev, recall_n, args.seed + 11, on_card)
     napp_recall_phase(torch, dev, *recall_data, args.seed + 12, on_card)
@@ -3718,9 +4316,11 @@ def main() -> int:
     kernels.append({"name": "fused_score", "route": "cuda", "source": SOURCES[2],
                     "replaces": "src/repro/kernels/sparse_dense.py:61", "launches": score_launches,
                     "max_abs_err": check.max_err["fused_score"], **score, "library_ms": None})
-    for k in kernels:    # the main path's launches, the served passes', FlexNeuART's, the cross-encoder's, the search's
+    for k in kernels:    # the main path's launches, the served passes', FlexNeuART's, the cross-encoder's,
+        # the recommendation and molecule paths', the search's
         k["launches"] += (serve_launches.get(k["name"], 0) + flex_launches.get(k["name"], 0)
-                          + cross_launches.get(k["name"], 0) + tune_launches.get(k["name"], 0))
+                          + cross_launches.get(k["name"], 0) + recsys_launches.get(k["name"], 0)
+                          + molecule_launches.get(k["name"], 0) + tune_launches.get(k["name"], 0))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if not on_card:

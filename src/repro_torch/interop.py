@@ -22,7 +22,8 @@ from repro_torch.device import resolve_device
 
 __all__ = ["tensor", "to_numpy", "sparse_vectors", "fused_vectors",
            "fused_space", "graph_index", "napp_index", "forward_index",
-           "inverted_index", "tree_ensemble", "transformer_params"]
+           "inverted_index", "tree_ensemble", "transformer_params", "recsys_params",
+           "schnet_params"]
 
 
 def tensor(array, device=None, *, bf16: bool = False) -> torch.Tensor:
@@ -129,21 +130,6 @@ def transformer_params(params, cfg, device=None):
 
     want, _ = T.init_transformer(cfg, device="meta")
     dev = resolve_device(device)
-    dtype = T.torch_dtype(cfg.dtype)
-
-    def carry(tree, like, where):
-        if isinstance(like, torch.Tensor):
-            a = np.asarray(tree)
-            t = tensor(a, dev, bf16=dtype == torch.bfloat16)
-            if tuple(t.shape) != tuple(like.shape) or t.dtype != like.dtype:
-                raise ValueError(f"{where}: {t.dtype}{tuple(t.shape)} where the port "
-                                 f"keeps {like.dtype}{tuple(like.shape)}")
-            return t
-        if not isinstance(tree, dict) or set(tree) != set(like.keys()):
-            raise ValueError(f"{where}: names {sorted(tree) if isinstance(tree, dict) else tree!r} "
-                             f"where the port keeps {sorted(like.keys())}")
-        return {k: carry(tree[k], like[k], f"{where}.{k}") for k in like.keys()}
-
     top = {"embed", "blocks", "ln_f"} | ({"lm_head"} if want.lm_head is not None else set())
     if set(params) != top:
         raise ValueError(f"params: names {sorted(params)} where the port keeps {sorted(top)}")
@@ -157,20 +143,86 @@ def transformer_params(params, cfg, device=None):
             return a[i]
         return {k: layer(v, i) for k, v in tree.items()}
 
-    blocks = [T.Block(carry(layer(params["blocks"], i), _tree(want.blocks[i]), f"blocks[{i}]"))
+    blocks = [T.Block(_carry_tree(layer(params["blocks"], i), _like(want.blocks[i]), f"blocks[{i}]", dev))
               for i in range(cfg.n_layers)]
-    lm_head = None if want.lm_head is None else carry(params["lm_head"], want.lm_head, "lm_head")
-    return T.Transformer(cfg, carry(params["embed"], want.embed, "embed"), blocks,
-                         carry(params["ln_f"], _tree(want.ln_f), "ln_f"), lm_head)
+    lm_head = None if want.lm_head is None else _carry_tree(params["lm_head"], want.lm_head, "lm_head", dev)
+    return T.Transformer(cfg, _carry_tree(params["embed"], want.embed, "embed", dev), blocks,
+                         _carry_tree(params["ln_f"], _like(want.ln_f), "ln_f", dev), lm_head)
 
 
-def _tree(module) -> dict:
-    """A module's parameters as the nested dict of its names."""
-    out = {}
-    for name, p in module.named_parameters():
-        *path, leaf = name.split(".")
-        node = out
-        for part in path:
-            node = node.setdefault(part, {})
-        node[leaf] = p
+def _like(node):
+    """A module's parameters as nested dicts (``nn.ParameterDict`` and
+    modules) and lists (``nn.ModuleList``) of tensors."""
+    from torch import nn
+
+    if isinstance(node, torch.Tensor):
+        return node
+    if isinstance(node, nn.ModuleList):
+        return [_like(m) for m in node]
+    out = dict(node.named_parameters(recurse=False))
+    out.update((name, _like(m)) for name, m in node.named_children())
     return out
+
+
+def _carry_tree(tree, like, where, dev):
+    """``tree`` (numpy arrays in nested dicts and lists) as tensors on
+    ``dev`` in the structure of ``like``; a missing or extra name, a list
+    of another length, or an array of another shape or dtype raises
+    ``ValueError``."""
+    if isinstance(like, torch.Tensor):
+        a = np.asarray(tree)
+        t = tensor(a, dev, bf16=like.dtype == torch.bfloat16)
+        if tuple(t.shape) != tuple(like.shape) or t.dtype != like.dtype:
+            raise ValueError(f"{where}: {t.dtype}{tuple(t.shape)} where the port "
+                             f"keeps {like.dtype}{tuple(like.shape)}")
+        return t
+    if isinstance(like, list):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(like):
+            raise ValueError(f"{where}: {type(tree).__name__} of "
+                             f"{len(tree) if isinstance(tree, (list, tuple, dict)) else '?'} "
+                             f"where the port keeps a list of {len(like)}")
+        return [_carry_tree(t, l, f"{where}[{i}]", dev) for i, (t, l) in enumerate(zip(tree, like))]
+    if not isinstance(tree, dict) or set(tree) != set(like):
+        raise ValueError(f"{where}: names {sorted(tree) if isinstance(tree, dict) else tree!r} "
+                         f"where the port keeps {sorted(like)}")
+    return {k: _carry_tree(tree[k], like[k], f"{where}.{k}", dev) for k in like}
+
+
+def recsys_params(params, cfg, device=None):
+    """The port's ``models.recsys.RecSys`` holding the weights of
+    ``repro``'s parameter tree ``params`` (nested dicts and lists of numpy
+    arrays, bf16 as ``uint16`` bits) for the config ``cfg``.  Every array
+    must have the shape and dtype that the port's own ``init_recsys(cfg)``
+    gives, and no name may be missing or extra; anything else raises
+    ``ValueError``."""
+    from repro_torch.models import recsys as R
+
+    want, _ = R.init_recsys(cfg, device="meta")
+    return R.RecSys(cfg, _carry_tree(params, _like(want), "params", resolve_device(device)))
+
+
+def schnet_params(params, cfg, device=None):
+    """The port's ``models.schnet.SchNet`` holding the weights of
+    ``repro``'s parameter tree ``params`` (nested dicts of numpy arrays)
+    for the config ``cfg``.  The reference stacks the interactions on a
+    leading axis; they are split here, one parameter dict an interaction.
+    Shapes, dtypes and names are checked as in :func:`recsys_params`."""
+    from repro_torch.models import schnet as S
+
+    want, _ = S.init_schnet(cfg, device="meta")
+    like = _like(want)
+    if not isinstance(params, dict) or "blocks" not in params:
+        raise ValueError(f"params: names {sorted(params) if isinstance(params, dict) else params!r} "
+                         f"where the port keeps {sorted(like)}")
+
+    def layer(tree, i):
+        if isinstance(tree, dict):
+            return {k: layer(v, i) for k, v in tree.items()}
+        a = np.asarray(tree)
+        if a.ndim == 0 or a.shape[0] != cfg.n_interactions:
+            raise ValueError(f"blocks: a leaf of shape {a.shape} where the port splits a "
+                             f"leading interaction axis of {cfg.n_interactions}")
+        return a[i]
+
+    tree = dict(params, blocks=[layer(params["blocks"], i) for i in range(cfg.n_interactions)])
+    return S.SchNet(cfg, _carry_tree(tree, like, "params", resolve_device(device)))
