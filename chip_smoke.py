@@ -69,7 +69,11 @@ queries through B1 in f32 and bf16 and B2 over item tags, the example's
 funnel served; wide-deep, DIEN and BST's logits against f64) and the
 molecule family ("molecule full": SchNet as published embedding 1,048,576
 molecules, searched through B3 with B1 on the entry set, the funnel
-served).  Each
+served), then LM inference ("lm full": qwen2.5-3b and minicpm3-4b as
+published and phi3.5-moe at 16 of its 32 layers, bf16, through
+``prefill_step`` and a ``decode_step`` loop over a KV cache, one step at
+32,768 positions; in f32 at 2 layers, the card against the CPU and decode
+against prefill; it launches no kernel of the port).  Each
 served path runs with the launch counters set to 0 just before and read
 just after.  The last lines are the ``kernels`` JSON, the card's name and
 power limit, and ``{"ok": true, ...}``.  Any failure raises and exits
@@ -189,6 +193,17 @@ MOLECULE = dict(mols=1_048_576, atoms=30, families=1024, sigma=0.05, k_graph=6, 
 # each other): an evenly spread entry set of sqrt(N) = 1,024 ids misses a family with probability e^-1, 16 ids
 # a family (16,384) with e^-16
 MOLECULE_ENTRIES = 16_384
+# "lm full": the repo's LM family on the card, LM inference through the port's decode and prefill steps
+LM_ARCHS = ("qwen2.5-3b", "minicpm3-4b", "phi3.5-moe-42b-a6.6b")
+LM_MOE_LAYERS = 16               # phi3.5-moe: 16 of its 32 layers (83.8 GB as published does not fit in 80 GB)
+# prefill (batch, tokens); the decode loop's batch, cache length, prompt and greedy steps; the long-context step's
+# cache length (decode_32k, configs/base.py LM_SHAPES) and batch (of the shape's 128); the f32 checks' depth, the
+# card-vs-CPU check's batch, prompt and decode steps, the decode-vs-prefill check's steps, the profiled steps
+LM = dict(prefill=(4, 1024), decode_b=16, decode_len=4096, prompt=32, gen=32, long_len=32768, long_b=16,
+          long_b_moe=4, check_layers=2, cpu_b=2, cpu_prompt=16, cpu_steps=4, dvp_steps=8, profiled=4)
+# long_b_moe: phi3.5-moe's 16 layers hold 8.6 GB of cache at B = 4 beside 42.2 GB of weights (34.4 GB at 16)
+LM_TOL = 1e-5                    # f32 logits, card vs CPU and decode vs prefill, of each row's largest |logit|
+LM_TOP1_AT = (7, 31, 63)         # decode steps whose bf16 top-1 is held against prefill's (printed, not gated)
 AUTOTUNE = dict(generations=2, population=16, measure_budget=4)   # "autotune": the search's settings
 AUTOTUNE_QUERIES, AUTOTUNE_WARM, AUTOTUNE_REQUESTS = 256, 16, 256   # distinct queries, warm-up, workload
 NEG = -3.4028234663852886e38     # f32 min, the mask of invalid candidates
@@ -3968,6 +3983,314 @@ def molecule_full_phase(torch, dev, check, card, on_card, seed, timer, cfg=None,
     return launches, b3
 
 
+class DispatchRecorder:
+    """Wraps ``models.moe.sort_dispatch`` while in use, keeping each call's
+    bucket ids and validity (references only: no extra launch, no sync)."""
+
+    def __init__(self, moe):
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        self.orig = self.moe.sort_dispatch
+
+        def record(bucket_ids, token_ids, weights, n_buckets, capacity):
+            disp = self.orig(bucket_ids, token_ids, weights, n_buckets, capacity)
+            self.calls.append((bucket_ids, disp.valid, n_buckets, capacity))
+            return disp
+
+        self.moe.sort_dispatch = record
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.sort_dispatch = self.orig
+
+    def take(self):
+        """[(expert load, dropped pairs, capacity)] of the calls since the last take."""
+        out = [(b.long().bincount(minlength=n)[:n].cpu(), int((~v).sum()), c) for b, v, n, c in self.calls]
+        self.calls = []
+        return out
+
+
+def lm_flops(cfg, tokens, seq, batch):
+    """(tensor-core GEMM operations, f32 attention operations) of one
+    prefill of ``batch`` sequences of ``seq`` tokens: the projections, the
+    FFN or the top-k experts a token needs (2 a multiply-add, real heads
+    only), the head at the last position; causal attention's S(S+1)/2
+    query-key pairs a head, scores and values."""
+    d, h = cfg.d_model, cfg.n_heads
+    if cfg.attention == "mla":
+        qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+        dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+        attn = 2 * (d * qr + qr * h * (dn + dr) + d * (kvr + dr) + kvr * h * (dn + dv) + h * dv * d)
+        dk = dn + dr
+    else:
+        dh = cfg.resolved_head_dim
+        attn = 2 * (d * (h + 2 * cfg.n_kv_heads) * dh + h * dh * d)
+        dk = dv = dh
+    ffn = 3 * 2 * d * cfg.d_ff
+    mlp = (cfg.top_k * 3 * 2 * d * cfg.moe_d_ff + 2 * d * cfg.n_experts
+           + (ffn if cfg.dense_residual else 0)) if cfg.is_moe else ffn
+    gemm = cfg.n_layers * tokens * (attn + mlp) + 2 * batch * d * cfg.padded_vocab
+    pairs = batch * seq * (seq + 1) // 2
+    return gemm, cfg.n_layers * 2 * h * (dk + dv) * pairs
+
+
+def lm_weight_bytes(model, cfg, batch, hit=1.0):
+    """Bytes a decode step must read of the weights: every block's (the
+    experts' times the share ``hit`` of them that the step's tokens
+    reached), the final norm, the head (the tied embedding whole) and,
+    untied, the ``batch`` embedding rows."""
+    blocks = experts = 0
+    for bp in model.blocks:
+        for name, p in bp.named_parameters():
+            nbytes = p.numel() * p.element_size()
+            if name.startswith("moe.w_"):
+                experts += nbytes
+            else:
+                blocks += nbytes
+    ln_f = sum(p.numel() * p.element_size() for p in model.ln_f.parameters())
+    embed = model.embed.numel() * model.embed.element_size()
+    head = embed if cfg.tie_embeddings else model.lm_head.numel() * model.lm_head.element_size()
+    rows = 0 if cfg.tie_embeddings else batch * cfg.d_model * model.embed.element_size()
+    return blocks + hit * experts + ln_f + head + rows
+
+
+def lm_cache_bytes(cache, valid):
+    """Bytes of ``valid`` positions of every layer's cache."""
+    return sum(t[:, :, :valid].numel() * t.element_size() for t in cache if t is not None)
+
+
+def row_err(torch, got, want):
+    """Worst |got - want| of each row's largest |want|, over the finite entries of ``want``."""
+    got, want = got.double().cpu(), want.double().cpu()
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got)), "finite entries differ"
+    scale = torch.where(fin, want.abs(), 0).amax(-1, keepdim=True).clamp_min(1e-30)
+    return float((torch.where(fin, (got - want).abs(), 0) / scale).max())
+
+
+def lm_full_phase(torch, dev, card, on_card, seed, cfgs=None, shapes=None):
+    """The repo's LM family through the port's inference path
+    (``models/transformer.py``: ``prefill_step``, ``init_cache``,
+    ``decode_step``; ``models/moe.py`` behind phi3.5-moe's blocks), random
+    bf16 weights from ``seed`` on the card at published widths: qwen2.5-3b
+    (36 layers) and minicpm3-4b (62, MLA) whole, phi3.5-moe at 16 of its 32
+    layers.  For each: ``prefill_step`` on LM["prefill"] random tokens
+    (CUDA events, median of 3, against its bf16 GEMM plus f32 attention
+    FLOP bound); a decode loop over ``init_cache(cfg, 16, 4096)``, 32 prompt
+    tokens fed one ``decode_step`` at a time from ``pos`` 0 then 32 greedy
+    steps (each step by CUDA events; median against its byte bound), its
+    top-1 at steps LM_TOP1_AT against ``prefill_step`` of the same tokens
+    (printed); one step at ``decode_32k``'s length (``pos`` 32,767 of a
+    32,768 cache, batch LM["long_b"], LM["long_b_moe"] with experts) against
+    its bytes; LM["profiled"] more decode steps under the profiler.  Gated: finite
+    logits; at f32 and 2 layers of full width, the card against the CPU
+    (the same weights: prefill and LM["cpu_steps"] decode steps) and
+    decode step t against ``prefill_step`` of t + 1 tokens for
+    LM["dvp_steps"] steps at batch 16, within LM_TOL of each row's largest
+    logit (with experts, only steps where no pair was dropped by capacity,
+    in this step's or an earlier decode or in the prefill; drops printed).
+    No kernel of the port is launched.  ``cfgs`` and ``shapes`` cut the
+    configs and the shapes for a CPU rehearsal."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import ParallelCtx
+    from repro_torch.kernels import beam_topk as bk, fused_topk as fk, mips_topk as mk, sparse_dense as sd
+    from repro_torch.kernels import topk_large as lk
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+
+    counters = {"mips_topk": mk, "fused_topk": fk, "topk_large": lk, "beam_hop": bk, "fused_score": sd}
+    before = {name: m.launches for name, m in counters.items()}
+    sh = dict(LM, **(shapes or {}))
+    if cfgs is None:
+        cfgs = [get_config(a) for a in LM_ARCHS]
+        cfgs = [dataclasses.replace(c, n_layers=LM_MOE_LAYERS) if c.is_moe else c for c in cfgs]
+    assert not (on_card and torch.backends.cuda.matmul.allow_tf32), "TF32 is on: f32 products would round to 10 bits"
+    for cfg in cfgs:
+        t_phase = time.perf_counter()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        full = get_config(cfg.name)
+        reduced = [] if cfg.n_layers == full.n_layers else [f"depth {cfg.n_layers} of {full.n_layers} layers"]
+        reduced.append(f"the long-context step's batch, {sh['long_b_moe' if cfg.is_moe else 'long_b']} of "
+                       f"decode_32k's 128")
+        ctx = ParallelCtx(None, cfg.rules)
+        g = torch.Generator(dev).manual_seed(seed)
+        t0 = time.perf_counter()
+        model, _ = T.init_transformer(cfg, seed=seed, device=dev)
+        model.requires_grad_(False)
+        sync(torch, on_card)
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        rec = DispatchRecorder(M)
+        with torch.no_grad(), rec:
+            # ---- prefill
+            pb, ps = sh["prefill"]
+            ptok = torch.randint(0, cfg.vocab_size, (pb, ps), generator=g, device=dev)
+            logits = T.prefill_step(model, ptok, cfg, ctx)
+            assert logits.shape == (pb, cfg.padded_vocab) and bool(torch.isfinite(logits).all())
+            prefill_ms = cuda_ms(torch, lambda: T.prefill_step(model, ptok, cfg, ctx), 3) if on_card else float("nan")
+            prefill_moe = rec.take()
+            gemm, attn = lm_flops(cfg, pb * ps, ps, pb)
+            prefill_bound = (gemm / BF16_FLOPS + attn / F32_FLOPS) * 1e3
+
+            # ---- the decode loop: a prompt fed token by token, then greedy steps
+            b, smax, n_prompt, n_gen = sh["decode_b"], sh["decode_len"], sh["prompt"], sh["gen"]
+            cache = T.init_cache(cfg, b, smax, device=dev)
+            toks = torch.empty(b, n_prompt + n_gen, dtype=torch.long, device=dev)
+            toks[:, :n_prompt] = torch.randint(0, cfg.vocab_size, (b, n_prompt), generator=g, device=dev)
+            events, step_logits, finite = [], {}, torch.ones((), dtype=torch.bool, device=dev)
+            for t in range(n_prompt + n_gen):
+                if t >= n_prompt:
+                    toks[:, t] = logits.argmax(-1)          # the first of equal maxima: ties to the lower id
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if on_card else None
+                if on_card:
+                    ev[0].record()
+                logits, cache = T.decode_step(model, cache, toks[:, t:t + 1], t, cfg, ctx)
+                if on_card:
+                    ev[1].record()
+                events.append(ev)
+                finite &= torch.isfinite(logits).all()
+                if t in LM_TOP1_AT:
+                    step_logits[t] = logits[:, :cfg.vocab_size].float()
+                assert logits.shape == (b, cfg.padded_vocab)
+            sync(torch, on_card)
+            decode_moe = rec.take()
+            step_ms = [e[0].elapsed_time(e[1]) for e in events] if on_card else [float("nan")]
+            decode_ms = statistics.median(step_ms)
+            assert bool(finite), f"{cfg.name}: a decode step gave a logit that is not finite"
+            hit = 1.0
+            if decode_moe:
+                hit = sum(int((load > 0).sum()) for load, _, _ in decode_moe) / sum(len(load) for load, _, _ in
+                                                                                    decode_moe)
+            decode_bound = (lm_weight_bytes(model, cfg, b, hit)
+                            + lm_cache_bytes(cache, (n_prompt + n_gen) // 2)) / HBM_BYTES_PER_S * 1e3
+            # bf16 top-1: decode step t against prefill of the t + 1 tokens it has seen (the real vocabulary:
+            # prefill leaves the padded columns unmasked)
+            agree, top1_steps = [], sorted(step_logits)
+            for t, lg in step_logits.items():
+                pre = T.prefill_step(model, toks[:, :t + 1], cfg, ctx)[:, :cfg.vocab_size]
+                agree.append(float((pre.argmax(-1) == lg.argmax(-1)).float().mean()))
+            # where a step's time goes: the device's busy share of a few more steps, its largest kernels
+            idle, top = "not measured", "not measured"
+            if on_card:
+                def more_steps():
+                    for t in range(n_prompt + n_gen, n_prompt + n_gen + sh["profiled"]):
+                        T.decode_step(model, cache, toks[:, -1:], t, cfg, ctx)
+
+                groups, span_ms, _ = device_profile(torch, more_steps, by_kernel=True)
+                if groups:
+                    idle = f"{max(0.0, 1.0 - sum(groups.values()) / span_ms):.3f}"
+                    top = ", ".join(f"{k} {v / sh['profiled']:.3f}" for k, v in
+                                    sorted(groups.items(), key=lambda kv: -kv[1])[:3])
+            rec.take()
+            del cache, step_logits
+
+            # ---- one step at decode_32k's length
+            lb, llen = sh["long_b_moe" if cfg.is_moe else "long_b"], sh["long_len"]
+            cache = T.init_cache(cfg, lb, llen, device=dev)
+            cache_gb = lm_cache_bytes(cache, llen) / 1e9
+            ltok = torch.randint(0, cfg.vocab_size, (lb, 1), generator=g, device=dev)
+            long_logits, _ = T.decode_step(model, cache, ltok, llen - 1, cfg, ctx)
+            assert bool(torch.isfinite(long_logits).all())
+            long_ms = cuda_ms(torch, lambda: T.decode_step(model, cache, ltok, llen - 1, cfg, ctx), 3) \
+                if on_card else float("nan")
+            long_moe = rec.take()
+            lhit = 1.0
+            if long_moe:
+                lhit = sum(int((ld > 0).sum()) for ld, _, _ in long_moe) / sum(len(ld) for ld, _, _ in long_moe)
+            long_bound = (lm_weight_bytes(model, cfg, lb, lhit) + lm_cache_bytes(cache, llen)) / HBM_BYTES_PER_S * 1e3
+            del cache, long_logits
+        peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
+        del model
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # ---- f32, 2 layers of full width: the card against the CPU, decode against prefill
+        c32 = dataclasses.replace(cfg, n_layers=sh["check_layers"], dtype="float32")
+        m32, _ = T.init_transformer(c32, seed=seed + 1, device=dev)
+        m32.requires_grad_(False)
+        cpu_m, _ = T.init_transformer(c32, device="meta")
+        cpu_m = cpu_m.to_empty(device="cpu")
+        cpu_m.load_state_dict(m32.state_dict())
+        cpu_m.requires_grad_(False)
+        cb, cp, cs = sh["cpu_b"], sh["cpu_prompt"], sh["cpu_steps"]
+        ctok = torch.randint(0, cfg.vocab_size, (cb, cp), generator=g, device=dev)
+        errs = []
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            errs.append(row_err(torch, T.prefill_step(m32, ctok, c32, ctx), T.prefill_step(cpu_m, ctok.cpu(), c32, ctx)))
+            ccard = T.init_cache(c32, cb, cp, device=dev)
+            ccpu = T.init_cache(c32, cb, cp, device="cpu")
+            for t in range(cs):
+                lc, _ = T.decode_step(m32, ccard, ctok[:, t:t + 1], t, c32, ctx)
+                lh, _ = T.decode_step(cpu_m, ccpu, ctok[:, t:t + 1].cpu(), t, c32, ctx)
+                errs.append(row_err(torch, lc, lh))
+        cpu_s = time.perf_counter() - t0
+        del cpu_m, ccard, ccpu
+        assert max(errs) <= LM_TOL, f"{cfg.name}: card against CPU {errs} of row scale > {LM_TOL}"
+
+        db, ds = sh["decode_b"], sh["dvp_steps"]
+        dtok = torch.randint(0, cfg.vocab_size, (db, ds), generator=g, device=dev)
+        dcache = T.init_cache(c32, db, max(cp, ds), device=dev)
+        dvp, drops, seen_drop = [], [], 0
+        with torch.no_grad(), rec:
+            for t in range(ds):
+                ld, _ = T.decode_step(m32, dcache, dtok[:, t:t + 1], t, c32, ctx)
+                dec = sum(dropped for _, dropped, _ in rec.take())
+                lp = T.prefill_step(m32, dtok[:, :t + 1], c32, ctx)
+                pre = sum(dropped for _, dropped, _ in rec.take())
+                seen_drop += dec
+                drops.append((dec, pre))
+                err = row_err(torch, ld[:, :cfg.vocab_size], lp[:, :cfg.vocab_size])
+                if seen_drop == 0 and pre == 0:
+                    dvp.append(err)
+                    assert err <= LM_TOL, f"{cfg.name}: decode step {t} against prefill {err} of row scale > {LM_TOL}"
+        assert dvp, f"{cfg.name}: every decode-vs-prefill step dropped a pair: {drops}"
+        del m32, dcache
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+        def moe_note(calls, what):
+            if not calls:
+                return ""
+            load = torch.stack([ld for ld, _, _ in calls]).sum(0).tolist()
+            return (f"; {what}: expert load {load} over {len(calls)} MoE calls, {sum(d for _, d, _ in calls)} pairs "
+                    f"dropped (capacity {sorted({c for _, _, c in calls})})")
+
+        tps = b / decode_ms * 1e3
+        log(f"phase lm full: {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, {cfg.attention}"
+            + (f", {cfg.n_experts} experts of d_ff {cfg.moe_d_ff}, top {cfg.top_k}, capacity {cfg.capacity_factor}"
+               if cfg.is_moe else f", d_ff {cfg.d_ff}")
+            + f", vocab {cfg.vocab_size} padded {cfg.padded_vocab}, {cfg.dtype}; {n_params / 1e9:.3f}B parameters; "
+            f"reduced: {', '.join(reduced) or 'none'}) drawn in {init_s:.2f} s")
+        log(f"  prefill {pb} x {ps}: {prefill_ms:.3f} ms (CUDA events, median of 3) against a bound of "
+            f"{prefill_bound:.3f} ms ({gemm / 1e12:.3f} TFLOP of bf16 GEMMs at {BF16_FLOPS / 1e12:.1f} + "
+            f"{attn / 1e12:.3f} TFLOP of f32 attention at {F32_FLOPS / 1e12:.0f} TFLOP/s)"
+            + moe_note(prefill_moe, "prefill"))
+        log(f"  decode B={b} over a {smax}-position cache, {n_prompt} prompt + {n_gen} greedy steps: "
+            f"{decode_ms:.3f} ms a step (CUDA events, median of {len(step_ms)}; min {min(step_ms):.3f}, max "
+            f"{max(step_ms):.3f}), {tps:.1f} tokens/s, against a bound of {decode_bound:.3f} ms (bytes: the "
+            f"weights{'' if hit == 1.0 else f' with {hit:.3f} of the experts reached'} and the cache valid at "
+            f"the median step at "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); bf16 top-1 decode against prefill at steps "
+            f"{top1_steps}: {[round(a, 4) for a in agree]} (not gated); {sh['profiled']} more steps under the "
+            f"profiler: device idle {idle}, the largest kernels (ms a step) {top}" + moe_note(decode_moe, "decode"))
+        log(f"  long-context step (pos {llen - 1} of a {llen}-position cache, B={lb}, {cache_gb:.2f} GB of cache): "
+            f"{long_ms:.3f} ms (CUDA events, median of 3) against a bound of {long_bound:.3f} ms (bytes: the weights "
+            f"and the whole cache)" + moe_note(long_moe, "long"))
+        log(f"  f32, {c32.n_layers} layers of full width: card against CPU (prefill {cb} x {cp} and {cs} decode "
+            f"steps) worst {max(errs):.3g} of row scale (bound {LM_TOL}; cpu {cpu_s:.1f} s); decode against "
+            f"prefill at B={db} for {ds} steps: {len(dvp)} checked, worst {max(dvp):.3g} (bound {LM_TOL}); "
+            f"dropped pairs (decode, prefill) by step {drops}; peak {peak:.2f} GB allocated; phase "
+            f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    launched = {name: m.launches - before[name] for name, m in counters.items()}
+    assert not any(launched.values()), f"lm full launched a kernel of the port: {launched}"
+
+
 def sync(torch, on_card):
     if on_card:
         torch.cuda.synchronize()
@@ -4303,6 +4626,14 @@ def main() -> int:
                                         rec_others)
     molecule_launches, _ = molecule_full_phase(torch, dev, check, card, on_card, args.seed + 27, timer, mol_cfg,
                                                mol_n)
+    # ---- LM inference at published widths; a CPU rehearsal cuts it to the smoke configs and small shapes
+    lm_cfgs = lm_shapes = None
+    if not on_card:
+        from repro_torch.configs import get_smoke_config
+        lm_cfgs = [dataclasses.replace(get_smoke_config(a), dtype="bfloat16") for a in LM_ARCHS]
+        lm_shapes = dict(prefill=(2, 64), decode_b=4, decode_len=128, prompt=8, gen=8, long_len=256, long_b=2,
+                         long_b_moe=2)
+    lm_full_phase(torch, dev, card, on_card, args.seed + 28, lm_cfgs, lm_shapes)
     recall_n = min(RECALL_N, n) // CLUSTERS * CLUSTERS
     recall_data = graph_recall_phase(torch, dev, recall_n, args.seed + 11, on_card)
     napp_recall_phase(torch, dev, *recall_data, args.seed + 12, on_card)

@@ -22,8 +22,8 @@ from repro_torch.device import resolve_device
 
 __all__ = ["tensor", "to_numpy", "sparse_vectors", "fused_vectors",
            "fused_space", "graph_index", "napp_index", "forward_index",
-           "inverted_index", "tree_ensemble", "transformer_params", "recsys_params",
-           "schnet_params"]
+           "inverted_index", "tree_ensemble", "transformer_params", "kv_cache",
+           "recsys_params", "schnet_params"]
 
 
 def tensor(array, device=None, *, bf16: bool = False) -> torch.Tensor:
@@ -122,7 +122,10 @@ def transformer_params(params, cfg, device=None):
     The reference stacks the blocks on a leading layer axis
     (``init_transformer``'s vmap); they are split here, one ``Block`` a
     layer.  Layouts stay the reference's einsum layouts (``wq [d, h, dh]``,
-    ``wo [h, dh, d]``, ``wq_b [r, h, k]``), so no array is transposed.
+    ``wo [h, dh, d]``, ``wq_b [r, h, k]``; experts ``w_in [E, d, f]``), so
+    no array is transposed.  A block with experts carries ``moe`` (the
+    router ``wg`` in f32, the experts in the model dtype) and, with a dense
+    residual, ``ln3`` and ``ffn``.
     Every array must have the shape and dtype that the port's own
     ``init_transformer(cfg)`` gives, and no name may be missing or extra;
     anything else raises ``ValueError``."""
@@ -148,6 +151,32 @@ def transformer_params(params, cfg, device=None):
     lm_head = None if want.lm_head is None else _carry_tree(params["lm_head"], want.lm_head, "lm_head", dev)
     return T.Transformer(cfg, _carry_tree(params["embed"], want.embed, "embed", dev), blocks,
                          _carry_tree(params["ln_f"], _like(want.ln_f), "ln_f", dev), lm_head)
+
+
+def kv_cache(cache, cfg, device=None):
+    """The port's ``models.transformer.KVCache`` holding ``repro``'s cache
+    ``cache`` (a ``KVCache`` or any object with fields ``k``, ``v``, ``ckv``
+    and ``kpe``, each a numpy array or None; bf16 as ``uint16`` bits) for
+    the config ``cfg``.  The fields present must be the ones the port's
+    ``init_cache(cfg, ...)`` makes, each ``[L, B, S, ...]`` in the model
+    dtype, with one B and S; anything else raises ``ValueError``."""
+    from repro_torch.models import transformer as T
+
+    dev = resolve_device(device)
+    fields = {name: getattr(cache, name) for name in T.KVCache._fields}
+    present = {name for name, a in fields.items() if a is not None}
+    some = next(iter(present), None)
+    if some is None:
+        raise ValueError("cache: no field holds an array")
+    shape = np.asarray(fields[some]).shape
+    if len(shape) < 3:
+        raise ValueError(f"cache.{some}: shape {shape} where the port keeps [L, B, S, ...]")
+    want = T.init_cache(cfg, shape[1], shape[2], device="meta")
+    keep = {name for name in T.KVCache._fields if getattr(want, name) is not None}
+    if present != keep:
+        raise ValueError(f"cache: fields {sorted(present)} where the port keeps {sorted(keep)}")
+    return T.KVCache(**{name: _carry_tree(fields[name], getattr(want, name), f"cache.{name}", dev)
+                        for name in keep})
 
 
 def _like(node):

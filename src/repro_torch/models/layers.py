@@ -20,6 +20,17 @@ product with an f32 result is taken as an f32 product of the widened
 operands: a product of two bf16 values is exact in f32.  Head-count
 padding multiplies padded heads by a zero mask, so semantics match the
 unpadded model exactly.
+
+The decode forms write the step's key and value (or MLA latents) into
+the caller's cache *in place* and return it, where the reference returns
+a new array: a copy of a decode-length cache every step is no option.
+The write position clamps as ``jax.lax.dynamic_update_slice`` clamps it
+(a negative one wrapped once, then into ``[0, Smax - 1]``), while RoPE and
+the valid length take the unclamped ``pos``.  GQA decode attends per KV
+group (:func:`decode_attention`), never materialising the reference's
+``jnp.repeat`` of the cache, and stops after the last chunk that holds a
+valid key; a chunk past it would leave the online softmax's state bit for
+bit unchanged.
 """
 
 from __future__ import annotations
@@ -33,7 +44,8 @@ from repro_torch.configs.base import TransformerConfig
 from repro_torch.distributed.sharding import ParallelCtx
 
 __all__ = ["dense_init", "rmsnorm_init", "rmsnorm", "apply_rope", "flash_attention",
-           "gqa_init", "gqa_apply", "mla_init", "mla_apply", "swiglu_init", "swiglu_apply"]
+           "gqa_init", "gqa_apply", "decode_attention", "gqa_decode", "mla_init", "mla_apply",
+           "mla_decode", "swiglu_init", "swiglu_apply"]
 
 
 # ---------------------------------------------------------------------------
@@ -210,6 +222,78 @@ def gqa_apply(params, x, positions, cfg: TransformerConfig, ctx: ParallelCtx,
     return _attend_out(params, out, cfg)
 
 
+def _write_slot(pos: int, smax: int) -> int:
+    """Where ``dynamic_update_slice_in_dim`` writes a one-row update at
+    ``pos``: a negative start wraps once, then clamps to ``[0, smax - 1]``."""
+    start = pos + smax if pos < 0 else pos
+    return min(max(start, 0), smax - 1)
+
+
+def decode_attention(q, cache_k, cache_v, valid_len: int, chunk_kv: int,
+                     n_chunks: Optional[int] = None) -> torch.Tensor:
+    """``flash_attention(q, repeat(cache_k), repeat(cache_v), causal=False,
+    kv_valid_len=valid_len, chunk_q=1, chunk_kv=chunk_kv)`` for one query
+    token, per KV group: q ``[B, 1, H, Dk]`` with head ``h`` reading KV
+    head ``h // (H / Hkv)`` of cache ``[B, Smax, Hkv, D]``.  Keys at or past
+    ``valid_len`` are masked at f32-min.  Only the first ``n_chunks`` chunks
+    are scanned (default: through the last chunk that holds a valid key);
+    a masked chunk leaves ``m``, ``l`` and ``acc`` unchanged (``p = 0``,
+    ``corr = 1``) while one valid score is finite, so the result equals
+    the full scan's."""
+    b, _, h, dk = q.shape
+    smax, hkv, dv = cache_k.shape[1], cache_k.shape[2], cache_v.shape[-1]
+    rep = h // hkv
+    ckv = min(chunk_kv, smax)
+    assert smax % ckv == 0, (smax, ckv)
+    if n_chunks is None:
+        n_chunks = smax // ckv if valid_len <= 0 else min(smax // ckv, -(-valid_len // ckv))
+    dev = q.device
+    # the scale rounded to q's dtype first, as in flash_attention
+    qs = (q * torch.tensor(1.0 / math.sqrt(dk), dtype=q.dtype).item()).float()
+    qs = qs.reshape(b, hkv, rep, dk)
+    neg = torch.finfo(torch.float32).min
+    m = torch.full((b, hkv, rep), -torch.inf, device=dev)
+    l = torch.zeros((b, hkv, rep), device=dev)
+    acc = torch.zeros((b, hkv, rep, dv), device=dev)
+    for ki in range(n_chunks):
+        kc = cache_k[:, ki * ckv:(ki + 1) * ckv].float()
+        vc = cache_v[:, ki * ckv:(ki + 1) * ckv]
+        s = torch.einsum("bgrd,bkgd->bgrk", qs, kc)
+        kpos = ki * ckv + torch.arange(ckv, device=dev)
+        s = s.masked_fill_(kpos >= valid_len, neg)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bgrk,bkgd->bgrd", p.to(cache_v.dtype).float(), vc.float())
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(b, 1, h, dv).to(cache_v.dtype)
+
+
+def gqa_decode(params, x, cache_k, cache_v, pos: int, cfg: TransformerConfig,
+               ctx: ParallelCtx):
+    """One-token decode.  x: [B, 1, d]; cache_[kv]: [B, Smax, Hkv, Dh],
+    written in place at ``pos`` (clamped as the reference's
+    ``dynamic_update_slice``); pos: the current length, a Python int
+    (tokens 0..pos-1 are valid).  Returns (y [B, 1, d], cache_k, cache_v)."""
+    b = x.shape[0]
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q = apply_rope(q, posv, cfg.rope_theta)
+    k = apply_rope(k, posv, cfg.rope_theta)
+    slot = _write_slot(pos, cache_k.shape[1])
+    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    out = decode_attention(q, cache_k, cache_v, pos + 1, cfg.attn_chunk_kv)
+    return _attend_out(params, out, cfg), cache_k, cache_v
+
+
 # ---------------------------------------------------------------------------
 # MLA attention (MiniCPM3 / DeepSeek-V2 style).
 # ---------------------------------------------------------------------------
@@ -262,6 +346,42 @@ def mla_apply(params, x, positions, cfg: TransformerConfig, ctx: ParallelCtx,
     out = flash_attention(q, k, v, causal=causal, q_offset=q_offset,
                           chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
     return _attend_out(params, out, cfg)
+
+
+def mla_decode(params, x, cache_ckv, cache_kpe, pos: int, cfg: TransformerConfig,
+               ctx: ParallelCtx):
+    """Absorbed-matmul MLA decode: scores against the *compressed* latent
+    cache, ``W_uk`` absorbed into the query and ``W_uv`` applied after
+    attention, so a step touches kv_lora + rope values per cached token.
+
+    x: [B, 1, d]; cache_ckv: [B, Smax, kvr]; cache_kpe: [B, Smax, dr], both
+    written in place at ``pos`` (clamped).  Every keys position ``<= pos``
+    is valid (all of them once ``pos >= Smax - 1``).  The reference's
+    roundings, one by one: ``q_lat`` rounded to the cache dtype, the two
+    score products each rounded, their sum rounded, times the scale
+    rounded to that dtype first; then f32 for the masked softmax, whose
+    probabilities go back to the cache dtype for ``ctx_lat``."""
+    b = x.shape[0]
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_pe, ckv_new, kpe_new = _mla_qkv(params, x, posv, cfg)
+    slot = _write_slot(pos, cache_ckv.shape[1])
+    cache_ckv[:, slot] = ckv_new[:, 0].to(cache_ckv.dtype)
+    cache_kpe[:, slot] = kpe_new[:, 0, 0].to(cache_kpe.dtype)
+
+    # absorb W_uk: q_lat[b,h,c] = sum_k q_nope[b,1,h,k] wk_b[c,h,k]
+    q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], params["wk_b"])
+    scale = torch.tensor(1.0 / math.sqrt(dn + dr), dtype=q_lat.dtype).item()
+    s = (torch.einsum("bhr,bsr->bhs", q_lat, cache_ckv)
+         + torch.einsum("bhk,bsk->bhs", q_pe[:, 0], cache_kpe)) * scale
+    s = s.float()
+    invalid = torch.arange(cache_ckv.shape[1], device=x.device) > pos
+    s = s.masked_fill_(invalid, torch.finfo(torch.float32).min)
+    p = torch.softmax(s, dim=-1).to(cache_ckv.dtype)
+    ctx_lat = torch.einsum("bhs,bsr->bhr", p, cache_ckv)
+    # apply W_uv per head, then the output projection
+    out = torch.einsum("bhr,rhk->bhk", ctx_lat, params["wv_b"])
+    return _attend_out(params, out[:, None], cfg), cache_ckv, cache_kpe
 
 
 # ---------------------------------------------------------------------------

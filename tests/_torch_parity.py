@@ -14,6 +14,7 @@ must be equal.
 
 from __future__ import annotations
 
+import functools
 import sys
 from pathlib import Path
 
@@ -177,3 +178,136 @@ def batched_offline(run, items, pad, batch_size):
         for i in range(n_real):
             rows.append(type(out)(*(np.asarray(x[i]) for x in out)))
     return rows
+
+
+class PinnedRoutes:
+    """The two packages' MoE routing decisions, call by call, for end-to-end
+    comparisons of models with experts.
+
+    Given equal inputs, a router decides alike in both packages (ids equal,
+    ``tests/test_torch_moe.py``).  End to end, the residual stream that
+    reaches a router differs by the dtype's rounding (an ULP of bf16 here and
+    there), and that can flip a decision whose two experts' probabilities
+    lie that close; the flipped token's output then differs by a whole
+    expert.  This records ``repro``'s ids at every ``route`` call (through
+    ``jax.debug.callback``, in call order; install it before ``repro``'s
+    function is traced).  At the port's matching call it asserts that every
+    decision that differs is such a near-tie (the two experts' probabilities
+    within ``near`` times the token's largest, in the port's f32
+    probabilities), counts it in ``flips``, and routes the port as ``repro``
+    did: ``repro``'s ids with the port's own probabilities for the weights
+    and the aux loss.  The rest of the network is then compared on equal
+    routes."""
+
+    def __init__(self, monkeypatch, near: float):
+        import jax
+        from repro.models import moe as JM
+        from repro_torch.models import moe as TM
+
+        self.near, self.ref, self.calls, self.flips = near, [], 0, 0
+        j_route, self._t_route = JM.route, TM.route
+
+        def record(x, wg, k):
+            out = j_route(x, wg, k)
+            jax.debug.callback(lambda ids: self.ref.append(np.asarray(ids)), out[0], ordered=True)
+            return out
+
+        monkeypatch.setattr(JM, "route", record)
+        monkeypatch.setattr(TM, "route", self._pin)
+
+    def _pin(self, x, wg, k):
+        ids, w, aux = self._t_route(x, wg, k)
+        want = torch.from_numpy(np.array(self.ref[self.calls])).to(ids.device)
+        self.calls += 1
+        differ = (ids != want).any(dim=-1)
+        if not bool(differ.any()):
+            return ids, w, aux
+        probs = torch.softmax(x.float() @ wg, dim=-1)
+        for r in differ.nonzero()[:, 0].tolist():
+            got_p, want_p = probs[r, ids[r].long()], probs[r, want[r].long()]
+            gap = float((got_p - want_p).abs().max())
+            assert gap <= self.near * float(probs[r].max()), \
+                f"route call {self.calls - 1}, token {r}: ids {ids[r].tolist()} against repro's " \
+                f"{want[r].tolist()}, probabilities {gap:.3g} apart: not a near-tie"
+        self.flips += int(differ.sum())
+        e = wg.shape[1]
+        wv = torch.gather(probs, 1, want.long())
+        wv = wv / torch.clamp_min(wv.sum(dim=-1, keepdim=True), 1e-9)
+        f_e = torch.nn.functional.one_hot(want.long(), e).float().sum(dim=1).mean(dim=0)
+        return want, wv.to(x.dtype), e * torch.sum(f_e * probs.mean(dim=0))
+
+    def done(self):
+        """Every recorded call was matched by one of the port's."""
+        assert self.calls == len(self.ref) > 0, (self.calls, len(self.ref))
+
+
+def lm_params(jcfg, seed: int = 0):
+    """Random weights for ``repro``'s transformer config ``jcfg`` in its
+    parameter tree (jnp arrays; the shapes of ``init_transformer``, traced
+    by ``jax.eval_shape``), drawn with numpy at the reference's scales
+    (embed and lm_head 0.02, a weight N(0, 1/fan_in)) and the router
+    ``wg`` in f32, but with norm scales 1 + N(0, 0.1^2) and QKV biases
+    N(0, 0.1^2) so that they count.  Quicker than ``init_transformer``,
+    whose eager draws compile for seconds."""
+    import jax
+
+    from repro.models import transformer as JT
+
+    rng = np.random.default_rng(seed)
+    dtype = jnp.dtype(jcfg.dtype)
+    shapes = jax.eval_shape(lambda k: JT.init_transformer(k, jcfg)[0], jax.random.PRNGKey(0))
+
+    def draw(path, leaf):
+        names = [p.key for p in path]
+        name, shape = names[-1], leaf.shape
+        z = rng.standard_normal(shape)
+        if name in ("embed", "lm_head"):
+            a = 0.02 * z
+        elif name == "scale":
+            a = 1.0 + 0.1 * z
+        elif name in ("bq", "bk", "bv"):
+            a = 0.1 * z
+        elif name == "wo":                                   # [L, h, k, d]
+            a = z / np.sqrt(shape[1] * shape[2])
+        elif "moe" in names and name != "wg":                # [L, E, in, out]
+            a = z / np.sqrt(shape[2])
+        else:                                                # [L, in, ...]
+            a = z / np.sqrt(shape[1])
+        return jnp.asarray(a, jnp.float32 if name == "wg" else dtype)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def lm_configs(arch, dtype="float32", **kw):
+    """(repro config, port config) of ``arch``'s smoke config in ``dtype``,
+    with the fields ``kw`` replaced in both."""
+    import dataclasses
+
+    import repro.configs as jc
+    import repro_torch.configs as tc
+
+    return (dataclasses.replace(jc.get_smoke_config(arch), dtype=dtype, **kw),
+            dataclasses.replace(tc.get_smoke_config(arch), dtype=dtype, **kw))
+
+
+@functools.lru_cache(maxsize=None)
+def _lm_f32_params(arch, kw):
+    return lm_params(lm_configs(arch, **dict(kw))[0])
+
+
+def lm_reference_params(arch, dtype, **kw):
+    """:func:`lm_params` of ``arch``'s smoke config (with ``kw``): the f32
+    draws, made once per process, every leaf but the f32 router cast to
+    ``dtype`` (bf16 rounded once, as ``init_transformer`` casts)."""
+    import jax
+
+    p = _lm_f32_params(arch, tuple(sorted(kw.items())))
+    dt = jnp.dtype(dtype)
+    return jax.tree_util.tree_map_with_path(lambda path, a: a if path[-1].key == "wg" else a.astype(dt), p)
+
+
+def lm_model(p, tcfg):
+    """The port's ``Transformer`` on the CPU holding ``repro``'s tree ``p``."""
+    import jax
+
+    return interop.transformer_params(jax.tree.map(np_of, p), tcfg, "cpu")

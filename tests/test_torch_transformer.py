@@ -3,9 +3,11 @@
 non-zero QKV biases) and minicpm3-4b (MLA, untied head), in f32 and bf16,
 on the reference's weights carried by ``interop.transformer_params``;
 out-of-range token ids; parameter shapes and dtypes at the full published
-configs (``jax.eval_shape`` against the port on the ``meta`` device); MoE
-configs refused; ``interop.transformer_params``' layout checks; and the
-port's own draws.
+configs, the two with experts included (``jax.eval_shape`` against the
+port on the ``meta`` device); ``interop.transformer_params``' layout
+checks; and the port's own draws.  The experts, the loss and the decode
+steps have files of their own (``test_torch_moe.py``,
+``test_torch_decode.py``).
 
 Tolerances, of each row's largest |hidden| (the last axis):
 
@@ -121,11 +123,13 @@ def test_forward_is_backbone():
         assert torch.equal(model(tok)[0], TT.backbone(model, tok, tcfg, ParallelCtx(None, {}))[0])
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "qwen2.5-3b", "minicpm3-4b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "qwen2.5-3b", "minicpm3-4b", "phi3.5-moe-42b-a6.6b",
+                                  "arctic-480b"])
 def test_full_config_shapes_equal_repro(arch):
     """The published configs' parameter trees, traced by ``jax.eval_shape``
     against the port's on the ``meta`` device (no memory): every leaf's
-    shape (the reference's with its leading layer axis) and dtype."""
+    shape (the reference's with its leading layer axis) and dtype (the
+    config's; the MoE router ``wg`` in f32)."""
     jcfg, tcfg = jc.get_config(arch), tc.get_config(arch)
     shapes = jax.eval_shape(lambda k: JT.init_transformer(k, jcfg)[0], jax.random.PRNGKey(0))
     model, _ = TT.init_transformer(tcfg, device="meta")
@@ -140,23 +144,10 @@ def test_full_config_shapes_equal_repro(arch):
         for k in keys:
             node = getattr(node, k) if isinstance(node, TT.Block) else node[k]
         shape = (jcfg.n_layers, *node.shape) if keys[0] == "blocks" else tuple(node.shape)
-        assert shape == leaf.shape and str(leaf.dtype) == tcfg.dtype, keys
-        assert node.dtype == TT.torch_dtype(tcfg.dtype)
+        dtype = "float32" if keys[-1] == "wg" else tcfg.dtype
+        assert shape == leaf.shape and str(leaf.dtype) == dtype, keys
+        assert node.dtype == TT.torch_dtype(dtype)
     assert sum(p.numel() for p in model.parameters()) == sum(int(np.prod(leaf.shape)) for _, leaf in flat)
-
-
-@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "arctic-480b"])
-def test_moe_configs_raise(arch):
-    tcfg = tc.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        TT.init_transformer(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        TT.init_block(torch.Generator(), tcfg, torch.float32)
-    dense = dataclasses.replace(tcfg, n_experts=0)
-    model, _ = TT.init_transformer(dense, device="cpu")
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        TT.block_apply(model.blocks[0], torch.zeros(1, 4, tcfg.d_model), torch.arange(4), tcfg,
-                       ParallelCtx(None, {}))
 
 
 def test_init_transformer_without_a_card_raises(monkeypatch):
