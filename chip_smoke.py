@@ -73,7 +73,12 @@ served), then LM inference ("lm full": qwen2.5-3b and minicpm3-4b as
 published and phi3.5-moe at 16 of its 32 layers, bf16, through
 ``prefill_step`` and a ``decode_step`` loop over a KV cache, one step at
 32,768 positions; in f32 at 2 layers, the card against the CPU and decode
-against prefill; it launches no kernel of the port).  Each
+against prefill; it launches no kernel of the port), then training
+("train full": one f32 train step of those configs and smollm-360m at
+2 layers, the card against the CPU; smollm-360m as published trained
+through ``launch.train.train_lm`` at 4 x 4,096 tokens with checkpoints
+and a resumed run; DIN and SchNet train steps at published widths; no
+kernel of the port either).  Each
 served path runs with the launch counters set to 0 just before and read
 just after.  The last lines are the ``kernels`` JSON, the card's name and
 power limit, and ``{"ok": true, ...}``.  Any failure raises and exits
@@ -204,6 +209,15 @@ LM = dict(prefill=(4, 1024), decode_b=16, decode_len=4096, prompt=32, gen=32, lo
 # long_b_moe: phi3.5-moe's 16 layers hold 8.6 GB of cache at B = 4 beside 42.2 GB of weights (34.4 GB at 16)
 LM_TOL = 1e-5                    # f32 logits, card vs CPU and decode vs prefill, of each row's largest |logit|
 LM_TOP1_AT = (7, 31, 63)         # decode steps whose bf16 top-1 is held against prefill's (printed, not gated)
+# "train full": the f32 card-vs-CPU steps' depth, batch (phi3.5-moe's: its grad_accum 4 needs 4 rows) and length;
+# smollm-360m's training batch and length (train_4k's positions, configs/base.py LM_SHAPES), steps, checkpoint
+# interval, resumed steps and lr (train_lm's default); DIN's batch (train_batch) and steps; SchNet's molecules
+# (the molecule shape's 128 graphs) and steps
+TRAIN = dict(check_layers=2, check_b=2, check_b_moe=4, check_s=256, b=4, s=4096, steps=6, interval=3, more=2,
+             lr=3e-4, din_b=65536, din_steps=3, mol_graphs=128, mol_steps=4)
+TRAIN_TOL = 1e-5                 # f32 train steps, card vs CPU, of each leaf's largest |value|
+GRAD_FLOOR = 1e-3                # a vanishing gradient is noise: leaves held against this share of the largest
+STEP_LR = 1e-3                   # the card-vs-CPU steps' learning rate
 AUTOTUNE = dict(generations=2, population=16, measure_budget=4)   # "autotune": the search's settings
 AUTOTUNE_QUERIES, AUTOTUNE_WARM, AUTOTUNE_REQUESTS = 256, 16, 256   # distinct queries, warm-up, workload
 NEG = -3.4028234663852886e38     # f32 min, the mask of invalid candidates
@@ -1361,7 +1375,7 @@ def skew_phase(torch, dev, corpus, q, space, timer):
           f"{split[1]:.3f} ms")
 
 
-def device_profile(torch, fn, by_kernel=False):
+def device_profile(torch, fn, by_kernel=False, host_ops=True):
     """One call of ``fn`` under torch.profiler.  Returns the device
     milliseconds by kernel group (the traversal kernel, the exact-scan
     kernels, the fused score kernel, the query-index build, and PyTorch's
@@ -1369,10 +1383,13 @@ def device_profile(torch, fn, by_kernel=False):
     profiler saw no device time), or by kernel name with ``by_kernel``,
     the call's host-clock milliseconds (synchronised) and the trace's
     span from the first kernel's start to the last kernel's end, all from
-    the same call."""
+    the same call.  ``host_ops=False`` records the device's activity
+    alone (a train step's tens of thousands of host ops take the trace
+    processing from seconds to nearly a minute)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -4004,6 +4021,12 @@ class DispatchRecorder:
     def __exit__(self, *exc):
         self.moe.sort_dispatch = self.orig
 
+    def take_ids(self):
+        """[(bucket ids on the host, dropped pairs)] of the calls since the last take."""
+        out = [(b.cpu(), int((~v).sum())) for b, v, _, _ in self.calls]
+        self.calls = []
+        return out
+
     def take(self):
         """[(expert load, dropped pairs, capacity)] of the calls since the last take."""
         out = [(b.long().bincount(minlength=n)[:n].cpu(), int((~v).sum()), c) for b, v, n, c in self.calls]
@@ -4289,6 +4312,430 @@ def lm_full_phase(torch, dev, card, on_card, seed, cfgs=None, shapes=None):
             f"{time.perf_counter() - t_phase:.1f} s; {card}")
     launched = {name: m.launches - before[name] for name, m in counters.items()}
     assert not any(launched.values()), f"lm full launched a kernel of the port: {launched}"
+
+
+class StepRecorder:
+    """Wraps ``launch.train.make_lm_train_step`` while in use: each step
+    ``train_lm`` takes is bracketed by CUDA events (the step's device time:
+    ``train_lm`` synchronises on its loss before the next), the last call's
+    parameters and state are kept (references: the step updates them in
+    place), ``first`` is called with the first call's parameters and state
+    before it steps, and call ``profile_at`` (1-based) runs under
+    ``device_profile``."""
+
+    def __init__(self, torch, train_mod, on_card, first=None, profile_at=0):
+        self.torch, self.mod, self.on_card = torch, train_mod, on_card
+        self.first, self.profile_at = first, profile_at
+        self.events, self.last, self.profile, self.profile_s = [], None, None, float("nan")
+
+    def __enter__(self):
+        self.orig = self.mod.make_lm_train_step
+        torch = self.torch
+
+        def make(cfg, ctx, lr):
+            step, opt = self.orig(cfg, ctx, lr=lr)
+
+            def timed(params, state, batch):
+                if self.first is not None and not self.events:
+                    self.first(params, state)
+                n = len(self.events) + 1
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if self.on_card else None
+                if n == self.profile_at and self.on_card:
+                    box, t0 = {}, time.perf_counter()
+                    self.profile = device_profile(torch, lambda: box.update(out=step(params, state, batch)),
+                                                  by_kernel=True, host_ops=False)
+                    self.profile_s = time.perf_counter() - t0
+                    out = box["out"]
+                else:
+                    if ev:
+                        ev[0].record()
+                    out = step(params, state, batch)
+                    if ev:
+                        ev[1].record()
+                self.events.append(ev)
+                self.last = (params, state)
+                return out
+
+            return timed, opt
+
+        self.mod.make_lm_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.make_lm_train_step = self.orig
+
+    def ms(self, calls):
+        """CUDA-event milliseconds of the given 1-based calls (NaN off the card)."""
+        if not self.on_card:
+            return [float("nan")]
+        return [self.events[i - 1][0].elapsed_time(self.events[i - 1][1]) for i in calls
+                if self.events[i - 1] is not None and i != self.profile_at]
+
+
+def train_flops(cfg, batch, seq):
+    """(tensor-core GEMM operations, f32 attention operations) of one LM
+    train step with layer remat: ``lm_flops``' forward with the head over
+    every token, four times (the forward, the remat's second forward and
+    the backward's two products a GEMM), the attention's causal pairs four
+    times likewise."""
+    tokens = batch * seq
+    gemm, attn = lm_flops(cfg, tokens, seq, batch)
+    gemm += 2 * (tokens - batch) * cfg.d_model * cfg.padded_vocab
+    return 4 * gemm, 4 * attn
+
+
+def leaf_err(torch, want, got, floor=0.0):
+    """max |got - want| over max(max |want|, floor), in f64 on ``got``'s
+    device (``want`` crosses in its own dtype, then widens there)."""
+    w, g = want.detach().to(got.device).double(), got.detach().double()
+    assert w.shape == g.shape and bool(torch.isfinite(w).all()) and bool(torch.isfinite(g).all())
+    return float((g - w).abs().max()) / max(float(w.abs().max()), floor, 1e-30)
+
+
+def adamw_first_step_err(torch, want, got, m_new, lr, floor, b1=0.9, eps=1e-8):
+    """AdamW's first update, ``p - lr * (g / (|g| + eps) + decay)``, held
+    against the reference side elementwise: within TRAIN_TOL of the leaf's
+    largest |value| plus ``lr`` times the largest move of ``g / (|g| +
+    eps)`` when ``g`` (``m_new / (1 - b1)``, the clipped gradient) moves by
+    TRAIN_TOL of its leaf's largest |g| (at least ``floor``).  Returns the
+    worst error over its bound (<= 1 holds); f64 on ``got``'s device."""
+    dev = got.device
+    w, t = want.detach().to(dev).double(), got.detach().double()
+    g = m_new.detach().to(dev).double() / (1 - b1)
+    u = lambda x: x / (x.abs() + eps)
+    d = TRAIN_TOL * max(float(g.abs().max()), floor)
+    moves = torch.maximum((u(g + d) - u(g)).abs(), (u(g - d) - u(g)).abs())
+    bound = TRAIN_TOL * float(w.abs().max()) + lr * moves
+    return float(((t - w).abs() / bound.clamp_min(1e-300)).max())
+
+
+def step_parity(torch, dev, make_step, model, batch, steps_mod, rec=None):
+    """One step of ``make_step()`` (a ``launch.steps`` factory) on the card
+    and on a host copy of ``model``, from a fresh optimizer state, on
+    ``batch`` (moved to each side).  Returns ({group: (worst error, its
+    bound)}, the MoE routes of both sides as ``DispatchRecorder.take_ids``
+    gives them, or None, and the seconds of each side's step and of the
+    comparison, which runs on the card).  Held: the loss; the gradients of
+    the first ``steps._grads`` call of each side (a leaf within TRAIN_TOL
+    of its largest |value|, at least GRAD_FLOOR of the model's largest
+    gradient: one that vanishes in exact arithmetic is noise on both
+    sides); the updated parameters (AdamW: ``adamw_first_step_err``, at
+    most 1); the state (m within TRAIN_TOL; second moments, squares of the
+    gradient, within twice that)."""
+    from repro_torch.optim.optimizer import named_leaves
+
+    cpu_m = copy_to_cpu(torch, model)
+    sides, secs = {}, {}
+    orig = steps_mod._grads
+    for name, m, d in (("card", model, dev), ("cpu", cpu_m, torch.device("cpu"))):
+        t0 = time.perf_counter()
+        seen = {}
+
+        def record(loss, leaves, seen=seen):
+            out = orig(loss, leaves)
+            if not seen:
+                seen.update({k: g.detach().clone() for k, g in out.items()})
+            return out
+
+        steps_mod._grads = record
+        try:
+            if rec is not None:
+                rec.take_ids()
+            step, opt = make_step()
+            state = opt.init(m)
+            _, _, metrics = step(m, state, to_device(torch, batch, d))
+            routes = None if rec is None else rec.take_ids()
+            float(metrics["loss"])
+        finally:
+            steps_mod._grads = orig
+        sides[name] = (seen, state, metrics, routes, opt.name)
+        secs[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (g_card, s_card, mt_card, r_card, opt_name), (g_cpu, s_cpu, mt_cpu, r_cpu, _) = sides["card"], sides["cpu"]
+    # the floors are scales: taken once, from the card's side
+    floor = lambda tree, f=GRAD_FLOOR: f * max(float(t.abs().max()) for t in tree.values())
+    g_floor = floor(g_card)
+    errs = {"loss": (leaf_err(torch, mt_cpu["loss"], mt_card["loss"]), TRAIN_TOL),
+            "grads": (max(leaf_err(torch, g_cpu[k], g_card[k], g_floor) for k in g_cpu), TRAIN_TOL)}
+    p_cpu, p_card = named_leaves(cpu_m), named_leaves(model)
+    if opt_name == "adamw":
+        m_floor, v_floor = floor(s_card.m), floor(s_card.v, GRAD_FLOOR ** 2)
+        errs["params"] = (max(adamw_first_step_err(torch, p_cpu[k], p_card[k], s_cpu.m[k], STEP_LR, m_floor / 0.1)
+                              for k in p_cpu), 1.0)
+        errs["m"] = (max(leaf_err(torch, s_cpu.m[k], s_card.m[k], m_floor) for k in s_cpu.m), TRAIN_TOL)
+        errs["v"] = (max(leaf_err(torch, s_cpu.v[k], s_card.v[k], v_floor) for k in s_cpu.v), 2 * TRAIN_TOL)
+    else:
+        errs["params"] = (max(leaf_err(torch, p_cpu[k], p_card[k]) for k in p_cpu), TRAIN_TOL)
+        errs["vr/vc"] = (max(leaf_err(torch, getattr(s_cpu, f)[k], getattr(s_card, f)[k])
+                             for f in ("vr", "vc") for k in getattr(s_cpu, f)), 2 * TRAIN_TOL)
+    secs["compare"] = time.perf_counter() - t0
+    return errs, (None if rec is None else (r_card, r_cpu)), secs
+
+
+def errs_text(errs):
+    return ", ".join(f"{k} {v:.3g} (bound {b:g})" for k, (v, b) in errs.items())
+
+
+def copy_to_cpu(torch, model):
+    """A copy of ``model`` whose parameters live on the host (copied one by
+    one: the card holds no second copy)."""
+    import copy
+
+    memo = {id(p): torch.nn.Parameter(p.detach().to("cpu", copy=True), requires_grad=p.requires_grad)
+            for p in model.parameters()}
+    return copy.deepcopy(model, memo)
+
+
+def to_device(torch, batch, dev):
+    """A batch (a dict or a NamedTuple of tensors, dicts of tensors and
+    Nones) on ``dev``."""
+    if isinstance(batch, torch.Tensor):
+        return batch.to(dev)
+    if isinstance(batch, dict):
+        return {k: to_device(torch, v, dev) for k, v in batch.items()}
+    if batch is None:
+        return None
+    return type(batch)(*(to_device(torch, v, dev) for v in batch))
+
+
+def molecule_batch(torch, cfg, graphs, g, dev, atoms=30, edges=64):
+    """``graphs`` molecules of the ``molecule`` shape (30 atoms, 64 edges
+    each) in batched form: random edges inside each molecule, distances
+    uniform in [0.5, cutoff), one edge in 16 masked out, energies N(0, 1)."""
+    from repro_torch.models.schnet import GraphBatch
+
+    off = (torch.arange(graphs, device=dev) * atoms).repeat_interleave(edges)
+    ints = lambda hi, n: torch.randint(0, hi, (n,), generator=g, device=dev)
+    e = graphs * edges
+    return GraphBatch(node_z=(1 + ints(9, graphs * atoms)).int(), senders=(off + ints(atoms, e)).int(),
+                      receivers=(off + ints(atoms, e)).int(),
+                      distances=0.5 + (cfg.cutoff - 0.5) * torch.rand(e, generator=g, device=dev),
+                      edge_mask=ints(16, e) != 0,
+                      graph_ids=torch.arange(graphs, device=dev).repeat_interleave(atoms).int(),
+                      targets=torch.randn(graphs, generator=g, device=dev))
+
+
+def train_full_phase(torch, dev, card, on_card, seed, cfgs=None, shapes=None):
+    """Training through the port (``launch/steps.py``, ``launch/train.py``,
+    ``optim/``, ``checkpoint/``; the backward under the reference's memory
+    contract: layer remat, attention tiles and loss chunks recomputed).
+    (1) f32 at TRAIN["check_layers"] layers of full width, TF32 off: one
+    ``make_lm_train_step`` step (lr STEP_LR) of each LM config of "lm full"
+    and smollm-360m on the card against the CPU port on the same weights
+    and batch (TRAIN["check_b"] x TRAIN["check_s"]; phi3.5-moe with its
+    Adafactor and grad_accum 4 at TRAIN["check_b_moe"] rows), by
+    ``step_parity``; with experts, gated where both sides routed every
+    token alike (drops printed).  (2) smollm-360m as published (32 layers,
+    bf16, remat, AdamW) trained by ``launch.train.train_lm`` at train_4k's
+    4,096 positions and a batch of TRAIN["b"]: TRAIN["steps"] steps with a
+    checkpoint every TRAIN["interval"], then a fresh ``train_lm`` resumes
+    and takes TRAIN["more"] more (its last profiled): ms a step (CUDA
+    events, median of steps 2 to TRAIN["steps"]) against ``train_flops``'
+    bound and the optimizer's bytes, tokens/s, the device idle share, peak
+    memory, the losses; gated: finite losses, the saved state equal to the
+    trained one and the resumed run's start equal to the saved one, bit for
+    bit, peak under 80 GB.  (3) DIN as published (100M items) at
+    train_batch's TRAIN["din_b"] users, TRAIN["din_steps"] steps of
+    ``make_recsys_train_step``, and SchNet as published on
+    TRAIN["mol_graphs"] molecules of the molecule shape, TRAIN["mol_steps"]
+    steps of ``make_gnn_train_step``: ms a step against the optimizer's
+    bytes or the FLOPs, finite losses; before each, one step at its smoke
+    width on the card against the CPU (``step_parity``).  ``cfgs`` (the LM
+    configs of (1), the one trained in (2) last) and ``shapes`` cut the
+    phase for a CPU rehearsal.  No kernel of the port is launched."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.checkpoint import flatten_with_paths, load_leaves
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.distributed.sharding import ParallelCtx
+    from repro_torch.kernels import beam_topk as bk, fused_topk as fk, mips_topk as mk, sparse_dense as sd
+    from repro_torch.kernels import topk_large as lk
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train as TRN
+    from repro_torch.models import moe as M
+    from repro_torch.models import recsys as R
+    from repro_torch.models import schnet as S
+    from repro_torch.models import transformer as T
+
+    counters = {"mips_topk": mk, "fused_topk": fk, "topk_large": lk, "beam_hop": bk, "fused_score": sd}
+    before = {name: m.launches for name, m in counters.items()}
+    sh = dict(TRAIN, **(shapes or {}))
+    assert not (on_card and torch.backends.cuda.matmul.allow_tf32), "TF32 is on: f32 products would round to 10 bits"
+    t_phase = time.perf_counter()
+    if cfgs is None:
+        cfgs = [get_config(a) for a in LM_ARCHS + ("smollm-360m",)]
+    g = torch.Generator(dev).manual_seed(seed)
+
+    # ---- (1) f32, a few layers of full width: the card against the CPU
+    rec = DispatchRecorder(M)
+    for cfg in cfgs:
+        t0 = time.perf_counter()
+        c32 = dataclasses.replace(cfg, n_layers=sh["check_layers"], dtype="float32")
+        model, _ = T.init_transformer(c32, seed=seed, device=dev)
+        b = sh["check_b_moe"] if c32.is_moe else sh["check_b"]
+        tok = torch.randint(0, c32.vocab_size, (b, sh["check_s"] + 1), generator=g, device=dev)
+        batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+        ctx = ParallelCtx(None, c32.rules)
+        with rec:
+            errs, routes, secs = step_parity(torch, dev, lambda: ST.make_lm_train_step(c32, ctx, lr=STEP_LR), model,
+                                             batch, ST, rec if c32.is_moe else None)
+        note, gated = "", True
+        if routes is not None:
+            rc, rh = routes
+            gated = len(rc) == len(rh) and all(torch.equal(x[0], y[0]) for x, y in zip(rc, rh))
+            note = (f"; routes of {len(rc)} MoE calls {'equal on both sides' if gated else 'differ: not gated'}, "
+                    f"pairs dropped (card, cpu) by call {[(x[1], y[1]) for x, y in zip(rc, rh)]}")
+        if gated:
+            assert all(v <= bound for v, bound in errs.values()), f"{cfg.name}: card against CPU {errs}"
+        log(f"phase train full: f32 {cfg.name} ({c32.n_layers} layers of d {c32.d_model}, {c32.optimizer}, "
+            f"grad_accum {c32.grad_accum}, remat {c32.remat}), one step at B={b} x {sh['check_s']}: card against "
+            f"CPU {errs_text(errs)}{note}; {time.perf_counter() - t0:.1f} s (steps: card "
+            f"{secs['card']:.1f}, cpu {secs['cpu']:.1f} on {torch.get_num_threads()} threads; compare "
+            f"{secs['compare']:.1f})")
+        del model, batch, tok
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # ---- (2) smollm-360m as published, through the entry point
+    scfg = cfgs[-1] if shapes else get_config("smollm-360m")
+    full = get_config("smollm-360m")
+    reduced = [f"the batch, {sh['b']} of train_4k's 256"]
+    if (scfg.n_layers, scfg.d_model) != (full.n_layers, full.d_model):
+        reduced.append("the model (a CPU rehearsal)")
+    ckpt = tempfile.mkdtemp(prefix="train_full_")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9 if on_card else float("nan")
+    kw = dict(batch_size=sh["b"], seq_len=sh["s"], lr=sh["lr"], ckpt_interval=sh["interval"], device=dev, seed=seed)
+    checks = {}
+    t0 = time.perf_counter()
+    with StepRecorder(torch, TRN, on_card) as run1:
+        _, losses1 = TRN.train_lm(scfg, None, sh["steps"], ckpt, **kw)
+    run1_s = time.perf_counter() - t0
+    saved = load_leaves(os.path.join(ckpt, f"step_{sh['steps']:010d}"))
+    live = flatten_with_paths(dict(zip(("params", "opt"), run1.last)))
+    checks["saved == trained"] = list(saved) == list(live) and all(
+        torch.equal(saved[k], v.detach().cpu()) for k, v in live.items())
+    run1.last = live = None
+
+    def resumed(params, state):
+        now = flatten_with_paths({"params": params, "opt": state})
+        checks["resumed == saved"] = list(now) == list(saved) and all(
+            torch.equal(saved[k].to(v.device), v.detach()) for k, v in now.items())
+
+    t0 = time.perf_counter()
+    with StepRecorder(torch, TRN, on_card, first=resumed, profile_at=sh["more"]) as run2:
+        _, losses2 = TRN.train_lm(scfg, None, sh["steps"] + sh["more"], ckpt, **kw)
+    run2_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    saved = run2.last = None
+    losses = losses1 + losses2
+    assert len(losses1) == sh["steps"] and len(losses2) == sh["more"], (len(losses1), len(losses2))
+    assert all(math.isfinite(x) for x in losses), f"a loss is not finite: {losses}"
+    assert len(checks) == 2 and all(checks.values()), f"checkpoint round trip: {checks}"
+    assert not on_card or peak < 80.0, f"peak {peak:.2f} GB"
+    step_ms = run1.ms(range(2, sh["steps"] + 1))
+    med = statistics.median(step_ms)
+    tokens = sh["b"] * sh["s"]
+    gemm, attn = train_flops(scfg, sh["b"], sh["s"])
+    n_params = sum(p.numel() for p in T.init_transformer(scfg, device="meta")[0].parameters())
+    pbytes = torch.empty((), dtype=T.torch_dtype(scfg.dtype)).element_size()
+    opt_bytes = n_params * (4 * pbytes + 16)          # parameters and gradients, m and v (f32): read and written
+    flop_ms = (gemm / BF16_FLOPS + attn / F32_FLOPS) * 1e3
+    byte_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
+    idle, top = "not measured", "not measured"
+    if run2.profile and run2.profile[0]:
+        groups, span_ms, _ = run2.profile
+        idle = f"{max(0.0, 1.0 - sum(groups.values()) / span_ms):.3f} of {span_ms:.1f} ms"
+        top = ", ".join(f"{k} {v:.1f}" for k, v in sorted(groups.items(), key=lambda kv: -kv[1])[:4])
+    log(f"phase train full: {scfg.name} ({scfg.n_layers} layers, d {scfg.d_model}, {scfg.dtype}, remat {scfg.remat}, "
+        f"{scfg.optimizer}; {n_params / 1e6:.1f}M parameters; reduced: {', '.join(reduced)}) by train_lm at B="
+        f"{sh['b']} x {sh['s']}: {sh['steps']} steps ({run1_s:.1f} s, a checkpoint every {sh['interval']}) + "
+        f"{sh['more']} resumed ({run2_s:.1f} s): {med:.1f} ms a step (CUDA events, median of steps 2-"
+        f"{sh['steps']}: {', '.join(f'{x:.1f}' for x in step_ms)}), {tokens / med * 1e3:.0f} tokens/s, against a "
+        f"bound of {max(flop_ms, byte_ms):.1f} ms (train_flops: {gemm / 1e12:.2f} TFLOP of bf16 GEMMs at "
+        f"{BF16_FLOPS / 1e12:.1f} + {attn / 1e12:.2f} TFLOP of f32 attention at {F32_FLOPS / 1e12:.0f} TFLOP/s = "
+        f"{flop_ms:.1f} ms; the optimizer's {opt_bytes / 1e9:.2f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s = "
+        f"{byte_ms:.2f} ms); the last resumed step profiled ({run2.profile_s:.1f} s with the profiler): device idle "
+        f"{idle}, the largest kernels (ms) {top}; peak {peak:.2f} GB allocated "
+        f"({held_gb:.2f} GB held before); losses {', '.join(f'{x:.4f}' for x in losses)}; checkpoint: "
+        f"{', '.join(f'{k} {v}' for k, v in checks.items())}; {card}")
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- (3) DIN and SchNet at published widths, each after a smoke-width parity step
+    families = (
+        ("din", sh.get("din_cfg") or get_config("din"), R.init_recsys, sh["din_b"], sh["din_steps"],
+         lambda c, n: recsys_batch(torch, c, n, g, dev),
+         lambda c, n: ST.make_recsys_train_step(c, ParallelCtx(None, c.rules), lr=STEP_LR)),
+        ("schnet", sh.get("mol_cfg") or get_config("schnet"), S.init_schnet, sh["mol_graphs"], sh["mol_steps"],
+         lambda c, n: molecule_batch(torch, c, n, g, dev),
+         lambda c, n: ST.make_gnn_train_step(c, ParallelCtx(None, c.rules), lr=STEP_LR, n_graphs=n)))
+    for label, cfg, init, n, steps_n, make_batch, make_step in families:
+        smoke = get_smoke_config(label)
+        if label == "din":
+            smoke = dataclasses.replace(smoke, item_vocab=5000)
+        ns = 64 if label == "din" else 8
+        model, _ = init(smoke, seed=seed, device=dev)
+        errs, _, _ = step_parity(torch, dev, lambda: make_step(smoke, ns), model, make_batch(smoke, ns), ST)
+        assert all(v <= bound for v, bound in errs.values()), f"{label} smoke: card against CPU {errs}"
+        del model
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model, _ = init(cfg, seed=seed, device=dev)
+        batch = make_batch(cfg, n)
+        step, opt = make_step(cfg, n)
+        state = opt.init(model)
+        sync(torch, on_card)
+        init_s = time.perf_counter() - t0
+        ms_list, step_losses = [], []
+        for _ in range(steps_n):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if on_card else None
+            if ev:
+                ev[0].record()
+            _, _, metrics = step(model, state, batch)
+            if ev:
+                ev[1].record()
+            step_losses.append(float(metrics["loss"]))
+            ms_list.append(ev[0].elapsed_time(ev[1]) if ev else float("nan"))
+        assert all(math.isfinite(x) for x in step_losses), f"{label}: a loss is not finite: {step_losses}"
+        idle, top = "not measured", "not measured"
+        if on_card:
+            groups, span_ms, _ = device_profile(torch, lambda: step(model, state, batch), by_kernel=True)
+            if groups:
+                idle = f"{max(0.0, 1.0 - sum(groups.values()) / span_ms):.3f}"
+                top = ", ".join(f"{k} {v:.2f}" for k, v in sorted(groups.items(), key=lambda kv: -kv[1])[:3])
+        n_par = sum(p.numel() for p in model.parameters())
+        peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
+        med = statistics.median(ms_list[1:] or ms_list)
+        if label == "din":
+            nbytes = n_par * 4 * 8                # f32 parameters, gradients, m, v: each read and written
+            what = (f"{n_par / 1e9:.3f}B parameters: the optimizer's {nbytes / 1e9:.1f} GB (parameters, gradients, "
+                    f"m, v, each read and written) at {HBM_BYTES_PER_S / 1e12:.2f} TB/s bound a step at "
+                    f"{nbytes / HBM_BYTES_PER_S * 1e3:.2f} ms")
+        else:
+            ops = 3 * schnet_flops(cfg, batch.node_z.shape[0], batch.senders.shape[0])
+            what = (f"{ops / 1e9:.3f} GFLOP (3x the network's forward) at {F32_FLOPS / 1e12:.0f} TFLOP/s bound a "
+                    f"step at {ops / F32_FLOPS * 1e3:.4f} ms")
+        log(f"phase train full: {label} as published ({'100M items, ' if label == 'din' else ''}batch {n}), "
+            f"{steps_n} steps: {med:.2f} ms a step (CUDA events, median of steps 2-{steps_n}: "
+            f"{', '.join(f'{x:.2f}' for x in ms_list)}); {what}; one more step profiled: device idle {idle}, the "
+            f"largest kernels (ms) {top}; losses {', '.join(f'{x:.4f}' for x in step_losses)}; "
+            f"peak {peak:.2f} GB; drawn in {init_s:.1f} s; smoke width, card against CPU: {errs_text(errs)}; {card}")
+        del model, state, batch, step, opt
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    launched = {name: m.launches - before[name] for name, m in counters.items()}
+    assert not any(launched.values()), f"train full launched a kernel of the port: {launched}"
+    log(f"phase train full: {time.perf_counter() - t_phase:.1f} s")
 
 
 def sync(torch, on_card):
@@ -4634,6 +5081,16 @@ def main() -> int:
         lm_shapes = dict(prefill=(2, 64), decode_b=4, decode_len=128, prompt=8, gen=8, long_len=256, long_b=2,
                          long_b_moe=2)
     lm_full_phase(torch, dev, card, on_card, args.seed + 28, lm_cfgs, lm_shapes)
+    # ---- training at published widths; a CPU rehearsal cuts it to the smoke configs and small shapes
+    train_cfgs = train_shapes = None
+    if not on_card:
+        from repro_torch.configs import get_smoke_config
+        train_cfgs = [get_smoke_config(a) for a in LM_ARCHS] + [
+            dataclasses.replace(get_smoke_config("smollm-360m"), dtype="bfloat16", remat=True)]
+        train_shapes = dict(check_s=32, b=2, s=64, din_b=256, mol_graphs=16,
+                            din_cfg=dataclasses.replace(get_smoke_config("din"), item_vocab=5000),
+                            mol_cfg=get_smoke_config("schnet"))
+    train_full_phase(torch, dev, card, on_card, args.seed + 29, train_cfgs, train_shapes)
     recall_n = min(RECALL_N, n) // CLUSTERS * CLUSTERS
     recall_data = graph_recall_phase(torch, dev, recall_n, args.seed + 11, on_card)
     napp_recall_phase(torch, dev, *recall_data, args.seed + 12, on_card)

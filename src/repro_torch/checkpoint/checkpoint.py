@@ -1,0 +1,135 @@
+"""Topology-independent checkpointing (counterpart of
+``repro/checkpoint/checkpoint.py``), in the reference's on-disk layout.
+
+A checkpoint is one ``.npy`` per tree leaf, keyed by its path, plus a
+``manifest.json`` (step; each leaf's file, dtype and shape), written into
+a temp directory and renamed into place, so that a crash mid-save never
+leaves a torn ``step_<n>`` directory.  Paths join dict keys, list
+indices and a module's parameter names with ``/``, and a NamedTuple's
+fields as ``.name`` (as JAX prints a field): the port's AdamW state is
+``opt/.m/blocks/3/attn/wq``.  numpy has no bf16: a bf16 leaf is written as
+its 2-byte patterns (``|V2``, as ``repro`` writes it) and the manifest
+records ``bfloat16``.  ``interop.read_repro_checkpoint`` reads a
+directory that ``repro`` wrote into the port's structures.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import tempfile
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+__all__ = ["flatten_with_paths", "host_array", "save_checkpoint", "write_leaves", "restore_checkpoint",
+           "checkpoint_step", "load_leaves"]
+
+_BF16_DISK = np.dtype("V2")
+
+
+def flatten_with_paths(tree, prefix: str = "") -> Dict[str, Any]:
+    """``{path: leaf}`` of a tree of tensors (or numpy arrays): dicts,
+    lists, NamedTuples and modules (by parameter name)."""
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
+        return {prefix: tree}
+    join = (lambda k: f"{prefix}/{k}") if prefix else (lambda k: str(k))
+    if isinstance(tree, nn.Module):
+        return {join(name.replace(".", "/")): p for name, p in tree.named_parameters()}
+    if hasattr(tree, "_fields"):
+        items = [(f".{f}", getattr(tree, f)) for f in tree._fields]
+    elif isinstance(tree, dict):
+        items = [(str(k).replace(".", "/"), v) for k, v in tree.items()]
+    elif isinstance(tree, (list, tuple)):
+        items = list(enumerate(tree))
+    else:
+        raise TypeError(f"{prefix or 'tree'}: cannot checkpoint a {type(tree).__name__}")
+    out = {}
+    for k, v in items:
+        if v is not None:
+            out.update(flatten_with_paths(v, join(k)))
+    return out
+
+
+def host_array(x, copy: bool = False) -> np.ndarray:
+    """A leaf as the numpy array written to disk (bf16 as ``|V2`` bit
+    patterns); ``copy`` makes it independent of the tensor's storage."""
+    if isinstance(x, np.ndarray):
+        return x.copy() if copy else x
+    t = x.detach()
+    t = t.to("cpu", copy=True) if copy else t.cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(_BF16_DISK)
+    return t.numpy()
+
+
+def _disk_dtype(arr: np.ndarray) -> str:
+    return "bfloat16" if arr.dtype == _BF16_DISK else str(arr.dtype)
+
+
+def save_checkpoint(directory: str, step: int, tree: Any) -> str:
+    """Atomically save ``tree`` under ``directory/step_<step>``."""
+    return write_leaves(directory, step, flatten_with_paths(tree))
+
+
+def write_leaves(directory: str, step: int, leaves: Dict[str, Any]) -> str:
+    """Atomically save ``{path: leaf}`` under ``directory/step_<step>``."""
+    os.makedirs(directory, exist_ok=True)
+    final = os.path.join(directory, f"step_{step:010d}")
+    tmp = tempfile.mkdtemp(dir=directory, prefix=".tmp_ckpt_")
+    try:
+        manifest = {"step": step, "leaves": {}}
+        for key, leaf in leaves.items():
+            arr = host_array(leaf)
+            fname = key.replace("/", "__") + ".npy"
+            np.save(os.path.join(tmp, fname), arr)
+            manifest["leaves"][key] = {"file": fname, "dtype": _disk_dtype(arr), "shape": list(arr.shape)}
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    return final
+
+
+def load_leaves(path: str) -> Dict[str, torch.Tensor]:
+    """Every leaf of a checkpoint directory as a CPU tensor, by path (bf16
+    leaves bit for bit)."""
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    out = {}
+    for key, info in manifest["leaves"].items():
+        arr = np.load(os.path.join(path, info["file"]))
+        if info["dtype"] == "bfloat16":
+            out[key] = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+        else:
+            out[key] = torch.from_numpy(arr)
+    return out
+
+
+def restore_checkpoint(path: str, target_tree: Any, shardings: Optional[Any] = None) -> Any:
+    """Restore into ``target_tree``'s tensors in place (each cast to its
+    target's dtype, on its target's device) and return the tree.  A leaf of
+    another shape raises ``ValueError``."""
+    if shardings is not None:
+        raise NotImplementedError("restoring onto shardings needs the port's distributed layer, which is "
+                                  "not ported yet")
+    leaves = load_leaves(path)
+    with torch.no_grad():
+        for key, ref in flatten_with_paths(target_tree).items():
+            arr = leaves[key]
+            if tuple(arr.shape) != tuple(ref.shape):
+                raise ValueError(f"shape mismatch for {key}: ckpt {tuple(arr.shape)} vs target {tuple(ref.shape)}")
+            ref.copy_(arr.to(ref.dtype))
+    return target_tree
+
+
+def checkpoint_step(path: str) -> int:
+    with open(os.path.join(path, "manifest.json")) as f:
+        return json.load(f)["step"]

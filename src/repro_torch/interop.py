@@ -23,7 +23,8 @@ from repro_torch.device import resolve_device
 __all__ = ["tensor", "to_numpy", "sparse_vectors", "fused_vectors",
            "fused_space", "graph_index", "napp_index", "forward_index",
            "inverted_index", "tree_ensemble", "transformer_params", "kv_cache",
-           "recsys_params", "schnet_params"]
+           "recsys_params", "schnet_params", "adam_state", "adafactor_state",
+           "restore_repro_checkpoint"]
 
 
 def tensor(array, device=None, *, bf16: bool = False) -> torch.Tensor:
@@ -255,3 +256,91 @@ def schnet_params(params, cfg, device=None):
 
     tree = dict(params, blocks=[layer(params["blocks"], i) for i in range(cfg.n_interactions)])
     return S.SchNet(cfg, _carry_tree(tree, like, "params", resolve_device(device)))
+
+
+def _split_layer(parts, stacked=()):
+    """(``parts`` without the layer index that follows a stacked list's
+    name, that index or None): the port's path of a leaf to ``repro``'s."""
+    out, layer, i = [], None, 0
+    while i < len(parts):
+        out.append(parts[i])
+        if parts[i] in stacked and i + 1 < len(parts) and parts[i + 1].isdigit():
+            layer = int(parts[i + 1])
+            i += 1
+        i += 1
+    return out, layer
+
+
+def _reference_array(tree, name: str, stacked=()):
+    """The array of the port's leaf ``name`` (dotted) in ``repro``'s tree
+    ``tree`` (nested dicts and lists): a layer index after a stacked list's
+    name indexes the stacked leaf's leading axis."""
+    parts, layer = _split_layer(name.split("."), stacked)
+    node = tree
+    for part in parts:
+        node = node[int(part)] if isinstance(node, (list, tuple)) else node[part]
+    a = np.asarray(node)
+    return a if layer is None else a[layer]
+
+
+def adam_state(state, model, device=None):
+    """The port's ``optim.optimizer.AdamState`` for ``model`` (a port
+    module) holding ``repro``'s AdamW state ``state`` (any object with
+    fields ``step``, ``m`` and ``v``; the moments as nested dicts of f32
+    numpy arrays in the parameters' tree).  A stacked layer axis is split
+    as :func:`transformer_params` splits it; shapes and dtypes are checked
+    against the port's own ``init``."""
+    from repro_torch.optim.optimizer import AdamState, _adamw_init
+
+    dev = resolve_device(device)
+    want = _adamw_init(model)
+    stacked = getattr(model, "STACKED", ())
+    moments = [{n: _carry_tree(_reference_array(tree, n, stacked), like, f"{field}.{n}", dev)
+                for n, like in getattr(want, field).items()}
+               for field, tree in (("m", state.m), ("v", state.v))]
+    return AdamState(tensor(np.asarray(state.step, np.int32), dev), *moments)
+
+
+def adafactor_state(state, model, device=None):
+    """The port's ``optim.optimizer.AdafactorState`` for ``model`` holding
+    ``repro``'s Adafactor state ``state`` (fields ``step``, ``vr`` and
+    ``vc``).  The port keys it by the reference's leaves, stacked layer
+    axis and all (``AdafactorState`` says why), so nothing is split."""
+    from repro_torch.optim.optimizer import AdafactorState, _adafactor_init
+
+    dev = resolve_device(device)
+    want = _adafactor_init(model)
+    factors = [{n: _carry_tree(_reference_array(tree, n), like, f"{field}.{n}", dev)
+                for n, like in getattr(want, field).items()}
+               for field, tree in (("vr", state.vr), ("vc", state.vc))]
+    return AdafactorState(tensor(np.asarray(state.step, np.int32), dev), *factors)
+
+
+def restore_repro_checkpoint(path: str, target) -> int:
+    """Read a checkpoint directory that ``repro`` wrote into the port's
+    ``target`` (a tree of port modules, optimizer states and tensors, e.g.
+    ``{"params": model, "opt": state}`` for ``repro``'s ``{"params": ...,
+    "opt": ...}``) in place, bf16 bit for bit, and return its step.  A
+    layer index after the name of a module's stacked list reads that layer
+    of ``repro``'s stacked leaf; a leaf of another shape raises
+    ``ValueError``."""
+    from torch import nn
+
+    from repro_torch.checkpoint.checkpoint import checkpoint_step, flatten_with_paths, load_leaves
+
+    leaves = load_leaves(path)
+    stacked = set()
+    for node in (target.values() if isinstance(target, dict) else [target]):
+        if isinstance(node, nn.Module):
+            stacked |= set(getattr(node, "STACKED", ()))
+    with torch.no_grad():
+        for key, like in flatten_with_paths(target).items():
+            ref, layer = _split_layer(key.split("/"), stacked)
+            arr = leaves["/".join(ref)]
+            if layer is not None:
+                arr = arr[layer]
+            if tuple(arr.shape) != tuple(like.shape):
+                raise ValueError(f"{key}: {tuple(arr.shape)} in the checkpoint where the port keeps "
+                                 f"{tuple(like.shape)}")
+            like.copy_(arr.to(like.dtype))
+    return checkpoint_step(path)

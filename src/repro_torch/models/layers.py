@@ -19,7 +19,10 @@ accumulates in f32), the output divided by ``max(l, 1e-30)``.  A bf16
 product with an f32 result is taken as an f32 product of the widened
 operands: a product of two bf16 values is exact in f32.  Head-count
 padding multiplies padded heads by a zero mask, so semantics match the
-unpadded model exactly.
+unpadded model exactly.  Under autograd the attention keeps the
+reference's memory contract (its ``jax.checkpoint`` of the tile body): a
+``torch.autograd.Function`` saves q, k, v, the output and the rows' max
+and sum, and its backward recomputes each tile (:class:`_FlashAttention`).
 
 The decode forms write the step's key and value (or MLA latents) into
 the caller's cache *in place* and return it, where the reference returns
@@ -115,19 +118,43 @@ def flash_attention(
     chunk_kv: int = 1024,
     kv_valid_len: Optional[torch.Tensor] = None,   # [B]: mask keys >= this
 ) -> torch.Tensor:
+    """Chunked online-softmax attention.  Under autograd the backward keeps
+    the reference's memory contract (its ``jax.checkpoint`` of the tile
+    body): no ``[cq, ckv]`` score or probability tile is saved; the
+    backward recomputes each tile from the saved q, k, v, the output and
+    the rows' max and sum (:class:`_FlashAttention`)."""
     b, sq, h, dk = q.shape
-    skv, dv = k.shape[1], v.shape[-1]
+    skv = k.shape[1]
     cq = min(chunk_q, sq)
     ckv = min(chunk_kv, skv)
     assert sq % cq == 0 and skv % ckv == 0, (sq, cq, skv, ckv)
-    nq, nk = sq // cq, skv // ckv
-    dev = q.device
     # the scale rounded to q's dtype first, as JAX rounds a Python scalar
     # into a bf16 product (rounded on the host: no copy to the card)
     q = q * torch.tensor(1.0 / math.sqrt(dk), dtype=q.dtype).item()
-    neg = torch.finfo(torch.float32).min
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, q_offset, cq, ckv, kv_valid_len)
+    return _flash_forward(q, k, v, causal, q_offset, cq, ckv, kv_valid_len)[0]
 
-    outs = []
+
+def _tile_scores(qc, kc, qpos, kpos, causal, kv_valid_len):
+    """f32 scores ``[B, H, cq, ckv]`` of one tile, masked at f32-min."""
+    neg = torch.finfo(torch.float32).min
+    s = torch.einsum("bqhd,bkhd->bhqk", qc, kc)
+    if causal:
+        s = s.masked_fill_(qpos[:, None] < kpos[None, :], neg)
+    if kv_valid_len is not None:
+        s = s.masked_fill_(kpos[None, None, None, :] >= kv_valid_len[:, None, None, None], neg)
+    return s
+
+
+def _flash_forward(q, k, v, causal, q_offset, cq, ckv, kv_valid_len):
+    """(out [B, Sq, H, Dv] in v's dtype, the rows' running max m and sum l,
+    each f32 [B, H, Sq]) of the scaled ``q``."""
+    b, sq, h, _ = q.shape
+    skv, dv = k.shape[1], v.shape[-1]
+    nq, nk = sq // cq, skv // ckv
+    dev = q.device
+    outs, ms, ls = [], [], []
     for qi in range(nq):
         qc = q[:, qi * cq:(qi + 1) * cq].float()
         qpos = q_offset + qi * cq + torch.arange(cq, device=dev)
@@ -137,12 +164,7 @@ def flash_attention(
         for ki in range(nk):
             kc = k[:, ki * ckv:(ki + 1) * ckv].float()
             vc = v[:, ki * ckv:(ki + 1) * ckv]
-            s = torch.einsum("bqhd,bkhd->bhqk", qc, kc)
-            kpos = ki * ckv + torch.arange(ckv, device=dev)
-            if causal:
-                s = s.masked_fill_(qpos[:, None] < kpos[None, :], neg)
-            if kv_valid_len is not None:
-                s = s.masked_fill_(kpos[None, None, None, :] >= kv_valid_len[:, None, None, None], neg)
+            s = _tile_scores(qc, kc, qpos, ki * ckv + torch.arange(ckv, device=dev), causal, kv_valid_len)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -152,7 +174,60 @@ def flash_attention(
             m = m_new
         out = acc / torch.clamp_min(l, 1e-30)[..., None]
         outs.append(out.permute(0, 2, 1, 3).to(v.dtype))          # [B, cq, H, Dv]
-    return outs[0] if nq == 1 else torch.cat(outs, dim=1)
+        ms.append(m)
+        ls.append(l)
+    if nq == 1:
+        return outs[0], ms[0], ls[0]
+    return torch.cat(outs, dim=1), torch.cat(ms, dim=-1), torch.cat(ls, dim=-1)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention whose backward recomputes every tile.  Saved: the scaled
+    q, k, v, the output and the rows' max m and sum l (f32 ``[B, H, Sq]``).
+    The backward walks the tiles as the forward does: ``P = exp(s - m) / l``
+    (the forward's probabilities, so a masked key gets exactly 0),
+    ``dV += P^T dO``, ``dS = P * (dO V^T - rowsum(dO * O))``, ``dQ += dS K``,
+    ``dK += dS^T Q``, all in f32.  A causal tile above the diagonal has
+    ``P = 0`` and is skipped.  The forward rounds P to v's dtype before the
+    PV product; the backward takes that rounding's derivative as 1, as
+    JAX's ``astype`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, cq, ckv, kv_valid_len):
+        out, m, l = _flash_forward(q, k, v, causal, q_offset, cq, ckv, kv_valid_len)
+        ctx.save_for_backward(q, k, v, out, m, l, kv_valid_len)
+        ctx.plan = (causal, q_offset, cq, ckv)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, m, l, kv_valid_len = ctx.saved_tensors
+        causal, q_offset, cq, ckv = ctx.plan
+        sq, skv = q.shape[1], k.shape[1]
+        dev = q.device
+        dq = torch.empty(q.shape, dtype=torch.float32, device=dev)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=dev)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=dev)
+        for q0 in range(0, sq, cq):
+            qs = slice(q0, q0 + cq)
+            qc, do = q[:, qs].float(), dout[:, qs].float()
+            qpos = q_offset + q0 + torch.arange(cq, device=dev)
+            rows = torch.einsum("bqhd,bqhd->bhq", do, out[:, qs].float())   # rowsum(dO * O)
+            mi, inv_l = m[..., qs, None], 1.0 / torch.clamp_min(l[..., qs, None], 1e-30)
+            dqc = torch.zeros(qc.shape, dtype=torch.float32, device=dev)
+            for k0 in range(0, skv, ckv):
+                if causal and q_offset + q0 + cq - 1 < k0:
+                    continue                                   # every key of the tile is masked
+                ks = slice(k0, k0 + ckv)
+                kc, vc = k[:, ks].float(), v[:, ks].float()
+                s = _tile_scores(qc, kc, qpos, k0 + torch.arange(ckv, device=dev), causal, kv_valid_len)
+                p = torch.exp(s.sub_(mi)).mul_(inv_l)          # [B, H, cq, ckv]
+                dv[:, ks] += torch.einsum("bhqk,bqhd->bkhd", p, do)
+                ds = p.mul_(torch.einsum("bqhd,bkhd->bhqk", do, vc).sub_(rows[..., None]))
+                dqc += torch.einsum("bhqk,bkhd->bqhd", ds, kc)
+                dk[:, ks] += torch.einsum("bhqk,bqhd->bkhd", ds, qc)
+            dq[:, qs] = dqc
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------

@@ -327,7 +327,7 @@ def forward_logits(params: RecSys, cfg: RecSysConfig, batch: RecBatch, ctx: Para
 
 
 def bce_loss(params: RecSys, cfg: RecSysConfig, batch: RecBatch, ctx: ParallelCtx):
-    """Mean binary cross-entropy of the logits (forward only)."""
+    """Mean binary cross-entropy of the logits."""
     logit = forward_logits(params, cfg, batch, ctx).float()
     y = batch.label
     loss = torch.mean(torch.clamp_min(logit, 0) - logit * y + torch.log1p(torch.exp(-logit.abs())))

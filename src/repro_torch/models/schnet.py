@@ -84,6 +84,8 @@ class SchNet(nn.Module):
     """SchNet's parameters under the reference's names; calling it runs
     :func:`schnet_apply`."""
 
+    STACKED = ("blocks",)   # the reference stacks these layers on a leading axis
+
     def __init__(self, cfg: SchNetConfig, tree: dict):
         super().__init__()
         self.cfg = cfg
@@ -184,7 +186,7 @@ def energy_readout(params: SchNet, x, graph_ids, n_graphs):
 def schnet_loss(params: SchNet, batch: GraphBatch, cfg: SchNetConfig, ctx: ParallelCtx,
                 n_graphs: int = 0):
     """Mean squared error of the energy (molecules) or node (full graph)
-    predictions (forward only)."""
+    predictions."""
     x = schnet_apply(params, batch, cfg, ctx)
     if batch.graph_ids is not None:
         pred = energy_readout(params, x, batch.graph_ids, n_graphs)

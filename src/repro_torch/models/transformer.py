@@ -1,6 +1,6 @@
 """Causal LM transformer: GQA / MLA attention, optional MoE, the chunked
 cross-entropy loss and the KV-cache decode and prefill steps (counterpart
-of ``repro/models/transformer.py``, forward passes only).
+of ``repro/models/transformer.py``).
 
 Five assigned architectures instantiate this module (qwen2.5-3b,
 minicpm3-4b/MLA, smollm-360m, phi3.5-moe, arctic-480b).  In the
@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.device import resolve_device
@@ -65,6 +66,8 @@ class Transformer(nn.Module):
     """The backbone's parameters: ``embed [Vp, d]``, ``blocks`` (one
     :class:`Block` per layer), ``ln_f`` and, untied, ``lm_head [d, Vp]``.
     Calling it runs :func:`backbone` on one device."""
+
+    STACKED = ("blocks",)   # the reference stacks these layers on a leading axis
 
     def __init__(self, cfg: TransformerConfig, embed: torch.Tensor, blocks, ln_f: dict,
                  lm_head: Optional[torch.Tensor] = None):
@@ -171,14 +174,22 @@ def block_apply(bp: Block, x, positions, cfg: TransformerConfig, ctx: ParallelCt
 def backbone(params: Transformer, tokens, cfg: TransformerConfig, ctx: ParallelCtx):
     """Embed + all blocks + final norm.  Returns (hidden [B,S,d], aux), aux
     the MoE balance loss summed over the layers and divided by their count
-    (0 without experts).  Runs where ``params`` and ``tokens`` live."""
+    (0 without experts).  Runs where ``params`` and ``tokens`` live.  With
+    ``cfg.remat`` and grad enabled, each block is rematerialised (the
+    reference's ``jax.checkpoint`` of the layer body): only its input is
+    kept, and the backward runs it again, routing MoE tokens as the first
+    pass did (``select_topk`` is deterministic)."""
     b, s = tokens.shape
     x = gather_rows(params.embed, tokens).to(torch_dtype(cfg.dtype))
     x = ctx.constrain(x, "batch", "seq_act", None)
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for bp in params.blocks:
-        x, a = block_apply(bp, x, positions, cfg, ctx)
+        if remat:
+            x, a = checkpoint(block_apply, bp, x, positions, cfg, ctx, use_reentrant=False)
+        else:
+            x, a = block_apply(bp, x, positions, cfg, ctx)
         aux = aux + a
     x = L.rmsnorm(params.ln_f, x, cfg.norm_eps)
     return x, aux / cfg.n_layers
@@ -213,22 +224,28 @@ def chunked_ce_loss(params: Transformer, hidden, targets, cfg: TransformerConfig
     """Mean cross entropy without materialising [B, S, V]: sequence chunks
     of ``chunk`` positions, each chunk's logits (``h @ head`` rounded to the
     model dtype, then f32; the padded vocabulary masked at f32-min) and
-    logsumexp, summed in f32."""
+    logsumexp, summed in f32.  With grad enabled each chunk is recomputed
+    in the backward, so at most one chunk's logits are ever live."""
     b, s, d = hidden.shape
     head = _head_matrix(params, cfg)
     c = min(chunk, s)
     assert s % c == 0
-    neg = torch.finfo(torch.float32).min
     vocab_mask = _vocab_mask(cfg, hidden.device)
+    recompute = torch.is_grad_enabled() and (hidden.requires_grad or head.requires_grad)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for lo in range(0, s, c):
-        logits = (hidden[:, lo:lo + c] @ head).float()           # [B, c, Vp]
-        if vocab_mask is not None:
-            logits = logits.masked_fill_(~vocab_mask, neg)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = _take_target(logits, targets[:, lo:lo + c])
-        total = total + torch.sum(lse - gold)
+        args = (hidden[:, lo:lo + c], head, targets[:, lo:lo + c], vocab_mask)
+        part = checkpoint(_ce_chunk, *args, use_reentrant=False) if recompute else _ce_chunk(*args)
+        total = total + part
     return total / (b * s)
+
+
+def _ce_chunk(h, head, t, vocab_mask):
+    """Summed ``logsumexp - gold`` of one chunk's logits [B, c, Vp]."""
+    logits = (h @ head).float()
+    if vocab_mask is not None:
+        logits = logits.masked_fill_(~vocab_mask, torch.finfo(torch.float32).min)
+    return torch.sum(torch.logsumexp(logits, dim=-1) - _take_target(logits, t))
 
 
 def lm_loss(params: Transformer, batch, cfg: TransformerConfig, ctx: ParallelCtx,

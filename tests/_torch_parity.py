@@ -311,3 +311,112 @@ def lm_model(p, tcfg):
     import jax
 
     return interop.transformer_params(jax.tree.map(np_of, p), tcfg, "cpu")
+
+
+def ulp_diff(want, got) -> int:
+    """Largest distance in units in the last place between two f32 or bf16
+    arrays of one dtype (numpy, bf16 as ``uint16`` bits, or CPU tensors),
+    over the ordered bit patterns (so -0 and +0 are 1 apart)."""
+    w, g = np_of(want), np_of(got)
+    assert w.shape == g.shape and w.dtype == g.dtype, (w.shape, g.shape, w.dtype, g.dtype)
+    if w.dtype == np.uint16:
+        w, g = w.view(np.int16).astype(np.int64), g.view(np.int16).astype(np.int64)
+        lo = np.int64(-1 << 15)
+    else:
+        w, g = w.view(np.int32).astype(np.int64), g.view(np.int32).astype(np.int64)
+        lo = np.int64(-1 << 31)
+    order = lambda x: np.where(x < 0, lo - x, x)   # monotone in the value
+    return int(np.max(np.abs(order(w) - order(g)), initial=0))
+
+
+def assert_leaf_close(want, got, rtol, ctx="", floor=0.0):
+    """|got - want| <= rtol * max(max|want|, floor) over the whole leaf
+    (the leaf's scale), both finite."""
+    w = np.asarray(np.asarray(want, np.float32), np.float64)
+    g = (got.detach().float().numpy() if hasattr(got, "detach") else np.asarray(got, np.float32)).astype(np.float64)
+    assert w.shape == g.shape, (w.shape, g.shape, ctx)
+    assert np.all(np.isfinite(w)) and np.all(np.isfinite(g)), ctx
+    scale = max(float(np.abs(w).max(initial=0.0)), floor, 1e-30)
+    err = float(np.abs(g - w).max(initial=0.0))
+    assert err <= rtol * scale, f"error {err / scale:.3g} of the leaf's scale > {rtol:.3g} {ctx}"
+
+
+# ---------------------------------------------------------------------------
+# Training: the train steps' tolerance and comparisons.
+# ---------------------------------------------------------------------------
+
+TRAIN_TOL = 1e-5      # of each leaf's largest |value|: losses, gradients, updated parameters, optimizer states
+# A gradient that vanishes in exact arithmetic (a bias in front of a softmax, whose
+# logits it shifts alike) is rounding noise in both packages: such a leaf is held
+# against GRAD_FLOOR times the largest gradient of the whole model instead.
+GRAD_FLOOR = 1e-3
+
+
+def grad_floor(grads) -> float:
+    """``GRAD_FLOOR`` times the largest |value| over a ``{name: tensor}``."""
+    return GRAD_FLOOR * max(float(g.detach().abs().max()) for g in grads.values())
+
+
+def lm_batch(vocab, b=8, s=64, seed=0):
+    """An LM batch of uniform tokens, the targets the tokens shifted by one."""
+    rng = np.random.default_rng(seed)
+    tok = rng.integers(0, vocab, (b, s)).astype(np.int32)
+    return {"tokens": tok, "targets": np.roll(tok, -1, 1)}
+
+
+def port_tree(jtree, model):
+    """``repro``'s tree of a transformer's shape (gradients, updated
+    parameters) as the port's ``{name: tensor}``."""
+    import jax
+
+    carried = interop.transformer_params(jax.tree.map(np_of, jtree), model.cfg, "cpu")
+    return dict(carried.named_parameters())
+
+
+def assert_tree_close(want, got, ctx="", floor=0.0):
+    """Two ``{name: tensor}`` with the same names in the same order, each
+    leaf within ``TRAIN_TOL`` of ``max(its largest |value|, floor)``."""
+    assert list(want) == list(got), ctx
+    for k in want:
+        assert_leaf_close(want[k].detach().numpy(), got[k], TRAIN_TOL, f"{ctx} {k}", floor)
+
+
+def assert_adamw_close(want, got, old, new, step, lr, ctx="", rel_floor=0.0, b1=0.9, b2=0.95, eps=1e-8):
+    """AdamW's updated parameters ``got`` against the reference's ``want``
+    ({name: tensor}): each element within ``TRAIN_TOL`` of its leaf's largest
+    |value| plus ``lr`` times the largest move of the reference's update
+    ``u(g) = m_hat / (sqrt(v_hat) + eps)`` when its (clipped) gradient ``g``
+    moves by ``TRAIN_TOL`` of the leaf's largest |g| (at least ``rel_floor``
+    times the largest |g| of the model).  ``g`` comes from the
+    reference's moments before (``old``, None at the first step) and
+    after (``new``) the step: ``g = (m_new - b1 m_old) / (1 - b1)``."""
+    assert list(want) == list(got), ctx
+    bc1, bc2 = 1 - b1 ** step, 1 - b2 ** step
+    m0s = {k: 0.0 if old is None else old.m[k].double().numpy() for k in want}
+    gs = {k: (new.m[k].double().numpy() - b1 * m0s[k]) / (1 - b1) for k in want}
+    floor = rel_floor * max(float(np.abs(g).max()) for g in gs.values())
+    for k in want:
+        w, t = want[k].detach().double().numpy(), got[k].detach().double().numpy()
+        m0, g = m0s[k], gs[k]
+        v0 = 0.0 if old is None else old.v[k].double().numpy()
+
+        def u(x):
+            return ((b1 * m0 + (1 - b1) * x) / bc1) / (np.sqrt((b2 * v0 + (1 - b2) * x * x) / bc2) + eps)
+
+        d = TRAIN_TOL * max(np.abs(g).max(), floor)
+        moves = np.maximum(np.abs(u(g + d) - u(g)), np.abs(u(g - d) - u(g)))
+        bound = TRAIN_TOL * np.abs(w).max() + lr * moves
+        err = np.abs(t - w)
+        worst = np.argmax(err - bound)
+        assert np.all(err <= bound), f"{ctx} {k}: error {err.flat[worst]:.3g} > bound {bound.flat[worst]:.3g}"
+
+
+def assert_step_close(opt_name, want_p, got_p, old, new, step, lr, ctx=""):
+    """Parameters after a step: :func:`assert_adamw_close` for AdamW, ``TRAIN_TOL``
+    for Adafactor (its factored ``r vc`` sits far from the floor ``eps``)."""
+    if opt_name == "adamw":
+        assert_adamw_close(want_p, got_p, old, new, step, lr, ctx)
+    else:
+        assert_tree_close(want_p, got_p, ctx)
+
+
