@@ -63,7 +63,12 @@ forward index of its COO ids, BM25 vectors and the inverted index built
 on the card, Model 1 trained at full vocabulary, a linear and a tree
 reranker learned on planted queries, and held-out batches served through
 the pipeline of a Fig. 4 experiment descriptor (B2's candidates, then the
-rerankers), the inverted index alone, and the paper's candQty = 2,000.  After the corpus's release, the
+rerankers), the inverted index alone, and the paper's candQty = 2,000.  Still over the resident corpus,
+the distributed layer ("dist full"): four gloo ranks sharing the card (CUDA IPC views of the corpus),
+mesh (data, model) = (1, 4), serve the corpus sharded (B2 fused, B1 dense, ``topk_large`` at k = 4096,
+``sharded_exact_topk``) over 4 and 8 shards equal to the single-process answers; the gradient
+all-reduce over (pod, data) = (2, 2), smollm-360m's parameters re-meshed 4 -> 2 -> 4 ranks and restored
+from a checkpoint onto (1, 4), bit for bit; and the sharded fused run on a one-rank NCCL group.  After the corpus's release, the
 recommendation family ("recsys full": DIN as published, 100M items, user
 queries through B1 in f32 and bf16 and B2 over item tags, the example's
 funnel served; wide-deep, DIEN and BST's logits against f64) and the
@@ -78,7 +83,9 @@ against prefill; it launches no kernel of the port), then training
 2 layers, the card against the CPU; smollm-360m as published trained
 through ``launch.train.train_lm`` at 4 x 4,096 tokens with checkpoints
 and a resumed run; DIN and SchNet train steps at published widths; no
-kernel of the port either).  Each
+kernel of the port either), then expert parallelism ("moe ep full": phi3.5-moe's MoE layer as
+published over (1, 4) and arctic-480b's over (2, 2) through the 2-D split, bf16, against ``moe_local``
+on the card, then both at their smoke configs in f32).  Each
 served path runs with the launch counters set to 0 just before and read
 just after.  The last lines are the ``kernels`` JSON, the card's name and
 power limit, and ``{"ok": true, ...}``.  Any failure raises and exits
@@ -220,6 +227,16 @@ GRAD_FLOOR = 1e-3                # a vanishing gradient is noise: leaves held ag
 STEP_LR = 1e-3                   # the card-vs-CPU steps' learning rate
 AUTOTUNE = dict(generations=2, population=16, measure_budget=4)   # "autotune": the search's settings
 AUTOTUNE_QUERIES, AUTOTUNE_WARM, AUTOTUNE_REQUESTS = 256, 16, 256   # distinct queries, warm-up, workload
+# "dist full": the ranks sharing the card, their mesh, cand_qty, the shard counts (8: two a rank), the gradient
+# all-reduce's ("pod", "data") mesh; the limit on the phase's ranks and on each collective, in s
+DIST = dict(world=4, mesh=(1, 4), cand=100, shards=(4, 8), grad_mesh=(2, 2), timeout=600, collective_timeout=300)
+# "moe ep full": B x S tokens of the published layers; positions of the f32 smoke pass
+MOE_EP = dict(tokens=(4, 1024), smoke_seq=64)
+# "moe ep full", bf16, of a row's largest |y|: each side rounds an expert's SwiGLU (3 roundings of at most 2^-9 of
+# a value) and its combine (a product and an add a pair); the 2-D split adds its two halves' outputs, their
+# combines and their sum, about 8 roundings of values up to the row's scale on the two sides: 8 x 2^-9 = 2^-6
+# each, 2^-5 between them
+MOE_BF16_TOL = 2.0 ** -5
 NEG = -3.4028234663852886e38     # f32 min, the mask of invalid candidates
 SLEEP_CYCLES = 2_000_000         # ~1 ms at an H100 SXM's 1.98 GHz boost clock: outlasts the host's enqueue of a traversal
 
@@ -4005,7 +4022,7 @@ class DispatchRecorder:
     bucket ids and validity (references only: no extra launch, no sync)."""
 
     def __init__(self, moe):
-        self.moe, self.calls = moe, []
+        self.moe, self.calls, self.dispatches = moe, [], []
 
     def __enter__(self):
         self.orig = self.moe.sort_dispatch
@@ -4013,6 +4030,7 @@ class DispatchRecorder:
         def record(bucket_ids, token_ids, weights, n_buckets, capacity):
             disp = self.orig(bucket_ids, token_ids, weights, n_buckets, capacity)
             self.calls.append((bucket_ids, disp.valid, n_buckets, capacity))
+            self.dispatches.append(disp)
             return disp
 
         self.moe.sort_dispatch = record
@@ -4024,13 +4042,13 @@ class DispatchRecorder:
     def take_ids(self):
         """[(bucket ids on the host, dropped pairs)] of the calls since the last take."""
         out = [(b.cpu(), int((~v).sum())) for b, v, _, _ in self.calls]
-        self.calls = []
+        self.calls, self.dispatches = [], []
         return out
 
     def take(self):
         """[(expert load, dropped pairs, capacity)] of the calls since the last take."""
         out = [(b.long().bincount(minlength=n)[:n].cpu(), int((~v).sum()), c) for b, v, n, c in self.calls]
-        self.calls = []
+        self.calls, self.dispatches = [], []
         return out
 
 
@@ -4738,6 +4756,549 @@ def train_full_phase(torch, dev, card, on_card, seed, cfgs=None, shapes=None):
     log(f"phase train full: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# "dist full" and "moe ep full": the distributed layer on ranks that share the one card
+# ---------------------------------------------------------------------------
+
+def _card_rank_main(body, rank, world, store, backend, device, box, results):
+    """One spawned rank: the card (or the CPU), its process group, ``body``
+    on the arguments in ``box``; its result or its traceback goes to
+    ``results``.  The arguments leave ``box`` and are dropped before the
+    rank reports: a CUDA tensor received through IPC stays allocated in
+    the process that sent it until every receiver has freed it, and a
+    reference held to the rank's exit is never freed."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.mesh_utils import init_rank
+
+    args = box.pop()
+    try:
+        if device == "cuda":
+            torch.cuda.set_device(0)
+        else:
+            torch.set_num_threads(1)
+        init_rank(rank, world, store, backend=backend, timeout_s=DIST["collective_timeout"])
+        out = (rank, True, body(rank, world, device, *args))
+    except BaseException:
+        out = (rank, False, traceback.format_exc())
+    finally:
+        del args
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    results.put(out)
+
+
+def run_card_ranks(body, world, device, args, backend="gloo"):
+    """``[body(rank, world, device, *args)]`` for ``world`` spawned ranks of
+    one process group (a file store under the temp dir).  Tensors in
+    ``args`` travel as CUDA IPC handles (views of this process's memory, no
+    copy; on the CPU as shared memory).  A rank that raises, dies or
+    outlives DIST["timeout"] fails the phase, and every rank is stopped."""
+    import os
+    import queue
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    where = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    procs = [ctx.Process(target=_card_rank_main,
+                         args=(body, r, world, os.path.join(where, "store"), backend, device, [args], results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got, deadline = {}, time.monotonic() + DIST["timeout"]
+    try:
+        while len(got) < world:
+            try:
+                rank, ok, out = results.get(timeout=1.0)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0) and r not in got]
+                assert not dead, f"ranks {dead} died without a result"
+                assert time.monotonic() < deadline, f"ranks outlived {DIST['timeout']} s"
+                continue
+            assert ok, f"rank {rank} of {world} failed:\n{out}"
+            got[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=30.0 if len(got) == world else 0.0)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=30.0)
+        results.close()
+        shutil.rmtree(where, ignore_errors=True)
+    return [got[r] for r in range(world)]
+
+
+def _counted_kernels():
+    from repro_torch.kernels import fused_topk as fk
+    from repro_torch.kernels import mips_topk as mk
+    from repro_torch.kernels import topk_large as lk
+
+    return {"mips_topk": mk, "fused_topk": fk, "topk_large": lk}
+
+
+def _sharded_runs(ctx, space, corpus, q, shard_counts, deep, against_plain=False):
+    """The sharded main path on this rank: fused through B2 and dense
+    through B1 over each shard count, and a dense request at DEEP_K
+    through ``topk_large``; every held shard a view of the corpus on the
+    ``cuda`` backend.  With ``against_plain``, each shard this rank holds
+    at the first shard count is then run once more through its generator
+    and through the plain version on the same view (launches not counted).
+    Returns ({case: (scores, ids) on the host}, launches by kernel,
+    seconds, [(kernel, case, kernel's (scores, ids), plain's)] in numpy)."""
+    from repro_torch.core.spaces import DenseSpace
+    from repro_torch.kernels import ref as plain
+    from repro_torch.serving.sharded import ShardedPipeline
+
+    kernels = _counted_kernels()
+    for m in kernels.values():
+        m.launches = 0
+    out, held = {}, []
+    t0 = time.perf_counter()
+    runs = [(f"fused {n}", space, corpus, q, n, DIST["cand"]) for n in shard_counts]
+    runs += [(f"dense {n}", DenseSpace("ip"), corpus.dense, q.dense, n, DIST["cand"]) for n in shard_counts]
+    if deep:
+        runs.append(("deep", DenseSpace("ip"), corpus.dense, q.dense, shard_counts[0], DEEP_K))
+    for name, sp, corp, qq, n, k in runs:
+        with ShardedPipeline.from_corpus(sp, corp, n, ctx=ctx, backend="cuda", cand_qty=k, final_qty=k) as pipe:
+            leaf = corp.dense if hasattr(corp, "dense") else corp
+            for g, s in zip(pipe.generators, pipe.shards):
+                if g is None:
+                    continue
+                assert type(g.backend).__name__ == "CudaBackend", f"{name}: a shard took {type(g.backend)}"
+                part = s.corpus.dense if hasattr(s.corpus, "dense") else s.corpus
+                assert part.untyped_storage().data_ptr() == leaf.untyped_storage().data_ptr(), \
+                    f"{name}: a shard is not a view of the corpus"
+                if against_plain and n == shard_counts[0] and k == DIST["cand"]:
+                    held.append((name, g, s))
+            r = pipe.generate(qq, k)
+            out[name] = (r.scores.cpu().numpy(), r.indices.cpu().numpy())
+    seconds = time.perf_counter() - t0
+    launches = {name: m.launches for name, m in kernels.items()}
+    compared = []
+    for name, g, s in held:
+        fused = name.startswith("fused")
+        qq = q if fused else q.dense
+        got = g.generate(qq, DIST["cand"])
+        if fused:
+            want = plain.fused_topk_ref(q.sparse, q.dense, s.corpus.sparse, s.corpus.dense, space.vocab_size,
+                                        DIST["cand"], w_dense=space.w_dense, w_sparse=space.w_sparse,
+                                        tile_n=1 << 16)
+        else:
+            want = plain.mips_topk_ref(q.dense, s.corpus, DIST["cand"], tile_n=1 << 18)
+        compared.append(("fused_topk" if fused else "mips_topk", f"{name} shard at rows {s.offset}",
+                         tuple(x.cpu().numpy() for x in got), tuple(x.cpu().numpy() for x in want)))
+    return out, launches, seconds, compared
+
+
+def _dist_rank(rank, world, device, corpus, q, space, n4, tree, axes, rules, ckpt, seed):
+    """A rank of "dist full" (4 gloo ranks on one card): the sharded main
+    path over ("data", "model") = (1, 4); ``sharded_exact_topk``; the
+    gradient all-reduce over ("pod", "data") = (2, 2) on a tree shaped as
+    ``tree``; ``tree`` re-meshed 4 -> 2 -> 4 ranks and the checkpoint at
+    ``ckpt`` restored onto (1, 4), each gathered and held bit for bit."""
+    import torch
+
+    from repro_torch.core.brute_force import sharded_exact_topk
+    from repro_torch.core.spaces import DenseSpace
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.elastic import Topology, remesh
+    from repro_torch.distributed.mesh_utils import make_mesh
+    from repro_torch.distributed.sharding import NamedSharding, ParallelCtx, params_sharding
+    from repro_torch.checkpoint.checkpoint import restore_checkpoint
+    from repro_torch.optim.compression import int8_compress, int8_decompress
+
+    dev = torch.device(device, 0) if device == "cuda" else torch.device("cpu")
+    mesh = make_mesh(DIST["mesh"], ("data", "model"), device)
+    ctx = ParallelCtx(mesh, {"corpus": "model"})
+    out, launches, serve_s, compared = _sharded_runs(ctx, space, corpus, q, DIST["shards"], True, True)
+    t0 = time.perf_counter()
+    r = sharded_exact_topk(DenseSpace("ip"), q.dense, corpus.dense[:n4], DIST["cand"], mesh, corpus_axis="model")
+    out["exact"] = (r.scores.cpu().numpy(), r.indices.cpu().numpy())
+    exact_s = time.perf_counter() - t0
+
+    # the gradient all-reduce: rank r's leaf i is N(0, 1) from seed (r, i); each rank draws every rank's
+    # leaf again to hold the mean
+    t0 = time.perf_counter()
+    gmesh = make_mesh(DIST["grad_mesh"], ("pod", "data"), device)
+    shapes = {k: tuple(v.shape) for k, v in _leaves(tree).items()}
+
+    def draw(r, i, shape):
+        g = torch.Generator(device=dev).manual_seed(seed * 100_003 + r * 1009 + i)
+        return torch.randn(shape, generator=g, device=dev)
+
+    mine = {k: draw(rank, i, s) for i, (k, s) in enumerate(shapes.items())}
+    errs = []
+    for compress in (None, lambda x: int8_decompress(int8_compress(x))):
+        reduced, worst = C.dp_allreduce_grads(mine, gmesh, compress=compress), 0.0
+        for i, (k, s) in enumerate(shapes.items()):
+            parts = [draw(r, i, s) for r in range(world)]
+            mean = sum(parts) / world
+            if compress is None:     # f32 rounding: a few ULPs of the magnitudes summed
+                e = float(((reduced[k] - mean).abs() / (sum(p.abs() for p in parts) / world)).max())
+                assert e <= 4 * 2.0 ** -24, f"{k}: the all-reduce is {e:.3g} of sum |g| / ranks from the mean"
+            else:                    # the reference test's bound
+                e = float((reduced[k] - mean).abs().max() / mean.abs().max())
+                assert e <= 2e-2, f"{k}: the int8 all-reduce is {e:.3g} of the largest |mean| from it"
+            worst = max(worst, e)
+        errs.append(worst)
+        del reduced
+    del mine
+    grad_s = time.perf_counter() - t0
+
+    # elastic: 4 -> 2 -> 4 ranks, then restoring onto (1, 4)
+    t0 = time.perf_counter()
+    p4, c4 = remesh(tree, axes, rules, None, Topology(DIST["mesh"], ("data", "model")), device)
+    p2, c2 = remesh(p4, axes, rules, c4, Topology((1, 2), ("data", "model")), device)
+    assert (p2 is None) == (rank >= 2)
+    back, c4b = remesh(p2, axes, rules, c2, Topology(DIST["mesh"], ("data", "model")), device)
+    remesh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = restore_checkpoint(ckpt, tree, params_sharding(axes, c4b))
+    restore_s = time.perf_counter() - t0
+    held = 0
+    for name, placed in (("remesh", back), ("restore", restored)):
+        for k, v in _leaves(placed).items():
+            whole = C.gather_full(v.to_local(), NamedSharding.of(v), v.shape) if hasattr(v, "to_local") else v
+            want = _leaves(tree)[k]
+            assert whole.dtype == want.dtype and torch.equal(whole.contiguous().view(torch.uint8),
+                                                             want.contiguous().view(torch.uint8)), \
+                f"{name}: {k} differs after the round trip"
+            held += 1
+    blocks = sum(v.to_local().numel() for v in _leaves(back).values() if hasattr(v, "to_local"))
+    return {"out": out, "launches": launches, "compared": compared, "errs": errs, "held": held,
+            "block elements": blocks, "seconds": dict(serve=serve_s, exact=exact_s, grads=grad_s,
+                                                      remesh=remesh_s, restore=restore_s),
+            "peak": torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else float("nan")}
+
+
+def _nccl_rank(rank, world, device, corpus, q, space):
+    """The sharded fused run once more on a one-rank NCCL group."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.mesh_utils import make_mesh
+    from repro_torch.distributed.sharding import ParallelCtx
+
+    assert dist.get_backend() == "nccl"
+    mesh = make_mesh((1, 1), ("data", "model"), device)
+    out, launches, _, _ = _sharded_runs(ParallelCtx(mesh, {"corpus": "model"}), space, corpus, q,
+                                        DIST["shards"][:1], False)
+    return {"out": out, "launches": launches}
+
+
+def _leaves(tree, prefix=""):
+    """``{path: leaf}`` of nested dicts."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _stacked_params(torch, model):
+    """A transformer's parameters in the reference's tree (nested dicts by
+    name): the blocks' leaves stacked over the layer axis (a copy), the
+    others as they are."""
+    tree = {}
+
+    def put(name, leaf):
+        node = tree
+        *path, last = name.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+
+    for name, p in model.named_parameters():
+        if not name.startswith("blocks."):
+            put(name, p.detach())
+    for name, _ in model.blocks[0].named_parameters():
+        put("blocks." + name, torch.stack([dict(b.named_parameters())[name].detach() for b in model.blocks]))
+    return tree
+
+
+def dist_full_phase(torch, dev, check, corpus, batches, space, card, on_card, seed):
+    """The distributed layer over the resident corpus, DIST["world"] gloo
+    ranks sharing the card (NCCL refuses two ranks on one card), mesh
+    ("data", "model") = DIST["mesh"], rules {"corpus": "model"}; every rank
+    gets the corpus through CUDA IPC (views of this process's memory) and
+    keeps the shards of its slot as views.  The sharded fused path (B2 on
+    every shard) and dense path (B1) with cand_qty DIST["cand"] over each
+    count of DIST["shards"] (8: two shards a rank, not adjacent), a dense
+    request at DEEP_K (``topk_large`` on every shard) and
+    ``sharded_exact_topk`` over the first rows that 4 divides: ids equal to
+    the single-process path over the whole corpus (the deep request and
+    the plain exact top-k: at near-ties as "full check" allows), scores
+    within TOL_REL; every rank's answer equal.  Then ``dp_allreduce_grads``
+    over ("pod", "data") = (2, 2) on smollm-360m's parameter shapes in f32
+    (plain: within 4 ULPs of sum |g| / ranks of the mean; int8: 2e-2 of the
+    largest |mean|, the reference test's bound); ``remesh`` of smollm-360m's
+    parameters 4 -> 2 -> 4 ranks and ``restore_checkpoint`` of them onto
+    (1, 4), bit for bit; and the sharded fused run once more on a one-rank
+    NCCL group.  Returns the launches by kernel (each rank's, from its
+    sharded runs)."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.checkpoint import save_checkpoint
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core.pipeline import BruteForceGenerator
+    from repro_torch.core.spaces import DenseSpace
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    if on_card:   # blocks this process keeps cached are memory the ranks cannot have
+        torch.cuda.empty_cache()
+    q = batches[0]
+    n = int(corpus.dense.shape[0])
+    n4 = n - n % DIST["mesh"][1]
+    cand = DIST["cand"]
+    # the single-process answers over the whole corpus
+    fused_want = BruteForceGenerator(space, corpus, backend="cuda").generate(q, cand)
+    dense_gen = BruteForceGenerator(DenseSpace("ip"), corpus.dense, backend="cuda")
+    dense_want = dense_gen.generate(q.dense, cand)
+    deep_want = dense_gen.generate(q.dense, DEEP_K)
+    exact_want = BruteForceGenerator(DenseSpace("ip"), corpus.dense[:n4], backend="cuda").generate(q.dense, cand)
+    # smollm-360m's parameters (a smoke config on the CPU), stacked as the reference keeps them
+    cfg = get_config("smollm-360m") if on_card else get_smoke_config("smollm-360m")
+    model, axes = T.init_transformer(cfg, seed=seed, device=dev)
+    tree = _stacked_params(torch, model)
+    del model
+    where = tempfile.mkdtemp(prefix="dist_full_")
+    ckpt = save_checkpoint(where, 1, tree)
+    try:
+        device = dev.type
+        ranks = run_card_ranks(_dist_rank, DIST["world"], device,
+                               (corpus, q, space, n4, tree, axes, dict(cfg.rules), ckpt, seed))
+        nccl = run_card_ranks(_nccl_rank, 1, device, (corpus, q, space), backend="nccl") if on_card else []
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    first = ranks[0]["out"]
+    for r in ranks[1:] + nccl:
+        for name, (s, i) in r["out"].items():
+            assert np.array_equal(i, first[name][1]) and np.array_equal(s.view(np.int32), first[name][0].view(np.int32)), \
+                f"{name}: the ranks disagree"
+    first = {name: (torch.from_numpy(s), torch.from_numpy(i)) for name, (s, i) in first.items()}
+    for name, want, kernel, exact in (
+            [(f"fused {k}", fused_want, "fused_topk", True) for k in DIST["shards"]]
+            + [(f"dense {k}", dense_want, "mips_topk", True) for k in DIST["shards"]]
+            + [("deep", deep_want, "topk_large", False), ("exact", exact_want, "mips_topk", False)]):
+        check(kernel, f"dist {name}", first[name], tuple(want), exact_ids=exact)
+    for i, r in enumerate(ranks):   # each rank's shards at the first count, kernel against plain on the same view
+        for kernel, name, got, want in r["compared"]:
+            check(kernel, f"dist rank {i} {name}", tuple(map(torch.from_numpy, got)),
+                  tuple(map(torch.from_numpy, want)), exact_ids=False)
+    n_compared = sum(len(r["compared"]) for r in ranks)
+    assert n_compared == 2 * DIST["shards"][0], f"dist full: {n_compared} shards held against plain"
+    bits = {name: torch.equal(first[name][0].view(torch.int32), want.scores.cpu().view(torch.int32))
+            for name, want in ((f"fused {k}", fused_want) for k in DIST["shards"])}
+    launches = {k: sum(r["launches"][k] for r in ranks + nccl) for k in ranks[0]["launches"]}
+    if on_card:
+        assert all(v > 0 for v in launches.values()), f"dist full: a kernel was not launched: {launches}"
+    secs = {k: max(r["seconds"][k] for r in ranks) for k in ranks[0]["seconds"]}
+    log(f"phase dist full: {DIST['world']} gloo ranks on one card, mesh (data, model) = {DIST['mesh']}; "
+        f"sharded fused (B2) and dense (B1) cand_qty {cand} over {DIST['shards']} shards, dense k = {DEEP_K} "
+        f"(topk_large) and sharded_exact_topk over {n4} rows agree with the single-process path over the whole "
+        f"corpus (ids equal; fused scores bit for bit: {bits}); every rank's answer equal"
+        + (", and a one-rank NCCL group's" if nccl else "")
+        + f"; launches from the ranks {launches} (by rank {[r['launches'] for r in ranks + nccl]}); "
+        f"dp_allreduce_grads over (pod, data) = {DIST['grad_mesh']} on {len(_leaves(tree))} leaves of "
+        f"{cfg.name}'s shapes in f32: plain {ranks[0]['errs'][0]:.3g} of sum |g| / ranks, int8 "
+        f"{max(r['errs'][1] for r in ranks):.3g} of the largest |mean|; remesh 4 -> 2 -> 4 and restore_checkpoint "
+        f"onto (1, 4): {ranks[0]['held']} leaves bit for bit; {n_compared} rank-held shards at "
+        f"{DIST['shards'][0]} shards held against the plain version on the same view; rank seconds {secs}; rank peak "
+        f"{max(r['peak'] for r in ranks):.2f} GB allocated; phase {time.perf_counter() - t_phase:.1f} s "
+        f"(host clock; no speed claim for collectives: the ranks share one card and exchange over loopback); "
+        f"{card}")
+    del tree, fused_want, dense_want, deep_want, exact_want
+    if on_card:
+        torch.cuda.ipc_collect()
+    return launches
+
+
+def _row_keys(torch, rows):
+    """A 64-bit key of each row's bits (a fixed random weighting of them,
+    summed with wrap-around, so in any order alike): a token told by its
+    own values, wherever a rank routed it."""
+    bits = rows.contiguous().view(torch.int16 if rows.element_size() == 2 else torch.int32).long()
+    w = torch.randint(1, 1 << 62, (rows.shape[1],), generator=torch.Generator().manual_seed(7)).to(rows.device)
+    return (bits * w).sum(1)
+
+
+def _moe_rank(rank, world, device, cases):
+    """A rank of "moe ep full": ``moe_apply`` of each case's layer over its
+    mesh, no gradient.  Returns each case's y on the host, aux, seconds and
+    what the rank recorded of its own routing: per routed token its key
+    (``_row_keys``), its expert ids and whether every one of its pairs was
+    kept, at this rank's bucketing and at the destination's (that verdict
+    sent back over the expert-parallel axis)."""
+    import torch
+
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.mesh_utils import make_mesh
+    from repro_torch.distributed.sharding import ParallelCtx
+    from repro_torch.models import moe as M
+
+    out = {}
+    route = M.route
+    for name, (cfg, mesh_shape, params, x) in cases.items():
+        mesh = make_mesh(mesh_shape, ("data", "model"), device)
+        routed = []
+
+        def record(x_flat, wg, k):
+            ids, w, aux = route(x_flat, wg, k)
+            routed.append((x_flat, ids))
+            return ids, w, aux
+
+        M.route = record
+        try:
+            with DispatchRecorder(M) as rec, torch.no_grad():
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y, aux = M.moe_apply(params, x, cfg, ParallelCtx(mesh, cfg.rules))
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+        finally:
+            M.route = route
+        # _ep_process buckets twice a call: by destination rank, then (there) by expert
+        assert len(rec.dispatches) == 2 * len(routed) > 0, f"{name}: the expert-parallel path did not run"
+        ep = mesh.get_group("model" if cfg.ep_mode == "model" else "data")
+        keys, ids_all, kept_all = [], [], []
+        for (x_flat, ids), d1, call1, call2 in zip(routed, rec.dispatches[0::2], rec.calls[0::2], rec.calls[1::2]):
+            _, _, n_ep, c1 = call1
+            back = C.all_to_all(call2[1].reshape(n_ep, c1).to(torch.int32), ep).reshape(-1).bool()
+            kept = d1.valid & back[d1.slot.long().clamp(max=n_ep * c1 - 1)]
+            keys.append(_row_keys(torch, x_flat))
+            ids_all.append(ids)
+            kept_all.append(kept.reshape(-1, cfg.top_k).all(1))
+        out[name] = (y.float().cpu().numpy(), float(aux), seconds,
+                     tuple(torch.cat(v).cpu().numpy() for v in (keys, ids_all, kept_all)))
+        del routed, rec
+    out["peak"] = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else float("nan")
+    return out
+
+
+def draw_moe(torch, gen, cfg, dtype, dev, block=8):
+    """``moe_init``'s leaves, shapes and scales (the router ``N(0, 1/d)`` in
+    f32, the experts ``N(0, 1/d)`` and ``N(0, 1/f)`` in ``dtype``) drawn
+    from ``gen`` ``block`` experts at a time: an f32 draw of a whole arctic
+    leaf would need 17.8 GB beside its 26.8 GB of bf16 experts."""
+    d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+
+    def experts(shape, scale):
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        for i in range(0, e, block):
+            part = (min(block, e - i), *shape[1:])
+            out[i:i + block] = torch.randn(part, generator=gen, device=dev).mul_(scale)
+        return out
+
+    return {"wg": torch.randn(d, e, generator=gen, device=dev).mul_(1.0 / math.sqrt(d)),
+            "w_in": experts((e, d, f), 1.0 / math.sqrt(d)), "w_gate": experts((e, d, f), 1.0 / math.sqrt(d)),
+            "w_out": experts((e, f, d), 1.0 / math.sqrt(f))}
+
+
+def moe_ep_full_phase(torch, dev, card, on_card, seed, smoke_only=False):
+    """Expert parallelism on DIST["world"] gloo ranks sharing the card:
+    phi3.5-moe's MoE layer as published (16 experts, top 2, d 4096,
+    moe_d_ff 6400, capacity 1.25, ``ep_mode="model"``) over ("data",
+    "model") = (1, 4) and arctic-480b's (128 experts, d 7168, moe_d_ff 4864,
+    experts over data, ``expert_ff`` over model, ``moe_token_chunks`` 4)
+    over (2, 2) through the 2-D body, both in bf16 on MOE_EP["tokens"]
+    tokens, weights drawn on the card from ``seed`` and handed to the
+    ranks through CUDA IPC (each rank's expert blocks are views); then
+    both layers at their smoke configs in f32.  Each is held against
+    ``moe_local`` on the card on the tokens both sides routed alike and
+    neither dropped (the count printed): bf16 within MOE_BF16_TOL of a
+    row's largest |y|, f32 within the CPU tests' rtol 1e-4, atol 1e-5.
+    ``smoke_only`` (a CPU rehearsal) runs the f32 pass alone."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import moe as M
+
+    t_phase = time.perf_counter()
+    layers = [("phi3.5-moe-42b-a6.6b", (1, 4)), ("arctic-480b", (2, 2))]
+    b, s = MOE_EP["tokens"]
+    cases, passes = {}, []
+    if not smoke_only:
+        passes.append(("bf16", lambda a: get_config(a), torch.bfloat16, (b, s)))
+    passes.append(("f32 smoke", lambda a: get_smoke_config(a), torch.float32, (b, MOE_EP["smoke_seq"])))
+    for label, get, dtype, (bb, ss) in passes:
+        for arch, mesh_shape in layers:
+            cfg = dataclasses.replace(get(arch), dtype="bfloat16" if dtype == torch.bfloat16 else "float32")
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            params = draw_moe(torch, gen, cfg, dtype, dev)
+            x = torch.randn(bb, ss, cfg.d_model, generator=gen, device=dev).to(dtype)
+            cases[f"{arch} {label}"] = (cfg, mesh_shape, params, x)
+    weights_gb = sum(v.numel() * v.element_size() for c in cases.values() for v in c[2].values()) / 1e9
+    # reckoned: every layer's weights once (the ranks map them), moe_local's buffers and the largest
+    # expert GEMM output ([E, cap, f] bf16) beside them, a few hundred MB a rank
+    log(f"phase moe ep full: weights {weights_gb:.2f} GB on the card (the ranks map them through IPC); "
+        f"reckoned peak about {weights_gb + 1.0:.1f} GB in this process and under 2 GB a rank")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ranks = run_card_ranks(_moe_rank, DIST["world"], dev.type, (cases,))
+    for name, (cfg, mesh_shape, params, x) in cases.items():
+        d = cfg.d_model
+        flat = x.reshape(-1, d)
+        with DispatchRecorder(M) as rec:
+            want, _ = M.moe_local(params, flat, cfg)
+        (_, valid, _, _), = rec.calls
+        ids_local, _, _ = M.route(flat, params["wg"], cfg.top_k)
+        kept_local = valid.reshape(-1, cfg.top_k).all(1)
+        # the EP side as its ranks recorded it, each token found by its key
+        keys = _row_keys(torch, flat)
+        order = keys.argsort()
+        sorted_keys = keys[order]
+        assert bool((sorted_keys[1:] != sorted_keys[:-1]).all()), f"{name}: two tokens share a key"
+        ids_ep = torch.full_like(ids_local, -1)
+        kept_ep = torch.zeros_like(kept_local)
+        for r in ranks:
+            rk, rids, rkept = (torch.from_numpy(v).to(dev) for v in r[name][3])
+            at = torch.searchsorted(sorted_keys, rk).clamp(max=keys.shape[0] - 1)
+            assert torch.equal(sorted_keys[at], rk), f"{name}: a rank routed a token that is not in x"
+            ids_ep[order[at]], kept_ep[order[at]] = rids, rkept
+        assert bool((ids_ep >= 0).all()), f"{name}: a token was routed by no rank"
+        ep_axis = "model" if cfg.ep_mode == "model" else "data"
+        bb, ss = x.shape[:2]
+        gate = (ids_ep == ids_local).all(1) & kept_ep & kept_local
+        for r in ranks[1:]:
+            assert np.array_equal(r[name][0], ranks[0][name][0]), f"{name}: the ranks disagree"
+        got = torch.from_numpy(ranks[0][name][0]).to(dev, x.dtype).reshape(-1, d)    # bf16 exactly, as f32
+        g, w = got[gate], want[gate]
+        assert int(gate.sum()) > 0, f"{name}: no token was routed alike and kept on both sides"
+        if x.dtype == torch.bfloat16:
+            err = row_err(torch, g, w)
+            assert err <= MOE_BF16_TOL, f"{name}: {err:.3g} of a row's scale > {MOE_BF16_TOL}"
+            held = f"{err:.3g} of a row's largest |y| (tolerance {MOE_BF16_TOL:.4g})"
+        else:
+            assert torch.allclose(g, w, rtol=1e-4, atol=1e-5), f"{name}: outside rtol 1e-4, atol 1e-5"
+            held = f"max |diff| {float((g - w).abs().max()):.3g} (rtol 1e-4, atol 1e-5)"
+        log(f"phase moe ep full: {name} (E {cfg.n_experts}, top {cfg.top_k}, d {d}, moe_d_ff {cfg.moe_d_ff}, "
+            f"ep over {ep_axis}{', expert_ff over model, ' + str(cfg.moe_token_chunks) + ' chunks' if ep_axis == 'data' else ''}"
+            f", mesh {mesh_shape}, {bb} x {ss} tokens): {int(gate.sum())} of {bb * ss} tokens routed alike and "
+            f"kept on both sides held, {held}; routes differ on {int((~(ids_ep == ids_local).all(1)).sum())}, "
+            f"dropped {int((~kept_ep).sum())} (EP) and {int((~kept_local).sum())} (moe_local); rank seconds "
+            f"{max(r[name][2] for r in ranks):.2f}")
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
+    log(f"phase moe ep full: peak {peak:.2f} GB allocated here, {max(r['peak'] for r in ranks):.2f} GB a rank; "
+        f"phase {time.perf_counter() - t_phase:.1f} s; {card}")
+    del cases
+    if on_card:
+        torch.cuda.ipc_collect()
+
+
 def sync(torch, on_card):
     if on_card:
         torch.cuda.synchronize()
@@ -5052,6 +5613,8 @@ def main() -> int:
         cross_cfg = dataclasses.replace(get_config(CROSS["arch"]), n_layers=1, d_ff=64)
     cross_launches = cross_full_phase(torch, dev, check, corpus, space, card, on_card, args.seed + 25, timer,
                                       cross_cfg, CROSS_QUERIES if on_card else 2 * MSMARCO["b"])
+    # ---- the distributed layer over the resident corpus: ranks sharing the card
+    dist_launches = dist_full_phase(torch, dev, check, corpus, batches, space, card, on_card, args.seed + 30)
     # release the 36 GB corpus: the pipelines, the checks and the ANN
     # index cache all hold it, and so do the closed services of the served
     # phases until the cyclic collector runs (a service and its endpoints
@@ -5059,8 +5622,12 @@ def main() -> int:
     del dense, idx, val, corpus, batches, q, pipe, dense_gen, results, dense_results, fused_args
     gc.collect()
     clear_ann_index_cache()
-    if on_card:
+    if on_card:   # "dist full"'s ranks held the corpus through IPC: its blocks go once they are collected
+        torch.cuda.ipc_collect()
         torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() / 1e9
+        log(f"phase release: {left:.2f} GB still allocated after the corpus's release")
+        assert left < 30.0, f"the corpus (36 GB) was not released: {left:.2f} GB allocated"
     # ---- the recommendation and molecule families at published widths; a CPU rehearsal cuts them to the
     # smoke configs, 5,000 items and 4,096 molecules
     rec_cfg = rec_others = mol_cfg = mol_n = None
@@ -5091,6 +5658,9 @@ def main() -> int:
                             din_cfg=dataclasses.replace(get_smoke_config("din"), item_vocab=5000),
                             mol_cfg=get_smoke_config("schnet"))
     train_full_phase(torch, dev, card, on_card, args.seed + 29, train_cfgs, train_shapes)
+    # ---- expert parallelism: the published MoE layers on ranks sharing the card; a CPU rehearsal runs the
+    # f32 smoke pass alone
+    moe_ep_full_phase(torch, dev, card, on_card, args.seed + 31, smoke_only=not on_card)
     recall_n = min(RECALL_N, n) // CLUSTERS * CLUSTERS
     recall_data = graph_recall_phase(torch, dev, recall_n, args.seed + 11, on_card)
     napp_recall_phase(torch, dev, *recall_data, args.seed + 12, on_card)
@@ -5105,10 +5675,11 @@ def main() -> int:
                     "replaces": "src/repro/kernels/sparse_dense.py:61", "launches": score_launches,
                     "max_abs_err": check.max_err["fused_score"], **score, "library_ms": None})
     for k in kernels:    # the main path's launches, the served passes', FlexNeuART's, the cross-encoder's,
-        # the recommendation and molecule paths', the search's
+        # the recommendation and molecule paths', the search's, the ranks' of "dist full"
         k["launches"] += (serve_launches.get(k["name"], 0) + flex_launches.get(k["name"], 0)
                           + cross_launches.get(k["name"], 0) + recsys_launches.get(k["name"], 0)
-                          + molecule_launches.get(k["name"], 0) + tune_launches.get(k["name"], 0))
+                          + molecule_launches.get(k["name"], 0) + tune_launches.get(k["name"], 0)
+                          + dist_launches.get(k["name"], 0))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if not on_card:

@@ -8,4 +8,5 @@ anything of ``repro``.
 
 from repro_torch.device import resolve_device
 
+__version__ = "1.0.0"
 __all__ = ["resolve_device"]

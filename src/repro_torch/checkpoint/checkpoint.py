@@ -116,17 +116,39 @@ def load_leaves(path: str) -> Dict[str, torch.Tensor]:
 def restore_checkpoint(path: str, target_tree: Any, shardings: Optional[Any] = None) -> Any:
     """Restore into ``target_tree``'s tensors in place (each cast to its
     target's dtype, on its target's device) and return the tree.  A leaf of
-    another shape raises ``ValueError``."""
-    if shardings is not None:
-        raise NotImplementedError("restoring onto shardings needs the port's distributed layer, which is "
-                                  "not ported yet")
+    another shape raises ``ValueError``.
+
+    With ``shardings`` (a tree of :class:`~repro_torch.distributed.sharding.
+    NamedSharding` or ``None`` leaves mirroring a target of nested dicts,
+    as ``params_sharding`` makes it), every rank of the mesh calls this and
+    gets a new tree: each leaf loaded, cast and distributed by its sharding
+    (a ``DTensor`` of which the rank holds its block; a whole tensor where
+    the sharding is ``None``; ``None`` on a rank outside the mesh)."""
     leaves = load_leaves(path)
+
+    def loaded(key, ref):
+        arr = leaves[key]
+        if tuple(arr.shape) != tuple(ref.shape):
+            raise ValueError(f"shape mismatch for {key}: ckpt {tuple(arr.shape)} vs target {tuple(ref.shape)}")
+        return arr.to(ref.dtype)
+
+    if shardings is not None:
+        from repro_torch.distributed.sharding import distribute
+
+        def place(tree, sh, prefix):
+            if isinstance(tree, dict):
+                return {k: place(v, sh.get(k) if isinstance(sh, dict) else sh,
+                                 "/".join(filter(None, (prefix, str(k).replace(".", "/")))))
+                        for k, v in tree.items()}
+            if not isinstance(tree, torch.Tensor):
+                raise TypeError(f"{prefix or 'tree'}: restoring onto shardings takes nested dicts of tensors, "
+                                f"not a {type(tree).__name__}")
+            return distribute(loaded(prefix, tree).to(tree.device), sh)
+
+        return place(target_tree, shardings, "")
     with torch.no_grad():
         for key, ref in flatten_with_paths(target_tree).items():
-            arr = leaves[key]
-            if tuple(arr.shape) != tuple(ref.shape):
-                raise ValueError(f"shape mismatch for {key}: ckpt {tuple(arr.shape)} vs target {tuple(ref.shape)}")
-            ref.copy_(arr.to(ref.dtype))
+            ref.copy_(loaded(key, ref))
     return target_tree
 
 

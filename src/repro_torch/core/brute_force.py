@@ -24,6 +24,7 @@ __all__ = [
     "concat_topk",
     "merge_topk",
     "pad_corpus",
+    "sharded_exact_topk",
 ]
 
 
@@ -134,3 +135,40 @@ def merge_topk(parts: TopK, k: int) -> TopK:
     """Merge candidate lists: parts.scores [B, M >= k] -> top-k."""
     vals, pos = select_topk(parts.scores, k)
     return TopK(vals, torch.gather(parts.indices, 1, pos))
+
+
+def sharded_exact_topk(space, queries, corpus, k: int, mesh, corpus_axis: str = "model",
+                       tile_n: int = 0) -> TopK:
+    """Distributed exact MIPS over a ``DeviceMesh``, called by every rank.
+
+    ``corpus`` is row-sharded over ``corpus_axis``: a ``DTensor`` (its
+    rows split over that axis, replicated over the others) or a tensor
+    every rank holds whole, distributed first.  ``queries`` are replicated.
+    Each rank takes a local top-k (``streaming_topk`` when ``tile_n`` is
+    set) with *global* row ids; the k-lists are all-gathered in axis order
+    and merged, so wire traffic is O(B * k * shards), and every rank
+    returns the same result."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.collectives import gather_columns
+    from repro_torch.distributed.sharding import NamedSharding, distribute
+
+    n_shards = mesh.size(mesh.mesh_dim_names.index(corpus_axis))
+    n = int(corpus.shape[0])
+    assert n % n_shards == 0, f"corpus rows {n} % shards {n_shards} != 0"
+    per = n // n_shards
+    sharding = NamedSharding(mesh, (corpus_axis,) + (None,) * (corpus.ndim - 1))
+    if not isinstance(corpus, DTensor):
+        corpus = distribute(corpus, sharding)
+    elif tuple(corpus.placements) != sharding.placements:
+        raise ValueError(f"corpus placements {corpus.placements}: rows must be sharded over "
+                         f"{corpus_axis!r} alone ({sharding.placements})")
+    local = corpus.to_local()
+    base = mesh.get_local_rank(corpus_axis) * per
+    if tile_n:
+        heap = streaming_topk(space, queries, local, k, tile_n)
+    else:
+        heap = exact_topk(space, queries, local, k)
+    all_s = gather_columns(heap.scores, mesh, corpus_axis)
+    all_i = gather_columns(heap.indices + base, mesh, corpus_axis)
+    return merge_topk(TopK(all_s, all_i), k)

@@ -1,5 +1,7 @@
 """The port's distributed layer (counterpart of ``repro.distributed``):
-the one-device ``ParallelCtx`` and the straggler monitor so far;
-``mesh_utils`` and the collectives wait for the distributed slice."""
+SPMD over a ``torch.distributed`` process group, a ``DeviceMesh`` behind
+``ParallelCtx``, the collectives, elastic re-meshing and the straggler
+monitor."""
 
 from repro_torch.distributed.sharding import ParallelCtx, params_sharding  # noqa: F401
+from repro_torch.distributed.mesh_utils import make_mesh, local_mesh  # noqa: F401

@@ -1,14 +1,19 @@
-"""Logical-axis sharding on one device (counterpart of
-``repro/distributed/sharding.py``).
+"""Logical-axis sharding: map model-level dimension names to mesh axes
+(counterpart of ``repro/distributed/sharding.py``).
 
 Models name the dimensions of parameters and activations with *logical*
 axes ("heads", "ff", "vocab", "batch", ...), and a per-arch rule table
-(``repro_torch.configs.base``) maps them onto mesh axes.  The port runs
-on one device: a ``ParallelCtx`` without a mesh constrains nothing,
-places nothing and counts one shard on every axis.  A mesh waits for the
-port's distributed layer (``torch.distributed``) and raises
-``NotImplementedError``, as ``serving.sharded.shard_corpus(ctx=...)``
-does.
+(``repro_torch.configs.base``) maps them onto mesh axes.  Rules naming
+absent mesh axes drop them, so ("pod", "data") degrades to ("data",) on a
+single-pod mesh.
+
+A mesh is a ``DeviceMesh`` (:mod:`repro_torch.distributed.mesh_utils`).
+A spec is a tuple with one entry per tensor dim: ``None``, an axis name,
+or a tuple of names (``PartitionSpec``'s entries).  :class:`NamedSharding`
+pairs a mesh with a spec and gives the ``DTensor`` placements (one per
+mesh dim); :func:`distribute` takes each rank's block of a tensor that
+every rank holds whole, without communication.  ``mesh=None`` disables
+everything: one device, one shard on every axis.
 """
 
 from __future__ import annotations
@@ -16,41 +21,106 @@ from __future__ import annotations
 import dataclasses
 from typing import Mapping, Optional, Tuple
 
-__all__ = ["ParallelCtx", "params_sharding"]
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.distributed.mesh_utils import mesh_axis_size
+
+__all__ = ["ParallelCtx", "NamedSharding", "params_sharding", "splits", "block_slices", "local_block",
+           "distribute", "require_no_mesh"]
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and a spec (one entry per tensor dim)."""
+
+    mesh: DeviceMesh
+    spec: Tuple
+
+    @classmethod
+    def of(cls, x: DTensor) -> "NamedSharding":
+        """The sharding of a ``DTensor`` (splits of one dim in mesh order)."""
+        spec = [[] for _ in range(x.ndim)]
+        for name, p in zip(x.device_mesh.mesh_dim_names, x.placements):
+            if isinstance(p, Shard):
+                spec[p.dim].append(name)
+            elif not isinstance(p, Replicate):
+                raise ValueError(f"placement {p} has no spec")
+        return cls(x.device_mesh, tuple(None if not a else a[0] if len(a) == 1 else tuple(a) for a in spec))
+
+    def replicated_axes(self) -> Tuple[str, ...]:
+        """The mesh axes this sharding does not split."""
+        return tuple(n for n, p in zip(self.mesh.mesh_dim_names, self.placements) if not isinstance(p, Shard))
+
+    @property
+    def placements(self) -> Tuple:
+        """One ``Shard(dim)`` or ``Replicate()`` per mesh dim.  A tensor dim
+        over several mesh axes splits in mesh order (the reference's
+        ``("pod", "data")``: pod major), so its names must come in mesh
+        order."""
+        names = self.mesh.mesh_dim_names
+        out = [Replicate()] * len(names)
+        for dim, entry in enumerate(self.spec):
+            axes = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+            where = [names.index(a) for a in axes]
+            if where != sorted(where):
+                raise ValueError(f"spec entry {entry!r} is not in the mesh's axis order {names}")
+            for i in where:
+                out[i] = Shard(dim)
+        return tuple(out)
 
 
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:
     """Mesh + logical rules threaded through model apply functions.
 
-    Only ``mesh=None`` is ported: every method is then the identity of
-    ``repro``'s with ``mesh=None``."""
+    ``mesh=None`` disables all constraints (one device)."""
 
-    mesh: Optional[object]
+    mesh: Optional[DeviceMesh]
     rules: Mapping[str, object]
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "a ParallelCtx with a mesh needs the port's distributed layer, "
-                "which is not ported yet; use ParallelCtx(None, rules) on one device")
+        if self.mesh is not None and not isinstance(self.mesh, DeviceMesh):
+            raise TypeError(f"a ParallelCtx's mesh is a torch.distributed DeviceMesh, not a "
+                            f"{type(self.mesh).__name__}")
 
-    def spec(self, *logical: Optional[str]) -> Tuple[None, ...]:
-        """One ``None`` (replicated) per dimension."""
-        return (None,) * len(logical)
+    def _resolve(self, logical: Optional[str]):
+        if logical is None or self.mesh is None:
+            return None
+        phys = self.rules.get(logical)
+        if phys is None:
+            return None
+        axes = (phys,) if isinstance(phys, str) else tuple(phys)
+        present = tuple(a for a in axes if a in self.mesh.mesh_dim_names)
+        if not present:
+            return None
+        return present if len(present) > 1 else present[0]
 
-    def sharding(self, *logical: Optional[str]) -> None:
-        return None
+    def spec(self, *logical: Optional[str]) -> Tuple:
+        return tuple(self._resolve(name) for name in logical)
+
+    def sharding(self, *logical: Optional[str]) -> Optional[NamedSharding]:
+        if self.mesh is None:
+            return None
+        return NamedSharding(self.mesh, self.spec(*logical))
 
     def constrain(self, x, *logical: Optional[str]):
-        return x
+        """A ``DTensor`` redistributed to the logical axes' placements; a
+        plain tensor unchanged (a GSPMD constraint changes no value)."""
+        if self.mesh is None or not isinstance(x, DTensor):
+            return x
+        return x.redistribute(self.mesh, self.sharding(*logical).placements)
 
     def axis_size(self, logical: str) -> int:
-        """Number of shards a logical axis maps onto: 1 without a mesh."""
-        return 1
+        """Number of shards a logical axis maps onto."""
+        if self.mesh is None:
+            return 1
+        return mesh_axis_size(self.mesh, self.rules.get(logical))
 
-    def mesh_axes(self, logical: str) -> None:
-        return None
+    def mesh_axes(self, logical: str):
+        """Physical axis name(s) for per-rank code, or None."""
+        return self._resolve(logical)
 
 
 def _is_axes(x) -> bool:
@@ -59,10 +129,79 @@ def _is_axes(x) -> bool:
 
 def params_sharding(axes_tree, ctx: ParallelCtx):
     """The tree of logical-axis tuples ``axes_tree`` (mirroring a params
-    tree) with every leaf replaced by its sharding: ``None`` on one
-    device.  A leaf that is ``None`` itself stays ``None``."""
+    tree) with every leaf replaced by its :class:`NamedSharding` (``None``
+    without a mesh).  A leaf that is ``None`` itself stays ``None``."""
     if isinstance(axes_tree, Mapping):
         return {k: params_sharding(v, ctx) for k, v in axes_tree.items()}
-    if axes_tree is None or _is_axes(axes_tree):
-        return ctx.sharding(*(axes_tree or ()))
+    if axes_tree is None:
+        return None
+    if _is_axes(axes_tree):
+        return ctx.sharding(*axes_tree)
     raise TypeError(f"not a tree of logical-axis tuples: {axes_tree!r}")
+
+
+def splits(shape, sharding: NamedSharding):
+    """Each split of this rank's block of a tensor of ``shape``, in mesh
+    order: (mesh dim, tensor dim, the dim's length before the split, the
+    block's start after it, its length after it).  A split of n over s
+    ranks gives ceil(n / s) to a rank, the last ones short or empty, as
+    ``DTensor`` cuts.  None on a rank outside the mesh."""
+    coord = sharding.mesh.get_coordinate()
+    if coord is None:
+        return None
+    cuts = [[0, int(n)] for n in shape]
+    out = []
+    for i, p in enumerate(sharding.placements):
+        if isinstance(p, Shard):
+            start, n = cuts[p.dim]
+            per = -(-n // sharding.mesh.size(i))
+            lo = min(per * coord[i], n)
+            cuts[p.dim] = [start + lo, min(per, n - lo)]
+            out.append((i, p.dim, n, *cuts[p.dim]))
+    return out
+
+
+def block_slices(shape, sharding: NamedSharding):
+    """This rank's block of a tensor of ``shape``: one ``(start, length)``
+    per dim; None on a rank outside the mesh."""
+    done = splits(shape, sharding)
+    if done is None:
+        return None
+    cuts = [(0, int(n)) for n in shape]
+    for _, dim, _, lo, n in done:
+        cuts[dim] = (lo, n)
+    return cuts
+
+
+def local_block(x: torch.Tensor, sharding: NamedSharding) -> Optional[torch.Tensor]:
+    """This rank's block of ``x`` (a view), or None outside the mesh."""
+    cuts = block_slices(x.shape, sharding)
+    if cuts is None:
+        return None
+    for dim, (lo, n) in enumerate(cuts):
+        if (lo, n) != (0, x.shape[dim]):
+            x = x.narrow(dim, lo, n)
+    return x
+
+
+def distribute(x: torch.Tensor, sharding: Optional[NamedSharding]):
+    """``x``, which every rank holds whole, as a ``DTensor`` of which each
+    rank keeps its block (no communication); ``x`` itself when ``sharding``
+    is None; None on a rank outside the mesh."""
+    if sharding is None:
+        return x
+    block = local_block(x, sharding)
+    if block is None:
+        return None
+    return DTensor.from_local(block.contiguous(), sharding.mesh, sharding.placements, run_check=False,
+                              shape=x.shape, stride=torch.empty(x.shape, device="meta").stride())
+
+
+def require_no_mesh(ctx, what: str):
+    """Raise where a model entry point is given a mesh: running the models
+    sharded is a later slice of the port."""
+    if ctx is not None and getattr(ctx, "mesh", None) is not None:
+        raise NotImplementedError(
+            f"{what} under a mesh is the sharded-model slice of the port, not ported yet; "
+            "pass ParallelCtx(None, rules) (moe_apply, sharded_exact_topk and the sharded "
+            "serving path take a mesh)")

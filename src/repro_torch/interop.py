@@ -24,7 +24,7 @@ __all__ = ["tensor", "to_numpy", "sparse_vectors", "fused_vectors",
            "fused_space", "graph_index", "napp_index", "forward_index",
            "inverted_index", "tree_ensemble", "transformer_params", "kv_cache",
            "recsys_params", "schnet_params", "adam_state", "adafactor_state",
-           "restore_repro_checkpoint"]
+           "restore_repro_checkpoint", "sharded_tree"]
 
 
 def tensor(array, device=None, *, bf16: bool = False) -> torch.Tensor:
@@ -344,3 +344,18 @@ def restore_repro_checkpoint(path: str, target) -> int:
                                  f"{tuple(like.shape)}")
             like.copy_(arr.to(like.dtype))
     return checkpoint_step(path)
+
+
+def sharded_tree(tree, shardings, device=None):
+    """A carried tree (nested dicts of numpy arrays, bf16 as ``uint16``
+    bits) with each leaf distributed by its leaf of ``shardings`` (a
+    ``params_sharding`` tree): a ``DTensor`` of which this rank holds its
+    block, as ``restore_checkpoint`` places a leaf; a whole tensor where
+    the sharding is None.  Every rank of the mesh calls it with the same
+    tree."""
+    from repro_torch.distributed.sharding import distribute
+
+    if isinstance(tree, dict):
+        return {k: sharded_tree(v, shardings.get(k) if isinstance(shardings, dict) else shardings, device)
+                for k, v in tree.items()}
+    return distribute(tensor(np.asarray(tree), device), shardings)

@@ -14,10 +14,17 @@ destination and moved with gathers and scatters:
   4. combine: a weighted scatter-add back to the token rows.
 
 ``moe_apply`` runs ``moe_local`` when the ``ParallelCtx`` has no mesh.
-The expert-parallel bodies (the all-to-all over an expert axis, experts
-sharded over the model or the data axis, the 2-D split of the expert FFN)
-wait for the port's distributed layer: with a mesh, ``moe_apply`` raises
-``NotImplementedError``.
+With a ``DeviceMesh`` every rank calls it with the same logical
+arguments and runs the expert-parallel body on its block of the tokens
+(the reference's ``shard_map`` bodies): tokens bucketed by the rank that
+owns their expert, an all-to-all over the expert axis, a second bucketing
+by local expert, the grouped GEMM, and the moves reversed
+(``ep_mode="model"``: experts over the TP axis; ``"data"``: over the DP
+axis; with ``expert_ff`` on another axis, the 2-D split of each expert's
+FFN, tokens all-gathered over the sequence axis and the partial outputs
+reduce-scattered back).  The collectives are autograd functions
+(:mod:`repro_torch.distributed.collectives`), so gradients flow as
+``jax.grad`` of the ``shard_map`` gives them.
 
 Arithmetic follows the reference: routing in f32, the weights cast to the
 tokens' dtype after normalising; the buffers, the expert GEMMs and the
@@ -31,10 +38,13 @@ import math
 from typing import NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.core.brute_force import select_topk
-from repro_torch.distributed.sharding import ParallelCtx
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.mesh_utils import mesh_axis_size, mesh_sizes
+from repro_torch.distributed.sharding import NamedSharding, ParallelCtx
 from repro_torch.models.layers import _normal
 
 __all__ = ["moe_init", "route", "Dispatch", "sort_dispatch", "fill_buffers",
@@ -170,15 +180,139 @@ def moe_local(params, x_flat: torch.Tensor, cfg: TransformerConfig):
     return combine_buffers(disp, out, t), aux
 
 
+def _ep_process(params, flat: torch.Tensor, cfg: TransformerConfig, mesh, ep_axis: str, n_ep: int,
+                e_loc: int):
+    """Dispatch -> all-to-all -> grouped GEMM on the local experts (their
+    local ff slice in the 2-D split: a partial output) -> all-to-all ->
+    combine, for one rank's tokens ``flat [T, d]`` (the reference's
+    ``_moe_ep_body`` and ``_ep2d_process``).  Returns (y [T, d], aux)."""
+    t, d = flat.shape
+    k = cfg.top_k
+    dev = flat.device
+    ids, w, aux = route(flat, params["wg"], k)
+    owner = ids // e_loc                                  # destination EP rank
+    c1 = _round_up(max(1, int(t * k / n_ep * cfg.capacity_factor)), 8)
+    tokens = torch.arange(t, dtype=torch.int32, device=dev).repeat_interleave(k)
+    disp1 = sort_dispatch(owner.reshape(-1), tokens, w.reshape(-1), n_ep, c1)
+    send, send_eid = fill_buffers(disp1, flat, n_ep, c1, payload=(ids % e_loc).reshape(-1))
+
+    recv = C.all_to_all_axis(send, mesh, ep_axis)
+    recv_eid = C.all_to_all(send_eid, mesh.get_group(ep_axis))
+
+    rflat = recv.reshape(n_ep * c1, d)
+    eid = recv_eid.reshape(n_ep * c1)
+    # per-expert capacity: at most n_ep*c1 slots arrive in total, so cap
+    # there (for e_loc==1 the cf multiplier would be pure waste).
+    c2 = _round_up(max(1, int(n_ep * c1 / e_loc * cfg.capacity_factor)), 8)
+    c2 = min(c2, _round_up(n_ep * c1, 8))
+    # invalid slots (eid == -1) bucket to a trash expert index e_loc
+    disp2 = sort_dispatch(torch.where(eid >= 0, eid, e_loc),
+                          torch.arange(n_ep * c1, dtype=torch.int32, device=dev),
+                          torch.ones(n_ep * c1, dtype=rflat.dtype, device=dev), e_loc + 1, c2)
+    buf = fill_buffers(disp2, rflat, e_loc + 1, c2)[:e_loc]
+    out = _expert_ffn(params["w_in"], params["w_gate"], params["w_out"], buf)
+    out = torch.cat([out, out.new_zeros((1, c2, d))])
+    back = combine_buffers(disp2, out, n_ep * c1).reshape(n_ep, c1, d)
+
+    ret = C.all_to_all_axis(back, mesh, ep_axis)
+    return combine_buffers(disp1, ret, t), aux
+
+
+def _moe_ep_body_2d(params, x: torch.Tensor, cfg: TransformerConfig, mesh, ep_axis: str, tp_axis,
+                    n_ep: int, e_loc: int):
+    """2-D expert sharding (arctic scale): experts over ``ep_axis`` x FFN
+    width over the tp axis.  Tokens enter sequence-sharded over
+    ``tp_axis``, are all-gathered (so routing and dispatch are identical
+    across its ranks), the grouped GEMM runs on the local ff slice, and the
+    partial outputs reduce-scatter back to sequence shards.  Long sequences
+    run in ``moe_token_chunks`` sequential chunks so that the dispatch
+    buffers do not scale with T.  x: [B_l, S_loc, d]."""
+    bl, _, d = x.shape
+    x_full = C.gather_axis(x, mesh, tp_axis, 1) if tp_axis is not None else x
+    t = bl * x_full.shape[1]
+    flat = x_full.reshape(t, d)
+
+    nc = cfg.moe_token_chunks
+    if nc > 1 and t % nc == 0:
+        ys, auxs = zip(*(_ep_process(params, xc, cfg, mesh, ep_axis, n_ep, e_loc)
+                         for xc in flat.reshape(nc, t // nc, d)))
+        y, aux = torch.stack(ys).reshape(t, d), torch.stack(auxs).mean()
+    else:
+        y, aux = _ep_process(params, flat, cfg, mesh, ep_axis, n_ep, e_loc)
+
+    y = y.reshape(bl, -1, d)
+    if tp_axis is not None:
+        y = C.scatter_axis(y, mesh, tp_axis, 1)
+    return y, aux
+
+
+def _rank_block(x, sharding: NamedSharding):
+    """This rank's block of ``x`` as ``sharding`` lays it out: from a
+    ``DTensor`` (redistributed if laid out otherwise; its gradient summed
+    over the axes it is replicated on, as a ``shard_map`` input's), or
+    sliced from a tensor every rank holds whole (its gradient then the
+    logical one on every rank)."""
+    if isinstance(x, DTensor):
+        if tuple(x.placements) != sharding.placements:
+            x = x.redistribute(sharding.mesh, sharding.placements)
+        return C.sum_grad(x.to_local(), sharding.mesh, sharding.replicated_axes())
+    return C.to_block(x, sharding)
+
+
 def moe_apply(params, x: torch.Tensor, cfg: TransformerConfig,
               ctx: ParallelCtx) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, d] -> (y [B, S, d], aux loss).  One device only: a
-    ``ctx`` with a mesh needs the expert-parallel bodies, which are not
-    ported yet."""
-    if ctx.mesh is not None:
-        raise NotImplementedError(
-            "moe_apply with a mesh needs the expert-parallel all-to-all of the port's "
-            "distributed layer, which is not ported yet; use ParallelCtx(None, rules)")
+    """x: [B, S, d] -> (y [B, S, d], aux loss).
+
+    With a mesh, every rank calls this with the same logical arguments:
+    ``x`` and the params are tensors every rank holds whole, or
+    ``DTensor``s; each rank takes its token block by ``x``'s spec and its
+    expert weights by the weights' specs.  ``y`` comes back whole on every
+    rank for a whole ``x``, as a ``DTensor`` laid out as the tokens for a
+    ``DTensor`` ``x``; ``aux`` is the mean over every rank."""
     b, s, d = x.shape
-    y, aux = moe_local(params, x.reshape(-1, d), cfg)
-    return y.reshape(b, s, d), aux
+    mesh = ctx.mesh
+    ep_axis = "model" if cfg.ep_mode == "model" else "data"
+    n_ep = 1 if mesh is None else mesh_sizes(mesh).get(ep_axis, 1)
+    if n_ep == 1 or cfg.n_experts % n_ep != 0:
+        if isinstance(x, DTensor):
+            whole = C.from_blocks(x.to_local(), NamedSharding.of(x), x.shape)
+            y, aux = moe_local({k: v.full_tensor() if isinstance(v, DTensor) else v for k, v in params.items()},
+                               whole.reshape(-1, d), cfg)
+            return DTensor.from_local(C.to_block(y.reshape(b, s, d), NamedSharding.of(x)), mesh, x.placements,
+                                      run_check=False, shape=x.shape, stride=x.stride()), aux
+        y, aux = moe_local(params, x.reshape(-1, d), cfg)
+        return y.reshape(b, s, d), aux
+    e_loc = cfg.n_experts // n_ep
+
+    dp = ctx.mesh_axes("batch")
+    sp = ctx.mesh_axes("seq_act")
+    # 2-D expert sharding: ff width over the tp axis (arctic-scale experts).
+    ff_axis = ctx.mesh_axes("expert_ff")
+    if ff_axis is not None and (ep_axis == ff_axis or cfg.moe_d_ff % mesh_axis_size(mesh, ff_axis)):
+        ff_axis = None
+    # decode / short sequences: the sequence dim cannot shard — replicate
+    # it (each TP rank redoes the tiny dispatch; correctness unaffected).
+    if sp is not None and s % mesh_axis_size(mesh, sp) != 0:
+        sp = None
+    if dp is not None and b % mesh_axis_size(mesh, dp) != 0:
+        dp = None
+    x_sh = NamedSharding(mesh, (dp, sp, None))
+    w_specs = {"wg": (None, None), "w_in": (ep_axis, None, ff_axis), "w_gate": (ep_axis, None, ff_axis),
+               "w_out": (ep_axis, ff_axis, None)}
+    p = {k: _rank_block(params[k], NamedSharding(mesh, spec)) for k, spec in w_specs.items()}
+    xin = _rank_block(x, x_sh)
+
+    if ff_axis is not None:
+        y, aux = _moe_ep_body_2d(p, xin, cfg, mesh, ep_axis, sp, n_ep, e_loc)
+        if sp is None:
+            # partial-ff outputs with replicated tokens: reduce over tp
+            y = C.psum(y, mesh, ff_axis)
+    else:
+        bl, sl, _ = xin.shape
+        y, aux = _ep_process(p, xin.reshape(bl * sl, d), cfg, mesh, ep_axis, n_ep, e_loc)
+        y = y.reshape(bl, sl, d)
+    aux = C.pmean_all(aux, mesh)
+    if isinstance(x, DTensor):
+        return DTensor.from_local(y, mesh, x_sh.placements, run_check=False, shape=x.shape,
+                                  stride=x.stride()), aux
+    return C.from_blocks(y, x_sh, (b, s, d)), aux

@@ -40,7 +40,7 @@ from repro_torch.configs.base import RecSysConfig
 from repro_torch.core.brute_force import select_topk
 from repro_torch.core.pipeline import _masked as _finite_only, _reorder
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import ParallelCtx
+from repro_torch.distributed.sharding import ParallelCtx, require_no_mesh
 from repro_torch.models.transformer import _parameter_dict, gather_rows, torch_dtype
 
 __all__ = ["embedding_lookup", "embedding_bag", "embedding_bag_ragged", "init_recsys",
@@ -275,6 +275,7 @@ def _gru_scan(p, xs, mask, att: Optional[torch.Tensor] = None, unroll: bool = Fa
 
 def user_tower(params: RecSys, cfg: RecSysConfig, batch: RecBatch, ctx: ParallelCtx):
     """Dense user representation [B, D_repr]."""
+    require_no_mesh(ctx, "user_tower")
     feats = _field_embeds(params, cfg, batch)
     if cfg.kind == "wide_deep":
         return torch.cat(feats, dim=-1)

@@ -39,7 +39,7 @@ from repro_torch.core.brute_force import exact_topk, select_topk
 from repro_torch.core.pipeline import _masked, _reorder
 from repro_torch.core.spaces import DenseSpace
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import ParallelCtx
+from repro_torch.distributed.sharding import ParallelCtx, require_no_mesh
 from repro_torch.models.recsys import _normal, segment_sum
 from repro_torch.models.transformer import _parameter_dict, gather_rows, torch_dtype
 
@@ -164,6 +164,7 @@ def cfconv(blk, x, batch: GraphBatch, cfg: SchNetConfig, ctx: ParallelCtx):
 
 def schnet_apply(params: SchNet, batch: GraphBatch, cfg: SchNetConfig, ctx: ParallelCtx):
     """Per-node hidden states [N, d]."""
+    require_no_mesh(ctx, "schnet_apply")
     if cfg.d_feat_in:
         x = _apply_dense(params.in_proj, batch.node_feat.to(torch_dtype(cfg.dtype)))
     else:

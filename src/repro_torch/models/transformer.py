@@ -29,7 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import ParallelCtx
+from repro_torch.distributed.sharding import ParallelCtx, require_no_mesh
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 
@@ -154,6 +154,7 @@ def block_apply(bp: Block, x, positions, cfg: TransformerConfig, ctx: ParallelCt
     """One pre-norm block: ``x + attn(ln1(x))``, then ``+ ffn(ln2(.))`` or,
     with experts, ``+ moe(ln2(.))`` (plus ``ffn(ln3(.))`` with a dense
     residual).  Returns (x, aux): the MoE balance loss, 0 without experts."""
+    require_no_mesh(ctx, "block_apply")
     attn_fn = L.mla_apply if cfg.attention == "mla" else L.gqa_apply
     x = x + attn_fn(bp.attn, L.rmsnorm(bp.ln1, x, cfg.norm_eps), positions, cfg, ctx)
     if cfg.seq_shard:
@@ -179,6 +180,7 @@ def backbone(params: Transformer, tokens, cfg: TransformerConfig, ctx: ParallelC
     reference's ``jax.checkpoint`` of the layer body): only its input is
     kept, and the backward runs it again, routing MoE tokens as the first
     pass did (``select_topk`` is deterministic)."""
+    require_no_mesh(ctx, "backbone")
     b, s = tokens.shape
     x = gather_rows(params.embed, tokens).to(torch_dtype(cfg.dtype))
     x = ctx.constrain(x, "batch", "seq_act", None)
@@ -226,6 +228,7 @@ def chunked_ce_loss(params: Transformer, hidden, targets, cfg: TransformerConfig
     model dtype, then f32; the padded vocabulary masked at f32-min) and
     logsumexp, summed in f32.  With grad enabled each chunk is recomputed
     in the backward, so at most one chunk's logits are ever live."""
+    require_no_mesh(ctx, "chunked_ce_loss")
     b, s, d = hidden.shape
     head = _head_matrix(params, cfg)
     c = min(chunk, s)
@@ -303,6 +306,7 @@ def decode_step(params: Transformer, cache: KVCache, tokens, pos: int, cfg: Tran
     :func:`gather_rows`); pos: the current length, a Python int.  Returns
     (logits f32[B, Vp], the padded vocabulary at f32-min; ``cache``,
     written in place at ``pos``)."""
+    require_no_mesh(ctx, "decode_step")
     x = gather_rows(params.embed, tokens).to(torch_dtype(cfg.dtype))
     for i, bp in enumerate(params.blocks):
         h = L.rmsnorm(bp.ln1, x, cfg.norm_eps)

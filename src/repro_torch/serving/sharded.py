@@ -3,23 +3,29 @@
 
 NMSLIB scales its query server by splitting the collection across servers
 and merging per-server result lists; this module is that idea inside one
-process:
+process and, with a mesh, across the ranks of a process group:
 
   * :func:`shard_corpus` partitions any row-major corpus (dense ``[N, D]``
     tensors, ``SparseVectors``, ``FusedVectors``) into K *contiguous row
     ranges*.  Each shard is a view of the corpus, not a copy (a copy of a
-    corpus that fills most of the card would not fit beside it).
-    Placement on other devices through a ``ParallelCtx`` mesh waits for
-    the port's distributed layer and raises ``NotImplementedError``.
-  * :class:`ShardedPipeline` runs one candidate generator per shard (exact
-    brute force by default; graph-ANN or NAPP via ``generator_factory``),
-    host-parallel (one thread per shard, all launching on the calling
-    thread's CUDA stream), rebases local row ids by the shard offset,
-    merges the K candidate lists with
-    :func:`~repro_torch.core.brute_force.merge_topk`, and applies the usual
-    reranker tail once over the merged global candidates.  The per-shard
-    execution path is pluggable: ``from_corpus(..., backend=...)`` /
-    :meth:`ShardedPipeline.with_backend` resolve a
+    corpus that fills most of the card would not fit beside it).  With a
+    ``ParallelCtx`` carrying a ``DeviceMesh``, the rank at coordinate c
+    along the axis that ``axis`` maps to holds the shards whose slot
+    ``i % n_slots == c``; the others keep their offset and row count and
+    hold no rows there.  The reference puts a slot on the first device
+    along the other axes; here every rank along them holds it, so that
+    every rank can answer.
+  * :class:`ShardedPipeline` runs one candidate generator per shard it
+    holds (exact brute force by default; graph-ANN or NAPP via
+    ``generator_factory``), host-parallel (one thread per shard, all
+    launching on the calling thread's CUDA stream), rebases local row ids
+    by the shard offset, merges the K candidate lists in shard order with
+    :func:`~repro_torch.core.brute_force.merge_topk` (over a mesh, after an
+    all-gather of the ranks' lists), and applies the usual reranker tail
+    once over the merged global candidates.  Over a mesh every rank calls
+    ``generate``/``run`` with the same queries and returns the same
+    answer.  The per-shard execution path is pluggable: ``from_corpus(...,
+    backend=...)`` / :meth:`ShardedPipeline.with_backend` resolve a
     :mod:`repro_torch.core.backends` backend against each shard's slice.
 
 Identity: contiguous shards concatenated in row order preserve the
@@ -51,6 +57,7 @@ from repro_torch.core.brute_force import TopK, concat_topk, merge_topk
 from repro_torch.core.pipeline import (BruteForceGenerator, apply_rerankers,
                                        pin_snapshot)
 from repro_torch.core.spaces import canonical_dtype, cast_corpus, map_tensors, tensor_leaves
+from repro_torch.distributed.collectives import all_gather, axis_names
 
 __all__ = ["CorpusShard", "shard_corpus", "ShardedPipeline"]
 
@@ -58,7 +65,8 @@ __all__ = ["CorpusShard", "shard_corpus", "ShardedPipeline"]
 @dataclasses.dataclass(frozen=True)
 class CorpusShard:
     """One contiguous row range of the corpus: local rows ``[0, n_rows)``
-    correspond to global rows ``[offset, offset + n_rows)``."""
+    correspond to global rows ``[offset, offset + n_rows)``.  ``corpus``
+    is None on a rank of a mesh that does not hold the shard."""
 
     corpus: Any
     offset: int
@@ -69,28 +77,47 @@ def _corpus_rows(corpus) -> int:
     return int(tensor_leaves(corpus)[0].shape[0])
 
 
+def _placement(ctx, axis: str):
+    """(mesh, its axes along which slots run, this rank's slot, slots) for
+    a ``ctx`` with a mesh, else None.  Slots run along the mesh axes that
+    logical ``axis`` maps to, in row-major order of their coordinates; in
+    flat mesh order when it maps to nothing."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    mesh = getattr(ctx, "mesh", None) if ctx is not None else None
+    if mesh is None:
+        return None
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"placing shards needs a torch.distributed DeviceMesh, not a "
+                        f"{type(mesh).__name__}")
+    names = axis_names(ctx.mesh_axes(axis)) or tuple(mesh.mesh_dim_names)
+    slot, n_slots = 0, 1
+    for a in names:
+        size = mesh.size(mesh.mesh_dim_names.index(a))
+        slot, n_slots = slot * size + mesh.get_local_rank(a), n_slots * size
+    return mesh, names, slot, n_slots
+
+
 def shard_corpus(corpus, n_shards: int, *, ctx=None,
                  axis: str = "corpus") -> Tuple[CorpusShard, ...]:
     """Partition a corpus into ``n_shards`` contiguous row ranges, each a
     view of ``corpus`` (no copy).
 
     Row order across shards equals global row order — load-bearing for the
-    merge's tie-break (see module docstring).  ``ctx`` with a mesh (a
-    ``ParallelCtx`` placing shard ``i`` on a device along ``axis``) waits
-    for the port's distributed layer: it raises ``NotImplementedError``.
-    Without a mesh the views stay where the corpus lives.
+    merge's tie-break (see module docstring).  ``ctx`` with a mesh places
+    shard ``i`` on the ranks of slot ``i % n_slots`` along the mesh axes
+    that logical ``axis`` maps to: every rank calls this with the same
+    corpus, and a shard it does not hold has ``corpus=None``.  Without a
+    mesh the views stay where the corpus lives.
     """
-    if ctx is not None and getattr(ctx, "mesh", None) is not None:
-        raise NotImplementedError(
-            f"placing shards along mesh axis {axis!r} needs the port's "
-            "distributed layer, which is not ported yet; shard on one "
-            "device (ctx=None)")
+    placed = _placement(ctx, axis)
     n = _corpus_rows(corpus)
     if not 1 <= n_shards <= n:
         raise ValueError(f"n_shards={n_shards} must be in [1, {n}]")
     bounds = [n * i // n_shards for i in range(n_shards + 1)]
-    return tuple(CorpusShard(map_tensors(lambda x, lo=lo, hi=hi: x[lo:hi], corpus), lo, hi - lo)
-                 for lo, hi in zip(bounds, bounds[1:]))
+    return tuple(CorpusShard(None if placed is not None and i % placed[3] != placed[2] else
+                             map_tensors(lambda x, lo=lo, hi=hi: x[lo:hi], corpus), lo, hi - lo)
+                 for i, (lo, hi) in enumerate(zip(bounds, bounds[1:])))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -111,6 +138,9 @@ class ShardedPipeline:
     interm_qty: int = 50
     final_qty: int = 10
     executor: Optional[ThreadPoolExecutor] = None
+    # over a mesh: (mesh, slot axes, this rank's slot, slots); generators
+    # of the shards this rank does not hold are None
+    placement: Optional[tuple] = None
 
     @classmethod
     def from_corpus(
@@ -141,6 +171,10 @@ class ShardedPipeline:
         stay f32 — the precision contract in ``core.spaces``).  Casting
         commutes with row-slicing, so a bf16 sharded pipeline stays
         bit-identical to the unsharded bf16 scan.
+
+        ``ctx`` with a mesh: every rank of it calls this with the same
+        arguments and builds the generators of the shards it holds
+        (:func:`shard_corpus`).
         """
         if backend is not None and generator_factory is not None:
             raise ValueError(
@@ -155,24 +189,32 @@ class ShardedPipeline:
                             resolve_backend(backend, space, shard.corpus))
                 return BruteForceGenerator(space, shard.corpus,
                                            backend=resolved)
-        executor = (ThreadPoolExecutor(max_workers=n_shards,
+        held = sum(s.corpus is not None for s in shards)
+        executor = (ThreadPoolExecutor(max_workers=held,
                                        thread_name_prefix="shard")
-                    if host_parallel and n_shards > 1 else None)
+                    if host_parallel and held > 1 else None)
         return cls(shards=shards,
-                   generators=tuple(generator_factory(s) for s in shards),
+                   generators=tuple(None if s.corpus is None else generator_factory(s)
+                                    for s in shards),
                    intermediate=intermediate, final=final, cand_qty=cand_qty,
                    interm_qty=interm_qty, final_qty=final_qty,
-                   executor=executor)
+                   executor=executor, placement=_placement(ctx, axis))
 
     @property
     def n_shards(self) -> int:
         return len(self.shards)
 
+    def _fresh_pool(self) -> Optional[ThreadPoolExecutor]:
+        if self.executor is None:
+            return None
+        held = sum(g is not None for g in self.generators)
+        return ThreadPoolExecutor(max_workers=held, thread_name_prefix="shard")
+
     @property
     def corpus_dtype(self) -> Optional[str]:
         """The shards' common corpus residency dtype (None when the
         per-shard generators disagree or carry no dtype seam)."""
-        dts = {getattr(g, "corpus_dtype", None) for g in self.generators}
+        dts = {getattr(g, "corpus_dtype", None) for g in self.generators if g is not None}
         if len(dts) == 1 and (d := dts.pop()) is not None:
             return d
         return None
@@ -185,18 +227,16 @@ class ShardedPipeline:
         host-parallel pool — close it separately.  Raises TypeError when
         a shard generator has no dtype seam (e.g. per-shard graph-ANN)."""
         for g in self.generators:
-            if not hasattr(g, "with_corpus_dtype"):
+            if g is not None and not hasattr(g, "with_corpus_dtype"):
                 raise TypeError(
                     f"shard generator {type(g).__name__} does not take a "
                     "corpus residency dtype")
-        generators = tuple(g.with_corpus_dtype(dtype)
+        generators = tuple(None if g is None else g.with_corpus_dtype(dtype)
                            for g in self.generators)
         shards = tuple(
             dataclasses.replace(s, corpus=getattr(g, "corpus", s.corpus))
             for s, g in zip(self.shards, generators))
-        executor = (ThreadPoolExecutor(max_workers=self.n_shards,
-                                       thread_name_prefix="shard")
-                    if self.executor is not None else None)
+        executor = self._fresh_pool()
         return dataclasses.replace(self, shards=shards,
                                    generators=generators, executor=executor)
 
@@ -208,16 +248,14 @@ class ShardedPipeline:
         separately.  Raises TypeError when a shard generator has no
         backend seam (e.g. per-shard graph-ANN)."""
         for g in self.generators:
-            if not hasattr(g, "with_backend"):
+            if g is not None and not hasattr(g, "with_backend"):
                 raise TypeError(
                     f"shard generator {type(g).__name__} does not take an "
                     "execution backend")
-        executor = (ThreadPoolExecutor(max_workers=self.n_shards,
-                                       thread_name_prefix="shard")
-                    if self.executor is not None else None)
+        executor = self._fresh_pool()
         return dataclasses.replace(
             self,
-            generators=tuple(g.with_backend(backend)
+            generators=tuple(None if g is None else g.with_backend(backend)
                              for g in self.generators),
             executor=executor)
 
@@ -231,7 +269,9 @@ class ShardedPipeline:
         # per-shard states even while writers and compactors race the
         # query threads (the pin_snapshot seam shared with
         # RetrievalPipeline and the serving funnel).
-        generators = [pin_snapshot(g) for g in self.generators]
+        held = [(g, s) for g, s in zip(self.generators, self.shards) if g is not None]
+        generators = [pin_snapshot(g) for g, _ in held]
+        shards = [s for _, s in held]
 
         # the pool's threads launch on the caller's stream (a batcher
         # worker's own): the queries were made there, and the merge below
@@ -247,11 +287,34 @@ class ShardedPipeline:
                 return TopK(local.scores, local.indices + shard.offset)
 
         if self.executor is not None:
-            parts = list(self.executor.map(one, generators, self.shards))
+            parts = list(self.executor.map(one, generators, shards))
         else:
-            parts = [one(g, s) for g, s in zip(generators, self.shards)]
+            parts = [one(g, s) for g, s in zip(generators, shards)]
+        if self.placement is not None:
+            parts = self._gather_parts(parts, k, tensor_leaves(query_repr)[0])
         cat = concat_topk(parts)
         return merge_topk(cat, min(k, cat.scores.shape[1]))
+
+    def _gather_parts(self, parts, k: int, queries: torch.Tensor):
+        """Every shard's list, in shard order, on every rank: each rank
+        packs the lists of the shards it holds side by side, padded to the
+        widest pack; the packs are all-gathered over the slot axes and cut
+        back into shard order (not rank order: a rank's shards are not
+        adjacent when there are more shards than slots)."""
+        mesh, names, slot, n_slots = self.placement
+        widths = [min(k, s.n_rows) for s in self.shards]
+        packs = [sum(widths[i::n_slots]) for i in range(n_slots)]
+        b, pad = int(queries.shape[0]), max(packs) - packs[slot]
+        scores = torch.cat([p.scores.float() for p in parts] + [torch.zeros(b, pad, device=queries.device)], 1)
+        ids = torch.cat([p.indices.to(torch.int32) for p in parts]
+                        + [torch.zeros(b, pad, dtype=torch.int32, device=queries.device)], 1)
+        all_s, all_i = _gather_slots(scores, mesh, names), _gather_slots(ids, mesh, names)
+        out, at = [], [0] * n_slots
+        for i, w in enumerate(widths):
+            c = i % n_slots
+            out.append(TopK(all_s[c][:, at[c]:at[c] + w], all_i[c][:, at[c]:at[c] + w]))
+            at[c] += w
+        return out
 
     def run(self, query_repr, q_tokens=None) -> TopK:
         cands = self.generate(query_repr, self.cand_qty)
@@ -274,3 +337,12 @@ class ShardedPipeline:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def _gather_slots(x: torch.Tensor, mesh, names) -> torch.Tensor:
+    """``[n_slots, ...]``: every slot's ``x``, in row-major order of the
+    slot axes ``names``."""
+    shape = x.shape
+    for a in reversed(names):
+        x = torch.stack(all_gather(x, mesh.get_group(a)), 0)
+    return x.reshape(-1, *shape)

@@ -15,12 +15,17 @@ must be equal.
 from __future__ import annotations
 
 import functools
+import os
+import queue
 import sys
+import time
+import traceback
+import uuid
 from pathlib import Path
 
-import jax.numpy as jnp
 import numpy as np
 import torch
+import torch.multiprocessing as mp
 
 from repro_torch import interop
 from repro_torch.serving.batcher import stack_requests
@@ -99,12 +104,16 @@ def planted_fused_np(n, v, nnz, dd, b, k, seed=0, dups=()):
     return c, q
 
 
-def jnp_fused(parts, dtype=jnp.float32):
-    """(dense, idx, val) numpy -> repro FusedVectors in ``dtype``."""
+def jnp_fused(parts, dtype=None):
+    """(dense, idx, val) numpy -> repro FusedVectors in ``dtype`` (None:
+    f32)."""
+    import jax.numpy as jnp
+
     from repro.core.sparse import SparseVectors
     from repro.core.spaces import FusedVectors
 
     d, i, v = parts
+    dtype = jnp.float32 if dtype is None else dtype
     return FusedVectors(jnp.asarray(d, dtype),
                         SparseVectors(jnp.asarray(i, jnp.int32), jnp.asarray(v, dtype)))
 
@@ -250,6 +259,7 @@ def lm_params(jcfg, seed: int = 0):
     N(0, 0.1^2) so that they count.  Quicker than ``init_transformer``,
     whose eager draws compile for seconds."""
     import jax
+    import jax.numpy as jnp
 
     from repro.models import transformer as JT
 
@@ -300,6 +310,7 @@ def lm_reference_params(arch, dtype, **kw):
     draws, made once per process, every leaf but the f32 router cast to
     ``dtype`` (bf16 rounded once, as ``init_transformer`` casts)."""
     import jax
+    import jax.numpy as jnp
 
     p = _lm_f32_params(arch, tuple(sorted(kw.items())))
     dt = jnp.dtype(dtype)
@@ -420,3 +431,81 @@ def assert_step_close(opt_name, want_p, got_p, old, new, step, lr, ctx=""):
         assert_tree_close(want_p, got_p, ctx)
 
 
+
+
+# ---- ranks: the port's SPMD code on gloo ranks on the CPU -------------------
+
+RANK_TIMEOUT_S = 60.0   # the rendezvous and each collective; a dead peer fails the others
+
+
+def _rank_main(body, rank, world, store, args_path, results):
+    """One spawned rank: a single thread, the gloo group, ``body`` on the
+    arguments pickled at ``args_path``; its result or its traceback goes
+    to ``results``."""
+    torch.set_num_threads(1)
+    import pickle
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.mesh_utils import init_rank
+
+    try:
+        with open(args_path, "rb") as f:
+            args = pickle.load(f)
+        init_rank(rank, world, store, timeout_s=RANK_TIMEOUT_S)
+        results.put((rank, True, body(rank, world, *args)))
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(body, world: int, tmp_path, *args, timeout: float = 180.0):
+    """``[body(rank, world, *args) for rank in range(world)]``, each in a
+    spawned process joined to one gloo group of ``world`` ranks through a
+    ``file://`` store under ``tmp_path`` (no port: xdist workers cannot
+    collide).  ``body`` is a module-level function of a module that imports
+    no JAX (a rank imports that module); its result is pickled back.  A
+    rank that raises fails this call with its traceback as soon as it is
+    reported, and every rank is stopped; so is one that dies silently or
+    outlives ``timeout``.  ``args`` go through a file: a start whose
+    arguments overflow the pipe to a new process waits for that process
+    to import its modules, and the starts would run one after another."""
+    import pickle
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    stem = os.path.join(str(tmp_path), uuid.uuid4().hex)
+    with open(stem + ".args", "wb") as f:
+        pickle.dump(args, f)
+    procs = [ctx.Process(target=_rank_main, args=(body, r, world, stem + ".store", stem + ".args", results),
+                         daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got = {}
+    deadline = time.monotonic() + timeout
+    try:
+        while len(got) < world:
+            try:
+                rank, ok, out = results.get(timeout=1.0)
+            except queue.Empty:
+                silent = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0) and r not in got]
+                if silent:
+                    raise AssertionError(f"ranks {silent} died without a result "
+                                         f"(exit codes {[procs[r].exitcode for r in silent]})")
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"ranks {sorted(set(range(world)) - set(got))} took over {timeout} s")
+                continue
+            if not ok:
+                raise AssertionError(f"rank {rank} of {world} failed:\n{out}")
+            got[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=10.0 if len(got) == world else 0.0)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10.0)
+        results.close()
+    return [got[r] for r in range(world)]

@@ -128,8 +128,3 @@ def test_params_sharding_without_mesh_equals_repro():
     want = j_params_sharding(axes_j, JCtx(None, cfg_j.rules))
     got = params_sharding(axes_t, ParallelCtx(None, cfg_t.rules))
     assert got == want
-
-
-def test_parallel_ctx_with_mesh_raises():
-    with pytest.raises(NotImplementedError, match="distributed layer"):
-        ParallelCtx(object(), tc.get_config("smollm-360m").rules)

@@ -34,7 +34,6 @@ is held within ``AUX_RTOL`` (f32: ``F32_RTOL``; bf16: one bf16 ULP,
 """
 
 import dataclasses
-from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -307,13 +306,6 @@ def test_moe_apply_matches_repro(arch, dtype):
     assert got.shape == (3, 16, tcfg.d_model)
     assert_close(want, got, RTOL[dtype])
     assert abs(float(taux) - float(aux)) <= F32_RTOL * abs(float(aux))
-
-
-def test_moe_apply_with_a_mesh_raises():
-    _, tcfg = configs("phi3.5-moe-42b-a6.6b")
-    _, tp = moe_params(tcfg, "float32")
-    with pytest.raises(NotImplementedError, match="expert-parallel"):
-        TM.moe_apply(tp, torch.zeros(1, 4, tcfg.d_model), tcfg, SimpleNamespace(mesh=object(), rules={}))
 
 
 def test_moe_init_draws_the_reference_scales():
