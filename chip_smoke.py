@@ -237,6 +237,30 @@ MOE_EP = dict(tokens=(4, 1024), smoke_seq=64)
 # combines and their sum, about 8 roundings of values up to the row's scale on the two sides: 8 x 2^-9 = 2^-6
 # each, 2^-5 between them
 MOE_BF16_TOL = 2.0 ** -5
+# "mesh train full", "mesh lm full", "mesh models full": DIST["world"] gloo ranks on one ("data", "model") mesh
+# sharing the card. (a) qwen2.5-3b f32 at a_layers: a_steps of train_lm at a_b x a_s; (b) bf16 at b_layers, remat,
+# b_steps at b_b x b_s, checkpointed at b_save; (c) phi3.5-moe f32 at c_layers, c_steps of its ZeRO step at c_b x
+# c_s (4 microbatches); the LMs' prefill and decode at lm_layers; DIN's users and candidates; SchNet's molecules
+MESH = dict(shape=(2, 2), a_layers=2, a_b=4, a_s=512, a_steps=3, b_layers=8, b_b=4, b_s=1024, b_steps=4, b_save=2,
+            c_layers=2, c_b=8, c_s=512, c_steps=2, lm_layers=2, prefill=(2, 1024), cache=4096, decode=8,
+            din_b=512, din_cand=1_000_000, mol=128)
+# AdamW over a_steps steps, f32: each side moves an element by lr (|m_hat| / (sqrt(v_hat) + eps) + wd |p|) a step,
+# and |m_hat| / sqrt(v_hat) <= 1.001 for t <= 3 at b1 0.9, b2 0.95 (Cauchy-Schwarz over the moments' weights), so
+# two runs whose gradients differ only by summation order part by at most 2 lr (1.001 + wd max|p|) a step where a
+# tiny gradient flips the update's sign; the parameters after the last step are held within TRAIN_TOL of the leaf's
+# scale plus that drift, the first step's within adamw_first_step_err's bound and its moments within TRAIN_TOL
+MESH_ADAMW_RATIO = 1.001
+# f32 gradients over a mesh, of a leaf's largest |value| (the first step's first moment, m = (1 - b1) g): each is a
+# sum over 2,048 tokens of products summed over up to 11,008 terms, which the mesh splits into partial sums in
+# another order (over the data ranks, the model ranks' heads and columns, the vocabulary shards); one device's
+# two orders, the card's and the CPU's, already part by up to 8.2e-6 in "train full" (against TRAIN_TOL 1e-5), and
+# the mesh's reorder adds about as much again (1.2e-5 measured here, qwen's key bias against its floor); the
+# second moment, (1 - b2) g^2, doubles a gradient's relative error
+MESH_GRAD_TOL = 5e-5
+# phi3.5-moe's router over a mesh, f32: the residual streams reaching it agree with one process's within about 1e-5
+# of their scale (reordered sums), so a decision may flip only between experts whose probabilities lie that close;
+# a flip held a near-tie within 1e-4 of the token's largest probability (10x), then routed as one process routed it
+MESH_MOE_NEAR = 1e-4
 NEG = -3.4028234663852886e38     # f32 min, the mask of invalid candidates
 SLEEP_CYCLES = 2_000_000         # ~1 ms at an H100 SXM's 1.98 GHz boost clock: outlasts the host's enqueue of a traversal
 
@@ -5299,6 +5323,833 @@ def moe_ep_full_phase(torch, dev, card, on_card, seed, smoke_only=False):
         torch.cuda.ipc_collect()
 
 
+# ---------------------------------------------------------------------------
+# "mesh train full", "mesh lm full", "mesh models full": the models under a ("data", "model") mesh of ranks that
+# share the card (gloo: NCCL refuses two ranks on one card); four ranks on one card say nothing of NVLink
+# ---------------------------------------------------------------------------
+
+def _on_mesh(torch, device):
+    """The (2, 2) mesh of the rank's world, TF32 off."""
+    from repro_torch.distributed.mesh_utils import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return make_mesh(MESH["shape"], ("data", "model"), device)
+
+
+def _sync(torch, device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+_ERR_ROWS = 1 << 24     # the mesh phases' comparisons run in f64 over slices of about this many elements
+
+
+def _slices(t):
+    """Views of ``t`` over its first axis of about _ERR_ROWS elements each:
+    four ranks and the parent share the card, and an f64 copy of a whole
+    151,936-row embedding is 2.5 GB a temporary."""
+    if t.dim() == 0 or t.numel() <= _ERR_ROWS:
+        return [slice(None)]
+    step = max(1, _ERR_ROWS // max(1, t[0].numel()))
+    return [slice(i, i + step) for i in range(0, t.shape[0], step)]
+
+
+def _pair(whole, got):
+    """(the block of ``whole`` laid out as ``got``, ``got``'s local block),
+    ``whole`` on ``got``'s device."""
+    w = _local_of(whole, got)
+    g = _local(got).detach()
+    return w.detach().to(g.device), g
+
+
+def _block_err(torch, whole, got, floor=0.0):
+    """leaf_err of this rank's block ``got`` (a DTensor or a tensor) of a
+    leaf held whole as ``whole``, in slices."""
+    w, g = _pair(whole, got)
+    assert w.shape == g.shape and bool(torch.isfinite(w).all()) and bool(torch.isfinite(g).all())
+    scale = max(float(w.abs().max()), floor, 1e-30)
+    return max(float((g[sl].double() - w[sl].double()).abs().max()) for sl in _slices(w)) / scale
+
+
+def _first_step_err(torch, whole, got, m_whole, lr, floor, b1=0.9, eps=1e-8):
+    """``adamw_first_step_err`` of this rank's block, in slices (the leaf's
+    scales taken over the whole block first)."""
+    w, t = _pair(whole, got)
+    m = _local_of(m_whole, got).detach().to(t.device)
+    d = TRAIN_TOL * max(float(m.abs().max()) / (1 - b1), floor)
+    wmax = float(w.abs().max())
+    u = lambda x: x / (x.abs() + eps)   # noqa: E731
+    worst = 0.0
+    for sl in _slices(w):
+        g = m[sl].double() / (1 - b1)
+        moves = torch.maximum((u(g + d) - u(g)).abs(), (u(g - d) - u(g)).abs())
+        bound = TRAIN_TOL * wmax + lr * moves
+        worst = max(worst, float(((t[sl].double() - w[sl].double()).abs() / bound.clamp_min(1e-300)).max()))
+    return worst
+
+
+def _drift_err(torch, whole, got, lr, steps, wd=0.1):
+    """The worst error of a block of parameters after ``steps`` AdamW steps
+    over its bound: TRAIN_TOL of the leaf's scale plus 2 lr steps (1.001 +
+    wd max|p|) (MESH_ADAMW_RATIO's reasoning); <= 1 holds."""
+    w, g = _pair(whole, got)
+    scale = float(w.abs().max())
+    bound = TRAIN_TOL * scale + 2 * lr * steps * (MESH_ADAMW_RATIO + wd * scale)
+    return max(float((g[sl].double() - w[sl].double()).abs().max()) for sl in _slices(w)) / bound
+
+
+class _FirstStep:
+    """Wraps ``launch.train.make_lm_train_step`` while in use: the
+    parameters and the AdamW moments after the first step, cloned, and the
+    seconds of each step (synchronised)."""
+
+    def __init__(self, torch, train_mod, device):
+        self.torch, self.mod, self.device = torch, train_mod, device
+        self.after, self.seconds = None, []
+
+    def __enter__(self):
+        self.orig, torch = self.mod.make_lm_train_step, self.torch
+
+        def make(cfg, ctx, lr):
+            step, opt = self.orig(cfg, ctx, lr=lr)
+
+            def wrapped(params, state, batch):
+                _sync(torch, self.device)
+                t0 = time.perf_counter()
+                out = step(params, state, batch)
+                _sync(torch, self.device)
+                self.seconds.append(time.perf_counter() - t0)
+                if self.after is None:
+                    clone = lambda t: t.detach().clone()   # noqa: E731 (DTensor clones keep their placement)
+                    self.after = ({k: clone(p) for k, p in params.named_parameters()},
+                                  {k: clone(v) for k, v in state.m.items()}, {k: clone(v) for k, v in state.v.items()})
+                return out
+
+            return wrapped, opt
+
+        self.mod.make_lm_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.make_lm_train_step = self.orig
+
+
+def _route_log(torch, M, aux_blocks):
+    """Wraps ``moe.route`` and ``moe.moe_local`` on one process to record
+    each call's expert ids; ``aux_blocks`` = (B, S, rows, cols):
+    ``moe_local``'s balance loss replaced by the mean of each (rows x cols)
+    token block's, the mesh's ``pmean`` of its ranks' losses.  A remat's
+    recompute routes again (and may stop right after: PyTorch ends a
+    recompute once it has what the backward needs), so a call is told by
+    its route, not by the layer that made it."""
+    log_ids, orig_route, orig_local = [], M.route, M.moe_local
+
+    def route(x, wg, k):
+        ids, w, aux = orig_route(x, wg, k)
+        log_ids.append(ids.detach())
+        return ids, w, aux
+
+    def local(params, x, cfg):
+        y, _ = orig_local(params, x, cfg)
+        b, s, rows, cols = aux_blocks
+        xb = x.reshape(b, s, -1)
+        auxs = [orig_route(xb[i:i + b // rows, j:j + s // cols].reshape(-1, x.shape[-1]), params["wg"], cfg.top_k)[2]
+                for i in range(0, b, b // rows) for j in range(0, s, s // cols)]
+        return y, torch.stack(auxs).mean()
+
+    M.route, M.moe_local = route, local
+
+    def undo():
+        M.route, M.moe_local = orig_route, orig_local
+    return log_ids, undo
+
+
+def _mesh_train_rank(rank, world, device, sizes, seed, cfg_a, a_want, cfg_b, ckpt):
+    """A rank of "mesh train full".  (a) ``train_lm`` over the mesh; its
+    losses, the first step's parameters and moments and the last step's
+    parameters held against the one-process run's (``a_want``) on the
+    card.  (b) the bf16 model: ``b_steps`` steps of the mesh step, timed,
+    checkpointed after ``b_save``; restored in place and the steps after it
+    run again, bit for bit.  ``sizes`` is the parent's MESH (a spawned rank
+    imports this module afresh)."""
+    import os
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data.pipeline import device_put_batch, lm_batches
+    from repro_torch.distributed.sharding import ParallelCtx, distribute_module
+    from repro_torch.launch import train as TRN
+    from repro_torch.launch.steps import make_lm_train_step
+    from repro_torch.models import transformer as T
+
+    MESH.update(sizes)
+    mesh = _on_mesh(torch, device)
+    out = {}
+    t_rank = time.perf_counter()
+    # (a)
+    with _FirstStep(torch, TRN, device) as rec:
+        model, losses = TRN.train_lm(cfg_a, mesh, MESH["a_steps"], None, batch_size=MESH["a_b"],
+                                     seq_len=MESH["a_s"], device=device, seed=seed, log_every=10 ** 9)
+    p1, m1, v1 = rec.after
+    lr = 3e-4
+    want_p1, want_m1, want_v1, want_p = a_want["p1"], a_want["m1"], a_want["v1"], a_want["p"]
+    out["a_losses"] = losses
+    # a gradient that vanishes in exact arithmetic (qwen's key bias) is noise on both sides: held against
+    # GRAD_FLOOR of the model's largest gradient, m / (1 - b1), as train full's step_parity holds it
+    g_floor = GRAD_FLOOR * max(float(m.abs().max()) for m in want_m1.values()) / (1 - 0.9)
+    out["a_first"] = max(_first_step_err(torch, want_p1[k], p1[k], want_m1[k], lr, g_floor) for k in p1)
+    out["a_m"] = max((_block_err(torch, want_m1[k], m1[k], (1 - 0.9) * g_floor), k) for k in m1)
+    out["a_v"] = max((_block_err(torch, want_v1[k], v1[k], (1 - 0.95) * g_floor ** 2), k) for k in v1)
+    out["a_params"] = max(_drift_err(torch, want_p[k], p, lr, MESH["a_steps"]) for k, p in model.named_parameters())
+    out["a_seconds"] = rec.seconds
+    out["a_s"] = time.perf_counter() - t_rank
+    t_rank = time.perf_counter()
+    del model, rec, p1, m1, v1
+    gc.collect()
+    # (b)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ctx = ParallelCtx(mesh, dict(cfg_b.rules))
+    model, axes = T.init_transformer(cfg_b, seed=seed, device=device)
+    distribute_module(model, axes, ctx)
+    step, opt = make_lm_train_step(cfg_b, ctx, lr=3e-4)
+    state = opt.init(model)
+    data = lm_batches(np.random.default_rng(seed).integers(0, cfg_b.vocab_size, size=500_000).astype(np.int32),
+                      MESH["b_b"], MESH["b_s"], seed=seed)
+    batches = [device_put_batch(next(data), device) for _ in range(MESH["b_steps"])]
+    secs, losses = [], []
+    where = os.path.join(ckpt, "b")        # one directory for every rank: the writer's
+    mgr = CheckpointManager(where, interval=MESH["b_save"])
+    save_s = float("nan")
+    for i, b in enumerate(batches):
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        _, _, m = step(model, state, b)
+        losses.append(float(m["loss"]))
+        _sync(torch, device)
+        secs.append(time.perf_counter() - t0)
+        if i + 1 == MESH["b_save"]:
+            t0 = time.perf_counter()
+            mgr.save(i + 1, {"params": model, "opt": state})
+            save_s = time.perf_counter() - t0
+    out["b_peak"] = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else float("nan")
+    keep = lambda: ({k: _local(p).clone() for k, p in model.named_parameters()},   # noqa: E731
+                    {k: _local(v).clone() for k, v in state.m.items()})
+    unbroken = keep()
+    t0 = time.perf_counter()
+    at, _ = mgr.restore_latest({"params": model, "opt": state})
+    restore_s = time.perf_counter() - t0
+    assert at == MESH["b_save"]
+    for b in batches[MESH["b_save"]:]:
+        step(model, state, b)
+    again = keep()
+    out["b_bitwise"] = all(torch.equal(unbroken[0][k], again[0][k]) for k in unbroken[0]) and all(
+        torch.equal(unbroken[1][k], again[1][k]) for k in unbroken[1])
+    out.update(b_secs=secs, b_losses=losses, b_save_s=save_s, b_restore_s=restore_s,
+               b_s=time.perf_counter() - t_rank)
+    del model, state, unbroken, again, batches
+    gc.collect()
+    return out
+
+
+def _local(t):
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _local_of(whole, like):
+    """This rank's block of ``whole`` laid out as ``like``."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import NamedSharding, local_block
+
+    return local_block(whole, NamedSharding.of(like)) if isinstance(like, DTensor) else whole
+
+
+def _pinned_route(torch, M, pins, where, near):
+    """Wraps ``moe.route`` on a rank: call ``c`` routes this rank's tokens
+    (``where["now"]``: their rows and positions) as one process routed
+    them (``pins[c]``, ids ``[B, S, k]``), after asserting that each
+    decision that differs is a near-tie (the two experts' probabilities
+    within ``near`` of the token's largest); the weights and the balance
+    loss from this rank's own probabilities.  Returns (the log of (where,
+    ids) each call, the flips, the largest gap of a flip, undo)."""
+    log_ids, orig, state = [], M.route, {"calls": 0, "flips": 0, "gap": 0.0}
+
+    def route(x, wg, k):
+        ids, w, aux = orig(x, wg, k)
+        b0, s0, bl, sl = where["now"]
+        want = torch.from_numpy(pins[state["calls"]][b0:b0 + bl, s0:s0 + sl]).to(ids.device).reshape(-1, k)
+        state["calls"] += 1
+        log_ids.append((where["now"], ids.detach()))
+        differ = (ids != want.to(ids.dtype)).any(dim=-1)
+        if not bool(differ.any()):
+            return ids, w, aux
+        probs = torch.softmax(x.float() @ wg, dim=-1)
+        for r in differ.nonzero()[:, 0].tolist():
+            gap = float((probs[r, ids[r].long()] - probs[r, want[r].long()]).abs().max().detach()
+                        / probs[r].max().detach())
+            assert gap <= near, f"route call {state['calls'] - 1}: a flip {gap:.3g} apart is not a near-tie"
+            state["gap"] = max(state["gap"], gap)
+        state["flips"] += int(differ.sum())
+        e = wg.shape[1]
+        wv = torch.gather(probs, 1, want.long())
+        wv = wv / torch.clamp_min(wv.sum(dim=-1, keepdim=True), 1e-9)
+        f_e = torch.nn.functional.one_hot(want.long(), e).float().sum(dim=1).mean(dim=0)
+        return want.to(ids.dtype), wv.to(x.dtype), e * torch.sum(f_e * probs.mean(dim=0))
+
+    M.route = route
+
+    def undo():
+        M.route = orig
+    return log_ids, state, undo
+
+
+def _mesh_zero_rank(rank, world, device, sizes, seed, cfg, batch, want_path, pins):
+    """A rank of "mesh train full" (c): phi3.5-moe's ZeRO step over the mesh
+    (``make_lm_train_step(params_axes=...)``, Adafactor, grad_accum 4), each
+    MoE call's expert ids recorded with the rows and positions of the
+    rank's tokens and pinned to one process's (``pins``, near-ties only),
+    and its drops; the losses, parameters and state held
+    against the one-process run's, read from the checkpoint at
+    ``want_path`` leaf by leaf; the state's and the accumulator's bytes on
+    this rank with ZeRO and without it.  The ranks draw the model from the
+    seed two at a time (a whole f32 draw is 11 GB) and keep their blocks."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.checkpoint import load_leaves
+    from repro_torch.distributed.sharding import NamedSharding, ParallelCtx, block_slices, distribute_module
+    from repro_torch.launch.steps import make_lm_train_step
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizer import MeshUpdate
+
+    MESH.update(sizes)
+    mesh = _on_mesh(torch, device)
+    ctx = ParallelCtx(mesh, dict(cfg.rules))
+    t0 = time.perf_counter()
+    for turn in range(0, world, 2):
+        if rank // 2 == turn // 2:
+            model, axes = T.init_transformer(cfg, seed=seed, device=device)
+            distribute_module(model, axes, ctx)
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    step, opt = make_lm_train_step(cfg, ctx, lr=STEP_LR, params_axes=axes)
+    state = opt.init(model)
+    upd = step.mesh_update(model)
+    orig_apply, where, drops = M.moe_apply, {}, [0]
+
+    def apply(params, x, cfg_, ctx_):
+        (b0, bl), (s0, sl) = block_slices(x.shape, NamedSharding.of(x))[:2]
+        where["now"] = (b0, s0, bl, sl)
+        with DispatchRecorder(M) as rec:
+            try:
+                return orig_apply(params, x, cfg_, ctx_)
+            finally:
+                drops[0] += sum(int((~v).sum()) for _, v, _, _ in rec.calls[0::2])
+                # the destination's bucketing counts its trash expert's slots: only real ids overflow there
+                drops[0] += sum(int((~v[b < n - 1]).sum()) for b, v, n, _ in rec.calls[1::2])
+
+    ids_log, pinned, undo = _pinned_route(torch, M, pins, where, MESH_MOE_NEAR)
+    M.moe_apply = apply
+    secs = {"draw": time.perf_counter() - t0, "steps": []}
+    try:
+        losses = []
+        for mb in batch:
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            _, _, m = step(model, state, mb)
+            losses.append(float(m["loss"]))
+            secs["steps"].append(time.perf_counter() - t0)
+    finally:
+        M.moe_apply = orig_apply
+        undo()
+    t0 = time.perf_counter()
+    out = {"losses": losses, "dropped": drops[0], "flips": pinned["flips"], "gap": pinned["gap"],
+           "routes": [(b0, s0, bl, sl, ids.reshape(bl, sl, -1).cpu().numpy()) for (b0, s0, bl, sl), ids in ids_log]}
+    want = load_leaves(want_path)
+    key = lambda *parts: "/".join(parts).replace(".", "/")   # noqa: E731 (checkpoint paths)
+    out["params"] = max(_block_err(torch, want[key("p", k)].to(device), p) for k, p in model.named_parameters())
+    out["state"] = max(_block_err(torch, want[key(f, k)].to(device), v)
+                       for f in ("vr", "vc") for k, v in getattr(state, f).items())
+
+    def nbytes(u, like):
+        return math.prod(n for _, n in block_slices(u.shape, NamedSharding(mesh, u.spec))) * like.element_size()
+
+    leaves = dict(model.named_parameters())
+    out["acc_bytes"] = sum(nbytes(u, _local(leaves[u.names[0]])) for u in upd.units)
+    out["state_bytes"] = sum(_local(v).numel() * 4 for f in ("vr", "vc") for v in getattr(state, f).values())
+    plain = MeshUpdate(upd.opt, model, mesh)       # the same optimizer without ZeRO's plan
+    out["acc_bytes_plain"] = sum(nbytes(u, _local(leaves[u.names[0]])) for u in plain.units)
+    st = plain.init(model)
+    out["state_bytes_plain"] = sum(_local(v).numel() * 4 for f in ("vr", "vc") for v in getattr(st, f).values())
+    out["peak"] = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else float("nan")
+    secs["compare"] = time.perf_counter() - t0
+    out["secs"] = secs
+    return out
+
+
+def _ep_holding_factor(cfg, rows, seq):
+    """The smallest capacity factor of 2^k / 4 at which ``_ep_process``'s
+    two bucketings hold every pair of a rank's tokens (a microbatch of
+    ``rows`` x ``seq`` over MESH["shape"], experts over "model"), by its
+    own capacity expressions."""
+    n_ep = MESH["shape"][1]
+    e_loc = cfg.n_experts // n_ep
+    t = rows // MESH["shape"][0] * (seq // MESH["shape"][1])
+    up = lambda x: (x + 7) // 8 * 8   # noqa: E731
+    cf = 1.25
+    while True:
+        c1 = up(max(1, int(t * cfg.top_k / n_ep * cf)))
+        c2 = min(up(max(1, int(n_ep * c1 / e_loc * cf))), up(n_ep * c1))
+        if c1 >= t * cfg.top_k and c2 >= n_ep * t * cfg.top_k:
+            return cf
+        cf *= 2
+
+
+def mesh_train_full_phase(torch, dev, card, on_card, seed, cfgs=None):
+    """Training under a (2, 2) ("data", "model") mesh of DIST["world"] gloo
+    ranks sharing the card, each model built from ``seed`` on every rank
+    and distributed by ``params_sharding`` (the one-process runs draw the
+    same weights).  (a) qwen2.5-3b at its published width (d_model 2048, 16
+    heads / 2 KV, d_ff 11,008, vocabulary 151,936, QKV bias, tied) in f32 at
+    MESH["a_layers"] layers: MESH["a_steps"] steps of
+    ``train_lm(cfg, mesh, ...)`` against ``train_lm(cfg, None, ...)`` on
+    the card: every step's loss within TRAIN_TOL, the first step's
+    parameters within ``adamw_first_step_err``'s bound, its first moments
+    within MESH_GRAD_TOL of a leaf's scale and its second within twice
+    that, the last step's parameters within MESH_ADAMW_RATIO's drift
+    bound.  (b) the same model in bf16 at
+    MESH["b_layers"] layers, remat, AdamW, MESH["b_b"] x MESH["b_s"]
+    tokens: ms a step on the slowest rank, tokens/s, peak GB a rank; a
+    checkpoint after step MESH["b_save"] restored in place resumes bit for
+    bit (parameters and moments) against the unbroken run.  (c) phi3.5-moe
+    at its published width in f32 at MESH["c_layers"] layers, with its
+    Adafactor, grad_accum 4 and ZeRO-1 through ``make_lm_train_step(
+    params_axes=...)``: MESH["c_steps"] steps against the one-process step
+    on the card (its balance loss the mean of the mesh's token blocks', as
+    the mesh's ``pmean``; capacity factors at which neither side can drop a
+    pair; a decision that flips held a near-tie within MESH_MOE_NEAR and
+    routed as one process routed it), gated where both sides dropped
+    none: the losses and parameters within TRAIN_TOL, Adafactor's factors
+    (means of g^2) within twice MESH_GRAD_TOL;
+    the optimizer state's and the gradient accumulator's bytes a rank with
+    ZeRO and without it.  ``cfgs`` ((a)'s, (b)'s and (c)'s configs) cut the
+    phase for a CPU rehearsal."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.checkpoint import save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import device_put_batch, lm_batches
+    from repro_torch.distributed.sharding import ParallelCtx
+    from repro_torch.launch import train as TRN
+    from repro_torch.launch.steps import make_lm_train_step
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    if cfgs is None:
+        qwen = get_config("qwen2.5-3b")
+        cfgs = (dataclasses.replace(qwen, n_layers=MESH["a_layers"], dtype="float32"),
+                dataclasses.replace(qwen, n_layers=MESH["b_layers"], dtype="bfloat16", remat=True),
+                dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"), n_layers=MESH["c_layers"], dtype="float32"))
+    cfg_a, cfg_b, cfg_c = cfgs
+    # (c)'s capacities hold every pair on both sides, since the expert-parallel path bounds each rank's buckets
+    # and one process each expert's, so that they drop different pairs, and a random model routes most tokens to
+    # a few experts (at the published 1.25 both sides drop about a quarter of the pairs, not alike).  With
+    # nothing dropped a capacity changes no value, only the buffers' size: one process takes E / top_k (an
+    # expert holds all T tokens), the mesh the smallest factor whose two bucketings hold every pair
+    # of a rank (c1 >= T_loc k for one destination, c2 >= n_ep T_loc k for one expert; 5 here, where 8 would
+    # size the ranks' expert buffers past the card)
+    cfg_c = dataclasses.replace(cfg_c, capacity_factor=cfg_c.n_experts / cfg_c.top_k)
+    cfg_c_mesh = dataclasses.replace(cfg_c, capacity_factor=_ep_holding_factor(cfg_c, MESH["c_b"] // cfg_c.grad_accum,
+                                                                                  MESH["c_s"]))
+    # ---- (a) the one-process run, its first step's and last step's state kept on the card for the ranks
+    with _FirstStep(torch, TRN, dev.type) as rec:
+        model, losses_1 = TRN.train_lm(cfg_a, None, MESH["a_steps"], None, batch_size=MESH["a_b"],
+                                       seq_len=MESH["a_s"], device=dev, seed=seed, log_every=10 ** 9)
+    p1, m1, v1 = rec.after
+    a_want = {"p1": p1, "m1": m1, "v1": v1, "p": {k: p.detach() for k, p in model.named_parameters()}}
+    del model, rec
+    gc.collect()
+    where = tempfile.mkdtemp(prefix="mesh_train_")
+    try:
+        ranks = run_card_ranks(_mesh_train_rank, DIST["world"], dev.type, (dict(MESH), seed, cfg_a, a_want, cfg_b, where))
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    del a_want, p1, m1, v1
+    gc.collect()
+    if on_card:
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+    loss_err = max(abs(got - want) / abs(want) for r in ranks for got, want in zip(r["a_losses"], losses_1))
+    worst = {k: max(r[k] for r in ranks) for k in ("a_first", "a_m", "a_v", "a_params")}
+    log(f"phase mesh train full: (a) {cfg_a.name} f32 at {cfg_a.n_layers} layers of full width, {MESH['a_steps']} "
+        f"train_lm steps of {MESH['a_b']} x {MESH['a_s']} over mesh {MESH['shape']} against one process: losses "
+        f"{[round(x, 6) for x in ranks[0]['a_losses']]} vs {[round(x, 6) for x in losses_1]} ({loss_err:.3g} apart); "
+        f"first step's parameters {worst['a_first']:.3g} of adamw_first_step_err's bound, m {worst['a_m'][0]:.3g} "
+        f"({worst['a_m'][1]}) and v {worst['a_v'][0]:.3g} ({worst['a_v'][1]}) of a leaf's scale (limits "
+        f"{MESH_GRAD_TOL:g} and {2 * MESH_GRAD_TOL:g}); last step's parameters {worst['a_params']:.3g} of the drift "
+        f"bound; step seconds on the slowest rank "
+        f"{[round(max(r['a_seconds'][i] for r in ranks), 3) for i in range(MESH['a_steps'])]}; the ranks' (a) "
+        f"{max(r['a_s'] for r in ranks):.1f} s, (b) {max(r['b_s'] for r in ranks):.1f} s")
+    timed = range(MESH["b_save"], MESH["b_steps"])
+    ms = 1e3 * max(float(np.mean([r["b_secs"][i] for i in timed])) for r in ranks)
+    tokens = MESH["b_b"] * MESH["b_s"]
+    log(f"phase mesh train full: (b) {cfg_b.name} bf16 at {cfg_b.n_layers} layers, remat, AdamW, {MESH['b_b']} x "
+        f"{MESH['b_s']} tokens over mesh {MESH['shape']}: {ms:.1f} ms a step on the slowest rank (mean of steps "
+        f"{MESH['b_save'] + 1}-{MESH['b_steps']}; first steps {[round(1e3 * max(r['b_secs'][i] for r in ranks), 1) for i in range(MESH['b_save'])]} ms), "
+        f"{tokens / ms * 1e3:.0f} tokens/s, peak {max(r['b_peak'] for r in ranks):.2f} GB a rank; losses "
+        f"{[round(x, 4) for x in ranks[0]['b_losses']]}; checkpoint at step {MESH['b_save']} saved in "
+        f"{ranks[0]['b_save_s']:.1f} s, restored in {max(r['b_restore_s'] for r in ranks):.1f} s, resumed bit for "
+        f"bit; {card} (four ranks share one card: no figure says anything of NVLink)")
+    assert loss_err <= TRAIN_TOL, f"mesh train full (a): losses {loss_err:.3g} apart"
+    assert worst["a_first"] <= 1.0, f"mesh train full (a): the first step's parameters {worst['a_first']:.3g} of the bound"
+    assert worst["a_m"][0] <= MESH_GRAD_TOL, f"mesh train full (a): m {worst['a_m']} of a leaf's scale"
+    assert worst["a_v"][0] <= 2 * MESH_GRAD_TOL, f"mesh train full (a): v {worst['a_v']} of a leaf's scale"
+    assert worst["a_params"] <= 1.0, f"mesh train full (a): parameters {worst['a_params']:.3g} of the drift bound"
+    assert all(r["b_bitwise"] for r in ranks), "mesh train full (b): the resumed run is not bit for bit the unbroken one"
+    assert all(math.isfinite(x) for r in ranks for x in r["b_losses"])
+    # ---- (c) phi3.5-moe's ZeRO step: the one-process run first, its results kept on the card for the ranks
+    c_b, c_s = MESH["c_b"], MESH["c_s"]
+    data = lm_batches(np.random.default_rng(seed + 1).integers(0, cfg_c.vocab_size, size=500_000).astype(np.int32),
+                      c_b, c_s, seed=seed + 1)
+    batch = [device_put_batch(next(data), dev) for _ in range(MESH["c_steps"])]
+    model, axes = T.init_transformer(cfg_c, seed=seed, device=dev)
+    step, opt = make_lm_train_step(cfg_c, ParallelCtx(None, dict(cfg_c.rules)), lr=STEP_LR, params_axes=axes)
+    state = opt.init(model)
+    k = cfg_c.grad_accum
+    ids_log, undo = _route_log(torch, M, aux_blocks=(c_b // k, c_s) + MESH["shape"])
+    t_c = time.perf_counter()
+    try:
+        with DispatchRecorder(M) as drec:
+            losses_c = [float(step(model, state, mb)[2]["loss"]) for mb in batch]
+    finally:
+        undo()
+    t_one = time.perf_counter() - t_c
+    dropped_1 = sum(int((~v).sum()) for _, v, _, _ in drec.calls)
+    ids_1 = [i.reshape(c_b // k, c_s, -1) for i in ids_log]
+    where = tempfile.mkdtemp(prefix="mesh_zero_")
+    try:
+        t_c = time.perf_counter()
+        want_path = save_checkpoint(where, MESH["c_steps"], {"p": model, "vr": state.vr, "vc": state.vc})
+        t_save = time.perf_counter() - t_c
+        t_c = time.perf_counter()
+        del model, step, opt, drec, state
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        pins = [i.cpu().numpy() for i in ids_1]
+        zr = run_card_ranks(_mesh_zero_rank, DIST["world"], dev.type,
+                            (dict(MESH), seed, cfg_c_mesh, batch, want_path, pins))
+        t_ranks = time.perf_counter() - t_c
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    del batch
+    gc.collect()
+    if on_card:
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+    # the mesh's routes, assembled by each rank's rows and positions, against one process's, call by call
+    differ = dropped = 0
+    n_calls = len(ids_1)
+    for r in zr:
+        assert len(r["routes"]) == n_calls, f"mesh train full (c): {len(r['routes'])} routings on a rank, {n_calls} in one"
+        for c, (b0, s0, bl, sl, ids) in enumerate(r["routes"]):
+            ids = torch.from_numpy(ids).to(ids_1[c].device)
+            differ += int((ids != ids_1[c][b0:b0 + bl, s0:s0 + sl]).any(-1).sum())
+        dropped += r["dropped"]
+    flips = sum(r["flips"] for r in zr)
+    alike = differ == flips and dropped == 0 and dropped_1 == 0   # every differing decision a pinned near-tie
+    errs = {kk: max(r[kk] for r in zr) for kk in ("params", "state")}
+    loss_err = max(abs(a - b) / abs(b) for r in zr for a, b in zip(r["losses"], losses_c))
+    gb = lambda x: x / 1e9   # noqa: E731
+    log(f"phase mesh train full: (c) {cfg_c.name} f32 at {cfg_c.n_layers} layers of full width (E {cfg_c.n_experts}, "
+        f"d {cfg_c.d_model}, capacity factors {cfg_c.capacity_factor:g} one process and "
+        f"{cfg_c_mesh.capacity_factor:g} the mesh), Adafactor, grad_accum {k}, ZeRO-1, {MESH['c_steps']} steps of {c_b} x {c_s} over mesh "
+        f"{MESH['shape']}: {n_calls} routings a rank, {differ} decisions near-ties that flipped (largest gap "
+        f"{max(r['gap'] for r in zr):.3g} of a token's largest probability, pinned to one process's), dropped "
+        f"{dropped} (mesh) and {dropped_1} (one process); {'gated' if alike else 'NOT gated (drops)'}: losses "
+        f"{loss_err:.3g} apart, parameters {errs['params']:.3g} and state {errs['state']:.3g} of a leaf's scale; "
+        f"per rank: optimizer state {gb(zr[0]['state_bytes']):.4f} GB with ZeRO, {gb(zr[0]['state_bytes_plain']):.4f} "
+        f"GB without; gradient accumulator {gb(zr[0]['acc_bytes']):.2f} GB with ZeRO, "
+        f"{gb(zr[0]['acc_bytes_plain']):.2f} GB without; peak {max(r['peak'] for r in zr):.2f} GB a rank; seconds: "
+        f"one process's steps {t_one:.1f}, its checkpoint {t_save:.1f}, the ranks {t_ranks:.1f} (draws "
+        f"{max(r['secs']['draw'] for r in zr):.1f}, steps {[round(max(r['secs']['steps'][i] for r in zr), 2) for i in range(MESH['c_steps'])]}, "
+        f"comparison {max(r['secs']['compare'] for r in zr):.1f})")
+    assert alike, "mesh train full (c): a side dropped a pair"
+    assert loss_err <= TRAIN_TOL, f"mesh train full (c): losses {loss_err:.3g} apart"
+    assert errs["params"] <= TRAIN_TOL, f"mesh train full (c): parameters {errs['params']:.3g} of a leaf's scale"
+    # Adafactor's factors average g^2 over a leaf's rows and columns: a gradient's relative error twice over
+    assert errs["state"] <= 2 * MESH_GRAD_TOL, f"mesh train full (c): Adafactor's state {errs['state']:.3g}"
+    log(f"phase mesh train full: {time.perf_counter() - t_phase:.1f} s; {card}")
+
+
+def _mesh_lm_rank(rank, world, device, sizes, seed, cases, din, mol):
+    """A rank of "mesh lm full" and "mesh models full": each LM's prefill
+    under ``rules_for_shape``'s prefill rules and its decode under the
+    decode rules, the one-process greedy tokens fed; DIN's forward and
+    retrieval over its row-sharded tables (the parent's weights, mapped);
+    one SchNet step.  Returns what the parent holds against one process."""
+    import torch
+
+    from repro_torch.configs.base import LMShape, RecSysShape
+    from repro_torch.distributed.sharding import ParallelCtx, distribute_module
+    from repro_torch.launch.steps import make_gnn_train_step, rules_for_shape
+    from repro_torch.models import recsys as R
+    from repro_torch.models import schnet as S
+    from repro_torch.models import transformer as T
+
+    MESH.update(sizes)
+    mesh = _on_mesh(torch, device)
+    out = {}
+    with torch.no_grad():
+        for name, (cfg, prompt, toks) in cases.items():
+            b, s = prompt.shape
+            r = {}
+            pcfg = dataclasses.replace(cfg, rules=rules_for_shape(cfg, LMShape("prefill", s, b, "prefill"), mesh))
+            pctx = ParallelCtx(mesh, pcfg.rules)
+            model, axes = T.init_transformer(pcfg, seed=seed, device=device)
+            distribute_module(model, axes, pctx)
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            r["prefill"] = T.prefill_step(model, prompt, pcfg, pctx)
+            _sync(torch, device)
+            r["prefill_s"] = time.perf_counter() - t0
+            del model
+            dcfg = dataclasses.replace(cfg, rules=rules_for_shape(cfg, LMShape("decode", MESH["cache"], b, "decode"),
+                                                                  mesh))
+            dctx = ParallelCtx(mesh, dcfg.rules)
+            model, axes = T.init_transformer(dcfg, seed=seed, device=device)
+            distribute_module(model, axes, dctx)
+            cache = T.init_cache(dcfg, b, MESH["cache"], device, ctx=dctx)
+            logits, secs = [], []
+            for pos in range(MESH["decode"]):
+                _sync(torch, device)
+                t0 = time.perf_counter()
+                lg, cache = T.decode_step(model, cache, toks[pos], pos, dcfg, dctx)
+                _sync(torch, device)
+                secs.append(time.perf_counter() - t0)
+                logits.append(lg)
+            r["decode"], r["decode_s"] = torch.stack(logits), secs
+            r["rules"] = (dict(pcfg.rules), dict(dcfg.rules))
+            del model, cache
+            out[name] = r
+        cfg, tree, batch, rbatch, k = din
+        ctx = ParallelCtx(mesh, dict(cfg.rules))
+        model = distribute_module(R.RecSys(cfg, tree), R.init_recsys(cfg, device="meta")[1], ctx)
+        out["din_logits"] = R.forward_logits(model, cfg, batch, ctx).to_local()
+        rr = rules_for_shape(cfg, RecSysShape("retrieval_cand", 1, kind="retrieval"), mesh)
+        rcfg = dataclasses.replace(cfg, rules=rr)
+        rctx = ParallelCtx(mesh, rr)
+        rmodel = distribute_module(R.RecSys(rcfg, tree), R.init_recsys(rcfg, device="meta")[1], rctx)
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        out["din_ret"] = R.retrieval_scores(rmodel, rcfg, rbatch, rctx, k=k)
+        _sync(torch, device)
+        out["din_ret_s"] = time.perf_counter() - t0
+        out["din_rows"] = tuple(model.tables["item"].to_local().shape)
+        del model, rmodel
+    scfg, stree, g, n_graphs = mol
+    sctx = ParallelCtx(mesh, dict(scfg.rules))
+    smodel = distribute_module(S.SchNet(scfg, {k_: (v.clone() if isinstance(v, torch.Tensor) else
+                                                    [{kk: {x: t.clone() for x, t in d.items()} for kk, d in b.items()}
+                                                     for b in v] if isinstance(v, list) else
+                                                    {x: t.clone() for x, t in v.items()})
+                                               for k_, v in stree.items()}),
+                               S.init_schnet(scfg, device="meta")[1], sctx)
+    step, opt = make_gnn_train_step(scfg, sctx, n_graphs=n_graphs)
+    state = opt.init(smodel)
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    _, _, m = step(smodel, state, g)
+    _sync(torch, device)
+    out["mol_s"] = time.perf_counter() - t0
+    out["mol_loss"] = float(m["loss"])
+    out["mol_params"] = {k_: _local(p).detach().clone() for k_, p in smodel.named_parameters()}
+    out["peak"] = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else float("nan")
+    return _to_numpy(torch, out)
+
+
+def _to_numpy(torch, tree):
+    """A rank's result with every tensor as a numpy array: a CPU tensor sent
+    back is a shared-memory handle that dies with the rank."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, dict):
+        return {k: _to_numpy(torch, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_numpy(torch, v) for v in tree)
+    return tree
+
+
+def mesh_lm_models_full_phase(torch, dev, card, on_card, seed, lm_cfgs=None, din_cfg=None, mol_cfg=None):
+    """"mesh lm full": qwen2.5-3b (GQA) and minicpm3-4b (MLA, 40 heads padded
+    to 48, vocabulary 73,448 padded to 73,472) at their published widths, f32
+    at MESH["lm_layers"] layers, under ``rules_for_shape``'s rules on the
+    (2, 2) mesh: the prefill of MESH["prefill"] tokens (batch on "data", the
+    sequence on "model"), then MESH["decode"] decode steps against a
+    MESH["cache"]-position cache (weights split on "embed", the cache's
+    sequence on "model"), fed one process's greedy tokens; each held
+    against one process on the card within LM_TOL of a row's largest |logit|
+    (the real vocabulary; the padded columns at f32-min), the greedy tokens
+    equal.  "mesh models full": DIN as published (100M items, 8.0 GB of
+    tables drawn here and mapped by the ranks, the tables row-sharded over
+    "model"): ``forward_logits`` of MESH["din_b"] users within TOL_REL, and
+    ``retrieval_scores`` over MESH["din_cand"] candidates under the
+    retrieval rules (split over ("data", "model")): the top-k ids equal,
+    the scores within TOL_REL; SchNet as published: one
+    ``make_gnn_train_step`` step on MESH["mol"] molecules (edges over every
+    axis) against one process: the loss within TRAIN_TOL, the parameters
+    within ``adamw_first_step_err``'s bound.  One set of ranks runs both."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import ParallelCtx
+    from repro_torch.launch.steps import make_gnn_train_step
+    from repro_torch.models import recsys as R
+    from repro_torch.models import schnet as S
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(dev).manual_seed(seed)
+    if lm_cfgs is None:
+        lm_cfgs = [dataclasses.replace(get_config(a), n_layers=MESH["lm_layers"], dtype="float32")
+                   for a in ("qwen2.5-3b", "minicpm3-4b")]
+    cases, want = {}, {}
+    b, s = MESH["prefill"]
+    with torch.no_grad():
+        for cfg in lm_cfgs:
+            model, _ = T.init_transformer(cfg, seed=seed, device=dev)
+            ctx = ParallelCtx(None, dict(cfg.rules))
+            prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device=dev, dtype=torch.int32)
+            t0 = time.perf_counter()
+            pre = T.prefill_step(model, prompt, cfg, ctx)
+            sync(torch, on_card)
+            pre_s = time.perf_counter() - t0
+            cache = T.init_cache(cfg, b, MESH["cache"], dev)
+            tok = pre[:, :cfg.vocab_size].argmax(-1, keepdim=True).int()
+            toks, logits = [], []
+            for pos in range(MESH["decode"]):
+                toks.append(tok)
+                lg, cache = T.decode_step(model, cache, tok, pos, cfg, ctx)
+                logits.append(lg)
+                tok = lg[:, :cfg.vocab_size].argmax(-1, keepdim=True).int()
+            cases[cfg.name] = (cfg, prompt, torch.stack(toks))
+            want[cfg.name] = (pre, torch.stack(logits), pre_s)
+            del model, cache
+            gc.collect()
+    # DIN: the weights drawn once here (the ranks map them), one process's answers first
+    if din_cfg is None:
+        din_cfg = get_config(RECSYS["arch"])
+    din, _ = R.init_recsys(din_cfg, seed=seed, device=dev)
+    tree = {name: (sub if isinstance(sub, torch.Tensor) else
+                   [dict(x.items()) for x in sub] if isinstance(sub, torch.nn.ModuleList) else
+                   {k: (dict(v.items()) if isinstance(v, torch.nn.ParameterDict) else v) for k, v in sub.items()})
+            for name, sub in list(din.named_parameters(recurse=False)) + list(din.named_children())}
+    tree = _detached_tree(torch, tree)
+    batch = recsys_batch(torch, din_cfg, MESH["din_b"], g, dev)
+    rbatch = recsys_batch(torch, din_cfg, 1, g, dev, n_cand=MESH["din_cand"])
+    with torch.no_grad():
+        ctx = ParallelCtx(None, dict(din_cfg.rules))
+        din_logits = R.forward_logits(din, din_cfg, batch, ctx)
+        din_ret = R.retrieval_scores(din, din_cfg, rbatch, ctx, k=RECSYS["k"])
+    del din
+    # SchNet: one process's step
+    if mol_cfg is None:
+        mol_cfg = get_config("schnet")
+    mol, _ = S.init_schnet(mol_cfg, seed=seed, device=dev)
+    stree = _detached_tree(torch, {name: (sub if isinstance(sub, torch.Tensor) else
+                                          [{k: dict(v.items()) for k, v in blk.items()} for blk in sub]
+                                          if isinstance(sub, torch.nn.ModuleList) else dict(sub.items()))
+                                   for name, sub in list(mol.named_parameters(recurse=False)) +
+                                   list(mol.named_children())}, copy=True)   # the step below updates mol in place
+    gbatch = molecule_batch(torch, mol_cfg, MESH["mol"], g, dev)
+    step, opt = make_gnn_train_step(mol_cfg, ParallelCtx(None, dict(mol_cfg.rules)), n_graphs=MESH["mol"])
+    state = opt.init(mol)
+    _, _, m = step(mol, state, gbatch)
+    mol_loss = float(m["loss"])
+    mol_params = {k: p.detach() for k, p in mol.named_parameters()}
+    mol_m = dict(state.m)
+    if on_card:
+        torch.cuda.empty_cache()
+    ranks = run_card_ranks(_mesh_lm_rank, DIST["world"], dev.type,
+                           (dict(MESH), seed, cases, (din_cfg, tree, batch, rbatch, RECSYS["k"]),
+                            (mol_cfg, stree, gbatch, MESH["mol"])))
+    ranks = [_from_numpy(torch, r) for r in ranks]
+    for name, (cfg, prompt, toks) in cases.items():
+        pre, dec, pre_s = want[name]
+        v = cfg.vocab_size
+        errs = [row_err(torch, r[name]["prefill"], pre) for r in ranks]
+        derrs = [row_err(torch, r[name]["decode"][..., :v], dec[..., :v]) for r in ranks]
+        assert max(errs) <= LM_TOL, f"mesh lm full: {name} prefill {max(errs):.3g} of a row's largest |logit|"
+        assert max(derrs) <= LM_TOL, f"mesh lm full: {name} decode {max(derrs):.3g} of a row's largest |logit|"
+        greedy = torch.stack([r[name]["decode"][..., :v].argmax(-1) for r in ranks])
+        want_greedy = dec[..., :v].argmax(-1).cpu()
+        assert bool((greedy == want_greedy).all()), f"mesh lm full: {name}'s greedy tokens differ"
+        if cfg.padded_vocab != v:
+            assert all(bool((r[name]["decode"][..., v:] == NEG).all()) for r in ranks), "padded vocabulary unmasked"
+        log(f"phase mesh lm full: {name} f32 at {cfg.n_layers} layers of full width over mesh {MESH['shape']}: "
+            f"prefill {b} x {s} ({ranks[0][name]['rules'][0]['batch']} batch, seq over "
+            f"{ranks[0][name]['rules'][0]['seq_act']}) {max(errs):.3g} of a row's largest |logit| "
+            f"(one process {1e3 * pre_s:.1f} ms, the ranks {1e3 * max(r[name]['prefill_s'] for r in ranks):.1f} ms); "
+            f"{MESH['decode']} decode steps over a {MESH['cache']}-position cache (kv_seq over "
+            f"{ranks[0][name]['rules'][1]['kv_seq']}, embed over {ranks[0][name]['rules'][1]['embed']}) "
+            f"{max(derrs):.3g}, greedy tokens equal; a decode step {1e3 * float(np.median([x for r in ranks for x in r[name]['decode_s'][1:]])):.1f} ms "
+            f"on the ranks (median)")
+    got = torch.cat([r["din_logits"] for r in ranks[::MESH["shape"][1]]])
+    err = row_err(torch, got[None], din_logits.cpu()[None])
+    assert err <= TOL_REL, f"mesh models full: DIN logits {err:.3g} of their largest"
+    vals, ids = din_ret
+    for r in ranks:
+        assert torch.equal(r["din_ret"][1], ids.cpu()), "mesh models full: DIN's retrieved ids differ"
+        assert row_err(torch, r["din_ret"][0], vals) <= TOL_REL
+    log(f"phase mesh models full: DIN ({din_cfg.item_vocab:,} items, item rows {ranks[0]['din_rows'][0]:,} a rank) "
+        f"forward of {MESH['din_b']} users {err:.3g} of the largest logit; retrieval over {MESH['din_cand']:,} "
+        f"candidates split over (data, model): top-{RECSYS['k']} ids equal, scores within {TOL_REL} "
+        f"({1e3 * max(r['din_ret_s'] for r in ranks):.1f} ms on the slowest rank)")
+    m_new = {k: v.detach() for k, v in mol_m.items()}
+    worst = max(adamw_first_step_err(torch, mol_params[k], r["mol_params"][k].to(dev), m_new[k], 1e-3, 0.0)
+                for r in ranks for k in mol_params)
+    lerr = max(abs(r["mol_loss"] - mol_loss) / abs(mol_loss) for r in ranks)
+    assert lerr <= TRAIN_TOL and worst <= 1.0, f"mesh models full: SchNet step loss {lerr:.3g}, parameters {worst:.3g}"
+    log(f"phase mesh models full: SchNet ({mol_cfg.n_interactions} interactions, d {mol_cfg.d_hidden}) one step of "
+        f"{MESH['mol']} molecules, edges over every axis: loss {lerr:.3g} apart, parameters {worst:.3g} of "
+        f"adamw_first_step_err's bound ({1e3 * max(r['mol_s'] for r in ranks):.1f} ms on the slowest rank); peak "
+        f"{max(r['peak'] for r in ranks):.2f} GB a rank; phase {time.perf_counter() - t_phase:.1f} s; {card} "
+        f"(four ranks share one card: no figure says anything of NVLink)")
+    del tree, stree, batch, rbatch, gbatch, mol, state, cases, want
+    gc.collect()
+    if on_card:
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+
+
+def _from_numpy(torch, tree):
+    if isinstance(tree, np.ndarray):
+        return torch.from_numpy(tree)
+    if isinstance(tree, dict):
+        return {k: _from_numpy(torch, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_from_numpy(torch, v) for v in tree)
+    return tree
+
+
+def _detached_tree(torch, tree, copy=False):
+    """Nested dicts and lists of parameters as plain tensors (no grad;
+    copies with ``copy``)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone() if copy else tree.detach()
+    if isinstance(tree, list):
+        return [_detached_tree(torch, x, copy) for x in tree]
+    return {k: _detached_tree(torch, v, copy) for k, v in tree.items()}
+
+
 def sync(torch, on_card):
     if on_card:
         torch.cuda.synchronize()
@@ -5661,6 +6512,20 @@ def main() -> int:
     # ---- expert parallelism: the published MoE layers on ranks sharing the card; a CPU rehearsal runs the
     # f32 smoke pass alone
     moe_ep_full_phase(torch, dev, card, on_card, args.seed + 31, smoke_only=not on_card)
+    # ---- the models under a (2, 2) mesh of ranks sharing the card; a CPU rehearsal cuts them to the smoke configs
+    mesh_cfgs = mesh_lm = mesh_din = mesh_mol = None
+    if not on_card:
+        from repro_torch.configs import get_smoke_config
+        q = get_smoke_config("qwen2.5-3b")
+        mesh_cfgs = (q, dataclasses.replace(q, remat=True, dtype="bfloat16"),
+                     get_smoke_config("phi3.5-moe-42b-a6.6b"))
+        mesh_lm = [get_smoke_config("qwen2.5-3b"), dataclasses.replace(
+            get_smoke_config("minicpm3-4b"), n_heads=6, n_kv_heads=6, pad_heads_to=8, vocab_size=500, pad_vocab_to=512)]
+        mesh_din = dataclasses.replace(get_smoke_config("din"), item_vocab=70000)
+        mesh_mol = get_smoke_config("schnet")
+        MESH.update(a_s=64, b_s=64, c_b=8, c_s=64, prefill=(2, 64), cache=128, din_b=16, din_cand=4096, mol=8)
+    mesh_train_full_phase(torch, dev, card, on_card, args.seed + 32, mesh_cfgs)
+    mesh_lm_models_full_phase(torch, dev, card, on_card, args.seed + 33, mesh_lm, mesh_din, mesh_mol)
     recall_n = min(RECALL_N, n) // CLUSTERS * CLUSTERS
     recall_data = graph_recall_phase(torch, dev, recall_n, args.seed + 11, on_card)
     napp_recall_phase(torch, dev, *recall_data, args.seed + 12, on_card)

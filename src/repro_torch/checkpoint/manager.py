@@ -7,6 +7,11 @@ of ``repro/checkpoint/manager.py``).
     directories (no manifest), restores in place and returns (step, tree),
     or (0, target) when there is none;
   * retention: keep the newest ``max_to_keep`` checkpoints.
+
+A tree of ``DTensor``s (training over a mesh) is saved by every rank of
+its mesh: each gathers the leaves, the rank at the mesh's origin writes
+(synchronously) and the others wait at a barrier, so that every rank
+then sees the new directory.
 """
 
 from __future__ import annotations
@@ -17,8 +22,8 @@ import re
 import shutil
 from typing import Any, Optional, Tuple
 
-from repro_torch.checkpoint.checkpoint import (checkpoint_step, flatten_with_paths, host_array,
-                                               restore_checkpoint, write_leaves)
+from repro_torch.checkpoint.checkpoint import (checkpoint_step, flatten_with_paths, host_array, is_writer,
+                                               mesh_barrier, mesh_of, restore_checkpoint, write_leaves)
 
 __all__ = ["CheckpointManager"]
 
@@ -56,7 +61,21 @@ class CheckpointManager:
     def save(self, step: int, tree: Any):
         # copy every leaf to the host BEFORE handing it to the async thread:
         # the next step updates the same storage in place
-        host_tree = {k: host_array(v, copy=True) for k, v in flatten_with_paths(tree).items()}
+        leaves = flatten_with_paths(tree)
+        mesh = mesh_of(leaves.values())
+        if mesh is not None:
+            writer = is_writer(mesh)
+            host_tree = {}
+            for k, v in leaves.items():     # every rank takes part in each gather; the writer keeps them
+                arr = host_array(v, copy=True)
+                if writer:
+                    host_tree[k] = arr
+            if writer:
+                self.wait()
+                self._save_sync(step, host_tree)
+            mesh_barrier(mesh)
+            return
+        host_tree = {k: host_array(v, copy=True) for k, v in leaves.items()}
         if self._pool is not None:
             self.wait()
             self._pending = self._pool.submit(self._save_sync, step, host_tree)

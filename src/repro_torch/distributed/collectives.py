@@ -19,6 +19,17 @@ a psum's a psum.  :func:`to_block` and :func:`from_blocks` are the
 boundary between a logical tensor that every rank holds whole and the
 blocks the ranks compute on; their gradients make every rank hold the
 logical gradient, as ``jax.grad`` of a ``shard_map`` gives it.
+
+The models' per-rank code (``models/{layers,transformer,recsys,schnet}``
+under a mesh) is written Megatron-style on top of these: a loss that
+every rank holds alike is differentiated by every rank with the same
+cotangent, so a sum that makes such a replicated value (:func:`all_sum`)
+passes its gradient through unchanged, and a parameter block that several
+ranks use on different tokens gets the sum of their gradients
+(:func:`rank_block`).  Without a mesh (a ``None`` sharding or axis)
+:func:`rank_block`, :func:`from_blocks`, :func:`gather_full`,
+:func:`all_sum` and the axis collectives are identities, so that the
+same per-rank code runs on one device.
 """
 
 from __future__ import annotations
@@ -29,14 +40,15 @@ from typing import List, Optional, Sequence
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import Shard
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.core.brute_force import select_topk
 from repro_torch.distributed.mesh_utils import mesh_sizes
 from repro_torch.distributed.sharding import NamedSharding, local_block, splits
 
 __all__ = ["axis_names", "all_gather", "all_reduce", "all_to_all", "reduce_scatter", "broadcast",
-           "all_to_all_axis", "gather_axis", "scatter_axis", "psum", "sum_grad", "pmean_all", "to_block", "from_blocks",
+           "all_to_all_axis", "gather_axis", "scatter_axis", "psum", "sum_grad", "all_sum", "all_max", "pmean_all",
+           "to_block", "from_blocks", "rank_block",
            "gather_full", "gather_columns", "distributed_topk", "hierarchical_psum", "dp_allreduce_grads"]
 
 
@@ -146,6 +158,20 @@ class _SumGrad(torch.autograd.Function):
         return g, None
 
 
+class _AllSum(torch.autograd.Function):
+    """The sum over ``groups``; its gradient is the identity."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        for group in groups:
+            x = all_reduce(x, group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def _groups(mesh: DeviceMesh, axis) -> list:
     return [mesh.get_group(a) for a in axis_names(axis)]
 
@@ -185,11 +211,14 @@ def sum_grad(x: torch.Tensor, mesh: DeviceMesh, axis) -> torch.Tensor:
     return _SumGrad.apply(x, groups) if groups else x
 
 
-def gather_full(block: torch.Tensor, sharding: NamedSharding, shape) -> torch.Tensor:
+def gather_full(block: torch.Tensor, sharding: Optional[NamedSharding], shape) -> torch.Tensor:
     """The whole tensor of ``shape`` from each rank's block of it (an
     all-gather over each sharded mesh dim, last first; short and empty
-    blocks padded for the exchange and cut after it)."""
+    blocks padded for the exchange and cut after it); ``block`` itself
+    without a sharding (one device)."""
     x = block
+    if sharding is None:
+        return x
     for i, dim, n, _, _ in reversed(splits(shape, sharding)):
         per = -(-n // sharding.mesh.size(i))
         if x.shape[dim] < per:
@@ -231,6 +260,29 @@ class _Mean(torch.autograd.Function):
         return g / ctx.n, None
 
 
+def all_sum(x: torch.Tensor, mesh: DeviceMesh, axis) -> torch.Tensor:
+    """The sum over ``axis`` of per-rank partial values into one that every
+    rank of ``axis`` then holds and uses alike (Megatron's reduction after
+    a row-parallel product): each rank's cotangent of the result is the
+    whole cotangent of its partial value, so the gradient is the identity."""
+    if axis is None:
+        return x
+    groups = _groups(mesh, axis)
+    return _AllSum.apply(x, groups) if groups else x
+
+
+def all_max(x: torch.Tensor, mesh: DeviceMesh, axis) -> torch.Tensor:
+    """The elementwise maximum over ``axis`` (no gradient: a softmax's
+    shift)."""
+    x = x.detach()
+    groups = _groups(mesh, axis)
+    if groups:
+        x = x.clone(memory_format=torch.contiguous_format)
+    for group in groups:
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return x
+
+
 def pmean_all(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
     """The mean over every rank of the mesh, held whole by every rank: its
     gradient on each rank is the logical one, 1/ranks of the cotangent."""
@@ -245,10 +297,39 @@ def to_block(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
     return local_block(x, sharding)
 
 
-def from_blocks(block: torch.Tensor, sharding: NamedSharding, shape) -> torch.Tensor:
+def from_blocks(block: torch.Tensor, sharding: Optional[NamedSharding], shape) -> torch.Tensor:
     """The whole tensor of ``shape`` on every rank, from each rank's block
-    (:func:`gather_full` under autograd)."""
-    return _FromBlocks.apply(block, sharding, tuple(shape))
+    (:func:`gather_full` under autograd); ``block`` itself without a
+    sharding (one device)."""
+    return block if sharding is None else _FromBlocks.apply(block, sharding, tuple(shape))
+
+
+def rank_block(x, sharding: Optional[NamedSharding], split=None, deferred=()) -> torch.Tensor:
+    """This rank's block of a parameter or an input as ``sharding`` lays it
+    out, for per-rank code: from a ``DTensor`` (redistributed if laid out
+    otherwise), or sliced from a tensor that every rank holds whole.  Its
+    gradient is summed over ``split`` (default: every mesh axis the block
+    is replicated on), the axes along which the ranks holding one block
+    use it on different data (tokens, edges, heads): the block's gradient
+    is then the logical one on every rank, as a ``shard_map`` input's.  A
+    whole tensor's gradient is also summed over its sharded axes, each
+    block in its place, so that every rank holds the whole logical
+    gradient.  The axes in ``deferred`` are left out of the sum: the
+    block's gradient is then this rank's part of the sum over them (a
+    ZeRO step reduce-scatters it into each rank's block, where an
+    all-reduce would move twice the bytes).  ``x`` itself without a
+    sharding (one device)."""
+    if sharding is None:
+        return x
+    mesh = sharding.mesh
+    split = sharding.replicated_axes() if split is None else axis_names(split)
+    split = tuple(a for a in split if a not in deferred)
+    if isinstance(x, DTensor):
+        if tuple(x.placements) != sharding.placements:
+            x = x.redistribute(mesh, sharding.placements)
+        return sum_grad(x.to_local(), mesh, split)
+    sharded = tuple(n for n in mesh.mesh_dim_names if n not in sharding.replicated_axes())
+    return local_block(sum_grad(x, mesh, sharded + tuple(split)), sharding)
 
 
 def distributed_topk(scores_local: torch.Tensor, base_offset: int, k: int, axis, *, mesh: DeviceMesh):

@@ -28,7 +28,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from repro_torch.distributed.mesh_utils import mesh_axis_size
 
 __all__ = ["ParallelCtx", "NamedSharding", "params_sharding", "splits", "block_slices", "local_block",
-           "distribute", "require_no_mesh"]
+           "axis_block", "distribute", "leaf_axes", "distribute_module"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,10 +75,14 @@ class NamedSharding:
 class ParallelCtx:
     """Mesh + logical rules threaded through model apply functions.
 
-    ``mesh=None`` disables all constraints (one device)."""
+    ``mesh=None`` disables all constraints (one device).  ``deferred``
+    names mesh axes over which the models' per-rank code leaves the sum of
+    its parameters' gradients to the caller (``collectives.rank_block``):
+    a ZeRO step reduce-scatters those parts into each rank's block."""
 
     mesh: Optional[DeviceMesh]
     rules: Mapping[str, object]
+    deferred: Tuple[str, ...] = ()
 
     def __post_init__(self):
         if self.mesh is not None and not isinstance(self.mesh, DeviceMesh):
@@ -184,6 +188,18 @@ def local_block(x: torch.Tensor, sharding: NamedSharding) -> Optional[torch.Tens
     return x
 
 
+def axis_block(n: int, mesh: DeviceMesh, axes) -> Tuple[int, int]:
+    """(global start, length) of this rank's block of a dim of ``n`` split
+    over ``axes`` (a mesh axis name, a tuple of them in mesh order, or
+    None), as ``DTensor`` cuts it: per-rank code reads vocabulary rows,
+    heads, sequence positions and table rows by their global index with
+    it.  (0, n) when ``axes`` is None; (0, 0)-style empty blocks for the
+    last ranks of an uneven split."""
+    if axes is None or mesh is None:
+        return 0, int(n)
+    return block_slices((n,), NamedSharding(mesh, (axes,)))[0]
+
+
 def distribute(x: torch.Tensor, sharding: Optional[NamedSharding]):
     """``x``, which every rank holds whole, as a ``DTensor`` of which each
     rank keeps its block (no communication); ``x`` itself when ``sharding``
@@ -197,11 +213,49 @@ def distribute(x: torch.Tensor, sharding: Optional[NamedSharding]):
                               shape=x.shape, stride=torch.empty(x.shape, device="meta").stride())
 
 
-def require_no_mesh(ctx, what: str):
-    """Raise where a model entry point is given a mesh: running the models
-    sharded is a later slice of the port."""
-    if ctx is not None and getattr(ctx, "mesh", None) is not None:
-        raise NotImplementedError(
-            f"{what} under a mesh is the sharded-model slice of the port, not ported yet; "
-            "pass ParallelCtx(None, rules) (moe_apply, sharded_exact_topk and the sharded "
-            "serving path take a mesh)")
+def leaf_axes(axes_tree, name: str, stacked=()):
+    """The logical axes of the parameter ``name`` (dotted, as
+    ``named_parameters`` gives it) in the axes tree of its model's init:
+    a layer index after a stacked list's name (``blocks.3``) drops the
+    stacked layer axis, which the port's one-module-a-layer leaves lack."""
+    node, lead = axes_tree, False
+    parts = name.split(".")
+    i = 0
+    while i < len(parts):
+        part = parts[i]
+        node = node[int(part)] if isinstance(node, (list, tuple)) and not _is_axes(node) else node[part]
+        if part in stacked and i + 1 < len(parts) and parts[i + 1].isdigit():
+            lead, i = True, i + 1
+        i += 1
+    return tuple(node[1:]) if lead else tuple(node)
+
+
+def distribute_module(module, axes_tree, ctx: ParallelCtx):
+    """``module`` with every parameter replaced, in place, by a ``DTensor``
+    parameter of which this rank keeps its block (a copy: the whole tensor
+    can go), placed by its logical axes (:func:`leaf_axes`) under ``ctx``
+    (no communication: every rank holds the whole module).  Returns the module; without a mesh it is
+    unchanged."""
+    import torch.nn as nn
+
+    if ctx.mesh is None:
+        return module
+    stacked = tuple(getattr(module, "STACKED", ()))
+    for name, p in list(module.named_parameters()):
+        owner = module
+        *path, last = name.split(".")
+        for part in path:
+            owner = owner[int(part)] if part.isdigit() else (owner[part] if isinstance(owner, nn.ParameterDict)
+                                                              else getattr(owner, part))
+        new = distribute(p.detach(), ctx.sharding(*leaf_axes(axes_tree, name, stacked)))
+        block = new.to_local()
+        if block.untyped_storage().nbytes() > block.numel() * block.element_size():
+            # a view would keep the whole tensor alive: the module keeps its block alone
+            new = DTensor.from_local(block.clone(), new.device_mesh, new.placements, run_check=False,
+                                     shape=new.shape, stride=new.stride())
+        new = nn.Parameter(new, requires_grad=p.requires_grad)
+        if isinstance(owner, nn.ParameterDict):
+            owner[last] = new
+        else:
+            setattr(owner, last, new)
+    return module

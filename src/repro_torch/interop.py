@@ -115,7 +115,15 @@ def tree_ensemble(feat, thresh, leaves, lr: float, device=None) -> ObliviousTree
                                  tensor(np.asarray(leaves, np.float32), device), float(lr))
 
 
-def transformer_params(params, cfg, device=None):
+def _placed(model, axes, ctx):
+    """``model``'s parameters distributed over ``ctx``'s mesh by their
+    logical ``axes`` (``params_sharding``'s layout); unchanged without one."""
+    from repro_torch.distributed.sharding import distribute_module
+
+    return model if ctx is None else distribute_module(model, axes, ctx)
+
+
+def transformer_params(params, cfg, device=None, ctx=None):
     """The port's ``models.transformer.Transformer`` holding the weights of
     ``repro``'s parameter tree ``params`` (nested dicts of numpy arrays,
     bf16 as ``uint16`` bits) for the config ``cfg``.
@@ -129,10 +137,13 @@ def transformer_params(params, cfg, device=None):
     residual, ``ln3`` and ``ffn``.
     Every array must have the shape and dtype that the port's own
     ``init_transformer(cfg)`` gives, and no name may be missing or extra;
-    anything else raises ``ValueError``."""
+    anything else raises ``ValueError``.  With a mesh in ``ctx`` every rank
+    calls it with the same tree and keeps its blocks: each parameter a
+    ``DTensor`` placed by ``params_sharding`` of ``init_transformer``'s
+    axes, as ``train_lm`` places them."""
     from repro_torch.models import transformer as T
 
-    want, _ = T.init_transformer(cfg, device="meta")
+    want, axes = T.init_transformer(cfg, device="meta")
     dev = resolve_device(device)
     top = {"embed", "blocks", "ln_f"} | ({"lm_head"} if want.lm_head is not None else set())
     if set(params) != top:
@@ -150,8 +161,8 @@ def transformer_params(params, cfg, device=None):
     blocks = [T.Block(_carry_tree(layer(params["blocks"], i), _like(want.blocks[i]), f"blocks[{i}]", dev))
               for i in range(cfg.n_layers)]
     lm_head = None if want.lm_head is None else _carry_tree(params["lm_head"], want.lm_head, "lm_head", dev)
-    return T.Transformer(cfg, _carry_tree(params["embed"], want.embed, "embed", dev), blocks,
-                         _carry_tree(params["ln_f"], _like(want.ln_f), "ln_f", dev), lm_head)
+    return _placed(T.Transformer(cfg, _carry_tree(params["embed"], want.embed, "embed", dev), blocks,
+                                 _carry_tree(params["ln_f"], _like(want.ln_f), "ln_f", dev), lm_head), axes, ctx)
 
 
 def kv_cache(cache, cfg, device=None):
@@ -218,28 +229,30 @@ def _carry_tree(tree, like, where, dev):
     return {k: _carry_tree(tree[k], like[k], f"{where}.{k}", dev) for k in like}
 
 
-def recsys_params(params, cfg, device=None):
+def recsys_params(params, cfg, device=None, ctx=None):
     """The port's ``models.recsys.RecSys`` holding the weights of
     ``repro``'s parameter tree ``params`` (nested dicts and lists of numpy
     arrays, bf16 as ``uint16`` bits) for the config ``cfg``.  Every array
     must have the shape and dtype that the port's own ``init_recsys(cfg)``
     gives, and no name may be missing or extra; anything else raises
-    ``ValueError``."""
+    ``ValueError``.  With a mesh in ``ctx``, placed as
+    :func:`transformer_params` places them."""
     from repro_torch.models import recsys as R
 
-    want, _ = R.init_recsys(cfg, device="meta")
-    return R.RecSys(cfg, _carry_tree(params, _like(want), "params", resolve_device(device)))
+    want, axes = R.init_recsys(cfg, device="meta")
+    return _placed(R.RecSys(cfg, _carry_tree(params, _like(want), "params", resolve_device(device))), axes, ctx)
 
 
-def schnet_params(params, cfg, device=None):
+def schnet_params(params, cfg, device=None, ctx=None):
     """The port's ``models.schnet.SchNet`` holding the weights of
     ``repro``'s parameter tree ``params`` (nested dicts of numpy arrays)
     for the config ``cfg``.  The reference stacks the interactions on a
     leading axis; they are split here, one parameter dict an interaction.
-    Shapes, dtypes and names are checked as in :func:`recsys_params`."""
+    Shapes, dtypes and names are checked as in :func:`recsys_params`, and
+    a mesh in ``ctx`` places them as there."""
     from repro_torch.models import schnet as S
 
-    want, _ = S.init_schnet(cfg, device="meta")
+    want, axes = S.init_schnet(cfg, device="meta")
     like = _like(want)
     if not isinstance(params, dict) or "blocks" not in params:
         raise ValueError(f"params: names {sorted(params) if isinstance(params, dict) else params!r} "
@@ -255,7 +268,7 @@ def schnet_params(params, cfg, device=None):
         return a[i]
 
     tree = dict(params, blocks=[layer(params["blocks"], i) for i in range(cfg.n_interactions)])
-    return S.SchNet(cfg, _carry_tree(tree, like, "params", resolve_device(device)))
+    return _placed(S.SchNet(cfg, _carry_tree(tree, like, "params", resolve_device(device))), axes, ctx)
 
 
 def _split_layer(parts, stacked=()):
@@ -359,3 +372,33 @@ def sharded_tree(tree, shardings, device=None):
         return {k: sharded_tree(v, shardings.get(k) if isinstance(shardings, dict) else shardings, device)
                 for k, v in tree.items()}
     return distribute(tensor(np.asarray(tree), device), shardings)
+
+
+def mesh_opt_state(state, update, device=None):
+    """The optimizer state of a ``MeshUpdate`` (``make_lm_train_step``'s
+    over a mesh, its ``opt.init`` layout) holding ``repro``'s state
+    ``state`` (an ``AdamState``'s ``step``, ``m`` and ``v``, or an
+    ``AdafactorState``'s ``step``, ``vr`` and ``vc``: nested dicts of f32
+    numpy arrays in the reference's stacked tree).  Every rank calls it
+    with the same state and keeps its blocks: the layout ``_opt_axes_safe``
+    gives the state's axes, ZeRO's included (a state entry that ZeRO
+    shards is keyed by the reference's stacked leaf)."""
+    from repro_torch.distributed.sharding import NamedSharding, distribute
+    from repro_torch.optim.optimizer import AdafactorState, AdamState, _factor_specs
+
+    dev = resolve_device(device)
+    fields = ("m", "v") if update.opt.name == "adamw" else ("vr", "vc")
+    out = {f: {} for f in fields}
+    for u in update.units:
+        for f in fields:
+            tree = getattr(state, f)
+            if u.zdim is None and update.opt.name == "adamw":
+                a = _reference_array(tree, u.key, ("blocks",))
+                spec = u.spec
+            else:
+                a = _reference_array(tree, u.key)
+                spec = u.spec if f in ("m", "v") else _factor_specs(u.spec)[f == "vc"]
+            t = tensor(np.asarray(a, np.float32), dev)
+            out[f][u.key] = distribute(t, NamedSharding(update.mesh, spec))
+    step = tensor(np.asarray(state.step, np.int32), dev)
+    return (AdamState if update.opt.name == "adamw" else AdafactorState)(step, *(out[f] for f in fields))

@@ -26,7 +26,9 @@ import torch
 
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.core.pipeline import _masked, _reorder
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import ParallelCtx
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 __all__ = ["encode", "cross_encoder_score", "make_proxy_scorer", "CrossEncoderReranker",
@@ -36,8 +38,10 @@ __all__ = ["encode", "cross_encoder_score", "make_proxy_scorer", "CrossEncoderRe
 def encode(params: T.Transformer, tokens: torch.Tensor, cfg: TransformerConfig,
            ctx: ParallelCtx, out_dim: int | None = None) -> torch.Tensor:
     """tokens [B, S] -> unit vectors [B, d_model] (mean pool over non-pad:
-    ids below ``vocab_size``, negative ones included)."""
+    ids below ``vocab_size``, negative ones included).  Under a mesh the
+    backbone runs sharded and the pooling on its gathered states."""
     hidden, _ = T.backbone(params, tokens, cfg, ctx)
+    hidden = T.gathered(hidden)
     dt = hidden.dtype
     mask = (tokens < cfg.vocab_size)[..., None]
     s = torch.where(mask, hidden, torch.zeros((), dtype=dt, device=hidden.device))
@@ -53,12 +57,30 @@ def cross_encoder_score(params: T.Transformer, q_tokens: torch.Tensor, d_tokens:
                         cfg: TransformerConfig, ctx: ParallelCtx) -> torch.Tensor:
     """Joint scoring: concat(q, doc) through the backbone, dot the pooled
     state (the mean over every position, pads included) with the first
-    column of the output head as a scalar relevance head."""
+    column of the output head as a scalar relevance head (under a mesh,
+    on the gathered states and that column alone)."""
     joint = torch.cat([q_tokens, d_tokens], dim=1)
     hidden, _ = T.backbone(params, joint, cfg, ctx)
+    hidden = T.gathered(hidden)
     pooled = hidden.float().mean(dim=1).to(hidden.dtype)
-    head = params.embed[0] if cfg.tie_embeddings else params.lm_head[:, 0]
+    head = _first_head_column(params, cfg, ctx)
     return (pooled.float() @ head.float()).to(pooled.dtype)
+
+
+def _first_head_column(params: T.Transformer, cfg: TransformerConfig, ctx: ParallelCtx) -> torch.Tensor:
+    """The output head's first column ``[d]`` (the tied embedding's row 0),
+    whole on every rank.  Under a mesh the vocabulary shard that holds id 0
+    gives it and the others zeros, summed over the vocabulary's axis, and
+    a split ``d`` is gathered: nothing else of the head moves.  Every rank
+    uses it alike, so its gradient is each rank's own."""
+    plan = L.RankPlan.of(ctx)
+    tied = cfg.tie_embeddings
+    axes = ("vocab", "embed") if tied else ("embed", "vocab")
+    blk = C.rank_block(params.embed if tied else params.lm_head, ctx.sharding(*axes), split=())
+    v0, vl = plan.block(cfg.padded_vocab, plan.vocab)
+    vdim = 0 if tied else 1
+    col = blk.select(vdim, 0) if v0 == 0 and vl > 0 else blk.new_zeros(blk.shape[1 - vdim])
+    return C.gather_axis(C.all_sum(col, plan.mesh, plan.vocab), plan.mesh, plan.embed, 0)
 
 
 def make_proxy_scorer(params: T.Transformer, cfg: TransformerConfig, ctx: ParallelCtx,

@@ -34,21 +34,95 @@ group (:func:`decode_attention`), never materialising the reference's
 ``jnp.repeat`` of the cache, and stops after the last chunk that holds a
 valid key; a chunk past it would leave the online softmax's state bit for
 bit unchanged.
+
+Under a mesh (a ``ParallelCtx`` with a ``DeviceMesh``) the apply functions
+are per-rank code, Megatron-style: ``params`` and ``x`` are this rank's
+blocks, laid out by the context's rules (:class:`RankPlan`).  The residual
+stream ``x [B_loc, S_loc, d]`` is split over the batch and ``seq_act``
+axes; attention and the FFN all-gather the sequence, compute this rank's
+heads (``"heads"``) or FFN columns (``"ff"``), and reduce-scatter their
+row-parallel products back to sequence blocks (a sum, then a slice, where
+the two axes differ).  The replicated ``wk``/``wv`` give every KV head; a
+rank keeps the groups its q heads read.  Head padding is masked by global
+head index.  The decode forms take the decode rules (weights split on
+``"embed"``, the cache's sequence on ``"kv_seq"``): the products over a
+split ``d`` are partial sums, summed over its axis, and attention
+combines each rank's running max, sum and accumulator over the cache's
+axis.  Without a mesh the same code runs with every axis ``None``: a
+rank's block is then the whole tensor and each collective the identity.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import TransformerConfig
-from repro_torch.distributed.sharding import ParallelCtx
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.mesh_utils import mesh_axis_size
+from repro_torch.distributed.sharding import ParallelCtx, axis_block
 
 __all__ = ["dense_init", "rmsnorm_init", "rmsnorm", "apply_rope", "flash_attention",
            "gqa_init", "gqa_apply", "decode_attention", "gqa_decode", "mla_init", "mla_apply",
-           "mla_decode", "swiglu_init", "swiglu_apply"]
+           "mla_decode", "swiglu_init", "swiglu_apply", "RankPlan"]
+
+
+@dataclasses.dataclass(frozen=True)
+class RankPlan:
+    """The mesh axes that the per-rank code of a ``ParallelCtx`` splits
+    each logical dim over (a name, a tuple of names, or None)."""
+
+    mesh: object
+    batch: object
+    seq: object
+    heads: object
+    kv_heads: object
+    ff: object
+    vocab: object
+    embed: object
+    kv_seq: object
+
+    @classmethod
+    def of(cls, ctx: Optional[ParallelCtx]) -> "RankPlan":
+        """The plan of ``ctx``'s mesh and rules (every axis None without a
+        mesh, or without a ``ctx``)."""
+        if ctx is None or ctx.mesh is None:
+            return _ONE_DEVICE
+        a = ctx.mesh_axes
+        return cls(ctx.mesh, a("batch"), a("seq_act"), a("heads"), a("kv_heads"), a("ff"), a("vocab"),
+                   a("embed"), a("kv_seq"))
+
+    def block(self, n: int, axes) -> Tuple[int, int]:
+        """(global start, length) of this rank's block of a dim of ``n``."""
+        return axis_block(n, self.mesh, axes)
+
+    def gather_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, S_loc, d] -> [B, S, d] (under autograd)."""
+        return C.gather_axis(x, self.mesh, self.seq, 1) if self.seq is not None else x
+
+    def reduce_seq(self, y: torch.Tensor, inner) -> torch.Tensor:
+        """``y [B, S, d]`` over the whole sequence, a partial sum over the
+        axes ``inner`` (None: complete) -> this rank's sequence block of the
+        sum: a reduce-scatter where both are one axis, else a sum over
+        ``inner`` and a slice."""
+        if inner is not None and inner == self.seq:
+            return C.scatter_axis(y, self.mesh, inner, 1)
+        if inner is not None:
+            y = C.all_sum(y, self.mesh, inner)
+        if self.seq is not None:
+            lo, n = self.block(y.shape[1], self.seq)
+            y = y.narrow(1, lo, n)
+        return y
+
+    def require(self, ok: bool, what: str):
+        if not ok:
+            raise ValueError(f"{what}: the per-rank code does not take these rules ({self})")
+
+
+_ONE_DEVICE = RankPlan(*(None,) * 9)
 
 
 # ---------------------------------------------------------------------------
@@ -269,32 +343,38 @@ def _head_mask(cfg: TransformerConfig, dtype, device=None) -> Optional[torch.Ten
     return ((heads % gpad) < rep_real).to(dtype)
 
 
-def _attend_out(params, out, cfg: TransformerConfig) -> torch.Tensor:
-    """Padded heads zeroed, then the output projection ``wo [h, dv, d]``."""
+def _attend_out(params, out, cfg: TransformerConfig, h0: int = 0) -> torch.Tensor:
+    """Padded heads zeroed (``out`` holds the heads from global index
+    ``h0`` on), then the output projection ``wo [h, dv, d]``."""
     hm = _head_mask(cfg, out.dtype, out.device)
     if hm is not None:
-        out = out * hm[None, None, :, None]
+        out = out * hm[h0:h0 + out.shape[2]][None, None, :, None]
     return torch.einsum("bshk,hkd->bsd", out, params["wo"])
 
 
 def gqa_apply(params, x, positions, cfg: TransformerConfig, ctx: ParallelCtx,
               causal=True, q_offset=0):
-    """Training/prefill attention over full sequences."""
+    """Training/prefill attention over full sequences.  Under a mesh,
+    ``params`` and ``x`` are this rank's blocks and ``positions [B_loc, S]``
+    the whole sequence's (see the module's docstring)."""
+    plan = RankPlan.of(ctx)
+    plan.require(plan.kv_heads is None and plan.embed is None, "gqa_apply")
     hp, hkv = cfg.padded_heads, cfg.n_kv_heads
-    rep = hp // hkv
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    h0, hl = plan.block(hp, plan.heads)
+    xf = plan.gather_seq(x)
+    q = torch.einsum("bsd,dhk->bshk", xf, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", xf, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", xf, params["wv"])
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    q = ctx.constrain(q, "batch", None, "heads", None)
-    k = torch.repeat_interleave(k, rep, dim=2)      # jnp.repeat: each KV head rep times in place
-    v = torch.repeat_interleave(v, rep, dim=2)
+    # jnp.repeat's head h reads KV head h // rep: keep this rank's heads' groups
+    groups = torch.div(torch.arange(h0, h0 + hl, device=x.device), hp // hkv, rounding_mode="floor")
+    k, v = k.index_select(2, groups), v.index_select(2, groups)
     out = flash_attention(q, k, v, causal=causal, q_offset=q_offset,
                           chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
-    return _attend_out(params, out, cfg)
+    return plan.reduce_seq(_attend_out(params, out, cfg, h0), plan.heads)
 
 
 def _write_slot(pos: int, smax: int) -> int:
@@ -315,13 +395,29 @@ def decode_attention(q, cache_k, cache_v, valid_len: int, chunk_kv: int,
     a masked chunk leaves ``m``, ``l`` and ``acc`` unchanged (``p = 0``,
     ``corr = 1``) while one valid score is finite, so the result equals
     the full scan's."""
+    m, l, acc = _decode_partials(q, cache_k, cache_v, valid_len, chunk_kv, n_chunks)
+    return _decode_finish(m, l, acc, cache_v.dtype)
+
+
+def _decode_finish(m, l, acc, dtype):
+    b, hkv, rep, dv = acc.shape
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(b, 1, hkv * rep, dv).to(dtype)
+
+
+def _decode_partials(q, cache_k, cache_v, valid_len: int, chunk_kv: int, n_chunks: Optional[int] = None,
+                     k0: int = 0):
+    """:func:`decode_attention`'s running max ``m``, sum ``l`` and
+    accumulator ``acc`` (f32 ``[B, Hkv, rep(, Dv)]``) over a cache block
+    whose first key sits at global position ``k0``."""
     b, _, h, dk = q.shape
     smax, hkv, dv = cache_k.shape[1], cache_k.shape[2], cache_v.shape[-1]
     rep = h // hkv
     ckv = min(chunk_kv, smax)
     assert smax % ckv == 0, (smax, ckv)
     if n_chunks is None:
-        n_chunks = smax // ckv if valid_len <= 0 else min(smax // ckv, -(-valid_len // ckv))
+        local = valid_len - k0
+        n_chunks = smax // ckv if valid_len <= 0 else max(0, min(smax // ckv, -(-local // ckv)))
     dev = q.device
     # the scale rounded to q's dtype first, as in flash_attention
     qs = (q * torch.tensor(1.0 / math.sqrt(dk), dtype=q.dtype).item()).float()
@@ -334,7 +430,7 @@ def decode_attention(q, cache_k, cache_v, valid_len: int, chunk_kv: int,
         kc = cache_k[:, ki * ckv:(ki + 1) * ckv].float()
         vc = cache_v[:, ki * ckv:(ki + 1) * ckv]
         s = torch.einsum("bgrd,bkgd->bgrk", qs, kc)
-        kpos = ki * ckv + torch.arange(ckv, device=dev)
+        kpos = k0 + ki * ckv + torch.arange(ckv, device=dev)
         s = s.masked_fill_(kpos >= valid_len, neg)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
@@ -343,8 +439,17 @@ def decode_attention(q, cache_k, cache_v, valid_len: int, chunk_kv: int,
         acc = acc * corr[..., None] + torch.einsum(
             "bgrk,bkgd->bgrd", p.to(cache_v.dtype).float(), vc.float())
         m = m_new
-    out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.reshape(b, 1, h, dv).to(cache_v.dtype)
+    return m, l, acc
+
+
+def _combine_partials(m, l, acc, mesh, axis):
+    """The partials of the ranks along ``axis`` (each over its block of the
+    keys) as one online softmax's: every rank rescaled to the global max."""
+    if axis is None:
+        return m, l, acc
+    mg = C.all_max(m, mesh, axis)
+    corr = torch.exp(m - mg)
+    return mg, C.all_sum(l * corr, mesh, axis), C.all_sum(acc * corr[..., None], mesh, axis)
 
 
 def gqa_decode(params, x, cache_k, cache_v, pos: int, cfg: TransformerConfig,
@@ -352,21 +457,44 @@ def gqa_decode(params, x, cache_k, cache_v, pos: int, cfg: TransformerConfig,
     """One-token decode.  x: [B, 1, d]; cache_[kv]: [B, Smax, Hkv, Dh],
     written in place at ``pos`` (clamped as the reference's
     ``dynamic_update_slice``); pos: the current length, a Python int
-    (tokens 0..pos-1 are valid).  Returns (y [B, 1, d], cache_k, cache_v)."""
+    (tokens 0..pos-1 are valid).  Returns (y [B, 1, d], cache_k, cache_v).
+    Under a mesh (the decode rules): x is the normed stream's ``"embed"``
+    block ``[B_loc, 1, d_loc]``, the caches this rank's ``"kv_seq"``
+    blocks, and y this rank's ``d`` block of the output."""
+    plan = RankPlan.of(ctx)
+    _decode_plan_ok(plan, "gqa_decode")
     b = x.shape[0]
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    mesh, e = plan.mesh, plan.embed
+    q = C.all_sum(torch.einsum("bsd,dhk->bshk", x, params["wq"]), mesh, e)
+    k = C.all_sum(torch.einsum("bsd,dhk->bshk", x, params["wk"]), mesh, e)
+    v = C.all_sum(torch.einsum("bsd,dhk->bshk", x, params["wv"]), mesh, e)
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q, posv, cfg.rope_theta)
     k = apply_rope(k, posv, cfg.rope_theta)
-    slot = _write_slot(pos, cache_k.shape[1])
-    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
-    out = decode_attention(q, cache_k, cache_v, pos + 1, cfg.attn_chunk_kv)
+    k0, slot = _rank_slot(cache_k, pos, plan)
+    if slot is not None:
+        cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    m, l, acc = _decode_partials(q, cache_k, cache_v, pos + 1, cfg.attn_chunk_kv, k0=k0)
+    out = _decode_finish(*_combine_partials(m, l, acc, mesh, plan.kv_seq), cache_v.dtype)
     return _attend_out(params, out, cfg), cache_k, cache_v
+
+
+def _decode_plan_ok(plan: RankPlan, what: str):
+    plan.require(plan.heads is None and plan.kv_heads is None and plan.ff is None and plan.vocab is None
+                  and plan.seq is None, what)
+
+
+def _rank_slot(cache_block, pos: int, plan: RankPlan):
+    """(the global position of this rank's first cached key, the row of
+    its block that ``pos`` writes, or None when the write lands in another
+    rank's block).  The cache's sequence splits evenly over ``kv_seq``."""
+    smax = cache_block.shape[1] * (1 if plan.kv_seq is None else mesh_axis_size(plan.mesh, plan.kv_seq))
+    k0, n = plan.block(smax, plan.kv_seq)
+    slot = _write_slot(pos, smax) - k0
+    return k0, (slot if 0 <= slot < n else None)
 
 
 # ---------------------------------------------------------------------------
@@ -393,15 +521,17 @@ def mla_init(gen, cfg: TransformerConfig, dtype, device=None):
     return p, a
 
 
-def _mla_qkv(params, x, positions, cfg: TransformerConfig):
+def _mla_qkv(params, x, positions, cfg: TransformerConfig, reduce=lambda t: t):
+    """(q_nope, q_pe, ckv, k_pe); ``reduce`` sums the two down-projections'
+    partial products where ``d`` is split (decode under a mesh)."""
     dn = cfg.qk_nope_head_dim
     kvr = cfg.kv_lora_rank
-    cq = rmsnorm(params["q_norm"], torch.einsum("bsd,dr->bsr", x, params["wq_a"]), cfg.norm_eps)
+    cq = rmsnorm(params["q_norm"], reduce(torch.einsum("bsd,dr->bsr", x, params["wq_a"])), cfg.norm_eps)
     q = torch.einsum("bsr,rhk->bshk", cq, params["wq_b"])
     q_nope, q_pe = q[..., :dn], q[..., dn:]
     q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
 
-    ckv_pe = torch.einsum("bsd,dr->bsr", x, params["wkv_a"])
+    ckv_pe = reduce(torch.einsum("bsd,dr->bsr", x, params["wkv_a"]))
     ckv, k_pe = ckv_pe[..., :kvr], ckv_pe[..., kvr:]
     ckv = rmsnorm(params["kv_norm"], ckv, cfg.norm_eps)
     k_pe = apply_rope(k_pe[:, :, None, :], positions, cfg.rope_theta)  # [B,S,1,dr]
@@ -410,17 +540,22 @@ def _mla_qkv(params, x, positions, cfg: TransformerConfig):
 
 def mla_apply(params, x, positions, cfg: TransformerConfig, ctx: ParallelCtx,
               causal=True, q_offset=0):
-    """Training/prefill MLA: expand latents to per-head K/V, flash attend."""
+    """Training/prefill MLA: expand latents to per-head K/V, flash attend.
+    Under a mesh, per-rank code as :func:`gqa_apply`'s: the replicated
+    down-projections give every rank the whole latents, and ``wq_b``,
+    ``wk_b`` and ``wv_b`` this rank's heads."""
     dr = cfg.qk_rope_head_dim
-    q_nope, q_pe, ckv, k_pe = _mla_qkv(params, x, positions, cfg)
+    plan = RankPlan.of(ctx)
+    plan.require(plan.embed is None, "mla_apply")
+    h0 = plan.block(cfg.padded_heads, plan.heads)[0]
+    q_nope, q_pe, ckv, k_pe = _mla_qkv(params, plan.gather_seq(x), positions, cfg)
     k_nope = torch.einsum("bsr,rhk->bshk", ckv, params["wk_b"])
     v = torch.einsum("bsr,rhk->bshk", ckv, params["wv_b"])
     q = torch.cat([q_nope, q_pe], dim=-1)
     k = torch.cat([k_nope, k_pe.expand(*k_nope.shape[:3], dr)], dim=-1)
-    q = ctx.constrain(q, "batch", None, "heads", None)
     out = flash_attention(q, k, v, causal=causal, q_offset=q_offset,
                           chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
-    return _attend_out(params, out, cfg)
+    return plan.reduce_seq(_attend_out(params, out, cfg, h0), plan.heads)
 
 
 def mla_decode(params, x, cache_ckv, cache_kpe, pos: int, cfg: TransformerConfig,
@@ -435,14 +570,19 @@ def mla_decode(params, x, cache_ckv, cache_kpe, pos: int, cfg: TransformerConfig
     roundings, one by one: ``q_lat`` rounded to the cache dtype, the two
     score products each rounded, their sum rounded, times the scale
     rounded to that dtype first; then f32 for the masked softmax, whose
-    probabilities go back to the cache dtype for ``ctx_lat``."""
+    probabilities go back to the cache dtype for ``ctx_lat``.  Under a
+    mesh (the decode rules), per-rank code as :func:`gqa_decode`'s: the
+    softmax over the split cache takes the global max and sum."""
     b = x.shape[0]
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q_nope, q_pe, ckv_new, kpe_new = _mla_qkv(params, x, posv, cfg)
-    slot = _write_slot(pos, cache_ckv.shape[1])
-    cache_ckv[:, slot] = ckv_new[:, 0].to(cache_ckv.dtype)
-    cache_kpe[:, slot] = kpe_new[:, 0, 0].to(cache_kpe.dtype)
+    plan = RankPlan.of(ctx)
+    _decode_plan_ok(plan, "mla_decode")
+    k0, slot = _rank_slot(cache_ckv, pos, plan)
+    q_nope, q_pe, ckv_new, kpe_new = _mla_qkv(params, x, posv, cfg, lambda t: C.all_sum(t, plan.mesh, plan.embed))
+    if slot is not None:
+        cache_ckv[:, slot] = ckv_new[:, 0].to(cache_ckv.dtype)
+        cache_kpe[:, slot] = kpe_new[:, 0, 0].to(cache_kpe.dtype)
 
     # absorb W_uk: q_lat[b,h,c] = sum_k q_nope[b,1,h,k] wk_b[c,h,k]
     q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], params["wk_b"])
@@ -450,10 +590,12 @@ def mla_decode(params, x, cache_ckv, cache_kpe, pos: int, cfg: TransformerConfig
     s = (torch.einsum("bhr,bsr->bhs", q_lat, cache_ckv)
          + torch.einsum("bhk,bsk->bhs", q_pe[:, 0], cache_kpe)) * scale
     s = s.float()
-    invalid = torch.arange(cache_ckv.shape[1], device=x.device) > pos
+    invalid = k0 + torch.arange(cache_ckv.shape[1], device=x.device) > pos
     s = s.masked_fill_(invalid, torch.finfo(torch.float32).min)
-    p = torch.softmax(s, dim=-1).to(cache_ckv.dtype)
-    ctx_lat = torch.einsum("bhs,bsr->bhr", p, cache_ckv)
+    # jax.nn.softmax over every rank's keys: exp(s - the global max) / the global sum
+    e = torch.exp(s - C.all_max(s.amax(dim=-1, keepdim=True), plan.mesh, plan.kv_seq))
+    p = (e / C.all_sum(e.sum(dim=-1, keepdim=True), plan.mesh, plan.kv_seq)).to(cache_ckv.dtype)
+    ctx_lat = C.all_sum(torch.einsum("bhs,bsr->bhr", p, cache_ckv), plan.mesh, plan.kv_seq)
     # apply W_uv per head, then the output projection
     out = torch.einsum("bhr,rhk->bhk", ctx_lat, params["wv_b"])
     return _attend_out(params, out[:, None], cfg), cache_ckv, cache_kpe
@@ -472,9 +614,18 @@ def swiglu_init(gen, d: int, d_ff: int, dtype, device=None):
     return p, a
 
 
-def swiglu_apply(params, x):
+def swiglu_apply(params, x, ctx: Optional[ParallelCtx] = None):
     """``silu(x @ w_gate) * (x @ w_in) @ w_out``; silu as ``jax.nn.silu``
-    writes it, ``g * sigmoid(g)``, each step rounded to ``x``'s dtype."""
-    g = x @ params["w_gate"]
-    h = g * torch.sigmoid(g) * (x @ params["w_in"])
-    return h @ params["w_out"]
+    writes it, ``g * sigmoid(g)``, each step rounded to ``x``'s dtype.
+    Under a mesh, per-rank code: with the training rules, ``x`` is this
+    rank's sequence block and ``w_in``/``w_gate`` its ``"ff"`` columns,
+    ``w_out`` its rows (the output reduce-scattered back to the block);
+    with the decode rules (``"embed"`` split), ``x`` is the normed
+    stream's ``d`` block, the two products over it partial sums, and the
+    output this rank's ``d`` block."""
+    plan = RankPlan.of(ctx)
+    plan.require(plan.embed is None or (plan.ff is None and plan.seq is None), "swiglu_apply")
+    x = plan.gather_seq(x)
+    g = C.all_sum(x @ params["w_gate"], plan.mesh, plan.embed)
+    h = g * torch.sigmoid(g) * C.all_sum(x @ params["w_in"], plan.mesh, plan.embed)
+    return plan.reduce_seq(h @ params["w_out"], plan.ff)

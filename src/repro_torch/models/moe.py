@@ -246,19 +246,6 @@ def _moe_ep_body_2d(params, x: torch.Tensor, cfg: TransformerConfig, mesh, ep_ax
     return y, aux
 
 
-def _rank_block(x, sharding: NamedSharding):
-    """This rank's block of ``x`` as ``sharding`` lays it out: from a
-    ``DTensor`` (redistributed if laid out otherwise; its gradient summed
-    over the axes it is replicated on, as a ``shard_map`` input's), or
-    sliced from a tensor every rank holds whole (its gradient then the
-    logical one on every rank)."""
-    if isinstance(x, DTensor):
-        if tuple(x.placements) != sharding.placements:
-            x = x.redistribute(sharding.mesh, sharding.placements)
-        return C.sum_grad(x.to_local(), sharding.mesh, sharding.replicated_axes())
-    return C.to_block(x, sharding)
-
-
 def moe_apply(params, x: torch.Tensor, cfg: TransformerConfig,
               ctx: ParallelCtx) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, d] -> (y [B, S, d], aux loss).
@@ -299,8 +286,8 @@ def moe_apply(params, x: torch.Tensor, cfg: TransformerConfig,
     x_sh = NamedSharding(mesh, (dp, sp, None))
     w_specs = {"wg": (None, None), "w_in": (ep_axis, None, ff_axis), "w_gate": (ep_axis, None, ff_axis),
                "w_out": (ep_axis, ff_axis, None)}
-    p = {k: _rank_block(params[k], NamedSharding(mesh, spec)) for k, spec in w_specs.items()}
-    xin = _rank_block(x, x_sh)
+    p = {k: C.rank_block(params[k], NamedSharding(mesh, spec), deferred=ctx.deferred) for k, spec in w_specs.items()}
+    xin = C.rank_block(x, x_sh)
 
     if ff_axis is not None:
         y, aux = _moe_ep_body_2d(p, xin, cfg, mesh, ep_axis, sp, n_ep, e_loc)

@@ -24,23 +24,38 @@ distributions and scales; parity with ``repro`` goes through
 ``interop.recsys_params``.  Masks are -1e9 as in the reference, so a
 history that is all padding attends uniformly over zero rows, and BST
 pools with a mean over all ``S + 1`` positions (pads as zeros).  DIEN's
-GRUs run their 2 x ``seq_len`` steps as a Python loop.  Only the forward
-pass is ported: training waits for ``optim/`` and ``launch/train.py``.
+GRUs run their 2 x ``seq_len`` steps as a Python loop.
+
+Under a mesh (``DEFAULT_RECSYS_RULES``) every rank calls each entry point
+with the same logical arguments and runs per-rank code on its block of
+the batch: a row-sharded table (``"table_rows"``) is looked up by every
+rank of the rows' axis on its rows alone, the id wrapped by ``jnp.take``'s
+rule first (so that an id in ``[-V, 0)`` lands in the shard that one
+device reads, one below ``-V`` is NaN and one ``>= V`` zero), and the
+partial rows are summed over that axis; everything after the lookups
+runs on the batch block.  A parameter block's gradient is summed over
+the batch's axes.  ``user_tower`` and ``forward_logits`` return
+``DTensor``s split over the batch, ``bce_loss`` a scalar every rank
+holds, and ``retrieval_scores`` whole top-k lists: the candidates split
+over ``"candidates"``, each rank's top-k merged by ``distributed_topk``.
 """
 
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import RecSysConfig
 from repro_torch.core.brute_force import select_topk
 from repro_torch.core.pipeline import _masked as _finite_only, _reorder
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import ParallelCtx, require_no_mesh
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import NamedSharding, ParallelCtx, axis_block
 from repro_torch.models.transformer import _parameter_dict, gather_rows, torch_dtype
 
 __all__ = ["embedding_lookup", "embedding_bag", "embedding_bag_ragged", "init_recsys",
@@ -67,9 +82,42 @@ def embedding_lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where((idx < v)[..., None], out, zero)
 
 
+class RowBlock(NamedTuple):
+    """This rank's rows ``[start, start + len(rows))`` of a table of
+    ``n_rows`` split over the mesh axes ``axis``."""
+
+    rows: torch.Tensor
+    start: int
+    n_rows: int
+    mesh: object
+    axis: object
+
+    @property
+    def shape(self):
+        return (self.n_rows, *self.rows.shape[1:])
+
+
+def _lookup(table, idx: torch.Tensor) -> torch.Tensor:
+    """:func:`embedding_lookup` of a whole table or of a :class:`RowBlock`:
+    each rank reads the ids of its range (after ``jnp.take``'s wrap), and
+    the partial rows are summed over the rows' axis."""
+    if not isinstance(table, RowBlock):
+        return embedding_lookup(table, idx)
+    v, lo = table.n_rows, table.start
+    idx = idx.long()
+    safe = idx.clamp(max=v - 1)
+    safe = torch.where(safe < 0, safe + v, safe)
+    mine = (safe >= lo) & (safe < lo + table.rows.shape[0])
+    zero = torch.zeros((), dtype=table.rows.dtype, device=table.rows.device)
+    out = torch.where(mine[..., None], table.rows[torch.where(mine, safe - lo, 0)], zero)
+    out = C.all_sum(out, table.mesh, table.axis)
+    out = torch.where((safe < 0)[..., None], torch.full_like(zero, math.nan), out)
+    return torch.where((idx < v)[..., None], out, zero)
+
+
 def embedding_bag(table: torch.Tensor, idx: torch.Tensor, mode: str = "sum") -> torch.Tensor:
     """Padded multi-hot bag: idx [..., M] (pad id = n_rows) -> [..., D]."""
-    emb = embedding_lookup(table, idx)
+    emb = _lookup(table, idx)
     if mode == "sum":
         return emb.sum(dim=-2)
     count = torch.clamp_min((idx < table.shape[0]).sum(dim=-1, keepdim=True), 1)
@@ -229,7 +277,7 @@ def _field_embeds(params: RecSys, cfg: RecSysConfig, batch: RecBatch):
     for f in cfg.fields:
         idx = batch.fields[f.name]
         t = params.tables[f.name]
-        outs.append(embedding_bag(t, idx) if idx.dim() == 2 else embedding_lookup(t, idx))
+        outs.append(embedding_bag(t, idx) if idx.dim() == 2 else _lookup(t, idx))
     return outs
 
 
@@ -273,16 +321,71 @@ def _gru_scan(p, xs, mask, att: Optional[torch.Tensor] = None, unroll: bool = Fa
     return torch.stack(hs, dim=1), h
 
 
+def _rank_params(params: RecSys, cfg: RecSysConfig, ctx: ParallelCtx):
+    """This rank's blocks of every parameter (a row-sharded table as a
+    :class:`RowBlock`), each block's gradient summed over the batch's
+    axes: every rank of another axis sees the same batch block."""
+    _, axes = init_recsys(cfg, device="meta")
+    split = ctx.mesh_axes("batch")
+
+    def walk(node, ax):
+        if isinstance(node, torch.Tensor):
+            sh = ctx.sharding(*ax)
+            block = C.rank_block(node, sh, split)
+            rows = sh.spec[0] if node.dim() == 2 else None
+            if rows is None:
+                return block
+            start, _ = axis_block(node.shape[0], ctx.mesh, rows)
+            return RowBlock(block, start, node.shape[0], ctx.mesh, rows)
+        if isinstance(node, (list, nn.ModuleList)):
+            return [walk(v, a) for v, a in zip(node, ax)]
+        return {k: walk(v, ax[k]) for k, v in node.items()}
+
+    out = {name: walk(p, axes[name]) for name, p in params.named_parameters(recurse=False)}
+    out.update((name, walk(m, axes[name])) for name, m in params.named_children())
+    return SimpleNamespace(**out)
+
+
+def _batch_block(batch: RecBatch, ctx: ParallelCtx) -> RecBatch:
+    """Each field of ``batch`` (whole on every rank) cut to this rank's
+    rows of the batch."""
+    def cut(x):
+        if x is None:
+            return None
+        lo, n = axis_block(x.shape[0], ctx.mesh, ctx.mesh_axes("batch"))
+        return x[lo:lo + n]
+    return RecBatch({k: cut(v) for k, v in batch.fields.items()}, cut(batch.history), cut(batch.target_item),
+                    cut(batch.label), cut(batch.candidates))
+
+
+def _batch_dtensor(local: torch.Tensor, b: int, ctx: ParallelCtx) -> DTensor:
+    sh = NamedSharding(ctx.mesh, (ctx.mesh_axes("batch"),) + (None,) * (local.dim() - 1))
+    shape = (b, *local.shape[1:])
+    return DTensor.from_local(local, sh.mesh, sh.placements, run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
 def user_tower(params: RecSys, cfg: RecSysConfig, batch: RecBatch, ctx: ParallelCtx):
-    """Dense user representation [B, D_repr]."""
-    require_no_mesh(ctx, "user_tower")
+    """Dense user representation [B, D_repr] (under a mesh a ``DTensor``
+    split over the batch)."""
+    if ctx.mesh is not None:
+        u = _tower(_rank_params(params, cfg, ctx), cfg, _batch_block(batch, ctx))
+        return _batch_dtensor(u, _batch_size(batch), ctx)
+    return _tower(params, cfg, batch)
+
+
+def _batch_size(batch: RecBatch) -> int:
+    return next(iter(batch.fields.values())).shape[0]
+
+
+def _tower(params, cfg: RecSysConfig, batch: RecBatch):
     feats = _field_embeds(params, cfg, batch)
     if cfg.kind == "wide_deep":
         return torch.cat(feats, dim=-1)
     item_t = params.tables["item"]
-    hist_e = embedding_lookup(item_t, batch.history)          # [B, S, D]
+    hist_e = _lookup(item_t, batch.history)                   # [B, S, D]
     hist_mask = batch.history < cfg.item_vocab
-    target_e = embedding_lookup(item_t, batch.target_item)
+    target_e = _lookup(item_t, batch.target_item)
     if cfg.kind == "din":
         interest = _din_interest(params, hist_e, hist_mask, target_e)
         return torch.cat(feats + [interest, target_e], dim=-1)
@@ -316,19 +419,35 @@ def user_tower(params: RecSys, cfg: RecSysConfig, batch: RecBatch, ctx: Parallel
 
 
 def forward_logits(params: RecSys, cfg: RecSysConfig, batch: RecBatch, ctx: ParallelCtx):
-    u = ctx.constrain(user_tower(params, cfg, batch, ctx), "batch", None)
-    logit = _mlp_apply(params.mlp, u)[..., 0]
+    """Logits [B] (under a mesh a ``DTensor`` split over the batch)."""
+    if ctx.mesh is not None:
+        logit = _logits(_rank_params(params, cfg, ctx), cfg, _batch_block(batch, ctx))
+        return _batch_dtensor(logit, _batch_size(batch), ctx)
+    return _logits(params, cfg, batch)
+
+
+def _logits(params, cfg: RecSysConfig, batch: RecBatch):
+    logit = _mlp_apply(params.mlp, _tower(params, cfg, batch))[..., 0]
     if cfg.kind == "wide_deep":
         for f in cfg.fields:
             idx = batch.fields[f.name]
             t = params.wide[f.name]
-            logit = logit + (embedding_bag(t, idx) if idx.dim() == 2
-                             else embedding_lookup(t, idx))[..., 0]
+            logit = logit + (embedding_bag(t, idx) if idx.dim() == 2 else _lookup(t, idx))[..., 0]
     return logit
 
 
+def _bce_sum(logit, y):
+    return torch.sum(torch.clamp_min(logit, 0) - logit * y + torch.log1p(torch.exp(-logit.abs())))
+
+
 def bce_loss(params: RecSys, cfg: RecSysConfig, batch: RecBatch, ctx: ParallelCtx):
-    """Mean binary cross-entropy of the logits."""
+    """Mean binary cross-entropy of the logits (under a mesh: each rank's
+    sum over its batch block, summed over the batch's axes)."""
+    if ctx.mesh is not None:
+        local = _batch_block(batch, ctx)
+        part = _bce_sum(_logits(_rank_params(params, cfg, ctx), cfg, local).float(), local.label)
+        loss = C.all_sum(part, ctx.mesh, ctx.mesh_axes("batch")) / _batch_size(batch)
+        return loss, {"bce": loss}
     logit = forward_logits(params, cfg, batch, ctx).float()
     y = batch.label
     loss = torch.mean(torch.clamp_min(logit, 0) - logit * y + torch.log1p(torch.exp(-logit.abs())))
@@ -338,7 +457,12 @@ def bce_loss(params: RecSys, cfg: RecSysConfig, batch: RecBatch, ctx: ParallelCt
 def user_query(params: RecSys, cfg: RecSysConfig, batch: RecBatch, ctx: ParallelCtx) -> torch.Tensor:
     """The retrieval query [B, embed_dim]: the user representation
     projected to item space by the first MLP layer's leading columns, a
-    learned projection shared with ranking."""
+    learned projection shared with ranking (under a mesh a ``DTensor``
+    split over the batch)."""
+    if ctx.mesh is not None:
+        view = _rank_params(params, cfg, ctx)
+        uq = _tower(view, cfg, _batch_block(batch, ctx)) @ view.mlp[0]["w"][:, : cfg.embed_dim]
+        return _batch_dtensor(uq, _batch_size(batch), ctx)
     return user_tower(params, cfg, batch, ctx) @ params.mlp[0]["w"][:, : cfg.embed_dim]
 
 
@@ -347,13 +471,45 @@ def retrieval_scores(params: RecSys, cfg: RecSysConfig, batch: RecBatch, ctx: Pa
     """Two-tower candidate scoring (the paper's candidate generation): the
     user query against ``batch.candidates``' item embeddings -> (top-k
     scores, their candidate ids), in ``lax.top_k``'s order (ties toward
-    the lower candidate position)."""
+    the lower candidate position).  Under a mesh the candidates split
+    over ``"candidates"`` (less any axis the batch takes): each rank looks
+    its block up, scores it, and the ranks' top-k lists are merged; the
+    results come back whole on every rank."""
+    if ctx.mesh is not None:
+        return _retrieval_rank(params, cfg, batch, ctx, k)
     uq = user_query(params, cfg, batch, ctx)                   # [B, D]
     cand_e = embedding_lookup(params.tables["item"], batch.candidates)   # [B, N, D]
-    cand_e = ctx.constrain(cand_e, "batch", "candidates", None)
     scores = torch.einsum("bd,bnd->bn", uq, cand_e)
     vals, pos = select_topk(scores, k)
     return vals, torch.gather(batch.candidates, 1, pos)
+
+
+def _retrieval_rank(params: RecSys, cfg: RecSysConfig, batch: RecBatch, ctx: ParallelCtx, k: int):
+    mesh = ctx.mesh
+    view = _rank_params(params, cfg, ctx)
+    local = _batch_block(batch, ctx)
+    uq = _tower(view, cfg, local) @ view.mlp[0]["w"][:, : cfg.embed_dim]           # [B_loc, D]
+    b_axes = C.axis_names(ctx.mesh_axes("batch"))
+    c_axes = tuple(a for a in C.axis_names(ctx.mesh_axes("candidates")) if a not in b_axes)
+    table = view.tables["item"]
+    t_axes = C.axis_names(table.axis) if isinstance(table, RowBlock) else ()
+    cands = local.candidates
+    n = cands.shape[1]
+    # the table's axis looks up, for the block its ranks share, the rows of
+    # every candidate id; each of them then keeps its own block
+    outer = tuple(a for a in c_axes if a not in t_axes) or None
+    o0, on = axis_block(n, mesh, outer)
+    c0, cn = axis_block(n, mesh, c_axes or None)
+    cand_e = _lookup(table, cands[:, o0:o0 + on])[:, c0 - o0:c0 - o0 + cn]
+    scores = torch.einsum("bd,bnd->bn", uq, cand_e)
+    if c_axes:
+        vals, pos = C.distributed_topk(scores, c0, k, c_axes, mesh=mesh)
+    else:
+        vals, pos = select_topk(scores, k)
+    ids = torch.gather(cands, 1, pos.long())
+    sh = NamedSharding(mesh, (ctx.mesh_axes("batch"), None))
+    b = batch.candidates.shape[0]
+    return C.gather_full(vals, sh, (b, k)), C.gather_full(ids, sh, (b, k))
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,7 @@ the unit vectors the molecule k-NN search indexes.
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
 import torch
@@ -39,7 +40,8 @@ from repro_torch.core.brute_force import exact_topk, select_topk
 from repro_torch.core.pipeline import _masked, _reorder
 from repro_torch.core.spaces import DenseSpace
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import ParallelCtx, require_no_mesh
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import ParallelCtx, axis_block
 from repro_torch.models.recsys import _normal, segment_sum
 from repro_torch.models.transformer import _parameter_dict, gather_rows, torch_dtype
 
@@ -147,24 +149,43 @@ class GraphBatch(NamedTuple):
 
 
 def cfconv(blk, x, batch: GraphBatch, cfg: SchNetConfig, ctx: ParallelCtx):
-    """Continuous-filter convolution: x_i <- sum_j x_j * W(rbf(d_ij))."""
+    """Continuous-filter convolution: x_i <- sum_j x_j * W(rbf(d_ij)).
+    Under a mesh, per-rank code: ``x`` (every node) is whole on every
+    rank, ``batch`` holds this rank's block of the edges (``"edges"``),
+    and each rank's messages are summed into the nodes over the edges'
+    axes."""
     n = x.shape[0]
     h = _apply_dense(blk["atom_in"], x)
+    edges = ctx.mesh_axes("edges") if ctx.mesh is not None else None
+    if edges is not None:
+        # each rank reads the senders of its own edges: the node states'
+        # cotangent is the sum of every rank's
+        h = C.sum_grad(h, ctx.mesh, edges)
     w = rbf_expand(batch.distances, cfg.n_rbf, cfg.cutoff).to(x.dtype)
     w = ssp(_apply_dense(blk["filter1"], w))
     w = ssp(_apply_dense(blk["filter2"], w))                 # [E, d]
     msg = gather_rows(h, batch.senders) * w
     if batch.edge_mask is not None:
         msg = torch.where(batch.edge_mask[:, None], msg, torch.zeros((), dtype=msg.dtype, device=msg.device))
-    msg = ctx.constrain(msg, "edges", None)
-    agg = ctx.constrain(segment_sum(msg, batch.receivers, n), "nodes", None)
+    agg = segment_sum(msg, batch.receivers, n)
+    if edges is not None:
+        agg = C.all_sum(agg, ctx.mesh, edges)
     h = ssp(_apply_dense(blk["atom_mid"], agg))
     return x + _apply_dense(blk["atom_out"], h)
 
 
 def schnet_apply(params: SchNet, batch: GraphBatch, cfg: SchNetConfig, ctx: ParallelCtx):
-    """Per-node hidden states [N, d]."""
-    require_no_mesh(ctx, "schnet_apply")
+    """Per-node hidden states [N, d].  Under a mesh (``DEFAULT_GNN_RULES``)
+    every rank calls it with the same logical arguments and gets every
+    node's states: each rank takes its block of the edges, its filter
+    weights' gradients summed over the edges' axes (the other weights see
+    every node on every rank)."""
+    if ctx.mesh is not None:
+        params, batch = _rank_params(params, cfg, ctx), _edge_block(batch, ctx)
+    return _apply(params, batch, cfg, ctx)
+
+
+def _apply(params, batch: GraphBatch, cfg: SchNetConfig, ctx: ParallelCtx):
     if cfg.d_feat_in:
         x = _apply_dense(params.in_proj, batch.node_feat.to(torch_dtype(cfg.dtype)))
     else:
@@ -172,6 +193,36 @@ def schnet_apply(params: SchNet, batch: GraphBatch, cfg: SchNetConfig, ctx: Para
     for blk in params.blocks:
         x = cfconv(blk, x, batch, cfg, ctx)
     return x
+
+
+def _rank_params(params: SchNet, cfg: SchNetConfig, ctx: ParallelCtx):
+    """This rank's blocks of the parameters (the layout of ``init_schnet``'s
+    axes), the filters' gradients summed over the edges' axes."""
+    _, axes = init_schnet(cfg, device="meta")
+    edges = ctx.mesh_axes("edges")
+
+    def blk(node, ax, split):
+        if isinstance(node, torch.Tensor):
+            return C.rank_block(node, ctx.sharding(*ax[1:] if len(ax) > node.dim() else ax), split)
+        return {k: blk(v, ax[k], split) for k, v in node.items()}
+
+    out = {}
+    for name, sub in params.named_children():
+        if name == "blocks":
+            out[name] = [{k: blk(v, axes[name][k], edges if k.startswith("filter") else ())
+                          for k, v in b.items()} for b in sub]
+        else:
+            out[name] = blk(sub, axes[name], ())
+    for name, p in params.named_parameters(recurse=False):
+        out[name] = blk(p, axes[name], ())
+    return SimpleNamespace(**out)
+
+
+def _edge_block(batch: GraphBatch, ctx: ParallelCtx) -> GraphBatch:
+    lo, n = axis_block(batch.senders.shape[0], ctx.mesh, ctx.mesh_axes("edges"))
+    cut = lambda x: None if x is None else x[lo:lo + n]   # noqa: E731
+    return batch._replace(senders=cut(batch.senders), receivers=cut(batch.receivers),
+                          distances=cut(batch.distances), edge_mask=cut(batch.edge_mask))
 
 
 def node_readout(params: SchNet, x):
@@ -187,8 +238,12 @@ def energy_readout(params: SchNet, x, graph_ids, n_graphs):
 def schnet_loss(params: SchNet, batch: GraphBatch, cfg: SchNetConfig, ctx: ParallelCtx,
                 n_graphs: int = 0):
     """Mean squared error of the energy (molecules) or node (full graph)
-    predictions."""
-    x = schnet_apply(params, batch, cfg, ctx)
+    predictions.  Under a mesh every rank holds the same loss."""
+    if ctx.mesh is not None:
+        params = _rank_params(params, cfg, ctx)
+        x = _apply(params, _edge_block(batch, ctx), cfg, ctx)
+    else:
+        x = schnet_apply(params, batch, cfg, ctx)
     if batch.graph_ids is not None:
         pred = energy_readout(params, x, batch.graph_ids, n_graphs)
     else:

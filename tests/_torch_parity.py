@@ -509,3 +509,47 @@ def run_ranks(body, world: int, tmp_path, *args, timeout: float = 180.0):
                 p.join(timeout=10.0)
         results.close()
     return [got[r] for r in range(world)]
+
+
+# ---- repro on forced host devices: the reference side of the mesh tests ----
+
+class ReproMesh:
+    """``tests/_torch_mesh_ref.<fn>(*args)`` running in a subprocess that
+    sees ``n_devices`` forced host devices (JAX fixes its device count when
+    it starts, so the test process, which sees one, cannot run it); the
+    arguments and the result go through pickle files under ``tmp_path``.
+    It starts at once, so that the port's ranks can run meanwhile;
+    :meth:`result` waits for it."""
+
+    def __init__(self, fn: str, tmp_path, *args, n_devices: int = 8, timeout: float = 300.0):
+        import pickle
+        import subprocess
+        import sys
+
+        stem = os.path.join(str(tmp_path), uuid.uuid4().hex)
+        self.out_path, self.timeout = stem + ".out", timeout
+        with open(stem + ".in", "wb") as f:
+            pickle.dump(args, f)
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, XLA_FLAGS=f"--xla_force_host_platform_device_count={n_devices}",
+                   JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join([os.path.join(os.path.dirname(here), "src"), here]))
+        code = ("import pickle\nimport _torch_mesh_ref as m\n"
+                f"args = pickle.load(open({stem + '.in'!r}, 'rb'))\n"
+                f"pickle.dump(m.{fn}(*args), open({self.out_path!r}, 'wb'))\n")
+        self.proc = subprocess.Popen([sys.executable, "-c", code], env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+
+    def result(self):
+        import pickle
+        import subprocess
+
+        try:
+            out, err = self.proc.communicate(timeout=self.timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.communicate()
+            raise AssertionError(f"repro's mesh reference took over {self.timeout} s")
+        if self.proc.returncode != 0:
+            raise AssertionError(f"repro's mesh reference failed:\n{out[-2000:]}\n{err[-4000:]}")
+        with open(self.out_path, "rb") as f:
+            return pickle.load(f)

@@ -213,3 +213,34 @@ def test_repro_written_directory_restored(tmp_path, optimizer):
     bad = {"params": model_and_state("smollm-360m", "bfloat16", seed=5)[0]}
     with pytest.raises((ValueError, KeyError)):
         interop.restore_repro_checkpoint(path, bad)
+
+
+def test_loaded_leaves_are_a_whole_mapping_each_read_once(tmp_path, monkeypatch):
+    """``load_leaves`` gives every leaf through ``items``, ``values``,
+    ``get`` and ``in``, bit for bit; a leaf asked for again is read from its
+    file once.  ``restore_repro_checkpoint``, which asks for a stacked leaf
+    once a layer, reads each file once and restores every layer."""
+    tree = small_tree()
+    path = save_checkpoint(str(tmp_path / "port"), 2, tree)
+    want = TCK.flatten_with_paths(tree)
+    reads = []
+    load = np.load
+    monkeypatch.setattr(TCK.np, "load", lambda f, *a, **k: reads.append(f) or load(f, *a, **k))
+    got = TCK.load_leaves(path)
+    assert len(got) == len(want) and list(got) == list(want)
+    assert all(k in got for k in want) and "missing" not in got and got.get("missing") is None
+    assert [k for k, _ in got.items()] == list(want)
+    for (k, a), v in zip(want.items(), got.values()):
+        assert same_bits(a, v) and same_bits(a, got.get(k)), k
+    assert len(reads) == len(want)
+
+    arch = "qwen2.5-3b"
+    p = lm_reference_params(arch, "float32")
+    jpath = j_save(str(tmp_path / "repro"), 1, {"params": p})
+    model, _ = model_and_state(arch, "float32", seed=3)
+    reads.clear()
+    assert interop.restore_repro_checkpoint(jpath, {"params": model}) == 1
+    assert len(reads) == len(set(reads)) == len(TCK.load_leaves(jpath))
+    _, tcfg = lm_configs(arch, "float32")
+    for (k, w), (_, t) in zip(lm_model(p, tcfg).named_parameters(), model.named_parameters()):
+        assert torch.equal(w, t), k

@@ -42,11 +42,11 @@ def test_remat_matches_no_remat_bit_for_bit(monkeypatch):
             cfg = dataclasses.replace(tcfg, remat=remat)
             model = fresh_model(cfg)
             calls = []
-            orig = TT.block_apply
-            monkeypatch.setattr(TT, "block_apply", lambda *a, **k: calls.append(1) or orig(*a, **k))
+            orig = TT._block_rank     # a layer's body, which the backbone runs (and remat reruns)
+            monkeypatch.setattr(TT, "_block_rank", lambda *a, **k: calls.append(1) or orig(*a, **k))
             loss, _ = TT.lm_loss(model, batch, cfg, ParallelCtx(None, cfg.rules))
             loss.backward()
-            monkeypatch.setattr(TT, "block_apply", orig)
+            monkeypatch.setattr(TT, "_block_rank", orig)
             assert len(calls) == cfg.n_layers * (2 if remat else 1), (arch, remat, len(calls))
             grads[remat] = {n: p.grad for n, p in model.named_parameters()}
         for n in grads[False]:

@@ -150,39 +150,6 @@ def test_full_config_shapes_equal_repro(arch):
     assert sum(p.numel() for p in model.parameters()) == sum(int(np.prod(leaf.shape)) for _, leaf in flat)
 
 
-def _entry_points():
-    from repro_torch.models import recsys as TR
-    from repro_torch.models import schnet as TS
-
-    cfg = tc.get_smoke_config("smollm-360m")
-    tokens = torch.zeros(2, 8, dtype=torch.int32, device="meta")
-    return {
-        "backbone": lambda m, ctx: TT.backbone(m, tokens, cfg, ctx),
-        "block_apply": lambda m, ctx: TT.block_apply(m.blocks[0], torch.zeros(2, 8, cfg.d_model, device="meta"),
-                                                     None, cfg, ctx),
-        "prefill_step": lambda m, ctx: TT.prefill_step(m, tokens, cfg, ctx),
-        "decode_step": lambda m, ctx: TT.decode_step(m, None, tokens[:, :1], 0, cfg, ctx),
-        "lm_loss": lambda m, ctx: TT.lm_loss(m, {"tokens": tokens, "targets": tokens}, cfg, ctx),
-        "recsys forward_logits": lambda m, ctx: TR.forward_logits(None, tc.get_smoke_config("din"), None, ctx),
-        "schnet_apply": lambda m, ctx: TS.schnet_apply(None, None, tc.get_smoke_config("schnet"), ctx),
-    }
-
-
-@pytest.mark.parametrize("entry", ["backbone", "block_apply", "prefill_step", "decode_step", "lm_loss",
-                                   "recsys forward_logits", "schnet_apply"])
-def test_model_entry_points_with_a_mesh_still_raise(entry):
-    """Running the models sharded is a later slice: with a mesh, the model
-    entry points raise before any work (``moe_apply`` alone takes one)."""
-    from torch.distributed.device_mesh import DeviceMesh
-
-    mesh = DeviceMesh("cpu", torch.arange(4).reshape(1, 4), mesh_dim_names=("data", "model"),
-                      _init_backend=False, _rank=0)     # a stand-in: no process group, nothing communicates
-    cfg = tc.get_smoke_config("smollm-360m")
-    model, _ = TT.init_transformer(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match="sharded-model slice"):
-        _entry_points()[entry](model, ParallelCtx(mesh, cfg.rules))
-
-
 def test_init_transformer_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
