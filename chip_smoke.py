@@ -85,7 +85,12 @@ through ``launch.train.train_lm`` at 4 x 4,096 tokens with checkpoints
 and a resumed run; DIN and SchNet train steps at published widths; no
 kernel of the port either), then expert parallelism ("moe ep full": phi3.5-moe's MoE layer as
 published over (1, 4) and arctic-480b's over (2, 2) through the 2-D split, bf16, against ``moe_local``
-on the card, then both at their smoke configs in f32).  Each
+on the card, then both at their smoke configs in f32).  Last, the dry
+run ("dryrun"), after every timed phase: ``repro_torch.launch.dryrun
+--both-meshes`` (fake CPU tensors, nice 19) traces all 40 cells on the
+(16, 16) and (2, 16, 16) meshes, every one ok, while three cells are
+traced on a world of one rank and then run on the card, their predicted
+peak memory and FLOPs held against the measured.  Each
 served path runs with the launch counters set to 0 just before and read
 just after.  The last lines are the ``kernels`` JSON, the card's name and
 power limit, and ``{"ok": true, ...}``.  Any failure raises and exits
@@ -109,10 +114,12 @@ held to the same rule, f32-min entries aligned exactly.
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -6155,6 +6162,254 @@ def sync(torch, on_card):
         torch.cuda.synchronize()
 
 
+# ---- the dry run ("dryrun") ------------------------------------------------
+
+# the dry run's sweep (every cell on both production meshes) and its card check: the cells traced on a
+# world of one rank and then run once on the card (an LM's batch cut to the rows given)
+DRYRUN = dict(workers=8, limit_s=300.0, mem_rel=0.10, mem_abs=0.5e9, flops_rel=0.01,
+              cells=(("smollm-360m", "train_4k", 4), ("qwen2.5-3b", "decode_32k", 16),
+                     ("din", "retrieval_cand", None)))
+HERE = Path(__file__).resolve().parent
+
+
+def dryrun_sweep_start(on_card):
+    """Start ``python -m repro_torch.launch.dryrun --both-meshes`` in the
+    background, at the lowest CPU priority (``nice`` 19) and without the
+    card (fake CPU tensors, no CUDA context), so that the card check, which
+    times nothing, runs beside it; a CPU rehearsal sweeps one cell.
+    Returns what ``dryrun_phase`` waits for."""
+    import os
+    import tempfile
+
+    out = tempfile.mkdtemp(prefix="dryrun_")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--both-meshes", "--device", "cpu",
+           "--workers", str(DRYRUN["workers"]), "--out", out]
+    if not on_card:
+        cmd += ["--arch", "schnet", "--shape", "molecule"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(HERE / "src"), os.environ.get("PYTHONPATH", "")]),
+               CUDA_VISIBLE_DEVICES="")
+    logf = open(os.path.join(out, "sweep.log"), "w")
+    proc = subprocess.Popen(cmd, cwd=str(HERE), env=env, stdout=logf, stderr=subprocess.STDOUT,
+                            start_new_session=True, preexec_fn=lambda: os.nice(19))
+    atexit.register(_stop_group, proc)    # the sweep and its workers end with the run, however it ends
+    return dict(proc=proc, out=out, log=logf, t0=time.perf_counter(), cpu0=os.times())
+
+
+def _stop_group(proc):
+    import os
+    import signal
+
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+
+
+def attn_tile_flops(cfg, batch, seq, chunk_q, chunk_kv, remat=True):
+    """Operations of one LM train step's attention as the port's tiles run
+    it (``models/layers.py`` ``_flash_forward`` and ``_FlashAttention``),
+    every layer, padded heads included: the forward's two products a tile
+    over every tile, the causal ones above the diagonal too (twice with
+    remat: the forward and the recompute); the backward's five a tile (the
+    scores again, dV, dP, dQ, dK) over the tiles on or below the
+    diagonal; and rowsum(dO * O) a query row."""
+    h = cfg.padded_heads
+    dk = dv = cfg.resolved_head_dim
+    if cfg.attention == "mla":
+        dk, dv = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
+    nq, nk = seq // chunk_q, seq // chunk_kv
+    per = 2 * batch * h * chunk_q * chunk_kv
+    below = sum(1 for qi in range(nq) for ki in range(nk) if ki * chunk_kv <= qi * chunk_q + chunk_q - 1)
+    fwd = nq * nk * per * (dk + dv)
+    bwd = below * per * (3 * dk + 2 * dv) + 2 * batch * h * seq * dv
+    return cfg.n_layers * ((2 if remat else 1) * fwd + bwd)
+
+
+def dryrun_card_check(device="cuda"):
+    """The body of the dry run's card check, in a process of its own (the
+    fake process group of ``launch.dryrun`` must not meet the mesh phases'
+    ranks): each ``DRYRUN`` cell traced on rank 0 of a fake world of one
+    rank over a (1, 1) mesh (``run_cell``), then built for real on the card
+    over a one-rank NCCL group and run once, its peak memory above the
+    baseline taken before the build (``torch.cuda.max_memory_allocated``).
+    Prints one ``DRYRUN_CARD`` JSON line; returns 0."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.mesh_utils import make_mesh
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.steps import build_cell
+
+    out = []
+    for arch, shape, batch in DRYRUN["cells"]:
+        t0 = time.perf_counter()
+        rec = run_cell(arch, shape, False, None, device=device, mesh_shape=(1, 1), batch=batch)
+        if not rec["ok"]:
+            raise AssertionError(f"dry run of {arch} {shape}: {rec['traceback']}")
+        out.append(dict(arch=arch, shape=shape, batch=batch, trace_s=time.perf_counter() - t0,
+                        memory=rec["memory"], flops_by_dtype=rec["flops_by_dtype"],
+                        model_flops=rec["roofline"]["model_flops"], roofline=rec["roofline"]))
+    if device == "cuda":
+        store = os.path.join(tempfile.mkdtemp(prefix="dryrun_card_"), "store")
+        dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+            for r in out:
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated()
+                cell = build_cell(r["arch"], r["shape"], mesh, device="cuda", abstract=False, batch=r["batch"])
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                res = cell.fn(*cell.inputs())
+                torch.cuda.synchronize()
+                r["measured_bytes"] = torch.cuda.max_memory_allocated() - base
+                r["result"] = _dryrun_result(torch, r["shape"], res)
+                del cell, res
+        finally:
+            dist.destroy_process_group()
+    print("DRYRUN_CARD " + json.dumps(out), flush=True)
+    return 0
+
+
+def _dryrun_result(torch, shape, res):
+    """What a card-check cell returned, checked finite: the train step's
+    loss, decode's logits, retrieval's top scores and ids."""
+    from torch.distributed.tensor import DTensor
+
+    def whole(x):
+        return x.full_tensor() if isinstance(x, DTensor) else x
+
+    if shape == "train_4k":
+        loss = whole(res[2]["loss"]).float()
+        assert bool(torch.isfinite(loss)), loss
+        return f"loss {float(loss):.4f}"
+    if shape == "decode_32k":
+        logits = whole(res[0])
+        assert bool(torch.isfinite(logits[:, :-1]).all()) and logits.dim() == 2, logits.shape
+        return f"logits {tuple(logits.shape)} finite"
+    vals, ids = whole(res[0]), whole(res[1])
+    assert vals.shape == ids.shape == (1, 100) and bool(torch.isfinite(vals).all()), (vals.shape, ids.shape)
+    assert bool((vals[:, :-1] >= vals[:, 1:]).all())
+    return f"top-100 scores and ids {tuple(ids.shape)}, finite and ordered"
+
+
+def dryrun_phase(torch, card, on_card):
+    """Run after every timed phase.  (b) the card check
+    (``dryrun_card_check`` in a process of its own):
+    predicted peak memory within ``mem_rel`` of the measured (at least
+    ``mem_abs``); smollm-360m's counted FLOPs equal to ``train_flops``
+    with the port's tiles (``attn_tile_flops``) and remat's early stop,
+    within ``flops_rel``; ``model_flops_for`` against ``train_flops`` and
+    ``lm_flops`` where they count the same work.  (a) the sweep, started
+    (``dryrun_sweep_start``) before the card check and run beside it:
+    every cell of both meshes ``ok``, one line each, the phase within
+    ``limit_s``.  A CPU
+    rehearsal traces on the CPU and runs nothing."""
+    import os
+
+    from repro_torch import configs
+    from repro_torch.launch.steps import shape_by_name
+
+    t_phase = time.perf_counter()
+    sweep = dryrun_sweep_start(on_card)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(HERE), str(HERE / "src"),
+                                                       os.environ.get("PYTHONPATH", "")]))
+    dev = "cuda" if on_card else "cpu"
+    run = subprocess.run([sys.executable, "-c", f"import sys, chip_smoke; sys.exit(chip_smoke.dryrun_card_check({dev!r}))"],
+                         cwd=str(HERE), env=env, capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in run.stdout.splitlines() if ln.startswith("DRYRUN_CARD ")]
+    if run.returncode != 0 or not lines:
+        raise AssertionError(f"dryrun card check failed ({run.returncode}):\n{run.stdout[-3000:]}\n{run.stderr[-6000:]}")
+    card_s = time.perf_counter() - t_phase
+    for r in json.loads(lines[-1][len("DRYRUN_CARD "):]):
+        cfg = configs.get_config(r["arch"], r["shape"])
+        mem = r["memory"]
+        pred = mem["per_device_total"]
+        line = (f"phase dryrun card: {r['arch']} {r['shape']} at batch {r['batch'] or 'as published'} over (1, 1): "
+                f"predicted {pred / 1e9:.3f} GB a device (arguments {mem['argument_bytes'] / 1e9:.3f}, temporaries "
+                f"{mem['temp_bytes'] / 1e9:.3f}, new results {(mem['output_bytes'] - mem['alias_bytes']) / 1e9:.3f}); "
+                f"counted {sum(r['flops_by_dtype'].values()):.6e} FLOP ({r['flops_by_dtype']}), model_flops_for "
+                f"{r['model_flops']:.6e}; traced in {r['trace_s']:.1f} s")
+        if on_card:
+            meas = r["measured_bytes"]
+            err = abs(pred - meas)
+            line += (f"; on the card: {r['result']}, max_memory_allocated above the "
+                     f"baseline {meas / 1e9:.3f} GB ({(pred - meas) / max(meas, 1) * 100:+.2f}% predicted)")
+            assert err <= max(DRYRUN["mem_rel"] * meas, DRYRUN["mem_abs"]), (r["arch"], pred, meas)
+        counted = sum(r["flops_by_dtype"].values())
+        sh = shape_by_name("lm", r["shape"]) if cfg.family == "lm" else None
+        if r["shape"] == "train_4k":
+            b, seq = r["batch"], sh.seq_len
+            gemm, attn = train_flops(cfg, b, seq)
+            # remat's recompute stops at the last tensor the backward needs: the FFN's down projection
+            skipped = cfg.n_layers * b * seq * 2 * cfg.d_ff * cfg.d_model
+            tiles = attn_tile_flops(cfg, b, seq, cfg.attn_chunk_q, cfg.attn_chunk_kv, cfg.remat)
+            want = gemm - skipped + tiles
+            rel = abs(counted - want) / want
+            mf_rel = abs(r["model_flops"] - 0.75 * gemm) / r["model_flops"]
+            line += (f"; train_flops {gemm:.6e} GEMM + {attn:.6e} causal attention; expected with the port's tiles "
+                     f"({tiles:.6e}: every tile forward, twice with remat; on or below the diagonal backward) and "
+                     f"remat's early stop (-{skipped:.6e}): {want:.6e}, counted {rel:.2e} off (limit "
+                     f"{DRYRUN['flops_rel']}); model_flops_for against 3/4 of train_flops' GEMMs (forward and "
+                     f"backward, no remat) {mf_rel:.2e} off")
+            assert rel <= DRYRUN["flops_rel"] and mf_rel <= 1e-9, (rel, mf_rel)
+        elif r["shape"] == "decode_32k":
+            b = r["batch"]
+            gemm, _ = lm_flops(cfg, b, 1, b)
+            cache = 2.0 * cfg.n_layers * b * sh.seq_len * cfg.padded_heads * cfg.resolved_head_dim * 2
+            lookup = 0.0 if cfg.tie_embeddings else 2.0 * b * cfg.vocab_size * cfg.d_model
+            rel = abs(counted - (gemm + cache)) / counted
+            mf_rel = abs(r["model_flops"] - (gemm + lookup + cache)) / r["model_flops"]
+            line += (f"; lm_flops' GEMMs at one token a row {gemm:.6e} + attention over the cache {cache:.6e}: "
+                     f"counted {rel:.2e} off; model_flops_for (2 N B + the cache) against them and the "
+                     f"embedding rows ({lookup:.3e}) {mf_rel:.2e} off")
+            assert rel <= DRYRUN["flops_rel"] and mf_rel <= 1e-9, (rel, mf_rel)
+        log(line + f"; {card}")
+
+    # (a) the sweep
+    proc = sweep["proc"]
+    t_wait = time.perf_counter()
+    try:
+        proc.wait(timeout=max(10.0, DRYRUN["limit_s"] - (time.perf_counter() - t_phase)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        _stop_group(proc)
+        sweep["log"].close()
+    waited = time.perf_counter() - t_wait
+    cpu = os.times()
+    recs = []
+    for name in sorted(os.listdir(sweep["out"])):
+        if name.endswith(".json"):
+            with open(os.path.join(sweep["out"], name)) as f:
+                recs.append(json.load(f))
+    from repro_torch.launch.dryrun import summary
+
+    with open(os.path.join(sweep["out"], "sweep.log")) as f:
+        tail = f.read()[-3000:]
+    done = re.search(r"swept \d+ cells, \d+ failed, in ([\d.]+) s", tail)
+    for rec in recs:
+        log("  " + summary(rec))
+    bad = [f"{r['arch']} {r['shape']} {r['mesh']}" for r in recs if not r["ok"]]
+    want_n = 80 if on_card else 2
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase dryrun: {len(recs) - len(bad)} of {want_n} cells ok on the (16, 16) and (2, 16, 16) meshes (rank 0 of "
+        f"a fake world of 256 and 512 ranks, fake CPU tensors, {DRYRUN['workers']} processes at nice 19); the sweep "
+        f"{done.group(1) + ' s' if done else 'unfinished'} of wall time, started with the phase, after every timed "
+        f"phase ({cpu.children_user - sweep['cpu0'].children_user:.0f} s of CPU in finished children); the phase "
+        f"{phase_s:.1f} s (the card check {card_s:.1f} s beside the sweep, then {waited:.1f} s waiting for it); "
+        f"computed from data-sheet constants, not measured")
+    assert proc.returncode == 0 and not bad and len(recs) == want_n, (proc.returncode, bad, len(recs), tail)
+    assert phase_s <= DRYRUN["limit_s"], phase_s
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6531,6 +6786,8 @@ def main() -> int:
     napp_recall_phase(torch, dev, *recall_data, args.seed + 12, on_card)
     live_ann_phase(torch, dev, check, *recall_data[:3], card, on_card, args.seed + 13)
     tune_launches = autotune_phase(torch, dev, check, *recall_data[:2], card, on_card, args.seed + 14)
+    # ---- the dry run: every cell traced on the production meshes, and three held against the card
+    dryrun_phase(torch, card, on_card)
     kernels.append({"name": "beam_hop", "route": "cuda", "source": SOURCES[1],
                     "replaces": "src/repro/kernels/beam_topk.py:238", "launches": hop["launches"],
                     "max_abs_err": check.max_err["beam_hop"], "ms": hop["ms"],

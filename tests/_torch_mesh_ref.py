@@ -294,3 +294,69 @@ def train_lm_reference(case, root):
     finally:
         T.init_transformer = init
     return r
+
+
+def _dotted(path) -> str:
+    """A ``tree_flatten_with_path`` key path as the port's dotted name."""
+    parts = []
+    for k in path:
+        for attr in ("key", "name", "idx"):
+            if hasattr(k, attr):
+                parts.append(str(getattr(k, attr)))
+                break
+    return ".".join(parts)
+
+
+def _zero_cuts(cell, mesh):
+    """``{dotted parameter leaf: the dim ZeRO-1 cuts over "data"}`` of an LM
+    train cell whose config asks for ZeRO (None for any other cell): the
+    dim where ``zero_axes_of`` puts "data" on an axis the leaf leaves
+    whole, for each leaf whose own sharding does not already take "data"
+    (arctic-480b's experts)."""
+    from repro.distributed.sharding import ParallelCtx
+    from repro.launch.steps import abstract_init, rules_for_shape, zero_axes_of
+    from repro.models import transformer as T
+
+    if not (getattr(cell.cfg, "zero_sharding", False) and cell.shape.kind == "train"):
+        return None
+    ctx = ParallelCtx(mesh, rules_for_shape(cell.cfg, cell.shape, mesh))
+    sds = cell.args[0]
+    _, axes = abstract_init(T.init_transformer, jax.random.PRNGKey(0), cell.cfg)
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(sds)
+    base, plan = treedef.flatten_up_to(axes), treedef.flatten_up_to(zero_axes_of(sds, axes, ctx))
+    out = {}
+    for (path, _), b, z, sh in zip(leaves, base, plan, treedef.flatten_up_to(cell.in_shardings[0])):
+        used = {a for e in sh.spec if e is not None for a in ((e,) if isinstance(e, str) else e)}
+        if "data" in used:
+            continue
+        out.update((_dotted(path), i) for i, (zi, bi) in enumerate(zip(z, b)) if zi == "data" and bi is None)
+    return out
+
+
+def cells_reference(meshes):
+    """The dry run's cells: ``all_cells()``, ``model_flops_for`` of each,
+    and per mesh ``(shape, axes)`` and cell the shard shape and dtype of
+    every argument leaf under its ``in_shardings`` (``{dotted path:
+    (shape, dtype)}``), their summed bytes, and ZeRO-1's cuts
+    (``_zero_cuts``)."""
+    from repro.launch import roofline as RL
+    from repro.launch.steps import all_cells, build_cell
+
+    cells = all_cells()
+    out = {"cells": cells, "flops": {}, "shards": {}, "bytes": {}, "zero": {}}
+    for shape, axes in meshes:
+        mesh = _mesh(shape, axes)
+        for arch, name in cells:
+            cell = build_cell(arch, name, mesh)
+            leaves, treedef = jax.tree_util.tree_flatten_with_path(cell.args)
+            shards = treedef.flatten_up_to(cell.in_shardings)
+            rec, total = {}, 0
+            for (path, sds), sh in zip(leaves, shards):
+                block = tuple(sh.shard_shape(sds.shape))
+                rec[_dotted(path)] = (block, str(sds.dtype))
+                total += int(np.prod(block, dtype=np.int64)) * np.dtype(sds.dtype).itemsize
+            out["shards"][tuple(shape), arch, name] = rec
+            out["bytes"][tuple(shape), arch, name] = total
+            out["zero"][tuple(shape), arch, name] = _zero_cuts(cell, mesh)
+            out["flops"][arch, name] = RL.model_flops_for(cell.cfg, cell.shape)
+    return out
