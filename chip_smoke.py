@@ -13,7 +13,9 @@ launch plans, V = 250,000) and exact scores that are NaN, +0 and -0
 ("small"), B1 where its ring route can break, bit for bit on exact
 scores (a sorted corpus, all scores equal, NaN / +0 / -0 at the k-th,
 n_valid below k, a sample that misses every good row, so that the filter's
-lists overflow; "b1 small"), the large-k kernels likewise, with the
+lists overflow; "b1 small"), B1's row layout likewise at d = 1, 3, 5, 18
+and 31 in f32 and bf16, each call asserted on that layout ("b1 rows"),
+the large-k kernels likewise, with the
 selection's refinement and ordered-fill paths ("large small"), the
 beam-hop kernel against
 its plain version hop for hop, and one traversal launch against the
@@ -70,7 +72,9 @@ mesh (data, model) = (1, 4), serve the corpus sharded (B2 fused, B1 dense, ``top
 all-reduce over (pod, data) = (2, 2), smollm-360m's parameters re-meshed 4 -> 2 -> 4 ranks and restored
 from a checkpoint onto (1, 4), bit for bit; and the sharded fused run on a one-rank NCCL group.  After the corpus's release, the
 recommendation family ("recsys full": DIN as published, 100M items, user
-queries through B1 in f32 and bf16 and B2 over item tags, the example's
+queries through B1 in f32 and bf16 (the ring's row layout, asserted; timed
+at B = 1, 16 and 64 beside the scan route and the library call) and B2
+over item tags, the example's
 funnel served; wide-deep, DIEN and BST's logits against f64) and the
 molecule family ("molecule full": SchNet as published embedding 1,048,576
 molecules, searched through B3 with B1 on the entry set, the funnel
@@ -93,7 +97,9 @@ traced on a world of one rank and then run on the card, their predicted
 peak memory and FLOPs held against the measured.  Each
 served path runs with the launch counters set to 0 just before and read
 just after.  The last lines are the ``kernels`` JSON, the card's name and
-power limit, and ``{"ok": true, ...}``.  Any failure raises and exits
+power limit, and ``{"ok": true, ...}``; the ``kernels`` JSON has a
+``mips_topk_rows`` entry for B1's row layout (DIN's items, f32, B = 16; its
+launches the recommendation path's).  Any failure raises and exits
 non-zero.  The data is synthetic, made on the card from ``--seed``.
 
     python3 chip_smoke.py --graph-build-n 8841823   # also time one
@@ -227,7 +233,7 @@ LM_TOP1_AT = (7, 31, 63)         # decode steps whose bf16 top-1 is held against
 # smollm-360m's training batch and length (train_4k's positions, configs/base.py LM_SHAPES), steps, checkpoint
 # interval, resumed steps and lr (train_lm's default); DIN's batch (train_batch) and steps; SchNet's molecules
 # (the molecule shape's 128 graphs) and steps
-TRAIN = dict(check_layers=2, check_b=2, check_b_moe=4, check_s=256, b=4, s=4096, steps=6, interval=3, more=2,
+TRAIN = dict(check_layers=2, check_b=2, check_b_moe=4, check_s=128, b=4, s=4096, steps=6, interval=3, more=2,
              lr=3e-4, din_b=65536, din_steps=3, mol_graphs=128, mol_steps=4)
 TRAIN_TOL = 1e-5                 # f32 train steps, card vs CPU, of each leaf's largest |value|
 GRAD_FLOOR = 1e-3                # a vanishing gradient is noise: leaves held against this share of the largest
@@ -249,7 +255,7 @@ MOE_BF16_TOL = 2.0 ** -5
 # b_steps at b_b x b_s, checkpointed at b_save; (c) phi3.5-moe f32 at c_layers, c_steps of its ZeRO step at c_b x
 # c_s (4 microbatches); the LMs' prefill and decode at lm_layers; DIN's users and candidates; SchNet's molecules
 MESH = dict(shape=(2, 2), a_layers=2, a_b=4, a_s=512, a_steps=3, b_layers=8, b_b=4, b_s=1024, b_steps=4, b_save=2,
-            c_layers=2, c_b=8, c_s=512, c_steps=2, lm_layers=2, prefill=(2, 1024), cache=4096, decode=8,
+            c_layers=1, c_b=8, c_s=512, c_steps=2, lm_layers=2, prefill=(2, 1024), cache=4096, decode=8,
             din_b=512, din_cand=1_000_000, mol=128)
 # AdamW over a_steps steps, f32: each side moves an element by lr (|m_hat| / (sqrt(v_hat) + eps) + wd |p|) a step,
 # and |m_hat| / sqrt(v_hat) <= 1.001 for t <= 3 at b1 0.9, b2 0.95 (Cauchy-Schwarz over the moments' weights), so
@@ -808,6 +814,93 @@ def b1_phase(torch, dev, check):
     if dev.type == "cuda":
         assert mk.scan_launches == scan0 + 2, "d=61 and an unaligned corpus must take the scan route"
     return check.cases - cases, sorts, (mk.ring_launches - before[0], mk.scan_launches - before[1])
+
+
+def b1_rows_phase(torch, dev, check):
+    """B1's ring route on its row layout (``ring.cuh`` RowStage: a tile's
+    whole rows by one bulk copy, for rows of at most 32 columns that no
+    tensor map describes), against the plain version on small integers,
+    whose scores are exact, so that ids and score bits must be equal:
+    d = 1, 3, 5, 18 and 31 in f32 and bf16 at n = 50,003 (a ragged last
+    tile: 83 rows), B = 1 and 16, k from 1 to 2,048 (a sample and a filter
+    at k <= 356, all sample at 2,048), n_valid 49,000, ip and l2; at d = 5
+    and 18, a corpus sorted by query 0's score both ways, all scores equal
+    (the k lowest rows), NaN / +0 / -0 at the k-th, n_valid below k with a
+    valid row at -inf and n_valid = 0, and a sample whose tiles all score 0
+    over 7 filter blocks, so that the lists overflow and are sorted
+    (asserted from the route's stats).  On the card every call is asserted
+    to launch the row layout.  Returns (cases, list sorts on the
+    sample-blind corpus, row-layout launches)."""
+    from repro_torch.kernels import mips_topk as mk
+    from repro_torch.kernels import ref
+
+    def ints(shape, lo, hi, seed, dtype=torch.float32):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randint(lo, hi, shape, generator=g, device=dev).to(dtype)
+
+    def run(label, q, c, k, n_valid=None, space="ip", **over):
+        assert mk.ring_layout(c) == "rows", (label, tuple(c.shape), c.dtype)
+        rows0 = mk.row_launches
+        s, i, st = mk.mips_filter(q, c, k, n_valid, space, **over)
+        if dev.type == "cuda":
+            assert mk.row_launches == rows0 + 1, f"b1 rows {label}: not launched on the row layout"
+        tag = "f32" if c.dtype == torch.float32 else "bf16"
+        check("mips_topk_rows", f"b1 rows {label} d{c.shape[1]} {tag} b{q.shape[0]} k{k} {space}", (s, i),
+              ref.mips_topk_ref(q, c, k, n_valid=n_valid, space=space), signed_zeros=True)
+        return st
+
+    cases, before = check.cases, mk.row_launches
+    n, sorts = 50_003, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (1, 3, 5, 18, 31):
+            c = ints((n, d), -2, 3, 100 + d, dtype)
+            for b, ks in ((1, (1, 100, 2048)), (16, (1, 10, 100, 356, 2048))):
+                q = ints((b, d), -3, 4, 200 + d + b)
+                for k in ks:
+                    for n_valid in (None, 49_000):
+                        for space in ("ip", "l2"):
+                            run("ints", q, c, k, n_valid, space)
+            if d not in (5, 18):
+                continue
+            q = ints((16, d), -3, 4, 300 + d)
+            order = torch.argsort(q[0] @ c.float().T, stable=True)
+            ones = torch.ones(n, d, device=dev, dtype=dtype)
+            for k in (10, 2048):
+                run("sorted ascending", q, c[order].contiguous(), k)
+                run("sorted descending", q, c[order.flip(0)].contiguous(), k, None, "l2")
+                run("all equal", ints((16, d), 1, 2, 0), ones, k)
+                _, i, _ = mk.mips_filter(ints((16, d), 1, 2, 0), ones, k)
+                assert bool((i == torch.arange(k, device=dev, dtype=torch.int32)).all()), \
+                    f"b1 rows all equal d{d}: not the lowest rows"
+            # NaN (0 * inf), +0 (zero rows in ip) and -0 (query 0's copies in l2) at the k-th
+            z = ints((n, d), -1, 1, 400 + d)
+            z[torch.rand(n, generator=torch.Generator(device=dev).manual_seed(6), device=dev) < 0.35] = 0.0
+            qz = ints((16, d), 1, 3, 500 + d)
+            qz[:, 1] = 0.0
+            z[::53] = qz[0]
+            z[::101, 1] = math.inf
+            z = z.to(dtype)
+            for k in (10, 700, 2048):
+                for space in ("ip", "l2"):
+                    run("NaN/+-0", qz, z, k, None, space)
+            full = ref.mips_topk_ref(qz, z, n)[0]
+            assert bool(full.isnan().any()) and bool((full == 0).any()), f"b1 rows NaN/+-0 d{d}: no NaN or zero"
+            # n_valid below k with a valid row at -inf; no valid row
+            m = ints((5000, d), -2, 3, 600 + d, dtype)
+            m[3, 0] = -math.inf
+            qm = ints((4, d), 1, 3, 700 + d)
+            for space in ("ip", "l2"):
+                run("n_valid < k", qm, m, 300, 201, space)
+            run("n_valid = 0", qm, m, 50, 0)
+            # the sample's tiles score 0, every other row more: 7 filter blocks of 26 tiles overflow their lists
+            blind = ints((n, d), 1, 3, 800 + d, dtype)
+            blind[(torch.arange(n, device=dev) // mk.TILE) % mk.SAMPLE_STRIDE == 0] = 0.0
+            for k in (10, 300, 2048):
+                st = run("sample-blind, 7 blocks", ints((16, d), 1, 3, 900 + d), blind, k,
+                         stride=mk.SAMPLE_STRIDE, blocks=7)
+                sorts += int(st[:, 0].sum())
+                assert bool((st[:, 0] > 0).all()), f"b1 rows sample-blind d{d} k={k}: the lists were never sorted"
+    return check.cases - cases, sorts, mk.row_launches - before
 
 
 def index_phase(torch, dev):
@@ -3605,7 +3698,7 @@ def recsys_full_phase(torch, dev, check, card, on_card, seed, timer, cfg=None, o
     # ---- the offline path, counted: queries, B1 f32 and bf16, B2, the retrieval_cand shape
     for m in counters.values():
         m.launches = 0
-    mk.ring_launches = mk.scan_launches = 0
+    mk.ring_launches = mk.row_launches = mk.scan_launches = 0
     with torch.no_grad():
         tower_s, uq = [], []
         for batch in batches:
@@ -3636,15 +3729,16 @@ def recsys_full_phase(torch, dev, check, card, on_card, seed, timer, cfg=None, o
         sync(torch, on_card)
         rs_s = time.perf_counter() - t0
     offline = {name: m.launches for name, m in counters.items()}
-    routes = (mk.ring_launches, mk.scan_launches)
+    offline["mips_topk_rows"] = mk.row_launches
+    routes = (mk.ring_launches, mk.row_launches, mk.scan_launches)
     if on_card:
-        assert offline == {"mips_topk": 2, "fused_topk": 1}, offline
-        assert routes == (0, 2), f"B1 at D = 18 did not take the scan route: ring, scan {routes}"
+        assert offline == {"mips_topk": 2, "fused_topk": 1, "mips_topk_rows": 2}, offline
+        assert routes == (2, 2, 0), f"B1 at D = 18 did not take the ring's row layout: ring, rows, scan {routes}"
 
     # the kernels against their plain versions (ids up to near-ties: random tables plant no margin)
-    check("mips_topk", "recsys full: DIN items f32 k=100", tuple(b1),
+    check("mips_topk_rows", "recsys full: DIN items f32 k=100", tuple(b1),
           plain.mips_topk_ref(q0, item, k, tile_n=1 << 22), exact_ids=False)
-    check("mips_topk", "recsys full: DIN items bf16 k=100", tuple(b1_16),
+    check("mips_topk_rows", "recsys full: DIN items bf16 k=100", tuple(b1_16),
           plain.mips_topk_ref(q0, item16, k, tile_n=1 << 22), exact_ids=False)
     qtable = plain.query_table(users0.sparse, tags)
     w = dict(w_dense=space.w_dense, w_sparse=space.w_sparse)
@@ -3687,6 +3781,7 @@ def recsys_full_phase(torch, dev, check, card, on_card, seed, timer, cfg=None, o
     tokens = [row for x, t in zip(uq, user_tags) for row in torch.cat([x, t.float()], 1).cpu()]
     pad, pad_tok = torch.zeros(d, device=dev), torch.zeros(d + ut, device=dev)
     before = {name: m.launches for name, m in counters.items()}
+    rows_before, scan_before = mk.row_launches, mk.scan_launches
     with RetrievalService(cache_size=0) as svc:
         svc.register_pipeline("recs", recorder, pad, pad_tok,
                               spec=EndpointSpec(batch_size=b, max_wait_s=0.005, max_queue=128, overload="block"))
@@ -3705,23 +3800,28 @@ def recsys_full_phase(torch, dev, check, card, on_card, seed, timer, cfg=None, o
         got, wall = box["out"]
         ep = svc.snapshot().endpoints["recs"]
     served = {name: m.launches - before[name] for name, m in counters.items()}
-    launches = {name: offline[name] + served[name] for name in counters}
+    served["mips_topk_rows"] = mk.row_launches - rows_before
+    launches = {name: offline[name] + served[name] for name in offline}
     assert ep.corpus_dtype == "bfloat16" and ep.stage_fallbacks["rerank"] == 0 and ep.n_requests == len(queries)
     if on_card:
         assert served["mips_topk"] == ep.n_batches, f"served B1 launches {served} for {ep.n_batches} batches"
+        assert served["mips_topk_rows"] == ep.n_batches and mk.scan_launches == scan_before, \
+            f"served B1 at D = 18 left the row layout: {served}, scan {mk.scan_launches - scan_before}"
     held = served_equals_offline(torch, recorder, got, tokens, on_card)
     served_ids = np.stack([np.asarray(r.indices) for r in got])
     all_tags = torch.cat(user_tags).cpu().numpy()
     tag_served = float(np.mean(tag_idx[:, 0].cpu().numpy()[served_ids] == all_tags[:, :1]))
 
-    # ---- timings (CUDA events, median): B1 at B = 16 and 1, f32 and bf16, against the byte bound and the
-    # library call; B2; the tower; retrieval_scores
+    # ---- timings (CUDA events, median): B1 at B = 16, 1 and 64, f32 and bf16, on the ring's row layout, beside
+    # the scan route (the parent's kernel for these rows), the byte bound and the library call; B2; the tower;
+    # retrieval_scores
     item16 = item.bfloat16()
-    q1 = q0[:1].contiguous()
-    b1_ms, lib_ms, plain_ms, bounds = {}, {}, {}, {}
+    q1, q64 = q0[:1].contiguous(), torch.cat(uq[:4]).contiguous()
+    b1_ms, scan_ms, lib_ms, plain_ms, bounds = {}, {}, {}, {}, {}
     for dt, corpus in (("f32", item), ("bf16", item16)):
-        for bq, qq in ((b, q0), (1, q1)):
+        for bq, qq in ((b, q0), (1, q1), (q64.shape[0], q64)):
             b1_ms[dt, bq] = timer(lambda: mk.mips_topk(qq, corpus, k), 5)
+            scan_ms[dt, bq] = timer(lambda: mk.mips_scan(qq, corpus, k), 3)
             lib_ms[dt, bq] = timer(lambda: chunked_library_topk(torch, qq, corpus, k), 3)
             nbytes = corpus.numel() * corpus.element_size() + bq * d * 4 + bq * k * 8
             t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, 2 * bq * n * d / F32_FLOPS * 1e3
@@ -3746,14 +3846,15 @@ def recsys_full_phase(torch, dev, check, card, on_card, seed, timer, cfg=None, o
     log(f"  offline (host clock, synchronised): user tower + projection median {ms(tower_s):.3f} ms/batch; "
         f"B1 f32 {1e3 * b1_s:.3f} ms, bf16 {1e3 * b1_16_s:.3f} ms, B2 (FusedSpace({tags}, {space.w_dense}, "
         f"{space.w_sparse}), one tag an item, {ut} a user) {1e3 * b2_s:.3f} ms, retrieval_scores (1 user, "
-        f"{cand_batch.candidates.shape[1]:,} candidates, k={k}) {1e3 * rs_s:.3f} ms; launches {offline} (B1 ring, scan "
-        f"route {routes}); B1 f32 and bf16 and B2 equal their plain versions (tolerance {TOL_REL} of row "
+        f"{cand_batch.candidates.shape[1]:,} candidates, k={k}) {1e3 * rs_s:.3f} ms; launches {offline} (B1 ring, its "
+        f"row layout, scan route {routes}); B1 f32 and bf16 and B2 equal their plain versions (tolerance {TOL_REL} of row "
         f"scale, ids up to near-ties); tag-match rate of the top-{k}: dense {tag_match[0]:.3f}, fused "
         f"{tag_match[1]:.3f}; card vs cpu (weights copied in {cpu_s:.1f} s): user tower worst {tower_err:.3g} of "
         f"row scale, retrieval_scores scores within {TOL_REL} of row scale, ids up to near-ties")
-    log(f"  timings (CUDA events, median of 5; library of 3; plain 1): "
-        + "; ".join(f"B1 {dt} B={bq} {b1_ms[dt, bq]:.3f} ms vs bound {bounds[dt, bq][0]:.3f} ms "
-                    f"({bounds[dt, bq][1]}), library {lib_ms[dt, bq]:.3f} ms" for dt, bq in b1_ms)
+    log(f"  timings (CUDA events, median of 5; scan route and library of 3; plain 1): "
+        + "; ".join(f"B1 {dt} B={bq} {b1_ms[dt, bq]:.3f} ms (row layout) vs bound {bounds[dt, bq][0]:.3f} ms "
+                    f"({bounds[dt, bq][1]}), scan route {scan_ms[dt, bq]:.3f} ms, library {lib_ms[dt, bq]:.3f} ms"
+                    for dt, bq in b1_ms)
         + f"; plain B1 f32 {plain_ms['f32']:.3f} ms, bf16 {plain_ms['bf16']:.3f} ms; B2 B={b} {b2_ms:.3f} ms vs "
         f"bound {b2_bound:.3f} ms ({b2_bytes / 1e9:.2f} GB), plain {b2_plain:.3f} ms; user tower + projection "
         f"{tower_ms:.3f} ms/batch; retrieval_scores {rs_ms:.3f} ms; {card}")
@@ -3797,7 +3898,9 @@ def recsys_full_phase(torch, dev, check, card, on_card, seed, timer, cfg=None, o
         if on_card:
             torch.cuda.empty_cache()
     log(f"  phase {time.perf_counter() - t_phase:.1f} s; {card}")
-    return launches
+    rows = {"ms": b1_ms["f32", b], "plain_ms": plain_ms["f32"], "bound_ms": bounds["f32", b][0],
+            "bound_by": bounds["f32", b][1], "library_ms": lib_ms["f32", b]}
+    return launches, rows
 
 
 def schnet_flops(cfg, atoms, edges):
@@ -6469,6 +6572,12 @@ def main() -> int:
         f"NaN/+0/-0 at the k-th, n_valid < k with a row at -inf, bf16, l2, the graph entry set's shape, the "
         f"scan route for d=61 and an unaligned corpus); the sample-blind corpus sorted the filter's lists "
         f"{b1_sorts} times; launches: ring {b1_routes[0]}, scan {b1_routes[1]}; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows_cases, rows_sorts, rows_launched = b1_rows_phase(torch, dev, check)
+    log(f"phase b1 rows: {rows_cases} cases of B1's row layout agree bit for bit (d = 1, 3, 5, 18, 31 in f32 and "
+        f"bf16, n = 50,003 with a ragged last tile, n_valid 49,000 and below k, ip and l2, k 1-2048; sorted, all "
+        f"equal, NaN/+0/-0 at the k-th); the sample-blind corpus sorted the filter's lists {rows_sorts} times; "
+        f"row-layout launches {rows_launched}; {time.perf_counter() - t0:.1f} s")
     cases = check.cases
     large_phase(torch, dev, check)
     log(f"phase large small: {check.cases - cases} cases of k > 2048 agree (tolerance {TOL_REL} of row scale; "
@@ -6507,7 +6616,7 @@ def main() -> int:
     dense_gen = BruteForceGenerator(DenseSpace("ip"), dense, backend="cuda")
     assert type(resolve_backend("cuda", space, corpus)).__name__ == "CudaBackend"
 
-    mk.launches = mk.ring_launches = mk.scan_launches = 0
+    mk.launches = mk.ring_launches = mk.row_launches = mk.scan_launches = 0
     fk.launches = 0
     lk.launches = 0
     fused_s, dense_s, results, dense_results = [], [], [], []
@@ -6526,7 +6635,7 @@ def main() -> int:
     deep = dense_gen.generate(batches[0].dense, DEEP_K)
     launches = {"mips_topk": mk.launches, "fused_topk": fk.launches, "topk_large": lk.launches}
     log(f"phase main path: {BATCHES} batches of {b} and one dense request of k = {DEEP_K}; launches {launches} "
-        f"(mips_topk: ring {mk.ring_launches}, scan {mk.scan_launches}); "
+        f"(mips_topk: ring {mk.ring_launches} of which row layout {mk.row_launches}, scan {mk.scan_launches}); "
         f"fused pipeline median {1e3 * statistics.median(fused_s):.3f} ms/batch, "
         f"dense median {1e3 * statistics.median(dense_s):.3f} ms/batch (host clock, synchronised)")
     if on_card:
@@ -6742,8 +6851,8 @@ def main() -> int:
         rec_cfg = dataclasses.replace(get_smoke_config(RECSYS["arch"]), item_vocab=5000)
         rec_others = [get_smoke_config(a) for a in RECSYS_OTHERS]
         mol_cfg, mol_n = get_smoke_config("schnet"), 4096
-    recsys_launches = recsys_full_phase(torch, dev, check, card, on_card, args.seed + 26, timer, rec_cfg,
-                                        rec_others)
+    recsys_launches, rows_timing = recsys_full_phase(torch, dev, check, card, on_card, args.seed + 26, timer,
+                                                     rec_cfg, rec_others)
     molecule_launches, _ = molecule_full_phase(torch, dev, check, card, on_card, args.seed + 27, timer, mol_cfg,
                                                mol_n)
     # ---- LM inference at published widths; a CPU rehearsal cuts it to the smoke configs and small shapes
@@ -6796,6 +6905,10 @@ def main() -> int:
     kernels.append({"name": "fused_score", "route": "cuda", "source": SOURCES[2],
                     "replaces": "src/repro/kernels/sparse_dense.py:61", "launches": score_launches,
                     "max_abs_err": check.max_err["fused_score"], **score, "library_ms": None})
+    # B1's row layout (DIN's items at D = 18, f32, B = 16): its launches are the recommendation path's
+    kernels.append({"name": "mips_topk_rows", "route": "cuda", "source": SOURCES[4],
+                    "replaces": "src/repro/kernels/mips_topk.py:92", "launches": 0,
+                    "max_abs_err": check.max_err["mips_topk_rows"], **rows_timing})
     for k in kernels:    # the main path's launches, the served passes', FlexNeuART's, the cross-encoder's,
         # the recommendation and molecule paths', the search's, the ranks' of "dist full"
         k["launches"] += (serve_launches.get(k["name"], 0) + flex_launches.get(k["name"], 0)

@@ -7,16 +7,20 @@
 //
 // What bounds it on an H100 SXM (80 GB at 3.35 TB/s, 67 TFLOP/s f32 on CUDA
 // cores): the corpus read, 27.16 GB = 8.1 ms for 8.84M x 768 f32, against
-// 3.2 ms of FMAs at B = 16.  The TPU kernel carries a running top-k from
+// 3.2 ms of FMAs at B = 16.  At DIN's 100M x 18 the read is 7.2 GB (2.15 ms)
+// in f32 and 3.6 GB in bf16, and what bounds the row layout is the
+// consumers' instructions a tile (the FMAs, the reads, the epilogue), not
+// the bytes.  The TPU kernel carries a running top-k from
 // grid step to grid step; PR 12's port (topk_scan.cu) kept a candidate list
 // per query in shared memory and sorted it whenever it filled, which above
 // k = 256 cut the queries a block to 4 (the corpus read four times at
 // B = 16) and put a bitonic sort of up to 4,096 entries in lockstep with the
 // multiply.  Here selection leaves the scan's way:
 //
-// 1. sample   the ring of ring.cuh (one persistent block an SM, eight
-//             multiplying warps fed by a ninth through a ring of tensor-map
-//             copies) scores the tiles 0, stride, 2*stride, ... into a
+// 1. sample   the ring of ring.cuh (persistent blocks, eight
+//             multiplying warps fed by a ninth through a ring of copies:
+//             tensor-map boxes, or whole rows of D <= 32 by one bulk copy a
+//             tile) scores the tiles 0, stride, 2*stride, ... into a
 //             [B, cols] buffer (SampleTiles);
 // 2. select   large_select.cuh (topk_large's radix passes over every SM)
 //             takes each query's top k of the sample.  Its k-th (key, row)
@@ -28,7 +32,9 @@
 //             finished tile's 16 (row, query) keys are compared with the
 //             block's per-query threshold in shared memory, as one 64-bit
 //             pair (order_key << 32 | ~row), so that ties at the threshold
-//             are decided by the row as lax.top_k decides them; the few
+//             are decided by the row as lax.top_k decides them (a float
+//             compare with the threshold's score first: a warp none of
+//             whose rows reaches it forms no pair); the few
 //             rows ahead of it are appended, with warp-aggregated atomics on
 //             a counter in shared memory, to the block's own list of the
 //             query in global memory ([B, blocks, slots]).  A list that
@@ -49,9 +55,19 @@
 // So the corpus is read once (the sample's tiles are not read again), every
 // query group of 16 shares each read, and no [B, n_valid] buffer is made:
 // the sample holds about n_valid / stride scores a query, the lists about
-// k * (stride - 1) survivors a query on exchangeable data.  A corpus whose
-// rows do not allow the tensor map (D not a multiple of 16 bytes, an
-// unaligned pointer) takes topk_scan.cu's mips_topk_launch instead.
+// k * (stride - 1) survivors a query on exchangeable data.
+//
+// Two stage layouts feed the ring (ring.cuh), chosen before the launch
+// from the shape: rows of a multiple of 16 bytes go through a tensor map
+// (Stage: D = 768, 64 ...); rows of at most 32 columns that no tensor map
+// can describe (RowStage: DIN's and DIEN's D = 18, 72 bytes in f32 and 36
+// in bf16) go whole, one bulk copy of a tile's contiguous bytes, so the
+// next tiles' loads are in flight while one is scored and the consumers
+// multiply the D real columns only; two blocks an SM (the wrapper plans
+// twice the blocks).  The sample, the filter and the merge are the same
+// for both.  Any other corpus (D > 32 not a multiple of 16
+// bytes, a base not 16-byte aligned) takes topk_scan.cu's
+// mips_topk_launch instead.
 //
 // Numerics: the ring's (fmaf in column order from +0, l2 as
 // -((|q|^2 + |c|^2) - 2 s)), so scores are bit for bit topk_large's and
@@ -85,7 +101,7 @@ __device__ __forceinline__ long long sample_row(int stride, int p) {
 
 struct SampleArgs {
   const float* q;     // [ceil(B / 16), D rounded up to 32, 16] f32 (mips_topk.py: query_groups)
-  const void* c;      // [N, D] f32/bf16, 16-byte aligned, D a multiple of 16 bytes' worth
+  const void* c;      // [N, D] f32/bf16, 16-byte aligned; D a multiple of 16 bytes' worth, or at most 32
   int d, b, n_valid;
   int stride;         // the sample: tiles 0, stride, 2 * stride, ...
   int cols;           // its rows below n_valid, the buffer's width
@@ -146,7 +162,8 @@ struct FilterTiles {
   }
   // unit u: the u-th tile that is not the sample's (stride >= 2)
   __device__ static long long first_row(const Args& a, long long u) {
-    return (u + u / (a.stride - 1) + 1) * kTileRows;
+    const int ui = int(u);   // below 2^24 (n_valid is an int): a 32-bit division
+    return static_cast<long long>(ui + ui / (a.stride - 1) + 1) * kTileRows;
   }
   __device__ static void init(const Args& a, Shared& sh, int t, int q0, int qn) {
     sh.cnt[t] = 0;
@@ -185,18 +202,35 @@ struct FilterTiles {
     }
     ring::consumers_sync();
   }
+  // Sort the lists of the queries in `crowded` (a bit a query), in order.  Out of line: it is rare, and
+  // inlined, its barriers cost every tile's epilogue more than its sorts cost (measured, PERF.md).
+  __device__ __noinline__ static void compact_all(const Args& a, Shared& sh, int q0, unsigned crowded) {
+    for (; crowded; crowded &= crowded - 1) compact(a, sh, q0, __ffs(crowded) - 1);
+  }
   template <bool L2>
   __device__ static void tile(const Args& a, Shared& sh, long long, long long tile_row0, int row_in,
                               const float (&acc)[4][4], const float (&c2)[4], const float* q2s, int q0, int qn,
                               int lane) {
     ring::consumers_sync();   // the last tile's appends are in: every thread reads the same counts
-    unsigned crowded = 0;
-    for (int q = 0; q < qn; ++q) crowded |= unsigned(sh.cnt[q] > a.slots - kTileRows) << q;
+    const unsigned crowded = __ballot_sync(0xffffffffu, lane < qn && sh.cnt[lane] > a.slots - kTileRows);
     ring::consumers_sync();   // and no append starts before the last thread has read them
-    for (int q = 0; q < qn; ++q) {
-      if (crowded >> q & 1u) compact(a, sh, q0, q);
-    }
+    if (crowded) compact_all(a, sh, q0, crowded);
+    // A row passes only if its score is not below the threshold's as floats (or either is a NaN): order_key
+    // keeps the order of the floats.  On most tiles no row of the warp does, and the pairs are not formed.
     const int qgi = lane & 3;
+    float t[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) t[j] = topk::from_key(unsigned(sh.th[4 * qgi + j] >> 32));
+    bool maybe = false;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int q = 4 * qgi + j;
+        maybe |= q < qn && !(ring::dense_score<L2>(acc[r][j], c2[r], q2s[q]) < t[j]);
+      }
+    }
+    if (!__any_sync(0xffffffffu, maybe)) return;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const long long row = tile_row0 + row_in + 8 * r;
@@ -384,9 +418,22 @@ __global__ void __launch_bounds__(kMergeThreads) merge_kernel(MergeArgs a) {
   if (tid == 0) a.stats[size_t(q) * kStats + 1] = int(m);
 }
 
+// Whether the corpus's rows go through a tensor map (a multiple of 16
+// bytes) or whole, by bulk copies (RowStage: at most kChunk columns).
+template <typename TD>
+bool box_rows(int d) { return d * sizeof(TD) % 16 == 0; }
+
+template <typename TD, typename E, typename S>
+cudaError_t launch_layout(const typename E::Args& a, const CUtensorMap& map, int l2, int blocks, cudaStream_t st) {
+  return l2 ? ring::launch_dense<TD, true, E, S>(a, map, blocks, st)
+            : ring::launch_dense<TD, false, E, S>(a, map, blocks, st);
+}
+
 template <typename TD, typename E>
 cudaError_t launch_ring(const typename E::Args& a, const CUtensorMap& map, int l2, int blocks, cudaStream_t st) {
-  return l2 ? ring::launch_dense<TD, true, E>(a, map, blocks, st) : ring::launch_dense<TD, false, E>(a, map, blocks, st);
+  if (box_rows<TD>(a.d)) return launch_layout<TD, E, ring::Stage<TD>>(a, map, l2, blocks, st);
+  if (a.d % 2 == 0) return launch_layout<TD, E, ring::RowStage<TD, true>>(a, map, l2, blocks, st);
+  return launch_layout<TD, E, ring::RowStage<TD, false>>(a, map, l2, blocks, st);
 }
 
 struct Plan {
@@ -398,9 +445,9 @@ cudaError_t run(const SampleArgs& sa, const large::SelArgs& sel, const FilterArg
                 const Plan& p, int l2, cudaStream_t st) {
   cudaError_t err = cudaMemsetAsync(fa.stats, 0, size_t(sa.b) * kStats * sizeof(int), st);
   if (err != cudaSuccess) return err;
-  CUtensorMap map;
+  CUtensorMap map{};   // unused by the row layout
   if (sa.n_valid > 0) {
-    err = ring::tensor_map<TD>(sa.c, sa.d, sa.n_valid, &map);
+    if (box_rows<TD>(sa.d)) err = ring::tensor_map<TD>(sa.c, sa.d, sa.n_valid, &map);
     if (err != cudaSuccess) return err;
     err = launch_ring<TD, SampleTiles>(sa, map, l2, p.sample_blocks, st);
     if (err != cudaSuccess) return err;
@@ -424,8 +471,9 @@ extern "C" {
 
 // Dense ip (l2 = 0) or negated-l2 (l2 = 1) top k of n rows, rows at or
 // past n_valid scoring f32-min, into out_s / out_i [b, k].  c is f32
-// (c_bf16 = 0) or bf16, 16-byte aligned with d a multiple of 4 (f32) or 8
-// (bf16) values; q is the queries grouped as the ring reads them
+// (c_bf16 = 0) or bf16, 16-byte aligned, with d a multiple of 4 (f32) or 8
+// (bf16) values (the tensor-map layout) or d <= 32 (the row layout: whole
+// rows by bulk copies, DIN's d = 18); q is the queries grouped as the ring reads them
 // (mips_topk.py: query_groups).  The plan and every buffer come from
 // mips_topk.py (filter_plan): the sample's scores [b, cols], the
 // selection's workspace, lists and top list [b, k_sample] (topk_large.py:
@@ -442,7 +490,7 @@ int mips_filter_launch(const float* q, const void* c, int c_bf16, int d, int b, 
   const long long tiles = (static_cast<long long>(n_valid) + b1::kTileRows - 1) / b1::kTileRows;
   const long long sampled = stride >= 1 ? (tiles + stride - 1) / stride : 0;
   const int masked = n - n_valid < k ? n - n_valid : k;
-  if (!q || !c || !stats || !out_s || !out_i || b < 1 || d < 1 || d % elems ||
+  if (!q || !c || !stats || !out_s || !out_i || b < 1 || d < 1 || (d % elems && d > ring::kChunk) ||
       reinterpret_cast<uintptr_t>(c) % 16 || n_valid < 0 || n_valid > n || k < 1 || k > n ||
       stride < 1 || (b + b1::kQB - 1) / b1::kQB > 65535 || b > 65535 ||
       k_sample != (stride == 1 ? cols : cols < k ? cols : k) ||

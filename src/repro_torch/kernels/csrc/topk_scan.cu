@@ -4,8 +4,8 @@
 //   mips_topk_launch   dense ip or negated l2 scores plus a running top-k
 //                      (src/repro/kernels/mips_topk.py mips_topk_pallas), for
 //                      the corpora B1's ring route (mips_topk.cu) cannot
-//                      take: rows a tensor map cannot describe (D not a
-//                      multiple of 16 bytes, an unaligned pointer);
+//                      take: D above 32 and not a multiple of 16 bytes, a
+//                      base not 16-byte aligned;
 //   fused_topk_launch  replaces src/repro/kernels/fused_topk.py
 //                      fused_topk_pallas (with _kernel):
 //                      w_d*dense_kind(q_d, c_d) + w_s*sum_j qd[b, idx[n,j]]*val[n,j]
@@ -49,7 +49,8 @@
 // the dense part's memory pipeline (B1's, 55% of HBM) plus the per-slot
 // staging (PERF.md holds what was measured).  The dense-only instantiation
 // (mips_topk_launch) compiles to the same code as before the index; it now
-// serves only B1's corpora whose rows a tensor map cannot describe.
+// serves only B1's corpora that neither ring layout takes (D > 32 not a
+// multiple of 16 bytes, an unaligned base: mips_topk.cu).
 //
 // Numerics.  Every score is IEEE f32: no TF32, bf16 loads converted with
 // __bfloat162float before the first multiply.  The mix is computed as

@@ -1,24 +1,31 @@
 """Exact dense ip / l2 top-k (B1), the counterpart of
-``repro/kernels/mips_topk.py: mips_topk_pallas``, through one of two
-CUDA routes:
+``repro/kernels/mips_topk.py: mips_topk_pallas``.  Three cases, fixed by
+the corpus's shape, dtype and alignment before the launch
+(:func:`ring_layout`):
 
-- **ring** (``csrc/mips_topk.cu``, ``mips_filter_launch``): a corpus whose
-  rows a tensor map can describe (16-byte aligned, D a multiple of 16
-  bytes).  A sample of tiles is scored and its top k taken; its k-th
-  (score, row) is a threshold no row of the answer lies behind; one scan of
-  every other tile keeps only the rows ahead of each block's threshold in
-  per-block lists, sorted in place when one could overflow; one block a
-  query merges the sample's top k, the lists and the masked rows.  Plan:
-  :func:`filter_plan`.
+- **ring, tensor-map layout** (``csrc/mips_topk.cu``,
+  ``mips_filter_launch``): a 16-byte aligned corpus whose rows are a
+  multiple of 16 bytes (D = 768).  A sample of tiles is scored and its top
+  k taken; its k-th (score, row) is a threshold no row of the answer lies
+  behind; one scan of every other tile keeps only the rows ahead of each
+  block's threshold in per-block lists, sorted in place when one could
+  overflow; one block a query merges the sample's top k, the lists and the
+  masked rows.  Plan: :func:`filter_plan`.
+- **ring, row layout** (the same entry point): a 16-byte aligned corpus of
+  at most 32 columns whose rows no tensor map can describe (DIN's and
+  DIEN's D = 18, f32 and bf16).  The same plan, sample, filter and merge;
+  the ring's stages take a tile's whole rows by one bulk copy.
 - **scan** (``csrc/topk_scan.cu``, ``mips_topk_launch``): any other corpus
-  (D = 61, a sliced view).  Each block scans a row range and keeps a
-  candidate list per query in shared memory; B2 (``fused_topk``) shares
-  this kernel and its plan (:func:`plan`).
+  (D = 61, a sliced view 4 bytes off).  Each block scans a row range and
+  keeps a candidate list per query in shared memory; B2 (``fused_topk``)
+  shares this kernel and its plan (:func:`plan`).
 
-For tensors on the CPU the wrapper runs the plain version
-(``ref.mips_topk_ref``); for CUDA tensors it launches a kernel or raises.
-``launches`` counts B1's launches on either route, ``ring_launches`` and
-``scan_launches`` each route's, nowhere else.
+For tensors on the CPU the wrappers run the plain versions
+(``ref.mips_topk_ref``; ``ref.mips_filter_ref`` for the ring's plan, either
+layout); for CUDA tensors they launch a kernel or raise: nothing falls back
+to another route.  ``launches`` counts B1's launches on any route,
+``ring_launches`` the ring's (either layout), ``row_launches`` the row
+layout's and ``scan_launches`` the scan route's, nowhere else.
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ from repro_torch.kernels import _build, ref
 
 MAX_K = 2048
 TILE = 256          # corpus rows per tile: the scan kernels' kRows, the ring's kTileRows
+ROW_COLS = 32       # the ring's row layout: at most this many columns (its kChunk) ...
+ROW_BLOCKS_PER_SM = 2   # ... and two of its blocks an SM (ring.cuh RowStage::kBlocksPerSM)
 _BLOCKS_PER_SM = 4  # scan route: scan blocks to aim for, per SM
 SAMPLE_STRIDE = 16  # ring route: at most every 16th tile is the sample's ...
 SAMPLE_PER_K = 32   # ... and the sample holds at least 32 k rows where the corpus allows
@@ -39,6 +48,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
 ring_launches = 0
+row_launches = 0
 scan_launches = 0
 
 
@@ -52,8 +62,8 @@ def check_k(k: int, n: int):
 
 
 def plan(b: int, n: int, k: int, n_sms: int):
-    """The scan route's launch shape (B1 on corpora the tensor map cannot
-    describe, and B2): (queries per block, candidate-list slots, corpus
+    """The scan route's launch shape (B1 on corpora neither ring layout
+    takes, and B2): (queries per block, candidate-list slots, corpus
     splits, rows per split).  The list holds k plus one tile, rounded up
     to a power of two for the bitonic sort; 16 queries share a block
     while their lists stay within 64 KB of shared memory, else 4."""
@@ -83,8 +93,10 @@ def filter_plan(n: int, n_valid: int, k: int, n_sms: int, stride: int | None = N
     on exchangeable data about k * (stride - 1) rows a query then pass the
     filter.  A filter block's list holds k plus one tile, rounded up to a
     power of two: sorted down to k, it has room for the next tile.
-    ``stride`` and ``blocks`` (the filter's blocks, at most the SMs by
-    default) may be given, as the checks do to make the lists overflow."""
+    ``n_sms`` is the ring's persistent blocks (:func:`_ring_blocks`: the
+    SMs, twice them for the row layout).  ``stride`` and ``blocks`` (the
+    filter's blocks, at most ``n_sms`` by default) may be given, as the
+    checks do to make the lists overflow."""
     tiles = cdiv(n_valid, TILE)
     if stride is None:
         stride = max(1, min(SAMPLE_STRIDE, n_valid // (SAMPLE_PER_K * k)))
@@ -133,11 +145,27 @@ def query_groups(q: torch.Tensor) -> torch.Tensor:
     return out.view(groups, 16, d_pad).transpose(1, 2).contiguous()
 
 
+def ring_layout(corpus: torch.Tensor) -> str | None:
+    """The ring's stage layout for the corpus's rows: ``"box"`` (a tensor
+    map: rows of a multiple of 16 bytes), ``"rows"`` (whole rows by bulk
+    copies: at most ROW_COLS columns), or None (the scan route).  Both need
+    a 16-byte aligned base."""
+    if corpus.dim() != 2 or corpus.data_ptr() % 16:
+        return None
+    if corpus.shape[1] * corpus.element_size() % 16 == 0:
+        return "box"
+    return "rows" if corpus.shape[1] <= ROW_COLS else None
+
+
+def _ring_blocks(corpus: torch.Tensor, n_sms: int) -> int:
+    """The ring's persistent blocks on a card of ``n_sms`` SMs: one an SM
+    for the tensor-map layout, ROW_BLOCKS_PER_SM for the row layout."""
+    return n_sms * (ROW_BLOCKS_PER_SM if ring_layout(corpus) == "rows" else 1)
+
+
 def ring_fits(corpus: torch.Tensor) -> bool:
-    """Whether a tensor map can describe the corpus's rows: 16-byte aligned
-    rows of a multiple of 16 bytes."""
-    return (corpus.dim() == 2 and corpus.shape[1] % (16 // corpus.element_size()) == 0
-            and corpus.data_ptr() % 16 == 0)
+    """Whether B1's ring route takes the corpus (either layout)."""
+    return ring_layout(corpus) is not None
 
 
 def _declare(lib, name):
@@ -176,21 +204,23 @@ def mips_filter(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     stats holding per query the filter's list sorts and the candidates
     merged.  ``stride`` and ``blocks`` override :func:`filter_plan`.  On
     the CPU: the plain emulation (``ref.mips_filter_ref``) of the same
-    plan, at 132 SMs."""
-    global launches, ring_launches
+    plan, at 132 SMs (:func:`_ring_blocks` blocks)."""
+    global launches, ring_launches, row_launches
     if corpus.device.type == "cpu":
         n = corpus.shape[0]
         nv = n if n_valid is None else max(0, min(int(n_valid), n))
         check_k(k, n)
-        p = filter_plan(n, nv, k, 132, stride, blocks)
+        p = filter_plan(n, nv, k, _ring_blocks(corpus, 132), stride, blocks)
         return ref.mips_filter_ref(queries, corpus, k, p, n_valid=nv, space=space)
     q, n_valid = _check(queries, corpus, k, n_valid, space)
-    if not ring_fits(corpus):
-        raise ValueError("the ring route needs 16-byte aligned rows of a multiple of 16 bytes")
+    layout = ring_layout(corpus)
+    if layout is None:
+        raise ValueError("the ring route needs a 16-byte aligned corpus whose rows are a multiple of 16 "
+                         f"bytes or at most {ROW_COLS} columns")
     dev = corpus.device
     n, d = corpus.shape
     b = q.shape[0]
-    p = filter_plan(n, n_valid, k, _sms(dev), stride, blocks)
+    p = filter_plan(n, n_valid, k, _ring_blocks(corpus, _sms(dev)), stride, blocks)
     qg = query_groups(q)
     f32, i32 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.int32, device=dev)
     sample = torch.empty((b, p.cols), **f32)
@@ -218,6 +248,7 @@ def mips_filter(queries: torch.Tensor, corpus: torch.Tensor, k: int,
         _build.check(err, "mips_filter_launch")
         launches += 1
         ring_launches += 1
+        row_launches += int(layout == "rows")
     return out_s, out_i, stats
 
 
