@@ -15,6 +15,9 @@ scores (a sorted corpus, all scores equal, NaN / +0 / -0 at the k-th,
 n_valid below k, a sample that misses every good row, so that the filter's
 lists overflow; "b1 small"), B1's row layout likewise at d = 1, 3, 5, 18
 and 31 in f32 and bf16, each call asserted on that layout ("b1 rows"),
+B2's ring route (both layouts) against its scan route bit for bit on
+exact scores, with the index's risky cases and a sample-blind corpus
+("b2 small"),
 the large-k kernels likewise, with the
 selection's refinement and ordered-fill paths ("large small"), the
 beam-hop kernel against
@@ -58,8 +61,8 @@ upserts, every answer equal to the plain live path at the generation
 that served it ("serve churn"); and B1
 against ``topk_large``, the library call and its own scan route (the
 parent's kernel) at k = 10, 100, 356, 1,100, 2,000 and 2,048 and B = 1, 16
-and 64, B2 against ``topk_large`` at B = 16
-("crossover"), with B1's extra device memory ("b1 memory").  Then the
+and 64, B2 against ``topk_large`` and its own scan route at B = 16
+("crossover"), with B1's and B2's extra device memory ("b1 memory").  Then the
 FlexNeuART feature side over the same corpus ("flexneuart full"): the
 forward index of its COO ids, BM25 vectors and the inverted index built
 on the card, Model 1 trained at full vocabulary, a linear and a tree
@@ -98,7 +101,8 @@ peak memory and FLOPs held against the measured.  Each
 served path runs with the launch counters set to 0 just before and read
 just after.  The last lines are the ``kernels`` JSON, the card's name and
 power limit, and ``{"ok": true, ...}``; the ``kernels`` JSON has a
-``mips_topk_rows`` entry for B1's row layout (DIN's items, f32, B = 16; its
+``mips_topk_rows`` entry for B1's row layout and a ``fused_topk_rows``
+entry for B2's (DIN's items, f32, B = 16, B2 with one tag an item; their
 launches the recommendation path's).  Any failure raises and exits
 non-zero.  The data is synthetic, made on the card from ``--seed``.
 
@@ -145,7 +149,7 @@ DEEP_K = 4096                    # the main path's one deep dense request: k abo
 MSMARCO = dict(n=8_841_823, d=768, v=30_522, nnz=128, nnz_q=32, b=16)
 SOURCES = ("src/repro_torch/kernels/csrc/topk_scan.cu", "src/repro_torch/kernels/csrc/beam_hop.cu",
            "src/repro_torch/kernels/csrc/fused_score.cu", "src/repro_torch/kernels/csrc/topk_large.cu",
-           "src/repro_torch/kernels/csrc/mips_topk.cu")
+           "src/repro_torch/kernels/csrc/mips_topk.cu", "src/repro_torch/kernels/csrc/fused_topk.cu")
 GRAPH = dict(degree=16, ef=64)   # configs/paper_retrieval.py ann_degree / ann_ef
 NAPP = dict(num_pivots=128, num_index=8, num_search=8, min_times=2, rerank_qty=256)  # paper_retrieval.py:36-38
 NAPP_DRAWS = 32                  # pivot draws whose recall "napp recall" prints beside the gated one
@@ -901,6 +905,144 @@ def b1_rows_phase(torch, dev, check):
                 sorts += int(st[:, 0].sum())
                 assert bool((st[:, 0] > 0).all()), f"b1 rows sample-blind d{d} k={k}: the lists were never sorted"
     return check.cases - cases, sorts, mk.row_launches - before
+
+
+def b2_phase(torch, dev, check):
+    """B2's ring route (``fused_topk.cu``: the fused ring of ``ring.cuh``
+    and B1's sample, filter and merge) against its scan route
+    (``topk_scan.cu``'s ``fused_topk_launch``, the parent's kernel) bit for
+    bit on the card, ids and score bits, and both against the plain
+    version: fused (ip and l2), sparse-only and dense-only (weighted) on
+    small integers, f32 and bf16, on the row layout (d = 18 with nnz = 1
+    and 5) and the box layout (d = 64 with nnz = 128 and 16; nnz = 4 in
+    the exact rows below) at n = 50,003 (a ragged last tile), B = 16 (and
+    37 at k = 356), k = 1, 10, 356 and 2,048,
+    n_valid 49,000; plan overrides (stride 3, 5 blocks) and a corpus whose
+    sampled tiles score lowest over 7 filter blocks, so that the lists
+    overflow and are sorted (asserted from the route's stats); "small"'s
+    index stress (Zipf and out-of-range ids, repeated query terms, an
+    all-pad query, V = 1,000 in f32 and bf16, 30,522 and 250,000, whose
+    index words are read from global memory); exact NaN, +0 and -0 scores
+    (``exact_rows``); and d = 61, an odd d = 17 and an unaligned view
+    through the scan route.  On the card every call is asserted to launch
+    the route and layout it claims.  Returns (cases, list sorts, ring,
+    row-layout and scan launches)."""
+    from repro_torch.kernels import fused_topk as fk
+    from repro_torch.kernels import ref
+
+    on_card = dev.type == "cuda"
+
+    def ints(shape, lo, hi, seed, dtype=torch.float32):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randint(lo, hi, shape, generator=g, device=dev).to(dtype)
+
+    def nonzero(shape, m, seed):
+        return ints(shape, 1, m + 1, seed) * (2 * ints(shape, 0, 2, seed + 1) - 1)
+
+    def table_of(qi, qv, v):
+        t = torch.zeros(qi.shape[0], v + 1, device=dev).scatter_add_(1, qi.long(), qv)
+        t[:, v] = 0.0
+        return t
+
+    sorts = 0
+
+    def run(label, args, k, w=(None, None), n_valid=None, kind="ip", layout=None, **over):
+        """The ring route against the scan route bit for bit (the card), both against the plain version."""
+        nonlocal sorts
+        table, qd, ci, cv, cd = args
+        vocab = table.shape[1] - 1 if table is not None else 0
+        got_layout = fk.ring_layout(cd, ci, cv, vocab)
+        assert got_layout == layout, (label, got_layout, layout)
+        before = (fk.ring_launches, fk.row_launches)
+        s, i, st = fk.fused_filter(*args, k, *w, n_valid, kind, **over)
+        if on_card:
+            assert (fk.ring_launches, fk.row_launches) == (before[0] + 1, before[1] + (layout == "rows")), \
+                f"b2 {label}: not launched on the ring's {layout} layout"
+            ws, wi = fk.fused_scan(*args, k, *w, n_valid, kind)
+            assert torch.equal(i, wi) and torch.equal(s.view(torch.int32), ws.view(torch.int32)), \
+                f"b2 {label} k{k}: the ring and the scan route differ"
+        sorts += int(st[:, 0].sum())
+        nv = (cd if ci is None else ci).shape[0] if n_valid is None else n_valid
+        if nv >= k:   # the plain version masks with -inf: its tail differs below n_valid rows
+            check("fused_topk", f"b2 {label} b{i.shape[0]} k{k} {kind}", (s, i),
+                  ref.fused_topk_table_ref(*args, k, w_dense=w[0], w_sparse=w[1], dense_kind=kind,
+                                           n_valid=n_valid), signed_zeros=True)
+        return st
+
+    cases, before = check.cases, (fk.ring_launches, fk.row_launches, fk.scan_launches)
+    n, v = 50_003, 1000
+    for layout, d, nnz in (("rows", 18, 1), ("rows", 18, 5), ("box", 64, 128), ("box", 64, 16)):
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"{layout} d{d} nnz{nnz} {'f32' if dtype == torch.float32 else 'bf16'}"
+            cd = nonzero((n, d), 2, 10 + d + nnz).to(dtype)
+            ci = ints((n, nnz), 0, v, 20 + nnz, torch.int32)
+            cv = ints((n, nnz), 1, 4, 30 + nnz, dtype)
+            for b in (16, 37):
+                qd = nonzero((b, d), 3, 40 + b)
+                table = table_of(ints((b, 8), 0, v, 50 + b).int(), ints((b, 8), 1, 5, 60 + b), v)
+                for k, n_valid in ((1, None), (10, 49_000), (356, None), (2048, 49_000)) if b == 16 else ((356, None),):
+                    run(f"fused {tag}", (table, qd, ci, cv, cd), k, (0.5, 0.25), n_valid, "ip", layout)
+                    run(f"fused {tag}", (table, qd, ci, cv, cd), k, (0.5, 0.25), n_valid, "l2", layout)
+                    run(f"sparse-only {tag}", (table, None, ci, cv, None), k, (None, None), n_valid, "ip",
+                        "rows" if nnz % 4 or (dtype == torch.bfloat16 and nnz % 8) else "box")
+                    run(f"dense-only {tag}", (None, qd, None, None, cd), k, (0.5, None), n_valid, "ip", layout)
+            run(f"fused {tag} stride 3, 5 blocks", (table[:16], qd[:16], ci, cv, cd), 100, (0.5, 0.25), None, "ip",
+                layout, stride=3, blocks=5)
+            # the sampled tiles score lowest: 7 filter blocks of 26 tiles overflow their lists
+            bd = cd.clone().fill_(2)
+            bi = ci.clone().fill_(1)
+            blind = (torch.arange(n, device=dev) // 256) % 16 == 0
+            bd[blind], bi[blind] = 1, 0
+            bt = table_of(torch.ones(16, 1, dtype=torch.int32, device=dev), torch.ones(16, 1, device=dev), v)
+            for k in (10, 300, 2048):
+                st = run(f"fused sample-blind {tag}", (bt, torch.ones(16, d, device=dev), bi, cv, bd), k,
+                         (0.5, 0.25), None, "ip", layout, stride=16, blocks=7)
+                assert bool((st[:, 0] > 0).all()), f"b2 sample-blind {tag} k{k}: the lists were never sorted"
+    # "small"'s index stress: Zipf-skewed and out-of-range ids, repeated query terms, an all-pad query, a
+    # vocabulary whose index words exceed the shared-memory cap
+    g = torch.Generator(device=dev).manual_seed(31)
+    n, d, nnz, n_valid = 5003, 64, 16, 4900
+    for v, dtype, skew in ((1000, torch.float32, True), (1000, torch.bfloat16, True),
+                           (30_522, torch.float32, True), (250_000, torch.float32, False),
+                           (250_000, torch.bfloat16, True)):
+        tag = f"v{v} {'zipf' if skew else 'uniform'} {'f32' if dtype == torch.float32 else 'bf16'}"
+        dense, idx, val, _ = make_corpus(torch, n, d, v, nnz, 2048, 41, dev, dtype)
+        for b in (5, 16):
+            qd, qi, qv = make_queries(torch, b, d, v, 8, 43 + b, dev)
+            table = index_stress(torch, idx, qi, qv, v, g, skew)
+            for k in (10, 2000):
+                run(f"index fused {tag}", (table, qd, idx, val, dense), k, (0.6, 0.4), n_valid, "ip", "box")
+                run(f"index sparse-only {tag}", (table, None, idx, val, None), k, (None, None), n_valid, "ip", "box")
+        rows_idx, rows_val = idx[:, :5].contiguous(), val[:, :5].contiguous()
+        run(f"index fused rows {tag}", (table, qd[:, :18].contiguous(), rows_idx, rows_val,
+                                        dense[:, :18].contiguous()), 100, (0.6, 0.4), n_valid, "ip", "rows")
+    # NaN (0 * inf), +0 and -0 at the k-th (exact_rows: one COO slot of +-1 or +-2 a row, negative weights)
+    for b in (5, 16):
+        (cd, ci, cv), (qd, table) = exact_rows(torch, 5003, 64, 1000, b, 71 + b, dev)
+        for k in (10, 100, 2048):
+            for kind in ("ip", "l2"):
+                run("NaN/+-0 fused", (table, qd, ci, cv, cd), k, (-0.5, -0.25), 4900, kind, "box")
+            run("NaN/+-0 sparse-only", (table, None, ci, cv, None), k, (None, None), 4900, "ip", "box")
+    # what no ring layout takes: the scan route
+    scan0 = fk.scan_launches
+    (cd, ci, cv), (qd, table) = exact_rows(torch, 5003, 64, 1000, 16, 90, dev)
+    odd = cd[:, :61].contiguous()
+    off = torch.empty(5003 * 18 + 18, device=dev)[18:].view(5003, 18)
+    off.copy_(cd[:, :18])
+    off_i = torch.empty(5003 + 1, dtype=torch.int32, device=dev)[1:].view(5003, 1)
+    off_v = torch.empty(5003 + 1, device=dev)[1:].view(5003, 1)
+    off_i.copy_(ci[:, :1])
+    off_v.copy_(cv[:, :1])
+    for label, args in (("d=61", (table, qd[:, :61].contiguous(), ci, cv, odd)),
+                        ("d=17", (table, qd[:, :17].contiguous(), ci, cv, cd[:, :17].contiguous())),
+                        ("a shard at an odd row of d=18", (table, qd[:, :18].contiguous(), off_i, off_v, off))):
+        assert fk.ring_layout(args[4], args[2], args[3], 1000) is None, label
+        check("fused_topk", f"b2 scan route {label}", fk.fused_topk(*args, 100, w_dense=0.5, w_sparse=0.25),
+              ref.fused_topk_table_ref(*args, 100, w_dense=0.5, w_sparse=0.25), signed_zeros=True)
+    if on_card:
+        assert fk.scan_launches == scan0 + 3, "d=61, d=17 and an unaligned shard must take the scan route"
+    return (check.cases - cases, sorts, fk.ring_launches - before[0], fk.row_launches - before[1],
+            fk.scan_launches - before[2])
 
 
 def index_phase(torch, dev):
@@ -1888,8 +2030,10 @@ def live_full_phase(torch, dev, check, corpus, batches, space, frozen_ms, timer,
                 t0 = time.perf_counter()
                 assert live.compact()
                 sync(torch, on_card)
+                peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
+                assert not on_card or peak < 80.0, f"live full: compaction peak {peak:.2f} GB"
                 parts.append(f"compact {time.perf_counter() - t0:.3f} s, peak "
-                             + (f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB" if on_card else "not measured"))
+                             + (f"{peak:.2f} GB" if on_card else "not measured"))
             snap = live.snapshot()
             t0 = time.perf_counter()
             segments._locator(snap)
@@ -3699,6 +3843,7 @@ def recsys_full_phase(torch, dev, check, card, on_card, seed, timer, cfg=None, o
     for m in counters.values():
         m.launches = 0
     mk.ring_launches = mk.row_launches = mk.scan_launches = 0
+    fk.ring_launches = fk.row_launches = fk.scan_launches = 0
     with torch.no_grad():
         tower_s, uq = [], []
         for batch in batches:
@@ -3730,10 +3875,14 @@ def recsys_full_phase(torch, dev, check, card, on_card, seed, timer, cfg=None, o
         rs_s = time.perf_counter() - t0
     offline = {name: m.launches for name, m in counters.items()}
     offline["mips_topk_rows"] = mk.row_launches
+    offline["fused_topk_rows"] = fk.row_launches
     routes = (mk.ring_launches, mk.row_launches, mk.scan_launches)
+    b2_routes = (fk.ring_launches, fk.row_launches, fk.scan_launches)
     if on_card:
-        assert offline == {"mips_topk": 2, "fused_topk": 1, "mips_topk_rows": 2}, offline
+        assert offline == {"mips_topk": 2, "fused_topk": 1, "mips_topk_rows": 2, "fused_topk_rows": 1}, offline
         assert routes == (2, 2, 0), f"B1 at D = 18 did not take the ring's row layout: ring, rows, scan {routes}"
+        assert b2_routes == (1, 1, 0), \
+            f"B2 over DIN's items did not take the ring's row layout: ring, rows, scan {b2_routes}"
 
     # the kernels against their plain versions (ids up to near-ties: random tables plant no margin)
     check("mips_topk_rows", "recsys full: DIN items f32 k=100", tuple(b1),
@@ -3742,7 +3891,7 @@ def recsys_full_phase(torch, dev, check, card, on_card, seed, timer, cfg=None, o
           plain.mips_topk_ref(q0, item16, k, tile_n=1 << 22), exact_ids=False)
     qtable = plain.query_table(users0.sparse, tags)
     w = dict(w_dense=space.w_dense, w_sparse=space.w_sparse)
-    check("fused_topk", "recsys full: DIN items + 50 tags k=100", tuple(b2),
+    check("fused_topk_rows", "recsys full: DIN items + 50 tags k=100", tuple(b2),
           plain.fused_topk_table_ref(qtable, q0, tag_idx, tag_val, item, k, tile_n=1 << 22, **w), exact_ids=False)
     match = lambda ids: float((tag_idx[ids.long(), 0] == user_tags[0][:, :1]).float().mean())
     tag_match = (match(b1.indices), match(b2.indices))
@@ -3781,7 +3930,7 @@ def recsys_full_phase(torch, dev, check, card, on_card, seed, timer, cfg=None, o
     tokens = [row for x, t in zip(uq, user_tags) for row in torch.cat([x, t.float()], 1).cpu()]
     pad, pad_tok = torch.zeros(d, device=dev), torch.zeros(d + ut, device=dev)
     before = {name: m.launches for name, m in counters.items()}
-    rows_before, scan_before = mk.row_launches, mk.scan_launches
+    rows_before, scan_before, b2_rows_before = mk.row_launches, mk.scan_launches, fk.row_launches
     with RetrievalService(cache_size=0) as svc:
         svc.register_pipeline("recs", recorder, pad, pad_tok,
                               spec=EndpointSpec(batch_size=b, max_wait_s=0.005, max_queue=128, overload="block"))
@@ -3801,6 +3950,7 @@ def recsys_full_phase(torch, dev, check, card, on_card, seed, timer, cfg=None, o
         ep = svc.snapshot().endpoints["recs"]
     served = {name: m.launches - before[name] for name, m in counters.items()}
     served["mips_topk_rows"] = mk.row_launches - rows_before
+    served["fused_topk_rows"] = fk.row_launches - b2_rows_before
     launches = {name: offline[name] + served[name] for name in offline}
     assert ep.corpus_dtype == "bfloat16" and ep.stage_fallbacks["rerank"] == 0 and ep.n_requests == len(queries)
     if on_card:
@@ -3833,6 +3983,8 @@ def recsys_full_phase(torch, dev, check, card, on_card, seed, timer, cfg=None, o
     b2_bytes = n * d * 4 + n * 8 + b * d * 4 + b * (tags + 1) * 4 + b * k * 8
     b2_ops = 2 * (b * n * d + sparse_fmas(torch, qtable, tag_idx)) + 3 * b * n
     b2_bound = max(b2_bytes / HBM_BYTES_PER_S, b2_ops / F32_FLOPS) * 1e3
+    b2_by = "bytes" if b2_bytes / HBM_BYTES_PER_S >= b2_ops / F32_FLOPS else "operations"
+    b2_scan_ms = timer(lambda: fk.fused_scan(qtable, q0, tag_idx, tag_val, item, k, **w), 3)
     with torch.no_grad():
         tower_ms = timer(lambda: R.user_query(model, cfg, batches[0], ctx), 5)
         rs_ms = timer(lambda: R.retrieval_scores(model, cfg, cand_batch, ctx, k), 5)
@@ -3847,7 +3999,7 @@ def recsys_full_phase(torch, dev, check, card, on_card, seed, timer, cfg=None, o
         f"B1 f32 {1e3 * b1_s:.3f} ms, bf16 {1e3 * b1_16_s:.3f} ms, B2 (FusedSpace({tags}, {space.w_dense}, "
         f"{space.w_sparse}), one tag an item, {ut} a user) {1e3 * b2_s:.3f} ms, retrieval_scores (1 user, "
         f"{cand_batch.candidates.shape[1]:,} candidates, k={k}) {1e3 * rs_s:.3f} ms; launches {offline} (B1 ring, its "
-        f"row layout, scan route {routes}); B1 f32 and bf16 and B2 equal their plain versions (tolerance {TOL_REL} of row "
+        f"row layout, scan route {routes}; B2 {b2_routes}); B1 f32 and bf16 and B2 equal their plain versions (tolerance {TOL_REL} of row "
         f"scale, ids up to near-ties); tag-match rate of the top-{k}: dense {tag_match[0]:.3f}, fused "
         f"{tag_match[1]:.3f}; card vs cpu (weights copied in {cpu_s:.1f} s): user tower worst {tower_err:.3g} of "
         f"row scale, retrieval_scores scores within {TOL_REL} of row scale, ids up to near-ties")
@@ -3855,8 +4007,9 @@ def recsys_full_phase(torch, dev, check, card, on_card, seed, timer, cfg=None, o
         + "; ".join(f"B1 {dt} B={bq} {b1_ms[dt, bq]:.3f} ms (row layout) vs bound {bounds[dt, bq][0]:.3f} ms "
                     f"({bounds[dt, bq][1]}), scan route {scan_ms[dt, bq]:.3f} ms, library {lib_ms[dt, bq]:.3f} ms"
                     for dt, bq in b1_ms)
-        + f"; plain B1 f32 {plain_ms['f32']:.3f} ms, bf16 {plain_ms['bf16']:.3f} ms; B2 B={b} {b2_ms:.3f} ms vs "
-        f"bound {b2_bound:.3f} ms ({b2_bytes / 1e9:.2f} GB), plain {b2_plain:.3f} ms; user tower + projection "
+        + f"; plain B1 f32 {plain_ms['f32']:.3f} ms, bf16 {plain_ms['bf16']:.3f} ms; B2 B={b} {b2_ms:.3f} ms (row "
+        f"layout) vs bound {b2_bound:.3f} ms ({b2_by}; {b2_bytes / 1e9:.2f} GB), its scan route {b2_scan_ms:.3f} ms, "
+        f"plain {b2_plain:.3f} ms; user tower + projection "
         f"{tower_ms:.3f} ms/batch; retrieval_scores {rs_ms:.3f} ms; {card}")
     e2e = ep.e2e
     log(f"  served funnel (bf16 B1 top {RECSYS['cand_qty']} -> tag fusion top {RECSYS['fusion_qty']} -> exact f32 "
@@ -3898,8 +4051,10 @@ def recsys_full_phase(torch, dev, check, card, on_card, seed, timer, cfg=None, o
         if on_card:
             torch.cuda.empty_cache()
     log(f"  phase {time.perf_counter() - t_phase:.1f} s; {card}")
-    rows = {"ms": b1_ms["f32", b], "plain_ms": plain_ms["f32"], "bound_ms": bounds["f32", b][0],
-            "bound_by": bounds["f32", b][1], "library_ms": lib_ms["f32", b]}
+    rows = {"mips_topk_rows": {"ms": b1_ms["f32", b], "plain_ms": plain_ms["f32"], "bound_ms": bounds["f32", b][0],
+                               "bound_by": bounds["f32", b][1], "library_ms": lib_ms["f32", b]},
+            "fused_topk_rows": {"ms": b2_ms, "plain_ms": b2_plain, "bound_ms": b2_bound, "bound_by": b2_by,
+                                "library_ms": None}}
     return launches, rows
 
 
@@ -6514,6 +6669,7 @@ def dryrun_phase(torch, card, on_card):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n", type=int, default=MSMARCO["n"], help="corpus rows")
@@ -6578,6 +6734,16 @@ def main() -> int:
         f"bf16, n = 50,003 with a ragged last tile, n_valid 49,000 and below k, ip and l2, k 1-2048; sorted, all "
         f"equal, NaN/+0/-0 at the k-th); the sample-blind corpus sorted the filter's lists {rows_sorts} times; "
         f"row-layout launches {rows_launched}; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    b2_cases, b2_sorts, b2_ring, b2_rows, b2_scan = b2_phase(torch, dev, check)
+    log(f"phase b2 small: {b2_cases} cases of B2 agree with the plain version, and its ring route with its scan "
+        f"route bit for bit (fused ip and l2, sparse-only, dense-only, f32 and bf16, d = 18 with nnz = 1 and 5 on "
+        f"the row layout, d = 64 with nnz = 128, 16 and 4 on the box layout, k 1-2048, n_valid < n, plan "
+        f"overrides; Zipf and out-of-range ids, repeated query terms, an all-pad query, V = 250,000; NaN/+0/-0 "
+        f"at the k-th; d = 61, d = 17 and an unaligned shard through the scan route); the sample-blind corpus "
+        f"and the overrides sorted the filter's lists {b2_sorts} times; launches: ring {b2_ring} of which row "
+        f"layout {b2_rows}, scan {b2_scan} (a scan route call beside each ring call on the card, and the 3 that "
+        f"no ring layout takes); {time.perf_counter() - t0:.1f} s")
     cases = check.cases
     large_phase(torch, dev, check)
     log(f"phase large small: {check.cases - cases} cases of k > 2048 agree (tolerance {TOL_REL} of row scale; "
@@ -6617,7 +6783,7 @@ def main() -> int:
     assert type(resolve_backend("cuda", space, corpus)).__name__ == "CudaBackend"
 
     mk.launches = mk.ring_launches = mk.row_launches = mk.scan_launches = 0
-    fk.launches = 0
+    fk.launches = fk.ring_launches = fk.row_launches = fk.scan_launches = 0
     lk.launches = 0
     fused_s, dense_s, results, dense_results = [], [], [], []
     for q in batches:
@@ -6635,12 +6801,15 @@ def main() -> int:
     deep = dense_gen.generate(batches[0].dense, DEEP_K)
     launches = {"mips_topk": mk.launches, "fused_topk": fk.launches, "topk_large": lk.launches}
     log(f"phase main path: {BATCHES} batches of {b} and one dense request of k = {DEEP_K}; launches {launches} "
-        f"(mips_topk: ring {mk.ring_launches} of which row layout {mk.row_launches}, scan {mk.scan_launches}); "
+        f"(mips_topk: ring {mk.ring_launches} of which row layout {mk.row_launches}, scan {mk.scan_launches}; "
+        f"fused_topk: ring {fk.ring_launches}, scan {fk.scan_launches}); "
         f"fused pipeline median {1e3 * statistics.median(fused_s):.3f} ms/batch, "
         f"dense median {1e3 * statistics.median(dense_s):.3f} ms/batch (host clock, synchronised)")
     if on_card:
         assert all(c > 0 for c in launches.values()), f"a kernel was not launched: {launches}"
         assert mk.ring_launches > 0, "the main path did not take B1's ring route"
+        assert fk.ring_launches == fk.launches and fk.scan_launches == 0, \
+            f"the main path's B2 left the ring: ring {fk.ring_launches}, scan {fk.scan_launches}"
 
     # correctness at full scale, against the plain versions
     for r in results:
@@ -6655,7 +6824,17 @@ def main() -> int:
     check("fused_topk", "full fused k=100", tuple(ops_fused(q.sparse, q.dense, corpus.sparse, dense, v, 100,
                                                            **fused_kw)), want)
     want2000 = ref.fused_topk_table_ref(*fused_args, 2000, tile_n=1 << 16, **fused_kw)
-    check("fused_topk", "full fused k=2000", fk.fused_topk(*fused_args, 2000, **fused_kw), want2000)
+    ring0 = fk.ring_launches
+    b2_2000 = fk.fused_topk(*fused_args, 2000, **fused_kw)
+    check("fused_topk", "full fused k=2000", b2_2000, want2000)
+    if on_card:   # on the ring, and bit for bit its scan route's answer (the parent's kernel)
+        assert fk.ring_launches == ring0 + 1, "full fused k=2000 did not take B2's ring route"
+        scan_2000 = fk.fused_scan(*fused_args, 2000, **fused_kw)
+        assert torch.equal(b2_2000[1], scan_2000[1]) and torch.equal(b2_2000[0].view(torch.int32),
+                                                                     scan_2000[0].view(torch.int32)), \
+            "full fused k=2000: B2's ring and scan routes disagree"
+        del scan_2000
+    del b2_2000
     want_dense = ref.mips_topk_ref(q.dense, dense, 100, tile_n=1 << 18)
     check("mips_topk", "full dense k=100 (generator)", tuple(dense_results[0]), want_dense)
     want_deep = ref.mips_topk_ref(q.dense, dense, DEEP_K, tile_n=1 << 18)
@@ -6680,7 +6859,8 @@ def main() -> int:
     check("mips_topk", "full dense k=2048 all scores equal", mk.mips_topk(zq, dense, 2048),
           ref.mips_topk_ref(zq, dense, 2048, tile_n=1 << 18), signed_zeros=True)
     del b1_2000, deep_2000
-    log(f"phase full check: fused k=100, k=2000 and k={DEEP_K}, dense k=100 (planted and random), k=2000 "
+    log(f"phase full check: fused k=100, k=2000 (ring equal to the scan route bit for bit) and k={DEEP_K}, "
+        f"dense k=100 (planted and random), k=2000 "
         f"(equal to topk_large bit for bit), k=2048 with every score +0 and k={DEEP_K} agree")
 
     # ---- timings ------------------------------------------------------
@@ -6742,7 +6922,7 @@ def main() -> int:
         torch.cuda.synchronize()
         return (torch.cuda.max_memory_allocated() - base) / 1e9
 
-    cross, b1_gb = [], {}
+    cross, b1_gb, b2_gb = [], {}, {}
     for bq, qq in ((1, q.dense[:1].contiguous()), (b, q.dense),
                    (4 * b, torch.cat([x.dense for x in batches[:4]]))):
         for k in CROSSOVER_K:
@@ -6750,33 +6930,39 @@ def main() -> int:
             row = [bq, k, mips_ms if seen else timer(lambda: mk.mips_topk(qq, dense, k), 3),
                    timer(lambda: lk.topk_large(None, qq, None, None, dense, k), 3),
                    mips_lib if seen else timer(lambda: library_topk(k, qq), 3), None, None,
-                   timer(lambda: mk.mips_scan(qq, dense, k), 1 if bq > b else 3)]
+                   timer(lambda: mk.mips_scan(qq, dense, k), 1 if bq > b else 3), None]
             if bq == b:
                 row[5] = fused_ms if seen else timer(lambda: fk.fused_topk(*fused_args, k, **fused_kw), 3)
                 row[6] = timer(lambda: lk.topk_large(*fused_args, k, **fused_kw), 3)
+                row[8] = timer(lambda: fk.fused_scan(*fused_args, k, **fused_kw), 3)
                 b1_gb[k] = extra_gb(lambda: mk.mips_topk(qq, dense, k))
+                b2_gb[k] = extra_gb(lambda: fk.fused_topk(*fused_args, k, **fused_kw))
             cross.append(tuple(row))
-    # the scan route is the parent's B1 kernel (topk_scan.cu, unchanged): B1's time before the ring
+    # the scan routes are the parent's B1 and B2 kernels (topk_scan.cu, unchanged): their times before the ring
     for bq in (1, b, 4 * b):
         log(f"phase crossover B={bq} (f32, CUDA events, median of 3; B=16 k=100 rows of median 5; the scan "
             f"route at B=64 one run): "
             + "; ".join(f"k={k}: B1 {b1:.3f} ms, topk_large dense {ld:.3f} ms, library {lib:.3f} ms, "
                         f"B1's scan route {sc:.3f} ms"
-                        + ("" if b2 is None else f", B2 {b2:.3f} ms, topk_large fused {lf:.3f} ms")
-                        for bb, k, b1, ld, lib, b2, lf, sc in cross if bb == bq)
+                        + ("" if b2 is None else f", B2 {b2:.3f} ms, topk_large fused {lf:.3f} ms, "
+                                                 f"B2's scan route {sc2:.3f} ms")
+                        for bb, k, b1, ld, lib, b2, lf, sc, sc2 in cross if bb == bq)
             + f"; {card}")
-    ahead = all(b1 < lib and b1 <= ld for bb, k, b1, ld, lib, _, _, _ in cross if bb == b)
-    faster = all(b1 <= sc for _, _, b1, _, _, _, _, sc in cross)
+    ahead = all(b1 < lib and b1 <= ld for bb, k, b1, ld, lib, *_ in cross if bb == b)
+    faster = all(b1 <= sc for _, _, b1, _, _, _, _, sc, _ in cross)
+    b2_ahead = all(b2 < lf and b2 <= sc2 for bb, _, _, _, _, b2, lf, _, sc2 in cross if bb == b)
     log(f"phase b1 memory (B={b}, max_memory_allocated over one call): "
         + ", ".join(f"k={k}: {gb:.4f} GB" for k, gb in b1_gb.items())
+        + "; B2's: " + ", ".join(f"k={k}: {gb:.4f} GB" for k, gb in b2_gb.items())
         + f"; B1 faster than the library call and no slower than topk_large dense at every k at B={b}: {ahead}; "
-        f"no slower than its scan route at every k and B: {faster}")
+        f"no slower than its scan route at every k and B: {faster}; B2 faster than topk_large fused and no "
+        f"slower than its scan route at every k: {b2_ahead}")
 
     kernels = []
     for name, source, replaces, ms, plain, lib, (bms, by) in (
             ("mips_topk", SOURCES[4], "src/repro/kernels/mips_topk.py:92", mips_ms, mips_plain, mips_lib,
              bound(dense_bytes, dense_ops)),
-            ("fused_topk", SOURCES[0], "src/repro/kernels/fused_topk.py:146", fused_ms, fused_plain, None,
+            ("fused_topk", SOURCES[5], "src/repro/kernels/fused_topk.py:146", fused_ms, fused_plain, None,
              bound(fused_bytes, fused_ops)),
             ("topk_large", SOURCES[3], "src/repro/kernels/mips_topk.py:92", large_ms, large_plain, large_lib,
              bound(large_bytes, dense_ops))):
@@ -6814,12 +7000,18 @@ def main() -> int:
     clear_ann_index_cache()
     if on_card:
         torch.cuda.empty_cache()
+    b2_before = (fk.ring_launches, fk.scan_launches)
     learned, learned_ms = fusion_full_phase(torch, dev, check, corpus, card, on_card, args.seed + 21)
     live_full_phase(torch, dev, check, corpus, batches, learned,
                     {"fused": learned_ms, "dense": 1e3 * statistics.median(dense_s)}, timer, card, on_card,
                     args.seed + 22)
     serve_launches = serve_full_phase(torch, dev, check, corpus, space, card, on_card, args.seed + 23)
     flex_launches = flexneuart_full_phase(torch, dev, check, corpus, card, on_card, args.seed + 24, timer)
+    b2_routes = (fk.ring_launches - b2_before[0], fk.scan_launches - b2_before[1])
+    log(f"phase b2 routes: fusion full, live full, serve full and flexneuart full launched B2 on the ring "
+        f"{b2_routes[0]} times, on the scan route {b2_routes[1]} times")
+    if on_card:
+        assert b2_routes[0] > 0 and b2_routes[1] == 0, f"B2 left the ring on the served paths: {b2_routes}"
     # the funnel's neural stage: smollm-360m as published on the card; a rehearsal on the CPU cuts it to one
     # layer of a narrow FFN (the dense width stays 960 >= the encoded 768)
     cross_cfg = None
@@ -6895,7 +7087,17 @@ def main() -> int:
     napp_recall_phase(torch, dev, *recall_data, args.seed + 12, on_card)
     live_ann_phase(torch, dev, check, *recall_data[:3], card, on_card, args.seed + 13)
     tune_launches = autotune_phase(torch, dev, check, *recall_data[:2], card, on_card, args.seed + 14)
-    # ---- the dry run: every cell traced on the production meshes, and three held against the card
+    # ---- the dry run: every cell traced on the production meshes, and three held against the card.  Its card
+    # check runs in a process of its own: the recall corpus and this process's cached blocks go first, or the
+    # check's 27 GB cell may not fit beside them (the autotuner's genomes, drawn anew each run, can leave tens
+    # of GB cached)
+    del recall_data
+    gc.collect()
+    clear_ann_index_cache()
+    if on_card:
+        torch.cuda.empty_cache()
+        log(f"phase dryrun memory: this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+            f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved before the card check")
     dryrun_phase(torch, card, on_card)
     kernels.append({"name": "beam_hop", "route": "cuda", "source": SOURCES[1],
                     "replaces": "src/repro/kernels/beam_topk.py:238", "launches": hop["launches"],
@@ -6905,16 +7107,21 @@ def main() -> int:
     kernels.append({"name": "fused_score", "route": "cuda", "source": SOURCES[2],
                     "replaces": "src/repro/kernels/sparse_dense.py:61", "launches": score_launches,
                     "max_abs_err": check.max_err["fused_score"], **score, "library_ms": None})
-    # B1's row layout (DIN's items at D = 18, f32, B = 16): its launches are the recommendation path's
+    # B1's and B2's row layout (DIN's items at D = 18, f32, B = 16; B2 with one tag an item): their launches are
+    # the recommendation path's
     kernels.append({"name": "mips_topk_rows", "route": "cuda", "source": SOURCES[4],
                     "replaces": "src/repro/kernels/mips_topk.py:92", "launches": 0,
-                    "max_abs_err": check.max_err["mips_topk_rows"], **rows_timing})
+                    "max_abs_err": check.max_err["mips_topk_rows"], **rows_timing["mips_topk_rows"]})
+    kernels.append({"name": "fused_topk_rows", "route": "cuda", "source": SOURCES[5],
+                    "replaces": "src/repro/kernels/fused_topk.py:146", "launches": 0,
+                    "max_abs_err": check.max_err["fused_topk_rows"], **rows_timing["fused_topk_rows"]})
     for k in kernels:    # the main path's launches, the served passes', FlexNeuART's, the cross-encoder's,
         # the recommendation and molecule paths', the search's, the ranks' of "dist full"
         k["launches"] += (serve_launches.get(k["name"], 0) + flex_launches.get(k["name"], 0)
                           + cross_launches.get(k["name"], 0) + recsys_launches.get(k["name"], 0)
                           + molecule_launches.get(k["name"], 0) + tune_launches.get(k["name"], 0)
                           + dist_launches.get(k["name"], 0))
+    log(f"phase total: {time.perf_counter() - t_start:.1f} s, the build included")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if not on_card:

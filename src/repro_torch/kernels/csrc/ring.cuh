@@ -24,6 +24,18 @@
 // What a finished tile's scores become is the epilogue's business: a
 // policy type E gives the tiles a launch walks and what happens at the end
 // of each (see dense_kernel).
+//
+// The second half of the file is the fused ring (fused_kernel, B2's): the
+// same blocks, warps and hand-overs over tiles that carry sparse stages
+// beside the dense ones.  In the tensor-map layout (BoxTile) a tile's COO
+// ids and values follow its dense stages as [kTileRows, kSlotChunk] boxes,
+// copied by the copy warp; in the row layout (RowTile) a tile is one stage
+// of its dense rows, ids and values, each by one bulk copy.  The consumers
+// turn slots into hits through the query-term index in registers, a row's
+// hits passed round its four lanes by shuffles (sparse_box, rows_round),
+// and a score policy (SparseArgs: parts, weights; l2 as dense_score) forms
+// the fused score at the end of the tile, which the epilogue takes as an
+// ip tile's finished scores.
 #pragma once
 
 #include <cuda.h>
@@ -407,10 +419,8 @@ __global__ void __launch_bounds__(kDenseThreads, S::kBlocksPerSM) dense_kernel(t
   E::finish(a, sh, q0, qn);
 }
 
-// The corpus's tensor map: rows [0, rows) x columns [0, d), a box of
-// kTileRows x kChunk, swizzled as Stage<TD> reads it.
-template <typename TD>
-cudaError_t tensor_map(const void* c, int d, long long rows, CUtensorMap* map) {
+// cuTensorMapEncodeTiled, looked up once (cudaGetDriverEntryPoint).
+inline cudaError_t map_encoder(PFN_cuTensorMapEncodeTiled_v12000* out) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult found;
@@ -419,6 +429,17 @@ cudaError_t tensor_map(const void* c, int d, long long rows, CUtensorMap* map) {
     if (err != cudaSuccess) return err;
     if (found != cudaDriverEntryPointSuccess || encode == nullptr) return cudaErrorNotSupported;
   }
+  *out = encode;
+  return cudaSuccess;
+}
+
+// The corpus's tensor map: rows [0, rows) x columns [0, d), a box of
+// kTileRows x kChunk, swizzled as Stage<TD> reads it.
+template <typename TD>
+cudaError_t tensor_map(const void* c, int d, long long rows, CUtensorMap* map) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode;
+  const cudaError_t err = map_encoder(&encode);
+  if (err != cudaSuccess) return err;
   const cuuint64_t dims[2] = {cuuint64_t(d), cuuint64_t(rows)};
   const cuuint64_t strides[1] = {cuuint64_t(d) * sizeof(TD)};
   const cuuint32_t box[2] = {cuuint32_t(kChunk), cuuint32_t(kTileRows)};
@@ -440,6 +461,529 @@ cudaError_t launch_dense(const typename E::Args& a, const CUtensorMap& map, int 
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   kernel<<<dim3(blocks, (a.b + kQB - 1) / kQB), kDenseThreads, smem, st>>>(a, map);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The fused ring (B2's ring route, fused_topk.cu): the same persistent
+// blocks, warps and hand-overs, over tiles whose stages carry the dense
+// part, the sparse part (COO slots) or both, and a score policy that mixes
+// them: w_d * dense + w_s * sum_j qd[b, idx[n, j]] * val[n, j], either part
+// absent, each present part weighted or not (SparseArgs).
+//
+// The sparse part reads the query-term index of the block's 16 queries
+// (topk_scan.cuh: index_row; kernels/query_index.py build_index with
+// group kQB): its words in shared memory up to kWordsSmemCap bytes, else
+// in global memory through the same code, and its compact table in global
+// memory (L2).  A stage's COO slots become hits in the consumers' own
+// registers: the four lanes that hold a row (lane >> 2 equal) hold its 16
+// queries, so they look up its slots (in the box layout four slots each,
+// sparse_box; in the row layout each lane its own row's, rows_round) and
+// the row's hits go round those four lanes by shuffles, in slot order: no
+// shared list, no block barrier a sparse stage.
+// ---------------------------------------------------------------------------
+
+constexpr int kSlotChunk = 16;   // COO slots of a box stage (topk_scan.cuh's kSparseChunk)
+constexpr int kRowSlots = 32;    // the row layout's widest COO row
+
+struct SparseArgs {
+  const uint2* words;    // [groups, nw] the query-term index words of each group of kQB queries
+  const float* table;    // [groups, vocab + 2, kQB] their compact tables
+  const int* idx;        // [N, nnz] i32
+  const void* val;       // [N, nnz] f32/bf16
+  int nnz, vocab, nw;    // nw = index_words(vocab)
+  int stage_words;       // the words fit kWordsSmemCap: copied to shared memory
+  int weighted;          // one part: scale it (two parts are always weighted)
+  float w_dense, w_sparse;
+};
+
+// The arguments of fused_kernel: the epilogue's (q, c, d, b, n_valid ...;
+// q and c unused without a dense part) and the sparse part's.
+template <typename EA>
+struct FusedArgs {
+  EA e;
+  SparseArgs s;
+};
+
+// The slot's value of the four k, picked by a lane-varying k (a select chain, not local memory).
+template <typename T>
+__device__ __forceinline__ T pick(const T (&x)[4], int k) {
+  return k == 0 ? x[0] : k == 1 ? x[1] : k == 2 ? x[2] : x[3];
+}
+
+// Four COO slots of a row as f32, read from shared memory: ids at `ids`, values at `vals`, the first
+// `real` of them (0 to 4) real; a slot needs a multiply-add when it hits the query-term index (row != 0:
+// its compact-table row) or its value is not finite (0 * inf and 0 * NaN are NaN: topk_scan.cuh
+// stage_hits).  Returns the mask of such slots.
+template <typename TV, bool kVec>
+__device__ __forceinline__ unsigned look_up(const int* ids, const TV* vals, int real, const uint2* words,
+                                            int vocab, int (&row)[4], float (&v)[4]) {
+  int id[4];
+  if constexpr (kVec) {   // four slots, 16-byte aligned ids
+    const int4 i4 = *reinterpret_cast<const int4*>(ids);
+    id[0] = i4.x; id[1] = i4.y; id[2] = i4.z; id[3] = i4.w;
+    if constexpr (sizeof(TV) == 4) {
+      const float4 f = *reinterpret_cast<const float4*>(vals);
+      v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+    } else {
+      const uint2 u = *reinterpret_cast<const uint2*>(vals);
+      const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+      const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+      v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      id[k] = k < real ? ids[k] : 0;
+      v[k] = k < real ? topk::to_f32(vals[k]) : 0.f;
+    }
+  }
+  unsigned m = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    // kVec (a box stage, nearly every slot real): every slot looked up, as the scan does; else the real ones
+    row[k] = kVec || k < real ? topk::index_row(words, vocab, id[k]) : 0;
+    if (k < real && (row[k] != 0 || !isfinite(v[k]))) m |= 1u << k;
+  }
+  return m;
+}
+
+// table[hr][the thread's four queries] x hv onto a row's four sums (fmaf, as the scan)
+__device__ __forceinline__ void add_hit(const float* tq, int hr, float hv, float (&s)[4]) {
+  const float4 t = __ldg(reinterpret_cast<const float4*>(tq + size_t(hr) * kQB));
+  s[0] = fmaf(t.x, hv, s[0]);
+  s[1] = fmaf(t.y, hv, s[1]);
+  s[2] = fmaf(t.z, hv, s[2]);
+  s[3] = fmaf(t.w, hv, s[3]);
+}
+
+// The sparse sums of a box stage: 16 slots a row (ids and values row-major in shared memory, 16-byte
+// aligned), [0, real) of them real, for the thread's four rows (row_in + 8r).  Lane l looks up slots
+// 4 (l % 4) .. +3 of each of its rows (a warp's eight rows of a column of lanes read 512 contiguous
+// bytes); each row's 16-bit hit mask is gathered in the row's four lanes (lane >> 2 equal), and the
+// four lanes take the row's hits in slot order, each hit's (compact row, value) shuffled from the lane
+// that looked it up, and add table[row][their four queries] x value to the row's sums, which start at
+// +0: the scan's sums bit for bit.  The four rows go round together, their lookups, shuffles and
+// table reads independent of each other, as many rounds as the warp's busiest row needs.  No shared
+// list, no barrier.
+template <typename TV>
+__device__ __forceinline__ void sparse_box(const int* ids, const TV* vals, int real, int row_in,
+                                           const uint2* words, int vocab, const float* tq, int lane,
+                                           float (&sp)[4][4]) {
+  const int sub = lane & 3, base = lane & ~3;
+  const int mine = min(4, max(0, real - 4 * sub));   // this lane's real slots
+  int row[4][4];
+  float v[4][4];
+  unsigned hits[4];
+  int n[4], most = 0;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int at = (row_in + 8 * r) * kSlotChunk + 4 * sub;
+    hits[r] = look_up<TV, true>(ids + at, vals + at, mine, words, vocab, row[r], v[r]) << (4 * sub);
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {   // bit s: slot s of row r
+    hits[r] |= __shfl_xor_sync(0xffffffffu, hits[r], 1);
+    hits[r] |= __shfl_xor_sync(0xffffffffu, hits[r], 2);
+    n[r] = __popc(hits[r]);
+    most = max(most, n[r]);
+  }
+  most = int(__reduce_max_sync(0xffffffffu, unsigned(most)));
+  for (int h = 0; h < most; ++h) {
+    int hr[4];
+    float hv[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int p = __ffs(hits[r]) - 1;   // row r's next hit (-1: its hits are done)
+      hits[r] &= hits[r] - 1;
+      const int k = p & 3, src = base | ((p >> 2) & 3);
+      hr[r] = __shfl_sync(0xffffffffu, pick(row[r], k), src);
+      hv[r] = __shfl_sync(0xffffffffu, pick(v[r], k), src);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      if (h < n[r]) add_hit(tq, hr[r], hv[r], sp[r]);
+  }
+}
+
+// One round of a row stage's sparse sums: four slots of each of the thread's four rows, looked up by
+// the row's own lane (look_up: `own` the mask of its row's slots that need a multiply-add, `row` and
+// `v` their compact-table rows and values).  The round's four 4-bit masks are gathered in the row's
+// four lanes; each lane offers its row's next hit, in slot order, and takes the four rows' by
+// shuffles, four table reads in flight.
+__device__ __forceinline__ void rows_round(unsigned own, const int (&row)[4], const float (&v)[4], int lane,
+                                           const float* tq, float (&sp)[4][4]) {
+  const int sub = lane & 3, base = lane & ~3;
+  unsigned all = own << (4 * sub);   // bits 4r .. 4r + 3: row r's four slots
+  all |= __shfl_xor_sync(0xffffffffu, all, 1);
+  all |= __shfl_xor_sync(0xffffffffu, all, 2);
+  int n[4], most = 0;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    n[r] = __popc((all >> (4 * r)) & 15u);
+    most = max(most, n[r]);
+  }
+  most = int(__reduce_max_sync(0xffffffffu, unsigned(most)));
+  for (int h = 0; h < most; ++h) {
+    const int k = (__ffs(own) - 1) & 3;   // this lane's row's next hit
+    own &= own - 1;
+    const int mr = pick(row, k);
+    const float mv = pick(v, k);
+    int hr[4];
+    float hv[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      hr[r] = __shfl_sync(0xffffffffu, mr, base | r);
+      hv[r] = __shfl_sync(0xffffffffu, mv, base | r);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      if (h < n[r]) add_hit(tq, hr[r], hv[r], sp[r]);
+  }
+}
+
+// BoxTile: the tensor-map layout of the fused ring (one block an SM, a
+// ring of kStages slots).  A tile is ceil(D / kChunk) dense stages, each a
+// Stage<TD> (a swizzled [kTileRows, kChunk] box of the corpus and the
+// queries' columns), then ceil(nnz / kSlotChunk) sparse stages, each a
+// [kTileRows, kSlotChunk] box of the ids and one of the values (no
+// swizzle: a row's 16 slots are 64 bytes of ids, read as four 16-byte
+// pieces by its four lanes, eight rows a warp over 512 contiguous bytes);
+// slots past nnz and rows past n_valid read as zero, and the slots past
+// nnz are not looked up.  A slot holds the larger of the two stages.
+// Needs rows of a multiple of 16 bytes in each array: D x sizeof(TD),
+// nnz x 4 and nnz x sizeof(TV).
+template <typename TD, typename TV, bool DENSE, bool SPARSE>
+struct BoxTile {
+  using DS = Stage<TD>;
+  static constexpr int kMaxStages = kStages;
+  static constexpr int kBlocksPerSM = 1;
+  static constexpr unsigned kAlign = 1024;
+  static constexpr int kHead = 0;
+  static constexpr int kIdxBytes = kTileRows * kSlotChunk * 4;
+  static constexpr int kSparseBytes = kIdxBytes + kTileRows * kSlotChunk * int(sizeof(TV));
+  static constexpr int kBytes = !SPARSE ? DS::kBytes
+                                : !DENSE ? kSparseBytes
+                                         : (DS::kBytes > kSparseBytes ? DS::kBytes : kSparseBytes);
+  __host__ __device__ static int dense_chunks(int d) { return DENSE ? (d + kChunk - 1) / kChunk : 0; }
+  __host__ __device__ static int chunks(int d, int nnz) {
+    return dense_chunks(d) + (SPARSE ? (nnz + kSlotChunk - 1) / kSlotChunk : 0);
+  }
+  // Stage s of a tile: dense chunk s, or sparse chunk s - dense_chunks(d) after the dense ones.  (The
+  // sparse stages spread evenly among the dense ones were slower: PERF.md.)
+  __device__ static bool sparse_at(int s, int d, int& chunk) {
+    const int dc = dense_chunks(d);
+    const bool sparse = SPARSE && s >= dc;
+    chunk = sparse ? s - dc : s;
+    return sparse;
+  }
+  __host__ __device__ static int bytes(int, int) { return kBytes; }
+  __host__ __device__ static int stages(int, int, int) { return kStages; }
+  __device__ static void copy(unsigned char* st, const CUtensorMap* dmap, const CUtensorMap* imap,
+                              const CUtensorMap* vmap, const void*, const SparseArgs&, int d, long long,
+                              long long row0, int s, const float* qg, unsigned long long* full) {
+    int c;
+    const bool sparse = sparse_at(s, d, c);
+    if constexpr (DENSE) {
+      if (!sparse) {
+        DS::copy(st, dmap, nullptr, 0, 0, row0, c * kChunk, qg, full);
+        return;
+      }
+    }
+    if constexpr (SPARSE) {
+      const int j0 = c * kSlotChunk;
+      mbar_expect_tx(full, kSparseBytes);
+      tile_copy(st, imap, j0, int(row0), full);
+      tile_copy(st + kIdxBytes, vmap, j0, int(row0), full);
+    }
+  }
+  template <bool L2>
+  __device__ static void consume(const unsigned char* st, const unsigned char* smem, const SparseArgs& sa, int d,
+                                 int s, int row_in, int qgi, int lane, const uint2* words, const float* tq,
+                                 float (&acc)[4][4], float (&c2)[4], float (&sp)[4][4]) {
+    int c;
+    const bool sparse = sparse_at(s, d, c);
+    if constexpr (DENSE) {
+      if (!sparse) {
+        DS::template multiply<L2>(st, DS::queries(smem, st), d, row_in, qgi, acc, c2);
+        return;
+      }
+    }
+    if constexpr (SPARSE) {
+      const int j0 = c * kSlotChunk;
+      sparse_box<TV>(reinterpret_cast<const int*>(st), reinterpret_cast<const TV*>(st + kIdxBytes),
+                     min(kSlotChunk, sa.nnz - j0), row_in, words, sa.vocab, tq, lane, sp);
+    }
+  }
+};
+
+// rows [row0, row0 + rows) of a row-major array into a stage region of
+// `region` bytes: returns the largest multiple of 16 bytes (for the copy
+// engine, which the caller starts); the few bytes left go by plain stores
+// (W: a value's bits), zeros after them to the region's end, so that no
+// read passes the array and no stale NaN enters a sum (RowStage::copy).
+template <typename W>
+__device__ __forceinline__ unsigned rows_tail(unsigned char* dst, const unsigned char* src, unsigned size,
+                                              unsigned region) {
+  const unsigned bulk = size & ~15u;
+  if (bulk < region) {
+    const unsigned up = (size + 15u) & ~15u;
+    for (unsigned i = bulk; i < up; i += sizeof(W))
+      *reinterpret_cast<W*>(dst + i) = i < size ? *reinterpret_cast<const W*>(src + i) : W(0);
+    for (unsigned i = up; i < region; i += 16) *reinterpret_cast<uint4*>(dst + i) = make_uint4(0, 0, 0, 0);
+  }
+  return bulk;
+}
+
+template <typename T>
+using bits_of = std::conditional_t<sizeof(T) == 4, unsigned, unsigned short>;
+
+// RowTile: the row layout of the fused ring (two blocks an SM, as
+// RowStage), for arrays whose rows no tensor map describes: a tile is one
+// stage, the tile's dense rows (D <= kChunk, D even: RowStage<TD, true>'s
+// column pairs), its ids and its values (nnz <= kRowSlots), each as it lies
+// in its array, by one bulk copy a region, all three on the stage's
+// barrier (DIN's items with one tag: 18 KB + 1 KB + 1 KB a tile).  The
+// queries are read once into shared memory ahead of the ring.  The ring is
+// as deep as fits kSmem beside the index words, at most kMaxStages.
+template <typename TD, typename TV, bool DENSE, bool SPARSE>
+struct RowTile {
+  using DS = RowStage<TD, true>;
+  static constexpr int kMaxStages = DS::kMaxStages;
+  static constexpr int kBlocksPerSM = DS::kBlocksPerSM;
+  static constexpr unsigned kAlign = 16;
+  static constexpr int kHead = DENSE ? kQStage : 0;
+  __host__ __device__ static int dense_bytes(int d) { return DENSE ? kTileRows * d * int(sizeof(TD)) : 0; }
+  __host__ __device__ static int idx_bytes(int nnz) { return SPARSE ? kTileRows * nnz * 4 : 0; }
+  __host__ __device__ static int val_bytes(int nnz) { return SPARSE ? kTileRows * nnz * int(sizeof(TV)) : 0; }
+  __host__ __device__ static int chunks(int, int) { return 1; }
+  __host__ __device__ static int bytes(int d, int nnz) { return dense_bytes(d) + idx_bytes(nnz) + val_bytes(nnz); }
+  // stages in flight beside `words` bytes of index words, at most kMaxStages
+  __host__ __device__ static int stages(int d, int nnz, int words) {
+    const int fit = (DS::kSmem - kHead - words - int(kAlign)) / bytes(d, nnz);
+    return fit < kMaxStages ? fit : kMaxStages;
+  }
+  __device__ static void copy(unsigned char* st, const CUtensorMap*, const CUtensorMap*, const CUtensorMap*,
+                              const void* c, const SparseArgs& sa, int d, long long n_valid, long long row0, int,
+                              const float*, unsigned long long* full) {
+    const unsigned rows = unsigned(n_valid - row0 < kTileRows ? n_valid - row0 : kTileRows);
+    const unsigned char* src[3] = {nullptr, nullptr, nullptr};
+    unsigned bulk[3] = {0, 0, 0}, region[3] = {0, 0, 0};
+    bool stored = false;
+    unsigned char* at = st;
+    if constexpr (DENSE) {
+      region[0] = unsigned(dense_bytes(d));
+      src[0] = static_cast<const unsigned char*>(c) + size_t(row0) * d * sizeof(TD);
+      bulk[0] = rows_tail<bits_of<TD>>(at, src[0], rows * d * unsigned(sizeof(TD)), region[0]);
+    }
+    if constexpr (SPARSE) {
+      region[1] = unsigned(idx_bytes(sa.nnz));
+      region[2] = unsigned(val_bytes(sa.nnz));
+      src[1] = reinterpret_cast<const unsigned char*>(sa.idx + size_t(row0) * sa.nnz);
+      src[2] = static_cast<const unsigned char*>(sa.val) + size_t(row0) * sa.nnz * sizeof(TV);
+      bulk[1] = rows_tail<unsigned>(at + region[0], src[1], rows * sa.nnz * 4u, region[1]);
+      bulk[2] = rows_tail<bits_of<TV>>(at + region[0] + region[1], src[2], rows * sa.nnz * unsigned(sizeof(TV)),
+                                       region[2]);
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) stored |= bulk[i] < region[i];
+    // the tails' stores are the generic proxy's: order them before any later copy-engine write of the slot
+    if (stored) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_expect_tx(full, bulk[0] + bulk[1] + bulk[2]);   // an arrive, with the bytes the copy engine moves
+    unsigned off = 0;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      if (bulk[i] > 0) bulk_copy(at + off, src[i], bulk[i], full);
+      off += region[i];
+    }
+  }
+  // Here a lane looks up its own row (lane l takes row row_in + 8 (l % 4) of the four that its row's
+  // lanes share), four slots a round (rows_round): with DIN's one tag a row, one lookup a lane and not
+  // sixteen.  (Issuing the first round's lookups before the dense multiply, to hide their latency, held
+  // more registers and was slower: PERF.md.)
+  template <bool L2>
+  __device__ static void consume(const unsigned char* st, const unsigned char* smem, const SparseArgs& sa, int d, int,
+                                 int row_in, int qgi, int lane, const uint2* words, const float* tq,
+                                 float (&acc)[4][4], float (&c2)[4], float (&sp)[4][4]) {
+    if constexpr (DENSE) DS::template multiply<L2>(st, reinterpret_cast<const float*>(smem), d, row_in, qgi, acc, c2);
+    if constexpr (SPARSE) {
+      const int nnz = sa.nnz, at = (row_in + 8 * (lane & 3)) * nnz;
+      const int* ids = reinterpret_cast<const int*>(st + dense_bytes(d)) + at;
+      const TV* vals = reinterpret_cast<const TV*>(st + dense_bytes(d) + idx_bytes(nnz)) + at;
+      for (int j0 = 0; j0 < nnz; j0 += 4) {
+        int row[4];
+        float v[4];
+        const unsigned own = look_up<TV, false>(ids + j0, vals + j0, min(4, nnz - j0), words, sa.vocab, row, v);
+        rows_round(own, row, v, lane, tq, sp);
+      }
+    }
+  }
+};
+
+// The fused ring: dense_kernel's blocks, warps and ring over the stages of
+// the tile layout T (BoxTile or RowTile); at the end of each tile, the
+// score policy turns the sums into the fused score (the scan's arithmetic,
+// topk_scan.cu: __fadd_rn(__fmul_rn(w_d, dense), __fmul_rn(w_s, sparse)),
+// l2's dense part as dense_score), and the epilogue E (filter.cuh:
+// SampleTiles or FilterTiles) takes them as an ip tile's finished scores.
+// The index words follow the ring in shared memory when they fit.
+template <typename TD, typename TV, bool DENSE, bool SPARSE, bool L2, typename E, typename T>
+__global__ void __launch_bounds__(kDenseThreads, T::kBlocksPerSM)
+    fused_kernel(FusedArgs<typename E::Args> fa, const __grid_constant__ CUtensorMap dmap,
+                 const __grid_constant__ CUtensorMap imap, const __grid_constant__ CUtensorMap vmap) {
+  static_assert(DENSE || SPARSE, "a part to score");
+  const typename E::Args& a = fa.e;
+  const SparseArgs& sa = fa.s;
+  extern __shared__ __align__(16) unsigned char ring_raw[];
+  unsigned char* smem = ring_raw + ((T::kAlign - (smem_u32(ring_raw) & (T::kAlign - 1))) & (T::kAlign - 1));
+  unsigned char* slots = smem + T::kHead;
+  __shared__ __align__(8) unsigned long long full[T::kMaxStages], empty[T::kMaxStages];
+  __shared__ long long row0s[T::kMaxStages];
+  __shared__ float q2s[kQB];
+  __shared__ typename E::Shared sh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.y * kQB, qn = min(kQB, a.b - q0);
+  const int cpt = T::chunks(a.d, sa.nnz);   // stages a tile
+  const int stage_bytes = T::bytes(a.d, sa.nnz);
+  const int nst = T::stages(a.d, sa.nnz, SPARSE && sa.stage_words ? sa.nw * 8 : 0);
+  const float* qg = DENSE ? a.q + size_t(blockIdx.y) * ((a.d + kChunk - 1) / kChunk) * kChunk * kQB : nullptr;
+  const long long n_units = E::units(a);
+  const long long mine = blockIdx.x < n_units ? (n_units - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const long long total = mine * cpt;
+
+  if (tid == 0) {
+    for (int i = 0; i < nst; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (DENSE && L2 && tid < kQB) {
+    float acc = 0.f;
+    for (int j = 0; j < a.d; ++j) acc = fmaf(qg[j * kQB + tid], qg[j * kQB + tid], acc);
+    q2s[tid] = acc;
+  }
+  if constexpr (T::kHead > 0) {   // the queries' kChunk columns, once
+    float* qh = reinterpret_cast<float*>(smem);
+    for (int i = tid; i < kChunk * kQB; i += kDenseThreads) qh[i] = qg[i];
+  }
+  const uint2* words = nullptr;
+  const float* tq = nullptr;
+  if constexpr (SPARSE) {
+    words = sa.words + size_t(blockIdx.y) * sa.nw;
+    tq = sa.table + size_t(blockIdx.y) * (sa.vocab + 2) * kQB + 4 * (lane & 3);
+    if (sa.stage_words) {
+      uint2* sw = reinterpret_cast<uint2*>(slots + size_t(nst) * stage_bytes);
+      for (int i = tid; i < sa.nw; i += kDenseThreads) sw[i] = words[i];
+      words = sw;
+    }
+  }
+  if (tid < kQB) E::init(a, sh, tid, q0, qn);
+  __syncthreads();
+
+  if (warp == kConsumers) {   // the copying warp
+    if (lane == 0) {
+      int slot = 0;
+      unsigned ph = 0;
+      for (long long s = 0; s < total; ++s) {
+        if (s >= nst) mbar_wait(&empty[slot], ph ^ 1u);
+        const long long row0 = E::first_row(a, blockIdx.x + (s / cpt) * gridDim.x);
+        row0s[slot] = row0;
+        T::copy(slots + size_t(slot) * stage_bytes, &dmap, &imap, &vmap, a.c, sa, a.d, a.n_valid, row0,
+                int(s % cpt), qg, &full[slot]);
+        if (++slot == nst) {
+          slot = 0;
+          ph ^= 1u;
+        }
+      }
+    }
+    return;
+  }
+
+  const int qgi = lane & 3, rg = lane >> 2;
+  const int row_in = 32 * warp + rg;
+  float acc[4][4], c2[4], sp[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    c2[r] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[r][j] = sp[r][j] = 0.f;
+  }
+  int slot = 0;
+  unsigned ph = 0;
+  for (long long s = 0; s < total; ++s) {
+    mbar_wait(&full[slot], ph);
+    const int in_tile = int(s % cpt);
+    T::template consume<L2>(slots + size_t(slot) * stage_bytes, smem, sa, a.d, in_tile, row_in, qgi, lane, words,
+                            tq, acc, c2, sp);
+    const long long row0 = row0s[slot];
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[slot]);
+    if (++slot == nst) {
+      slot = 0;
+      ph ^= 1u;
+    }
+    if (in_tile == cpt - 1) {   // the tile is scored: its fused scores to the epilogue, start the next
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float v;
+          if constexpr (DENSE) {
+            const float dv = dense_score<L2>(acc[r][j], c2[r], q2s[4 * qgi + j]);
+            if constexpr (SPARSE) {
+              v = __fadd_rn(__fmul_rn(sa.w_dense, dv), __fmul_rn(sa.w_sparse, sp[r][j]));
+            } else {
+              v = sa.weighted ? __fmul_rn(sa.w_dense, dv) : dv;
+            }
+          } else {
+            v = sa.weighted ? __fmul_rn(sa.w_sparse, sp[r][j]) : sp[r][j];
+          }
+          acc[r][j] = v;
+        }
+      }
+      const long long unit = blockIdx.x + (s / cpt) * gridDim.x;
+      E::template tile<false>(a, sh, unit, row0, row_in, acc, c2, q2s, q0, qn, lane);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        c2[r] = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[r][j] = sp[r][j] = 0.f;
+      }
+    }
+  }
+  E::finish(a, sh, q0, qn);
+}
+
+// A tensor map of an [rows, nnz] COO array (ids: i32, values: f32/bf16),
+// a box of kTileRows x kSlotChunk, no swizzle, as BoxTile reads it.
+inline cudaError_t slot_map(const void* p, CUtensorMapDataType type, int elem, int nnz, long long rows,
+                            CUtensorMap* map) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode;
+  const cudaError_t err = map_encoder(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[2] = {cuuint64_t(nnz), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(nnz) * elem};
+  const cuuint32_t box[2] = {cuuint32_t(kSlotChunk), cuuint32_t(kTileRows)};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = encode(map, type, 2, const_cast<void*>(p), dims, strides, box, step,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// One launch of fused_kernel over a grid of `blocks` x the query groups.
+template <typename TD, typename TV, bool DENSE, bool SPARSE, bool L2, typename E, typename T>
+cudaError_t launch_fused(const FusedArgs<typename E::Args>& fa, const CUtensorMap& dmap, const CUtensorMap& imap,
+                         const CUtensorMap& vmap, int blocks, cudaStream_t st) {
+  const int words = SPARSE && fa.s.stage_words ? fa.s.nw * 8 : 0;
+  const int nst = T::stages(fa.e.d, fa.s.nnz, words);
+  if (nst < 2) return cudaErrorInvalidValue;
+  const size_t smem = size_t(T::kHead) + size_t(nst) * T::bytes(fa.e.d, fa.s.nnz) + words + T::kAlign;
+  auto kernel = fused_kernel<TD, TV, DENSE, SPARSE, L2, E, T>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(blocks, (fa.e.b + kQB - 1) / kQB), kDenseThreads, smem, st>>>(fa, dmap, imap, vmap);
   return cudaGetLastError();
 }
 

@@ -6,10 +6,18 @@
 //                      the corpora B1's ring route (mips_topk.cu) cannot
 //                      take: D above 32 and not a multiple of 16 bytes, a
 //                      base not 16-byte aligned;
-//   fused_topk_launch  replaces src/repro/kernels/fused_topk.py
-//                      fused_topk_pallas (with _kernel):
+//   fused_topk_launch  B2's scan route (src/repro/kernels/fused_topk.py
+//                      fused_topk_pallas, with _kernel):
 //                      w_d*dense_kind(q_d, c_d) + w_s*sum_j qd[b, idx[n,j]]*val[n,j]
 //                      plus the same top-k; either part may be absent.
+//                      It serves only what no layout of B2's
+//                      ring route (fused_topk.cu) takes: D above 32 and
+//                      not a multiple of 16 bytes, an odd D of at most 32,
+//                      nnz above 32 and not a multiple of 16 bytes' worth,
+//                      a base off 16 bytes (a shard at an odd row of
+//                      D = 18 f32), a dense and a value array of two
+//                      dtypes.  Its answers are the ring's bit for bit,
+//                      which chip_smoke.py ("b2 small") holds.
 //
 // Design.  The TPU grid walks corpus tiles in order and carries the top-k
 // in VMEM from step to step.  Blocks on Hopper run in parallel, so:
@@ -45,9 +53,11 @@
 // in L2 (about 1.7% of slots at B = 16 on uniform ids).  A miss would add
 // fmaf(0, v, acc) = acc, so the sums are bit for bit the gather's.  The
 // compact table stays in global memory: in shared memory it would cost
-// the second block an SM at qb = 16.  What bounds the fused kernel now is
-// the dense part's memory pipeline (B1's, 55% of HBM) plus the per-slot
-// staging (PERF.md holds what was measured).  The dense-only instantiation
+// the second block an SM at qb = 16.  What bounds this kernel is the dense
+// part's memory pipeline (55% of HBM) plus the per-slot staging, and above
+// k = 256 the plan's 4 queries a block (the corpus read four times at
+// B = 16): the reasons B2 moved to the ring (PERF.md holds what was
+// measured).  The dense-only instantiation
 // (mips_topk_launch) compiles to the same code as before the index; it now
 // serves only B1's corpora that neither ring layout takes (D > 32 not a
 // multiple of 16 bytes, an unaligned base: mips_topk.cu).

@@ -1,11 +1,33 @@
-"""One-pass fused dense+sparse score and top-k through the CUDA kernel in
-``csrc/topk_scan.cu`` (``fused_topk_launch``), the counterpart of
-``repro/kernels/fused_topk.py: fused_topk_pallas``.  It shares the scan,
-the selection and the launch plan with ``mips_topk``.
+"""Exact fused dense+sparse top-k (B2), the counterpart of
+``repro/kernels/fused_topk.py: fused_topk_pallas``.  Three cases, fixed by
+the shape, dtype and alignment of ``c_dense``, ``c_idx`` and ``c_val``
+before the launch (:func:`ring_layout`):
 
-For tensors on the CPU the wrapper runs the plain version
-(``ref.fused_topk_table_ref``); for CUDA tensors it launches the kernel
-or raises.  ``launches`` counts kernel launches, nowhere else.
+- **ring, box layout** (``csrc/fused_topk.cu``, ``fused_filter_launch``):
+  16-byte aligned arrays whose rows are multiples of 16 bytes (MS MARCO's
+  D = 768 and nnz = 128, f32 and bf16).  B1's route (``mips_topk.py``) on
+  the fused ring: a sample of tiles scored and its top k taken, one scan
+  of every other tile keeping the rows ahead of each block's threshold,
+  one merge a query; the dense part in tensor-map boxes of 32 columns, the
+  COO slots in boxes of 16 slots, 16 queries a block at every k.  Plan:
+  ``mips_topk.filter_plan``.
+- **ring, row layout** (the same entry point): arrays of at most 32
+  columns (D even) and 32 slots whose rows no tensor map describes (DIN's
+  items, D = 18, with one tag): a tile's dense rows, ids and values by one
+  bulk copy each, two blocks an SM (the plan takes twice the blocks).
+- **scan** (``csrc/topk_scan.cu``, ``fused_topk_launch``): anything else
+  (D = 61, an odd D of at most 32, a base off 16 bytes such as a shard
+  view at an odd row of D = 18 f32, a dense and a value array of two
+  dtypes).  Each block scans a row range and keeps a candidate list per
+  query in shared memory (:func:`mips_topk.plan`).
+
+For tensors on the CPU the wrappers run the plain versions
+(``ref.fused_topk_table_ref``; ``ref.fused_filter_ref`` for the ring's
+plan, either layout); for CUDA tensors they launch a kernel or raise:
+nothing falls back to another route.  ``launches`` counts B2's launches
+on any route, ``ring_launches`` the ring's (either layout),
+``row_launches`` the row layout's and ``scan_launches`` the scan route's,
+nowhere else.
 """
 
 from __future__ import annotations
@@ -15,19 +37,32 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.mips_topk import (_DTYPES, _sms, check_k, plan, ptr,
+from repro_torch.kernels.mips_topk import (_DTYPES, ROW_BLOCKS_PER_SM, ROW_COLS, TILE, _sms, check_k,
+                                           filter_buffers, filter_plan, plan, ptr, query_groups,
                                            require_cuda)
 from repro_torch.kernels.query_index import build_index
 
+ROW_SLOTS = 32               # the row layout's widest COO row (ring.cuh kRowSlots)
+_ROW_SMEM = 112 * 1024       # a row-layout block's shared memory (ring.cuh RowStage::kSmem)
+_QUERY_BYTES = 32 * 16 * 4   # its queries' columns, ahead of the ring (kQStage)
+_WORDS_SMEM_CAP = 32768      # index words staged in shared memory up to this (topk_scan.cuh kWordsSmemCap)
+GROUP = 16                   # queries of a block, and of a query-term index group (ring.cuh kQB)
+
 launches = 0
+ring_launches = 0
+row_launches = 0
+scan_launches = 0
 
 
-def _declare(lib):
-    fn = lib.fused_topk_launch
+def _declare(lib, name):
+    fn = getattr(lib, name)
     if fn.argtypes is None:
-        v, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [v, v, v, v, i, i, i, v, v, i, i, i, i, i, i, i, i, f, f,
-                       v, v, i, i, i, i, v, v, v]
+        v, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+        fn.argtypes = {
+            "fused_topk_launch": [v, v, v, v, i, i, i, v, v, i, i, i, i, i, i, i, i, f, f,
+                                  v, v, i, i, i, i, v, v, v],
+            "fused_filter_launch": [v, v, i, i, v, v, v, v, i, i, i, i, i, i, i, i, i, i, f, f,
+                                    i, i, i, i, v, v, i, i, i, ll, v, v, v, v, i, i, v, v, v, v, v, v]}[name]
         fn.restype = ctypes.c_int
     return fn
 
@@ -45,26 +80,39 @@ def _weights(w_dense, w_sparse, has_dense: bool, has_sparse: bool):
     return weighted, float(w_dense or 0.0), float(w_sparse or 0.0)
 
 
-def fused_topk(qdensified, q_dense, c_idx, c_val, c_dense, k: int,
-               w_dense=None, w_sparse=None, n_valid: int | None = None,
-               dense_kind: str = "ip"):
-    """(scores f32[B, K], ids i32[B, K]), score descending, ties toward the
-    lower row id.
+def ring_layout(c_dense, c_idx, c_val, vocab: int) -> str | None:
+    """The ring's tile layout for the present arrays: ``"box"`` (tensor
+    maps: each array's rows a multiple of 16 bytes), ``"rows"`` (whole rows
+    by bulk copies: D <= 32 and even, nnz <= 32, the stage at least twice
+    in a row-layout block beside the index words), or None (the scan
+    route).  Both need every array 16-byte aligned, and two parts of one
+    dtype.  ``vocab`` is the query table's V (its width less one)."""
+    arrays = [t for t in (c_dense, c_idx, c_val) if t is not None]
+    if any(t.dim() != 2 or t.data_ptr() % 16 for t in arrays):
+        return None
+    dense, sparse = c_dense is not None, c_idx is not None
+    if dense and sparse and c_dense.dtype != c_val.dtype:
+        return None
+    d, de = (c_dense.shape[1], c_dense.element_size()) if dense else (0, 4)
+    nnz, ve = (c_idx.shape[1], c_val.element_size()) if sparse else (0, 4)
+    if (not dense or d * de % 16 == 0) and (not sparse or (nnz * 4 % 16 == 0 and nnz * ve % 16 == 0)):
+        return "box"
+    if (dense and (d > ROW_COLS or d % 2)) or (sparse and nnz > ROW_SLOTS):
+        return None
+    words = (vocab // 32 + 1) * 8 if sparse else 0
+    words = words if words <= _WORDS_SMEM_CAP else 0
+    stage = TILE * (d * de + nnz * (4 + ve))
+    fit = (_ROW_SMEM - (_QUERY_BYTES if dense else 0) - words - 16) // stage
+    return "rows" if fit >= 2 else None
 
-    ``qdensified`` [B, V+1] (zero trash column last) with ``c_idx`` i32 /
-    ``c_val`` [N, NNZ] form the sparse part; ``q_dense`` [B, Dd] with
-    ``c_dense`` [N, Dd] the dense one; ``None`` drops a part.  Values are
-    f32 or bf16.  Rows at or past ``n_valid`` score f32-min on the card
-    (-inf in the plain version, as in the reference's oracle)."""
-    global launches
+
+def _args(qdensified, q_dense, c_idx, c_val, c_dense, k, w_dense, w_sparse, n_valid, dense_kind):
+    """Checked arguments of a CUDA launch: (b, n, n_valid, d, nnz, vocab,
+    queries f32, weighted, w_dense, w_sparse)."""
     has_dense, has_sparse = c_dense is not None, c_idx is not None
     if not (has_dense or has_sparse):
         raise ValueError("fused_topk: no components to score")
     corpus = c_dense if has_dense else c_idx
-    if corpus.device.type == "cpu":
-        return ref.fused_topk_table_ref(
-            qdensified, q_dense, c_idx, c_val, c_dense, k, w_dense=w_dense,
-            w_sparse=w_sparse, dense_kind=dense_kind, n_valid=n_valid)
     if corpus.device.type != "cuda":
         raise ValueError(f"fused_topk runs on cpu or cuda, not {corpus.device}")
     if dense_kind not in ("ip", "l2"):
@@ -75,9 +123,7 @@ def fused_topk(qdensified, q_dense, c_idx, c_val, c_dense, k: int,
     check_k(k, n)
     n_valid = n if n_valid is None else max(0, min(int(n_valid), n))
     b = (q_dense if has_dense else qdensified).shape[0]
-    qb, buf, n_splits, rows = plan(b, n, k, _sms(dev))
-
-    q = words = table = None
+    q = None
     d = nnz = vocab = 0
     if has_dense:
         q = q_dense.float().contiguous()   # upcast before the first multiply
@@ -99,14 +145,76 @@ def fused_topk(qdensified, q_dense, c_idx, c_val, c_dense, k: int,
         if qdensified.shape[0] != b:
             raise ValueError(f"qdensified has {qdensified.shape[0]} rows, "
                              f"expected {b}")
-        # the kernel reads the sparse part through a query-term index per
-        # block's group of qb queries, built here on the card
-        words, table = build_index(qdensified, qb)
+    return b, n, n_valid, d, nnz, vocab, q, weighted, wd, ws
+
+
+def fused_filter(qdensified, q_dense, c_idx, c_val, c_dense, k: int, w_dense=None, w_sparse=None,
+                 n_valid: int | None = None, dense_kind: str = "ip", *, stride: int | None = None,
+                 blocks: int | None = None):
+    """The ring route: (scores f32[B, K], ids i32[B, K], stats i32[B, 2]),
+    stats holding per query the filter's list sorts and the candidates
+    merged.  ``stride`` and ``blocks`` override ``filter_plan``.  On the
+    CPU: the plain emulation (``ref.fused_filter_ref``) of the same plan,
+    at 132 SMs (twice the blocks for the row layout)."""
+    global launches, ring_launches, row_launches
+    has_dense, has_sparse = c_dense is not None, c_idx is not None
+    corpus = c_dense if has_dense else c_idx
+    if corpus is not None and corpus.device.type == "cpu":
+        n = corpus.shape[0]
+        nv = n if n_valid is None else max(0, min(int(n_valid), n))
+        check_k(k, n)
+        vocab = qdensified.shape[1] - 1 if has_sparse else 0
+        layout = ring_layout(c_dense, c_idx, c_val, vocab)
+        p = filter_plan(n, nv, k, 132 * (ROW_BLOCKS_PER_SM if layout == "rows" else 1), stride, blocks)
+        return ref.fused_filter_ref(qdensified, q_dense, c_idx, c_val, c_dense, k, p, w_dense=w_dense,
+                                    w_sparse=w_sparse, dense_kind=dense_kind, n_valid=nv)
+    b, n, n_valid, d, nnz, vocab, q, weighted, wd, ws = _args(
+        qdensified, q_dense, c_idx, c_val, c_dense, k, w_dense, w_sparse, n_valid, dense_kind)
+    layout = ring_layout(c_dense, c_idx, c_val, vocab)
+    if layout is None:
+        raise ValueError("the ring route needs 16-byte aligned arrays of one dtype whose rows are multiples of "
+                         f"16 bytes, or at most {ROW_COLS} even columns and {ROW_SLOTS} slots")
+    dev = corpus.device
+    p = filter_plan(n, n_valid, k, _sms(dev) * (ROW_BLOCKS_PER_SM if layout == "rows" else 1), stride, blocks)
+    qg = query_groups(q) if has_dense else None
+    # the sparse part through the query-term index of each block's 16 queries, built here on the card
+    words, table = build_index(qdensified, GROUP) if has_sparse else (None, None)
+    buf = filter_buffers(b, k, p, dev)
+    fn = _declare(_build.load("fused_topk"), "fused_filter_launch")
+    with torch.cuda.device(dev), _build.LAUNCH_LOCK:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(ptr(qg), ptr(c_dense), _DTYPES[c_dense.dtype] if has_dense else 0, d, ptr(words), ptr(table),
+                 ptr(c_idx), ptr(c_val), _DTYPES[c_val.dtype] if has_sparse else 0, nnz, vocab,
+                 int(layout == "rows"), b, n, n_valid, k, int(dense_kind == "l2"), int(weighted), wd, ws,
+                 *buf.args(p), ctypes.c_void_p(stream))
+        _build.check(err, "fused_filter_launch")
+        launches += 1
+        ring_launches += 1
+        row_launches += int(layout == "rows")
+    return buf.out_s, buf.out_i, buf.stats
+
+
+def fused_scan(qdensified, q_dense, c_idx, c_val, c_dense, k: int, w_dense=None, w_sparse=None,
+               n_valid: int | None = None, dense_kind: str = "ip"):
+    """The scan route (``topk_scan.cu``'s ``fused_topk_launch``), for any
+    input: what :func:`fused_topk` runs where :func:`ring_layout` is None."""
+    global launches, scan_launches
+    corpus = c_dense if c_dense is not None else c_idx
+    if corpus is not None and corpus.device.type == "cpu":
+        return ref.fused_topk_table_ref(qdensified, q_dense, c_idx, c_val, c_dense, k, w_dense=w_dense,
+                                        w_sparse=w_sparse, dense_kind=dense_kind, n_valid=n_valid)
+    b, n, n_valid, d, nnz, vocab, q, weighted, wd, ws = _args(
+        qdensified, q_dense, c_idx, c_val, c_dense, k, w_dense, w_sparse, n_valid, dense_kind)
+    has_dense, has_sparse = c_dense is not None, c_idx is not None
+    dev = corpus.device
+    qb, buf, n_splits, rows = plan(b, n, k, _sms(dev))
+    # the kernel reads the sparse part through a query-term index per block's group of qb queries
+    words, table = build_index(qdensified, qb) if has_sparse else (None, None)
     part_s = torch.empty((b, n_splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((b, n_splits, k), dtype=torch.int32, device=dev)
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
-    fn = _declare(_build.load("topk_scan"))
+    fn = _declare(_build.load("topk_scan"), "fused_topk_launch")
     with torch.cuda.device(dev), _build.LAUNCH_LOCK:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(ptr(words), ptr(table), ptr(c_idx if has_sparse else None),
@@ -118,4 +226,33 @@ def fused_topk(qdensified, q_dense, c_idx, c_val, c_dense, k: int,
                  ptr(out_s), ptr(out_i), ctypes.c_void_p(stream))
         _build.check(err, "fused_topk_launch")
         launches += 1
+        scan_launches += 1
     return out_s, out_i
+
+
+def fused_topk(qdensified, q_dense, c_idx, c_val, c_dense, k: int,
+               w_dense=None, w_sparse=None, n_valid: int | None = None,
+               dense_kind: str = "ip"):
+    """(scores f32[B, K], ids i32[B, K]), score descending, ties toward the
+    lower row id.
+
+    ``qdensified`` [B, V+1] (zero trash column last) with ``c_idx`` i32 /
+    ``c_val`` [N, NNZ] form the sparse part; ``q_dense`` [B, Dd] with
+    ``c_dense`` [N, Dd] the dense one; ``None`` drops a part.  Values are
+    f32 or bf16.  Rows at or past ``n_valid`` score f32-min on the card
+    (-inf in the plain version, as in the reference's oracle).  CUDA
+    tensors take the ring route where :func:`ring_layout` gives a layout,
+    else the scan route."""
+    has_dense, has_sparse = c_dense is not None, c_idx is not None
+    if not (has_dense or has_sparse):
+        raise ValueError("fused_topk: no components to score")
+    corpus = c_dense if has_dense else c_idx
+    if corpus.device.type == "cpu":
+        return ref.fused_topk_table_ref(
+            qdensified, q_dense, c_idx, c_val, c_dense, k, w_dense=w_dense,
+            w_sparse=w_sparse, dense_kind=dense_kind, n_valid=n_valid)
+    vocab = qdensified.shape[1] - 1 if has_sparse else 0
+    if corpus.device.type == "cuda" and ring_layout(c_dense, c_idx, c_val, vocab) is not None:
+        return fused_filter(qdensified, q_dense, c_idx, c_val, c_dense, k, w_dense, w_sparse, n_valid,
+                            dense_kind)[:2]
+    return fused_scan(qdensified, q_dense, c_idx, c_val, c_dense, k, w_dense, w_sparse, n_valid, dense_kind)

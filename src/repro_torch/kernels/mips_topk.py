@@ -109,6 +109,51 @@ def filter_plan(n: int, n_valid: int, k: int, n_sms: int, stride: int | None = N
     return FilterPlan(stride, cols, k_sample, min(n_sms, sampled), blocks, slots, min(k, n - n_valid))
 
 
+class FilterBuffers(NamedTuple):
+    """The device buffers of one ring-route call (B1's and B2's): the
+    sample's scores, the selection's workspace, lists and top list, the
+    filter's lists, counts and stats, and the answer."""
+    sample: torch.Tensor
+    ws: torch.Tensor | None
+    sel: tuple              # (cap, chunk_rows, chunks, list_cap)
+    sel_s: torch.Tensor | None
+    sel_i: torch.Tensor | None
+    top_s: torch.Tensor | None
+    top_i: torch.Tensor | None
+    lists: torch.Tensor
+    counts: torch.Tensor
+    stats: torch.Tensor
+    out_s: torch.Tensor
+    out_i: torch.Tensor
+
+    def args(self, p: FilterPlan):
+        """The plan and buffer arguments of ``mips_filter_launch`` and
+        ``fused_filter_launch``, in their order (from ``stride`` on)."""
+        cap, chunk_rows, chunks, list_cap = self.sel
+        return (p.stride, p.cols, p.k_sample, p.sample_blocks, ptr(self.sample), ptr(self.ws), cap, chunk_rows,
+                chunks, list_cap, ptr(self.sel_s), ptr(self.sel_i), ptr(self.top_s), ptr(self.top_i), p.blocks,
+                p.slots, ptr(self.lists), ptr(self.counts), ptr(self.stats), ptr(self.out_s), ptr(self.out_i))
+
+
+def filter_buffers(b: int, k: int, p: FilterPlan, dev: torch.device) -> FilterBuffers:
+    """The ring route's buffers for ``b`` queries under plan ``p``."""
+    f32, i32 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.int32, device=dev)
+    ks = p.k_sample
+    ws = sel_s = sel_i = top_s = top_i = None
+    sel = (0, 0, 0, 0)
+    if p.stride > 1:   # the sample's top k through topk_large's selection (imported here:
+        # topk_large imports this module); at stride 1 the merge reads the sample
+        from repro_torch.kernels.topk_large import HIST_INTS, select_shape
+        sel = select_shape(b, p.cols, ks, _sms(dev))
+        ws = torch.empty((b * (HIST_INTS + sel[2]),), **i32)
+        sel_s, sel_i = torch.empty((b, sel[3]), **f32), torch.empty((b, sel[3]), **i32)
+        top_s, top_i = torch.empty((b, ks), **f32), torch.empty((b, ks), **i32)
+    return FilterBuffers(torch.empty((b, p.cols), **f32), ws, sel, sel_s, sel_i, top_s, top_i,
+                         torch.empty((b, p.blocks, p.slots), dtype=torch.int64, device=dev),
+                         torch.empty((b, p.blocks), **i32), torch.empty((b, 2), **i32),
+                         torch.empty((b, k), **f32), torch.empty((b, k), **i32))
+
+
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -222,34 +267,17 @@ def mips_filter(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     b = q.shape[0]
     p = filter_plan(n, n_valid, k, _ring_blocks(corpus, _sms(dev)), stride, blocks)
     qg = query_groups(q)
-    f32, i32 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.int32, device=dev)
-    sample = torch.empty((b, p.cols), **f32)
-    ks = p.k_sample
-    ws = sel_s = sel_i = top_s = top_i = None
-    cap = chunk_rows = chunks = list_cap = 0
-    if p.stride > 1:   # the sample's top k through topk_large's selection (imported here:
-        # topk_large imports this module); at stride 1 the merge reads the sample
-        from repro_torch.kernels.topk_large import HIST_INTS, select_shape
-        cap, chunk_rows, chunks, list_cap = select_shape(b, p.cols, ks, _sms(dev))
-        ws = torch.empty((b * (HIST_INTS + chunks),), **i32)
-        sel_s, sel_i = torch.empty((b, list_cap), **f32), torch.empty((b, list_cap), **i32)
-        top_s, top_i = torch.empty((b, ks), **f32), torch.empty((b, ks), **i32)
-    lists = torch.empty((b, p.blocks, p.slots), dtype=torch.int64, device=dev)
-    counts = torch.empty((b, p.blocks), **i32)
-    stats = torch.empty((b, 2), **i32)
-    out_s, out_i = torch.empty((b, k), **f32), torch.empty((b, k), **i32)
+    buf = filter_buffers(b, k, p, dev)
     fn = _declare(_build.load("mips_topk"), "mips_filter_launch")
     with torch.cuda.device(dev), _build.LAUNCH_LOCK:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(ptr(qg), ptr(corpus), _DTYPES[corpus.dtype], d, b, n, n_valid, k, int(space == "l2"),
-                 p.stride, p.cols, ks, p.sample_blocks, ptr(sample), ptr(ws), cap, chunk_rows, chunks,
-                 list_cap, ptr(sel_s), ptr(sel_i), ptr(top_s), ptr(top_i), p.blocks, p.slots, ptr(lists),
-                 ptr(counts), ptr(stats), ptr(out_s), ptr(out_i), ctypes.c_void_p(stream))
+                 *buf.args(p), ctypes.c_void_p(stream))
         _build.check(err, "mips_filter_launch")
         launches += 1
         ring_launches += 1
         row_launches += int(layout == "rows")
-    return out_s, out_i, stats
+    return buf.out_s, buf.out_i, buf.stats
 
 
 def mips_scan(queries: torch.Tensor, corpus: torch.Tensor, k: int,

@@ -70,22 +70,19 @@ def _unpair(pairs: np.ndarray):
     return scores, torch.from_numpy(rows)
 
 
-def mips_filter_ref(queries: torch.Tensor, corpus: torch.Tensor, k: int, plan,
-                    n_valid: int | None = None, space: str = "ip"):
-    """Plain emulation of B1's ring route (``csrc/mips_topk.cu``) under
+def filter_ref(scores: torch.Tensor, k: int, plan):
+    """Plain emulation of the ring route's selection (``csrc/filter.cuh``:
+    B1's ``mips_topk.cu`` and B2's ``fused_topk.cu`` share it) over the
+    scores ``[B, n_valid]`` of rows ``[0, n_valid)``, under
     ``plan`` (``mips_topk.filter_plan``), step for step: the sample's top
     k, its k-th pair as every block's first threshold, each filter block's
     tiles in its order with its lists sorted to their best k (the threshold
     raised to the k-th) when they hold more than slots - 256 pairs before a
     tile, and the merge of the sample's top k, the lists and the rows past
-    n_valid.  Returns (scores f32[B, k], ids i32[B, k], stats i32[B, 2]: the
-    lists' sorts and the candidates merged); scores and ids equal
-    :func:`mips_topk_ref`'s."""
-    n = corpus.shape[0]
-    n_valid = n if n_valid is None else n_valid
-    b, tile = queries.shape[0], 256
-    scores = dense_scores(space, queries, corpus[:n_valid]).cpu()
-    pairs = _pairs(scores, np.arange(n_valid))                         # [B, n_valid]
+    n_valid (f32-min).  Returns (scores f32[B, k], ids i32[B, k], stats
+    i32[B, 2]: the lists' sorts and the candidates merged)."""
+    b, n_valid, tile = scores.shape[0], scores.shape[1], 256
+    pairs = _pairs(scores.cpu(), np.arange(n_valid))                   # [B, n_valid]
     tiles = -(-n_valid // tile)
     in_sample = (np.arange(n_valid) // tile) % plan.stride == 0
     sample = np.sort(pairs[:, in_sample], axis=1)[:, ::-1][:, :plan.k_sample]   # best first (stride 1: all)
@@ -111,6 +108,14 @@ def mips_filter_ref(queries: torch.Tensor, corpus: torch.Tensor, k: int, plan,
     merged = (cands != 0).sum(axis=1).astype(np.int32)
     best_s, best_i = _unpair(np.ascontiguousarray(np.sort(cands, axis=1)[:, ::-1][:, :k]))
     return best_s, best_i, torch.from_numpy(np.stack([sorts, merged], axis=1))
+
+
+def mips_filter_ref(queries: torch.Tensor, corpus: torch.Tensor, k: int, plan,
+                    n_valid: int | None = None, space: str = "ip"):
+    """Plain emulation of B1's ring route (``csrc/mips_topk.cu``) under
+    ``plan``: :func:`filter_ref` over the dense scores.  Scores and ids
+    equal :func:`mips_topk_ref`'s."""
+    return filter_ref(dense_scores(space, queries, corpus[:n_valid]), k, plan)
 
 
 def fused_table_scores(qdensified, q_dense, c_idx, c_val, c_dense,
@@ -185,6 +190,19 @@ def fused_topk_table_ref(qdensified, q_dense, c_idx, c_val, c_dense, k: int,
             w_dense, w_sparse, dense_kind)
 
     return _scan(score_tile, n, k, n_valid, -torch.inf, tile_n)
+
+
+def fused_filter_ref(qdensified, q_dense, c_idx, c_val, c_dense, k: int, plan,
+                     w_dense=None, w_sparse=None, dense_kind: str = "ip",
+                     n_valid: int | None = None):
+    """Plain emulation of B2's ring route (``csrc/fused_topk.cu``) under
+    ``plan``: :func:`filter_ref` over :func:`fused_table_scores`.  Rows past
+    ``n_valid`` rank as f32-min, as on the card (the plain version
+    :func:`fused_topk_table_ref` masks with -inf)."""
+    cut = lambda x: None if x is None else x[:n_valid]
+    scores = fused_table_scores(qdensified, q_dense, cut(c_idx), cut(c_val), cut(c_dense),
+                                w_dense, w_sparse, dense_kind)
+    return filter_ref(scores, k, plan)
 
 
 def query_table(q_sparse: SparseVectors, vocab_size: int) -> torch.Tensor:
