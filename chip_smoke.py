@@ -60,9 +60,11 @@ time goes ("serve split"); a live endpoint flooded while a writer
 upserts, every answer equal to the plain live path at the generation
 that served it ("serve churn"); and B1
 against ``topk_large``, the library call and its own scan route (the
-parent's kernel) at k = 10, 100, 356, 1,100, 2,000 and 2,048 and B = 1, 16
-and 64, B2 against ``topk_large`` and its own scan route at B = 16
-("crossover"), with B1's and B2's extra device memory ("b1 memory").  Then the
+parent's kernel) at k = 10, 100, 356, 1,100, 2,000 and 2,048 and B = 1, 16,
+32, 64 and 128 (above 16 in thread-block clusters, beside the launch of a
+block a group at k = 100; the scan route at B = 128 at k = 100), B2 against ``topk_large`` and its own scan route at B = 16
+and on the ring at B = 1 and 64 ("crossover"), with B1's and B2's extra
+device memory ("b1 memory").  Then the
 FlexNeuART feature side over the same corpus ("flexneuart full"): the
 forward index of its COO ids, BM25 vectors and the inverted index built
 on the card, Model 1 trained at full vocabulary, a linear and a tree
@@ -127,6 +129,7 @@ import argparse
 import atexit
 import dataclasses
 import gc
+import hashlib
 import json
 import math
 import re
@@ -170,7 +173,8 @@ SERVE_ALL_PASSES = 6                           # "serve all": every endpoint at 
 # batch's time before its rerank decision (PreRerankClock), the margins this constant keeps: under
 # 4 clients computing cache keys the first batch once spent more than 4 batches' time there
 SERVE_FUNNEL_BATCHES = 8
-CHURN_UPSERT, CHURN_PERIOD_S = 16, 0.01        # "serve churn": ids an upsert writes, the writer's pause
+CHURN_UPSERT, CHURN_PERIOD_S = 16, 0.01        # "serve churn": ids an upsert writes, the writer's pause,
+CHURN_QUERIES = 256                             # and the flood (512 once: cut for the run's 1,200 s)
 SPLIT_VARIANTS = (   # "serve split": label, cache size, client work before each submit, clients, switch interval
                      # in s (None: the interpreter's default)
     ("cache", 4096, None, SERVE_CLIENTS, None),
@@ -228,17 +232,18 @@ LM_MOE_LAYERS = 16               # phi3.5-moe: 16 of its 32 layers (83.8 GB as p
 # prefill (batch, tokens); the decode loop's batch, cache length, prompt and greedy steps; the long-context step's
 # cache length (decode_32k, configs/base.py LM_SHAPES) and batch (of the shape's 128); the f32 checks' depth, the
 # card-vs-CPU check's batch, prompt and decode steps, the decode-vs-prefill check's steps, the profiled steps
-LM = dict(prefill=(4, 1024), decode_b=16, decode_len=4096, prompt=32, gen=32, long_len=32768, long_b=16,
+LM = dict(prefill=(4, 1024), decode_b=16, decode_len=4096, prompt=16, gen=16, long_len=32768, long_b=16,
           long_b_moe=4, check_layers=2, cpu_b=2, cpu_prompt=16, cpu_steps=4, dvp_steps=8, profiled=4)
 # long_b_moe: phi3.5-moe's 16 layers hold 8.6 GB of cache at B = 4 beside 42.2 GB of weights (34.4 GB at 16)
 LM_TOL = 1e-5                    # f32 logits, card vs CPU and decode vs prefill, of each row's largest |logit|
-LM_TOP1_AT = (7, 31, 63)         # decode steps whose bf16 top-1 is held against prefill's (printed, not gated)
-# "train full": the f32 card-vs-CPU steps' depth, batch (phi3.5-moe's: its grad_accum 4 needs 4 rows) and length;
+LM_TOP1_AT = (7, 15, 31)         # decode steps whose bf16 top-1 is held against prefill's (printed, not gated)
+# "train full": the f32 card-vs-CPU steps' depth (phi3.5-moe's one layer: its CPU step at two took 64-100 s of the
+# run's 1,200), batch (phi3.5-moe's: its grad_accum 4 needs 4 rows) and length;
 # smollm-360m's training batch and length (train_4k's positions, configs/base.py LM_SHAPES), steps, checkpoint
 # interval, resumed steps and lr (train_lm's default); DIN's batch (train_batch) and steps; SchNet's molecules
 # (the molecule shape's 128 graphs) and steps
-TRAIN = dict(check_layers=2, check_b=2, check_b_moe=4, check_s=128, b=4, s=4096, steps=6, interval=3, more=2,
-             lr=3e-4, din_b=65536, din_steps=3, mol_graphs=128, mol_steps=4)
+TRAIN = dict(check_layers=2, check_layers_moe=1, check_b=2, check_b_moe=4, check_s=128, b=4, s=4096, steps=4,
+             interval=2, more=2, lr=3e-4, din_b=65536, din_steps=3, mol_graphs=128, mol_steps=4)
 TRAIN_TOL = 1e-5                 # f32 train steps, card vs CPU, of each leaf's largest |value|
 GRAD_FLOOR = 1e-3                # a vanishing gradient is noise: leaves held against this share of the largest
 STEP_LR = 1e-3                   # the card-vs-CPU steps' learning rate
@@ -258,7 +263,7 @@ MOE_BF16_TOL = 2.0 ** -5
 # sharing the card. (a) qwen2.5-3b f32 at a_layers: a_steps of train_lm at a_b x a_s; (b) bf16 at b_layers, remat,
 # b_steps at b_b x b_s, checkpointed at b_save; (c) phi3.5-moe f32 at c_layers, c_steps of its ZeRO step at c_b x
 # c_s (4 microbatches); the LMs' prefill and decode at lm_layers; DIN's users and candidates; SchNet's molecules
-MESH = dict(shape=(2, 2), a_layers=2, a_b=4, a_s=512, a_steps=3, b_layers=8, b_b=4, b_s=1024, b_steps=4, b_save=2,
+MESH = dict(shape=(2, 2), a_layers=2, a_b=4, a_s=512, a_steps=3, b_layers=4, b_b=4, b_s=1024, b_steps=4, b_save=2,
             c_layers=1, c_b=8, c_s=512, c_steps=2, lm_layers=2, prefill=(2, 1024), cache=4096, decode=8,
             din_b=512, din_cand=1_000_000, mol=128)
 # AdamW over a_steps steps, f32: each side moves an element by lr (|m_hat| / (sqrt(v_hat) + eps) + wd |p|) a step,
@@ -282,7 +287,13 @@ NEG = -3.4028234663852886e38     # f32 min, the mask of invalid candidates
 SLEEP_CYCLES = 2_000_000         # ~1 ms at an H100 SXM's 1.98 GHz boost clock: outlasts the host's enqueue of a traversal
 
 
+_T0 = time.perf_counter()
+PHASE_CLOCK = []   # (phase, seconds since the run began) at each "phase ..." line: where the 1,200 s go
+
+
 def log(*parts):
+    if parts and isinstance(parts[0], str) and parts[0].startswith("phase "):
+        PHASE_CLOCK.append((re.split(r"[:(]", parts[0][6:], maxsplit=1)[0].strip(), time.perf_counter() - _T0))
     print(*parts, flush=True)
 
 
@@ -738,9 +749,16 @@ def b1_phase(torch, dev, check):
     n_valid = 0; a sample whose tiles all score 0 under scores above it, so
     that the filter's lists overflow and are sorted (asserted from the
     route's stats); the graph entry set's shape (2,973 rows of 768 at
-    k = 64); and the scan route for rows a tensor map cannot describe (d =
-    61, a pointer 4 bytes off).  Returns (cases, list sorts on the
-    sample-blind corpus, route launches)."""
+    k = 64); the scan route for rows a tensor map cannot describe (d =
+    61, a pointer 4 bytes off); and batches above 16 queries (B = 17, 33,
+    64, 65, 128, 129 and 200: on the tensor-map layout clusters of 2 to 8
+    blocks over one read of the corpus, two rows of clusters with
+    zero-padded groups past 128; on the row layout, d = 18, a block a
+    group), each against the plain version and each cluster launch against
+    the launch of a block a group bit for bit, with ``topk_large``'s dense
+    pass likewise at B = 64, 129 and 200.  Returns (cases, list sorts on
+    the sample-blind corpus, route launches: ring, scan, ring in clusters,
+    ``topk_large`` in clusters)."""
     from repro_torch.kernels import mips_topk as mk
     from repro_torch.kernels import ref
 
@@ -754,7 +772,7 @@ def b1_phase(torch, dev, check):
               ref.mips_topk_ref(q, c, k, n_valid=n_valid, space=space), signed_zeros=True)
         return st
 
-    cases, before = check.cases, (mk.ring_launches, mk.scan_launches)
+    cases, routes0 = check.cases, (mk.ring_launches, mk.scan_launches)
     n, d = 50_003, 64
     c = ints((n, d), -2, 3, 1)
     for b in (1, 5, 16, 37):
@@ -817,7 +835,43 @@ def b1_phase(torch, dev, check):
           signed_zeros=True)
     if dev.type == "cuda":
         assert mk.scan_launches == scan0 + 2, "d=61 and an unaligned corpus must take the scan route"
-    return check.cases - cases, sorts, (mk.ring_launches - before[0], mk.scan_launches - before[1])
+    # batches above 16: on the box layout clusters of ceil(B / 16) blocks (two rows of clusters past 128),
+    # each block its 16 queries over the cluster's one read, bit for bit the launch of a block a group; on
+    # the row layout a block a group
+    from repro_torch.kernels import topk_large as lk
+
+    def same(a, b):
+        return torch.equal(a[1], b[1]) and torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
+
+    clustered0, large0 = mk.cluster_launches, lk.cluster_launches
+    rows18 = ints((n, 18), -2, 3, 16)
+    for b in (17, 33, 64, 65, 128, 129, 200):
+        for layout, cc, kernel in (("box", c, "mips_topk_cluster"), ("rows", rows18, "mips_topk_rows")):
+            q = ints((b, cc.shape[1]), -3, 4, 20 + b)
+            for k, space, nv in ((10, "ip", None), (356, "l2", 49_000), (2048, "ip", None)):
+                before = mk.cluster_launches
+                got = mk.mips_filter(q, cc, k, nv, space)[:2]
+                if dev.type == "cuda":
+                    assert mk.cluster_launches == before + int(layout == "box"), \
+                        f"b1 {layout} b{b}: {mk.cluster_launches - before} launches in clusters"
+                check(kernel, f"b1 {layout} b{b} k{k} {space}", got,
+                      ref.mips_topk_ref(q, cc, k, n_valid=nv, space=space), signed_zeros=True)
+                if layout == "box":
+                    assert same(got, mk.mips_filter(q, cc, k, nv, space, cluster=False)[:2]), \
+                        f"b1 cluster b{b} k{k} {space}: the cluster and a block a group disagree"
+        q = ints((b, 64), -3, 4, 40 + b)
+        check("mips_topk_cluster", f"b1 cluster bf16 b{b}", mk.mips_filter(q, c.bfloat16(), 100)[:2],
+              ref.mips_topk_ref(q, c.bfloat16(), 100), signed_zeros=True)
+    for b in (64, 129, 200):
+        q = ints((b, 64), -3, 4, 60 + b)
+        for space in ("ip", "l2"):
+            got = lk.topk_large(None, q, None, None, c, 4096, dense_kind=space)
+            check("topk_large_cluster", f"large cluster b{b} {space}", got,
+                  ref.mips_topk_ref(q, c, 4096, space=space), signed_zeros=True)
+            assert same(got, lk.topk_large(None, q, None, None, c, 4096, dense_kind=space, cluster=False)), \
+                f"topk_large b{b} {space}: the cluster and a block a group disagree"
+    return check.cases - cases, sorts, (mk.ring_launches - routes0[0], mk.scan_launches - routes0[1],
+                                        mk.cluster_launches - clustered0, lk.cluster_launches - large0)
 
 
 def b1_rows_phase(torch, dev, check):
@@ -2328,7 +2382,7 @@ def serve_churn(torch, dev, dense, seed, counted):
     """Upserts racing a flood ("serve churn"): a ``LiveCorpus`` over the
     dense part (``cuda`` main and append) behind a cached endpoint, and a
     writer thread that upserts CHURN_UPSERT fresh ids every CHURN_PERIOD_S
-    while SERVE_CLIENTS clients flood it with SERVE_QUERIES host queries;
+    while SERVE_CLIENTS clients flood it with CHURN_QUERIES host queries;
     each upsert's rows are twins (2x) of the next queries in turn, so that
     their answers change with the generation.  Every upsert replaces the
     append segment and frees the one before, which batches still queued
@@ -2349,7 +2403,7 @@ def serve_churn(torch, dev, dense, seed, counted):
     b = MSMARCO["b"]
     sp = DenseSpace("ip")
     g = torch.Generator().manual_seed(seed)
-    items = list(torch.randn(SERVE_QUERIES, d, generator=g).mul_(1.0 / math.sqrt(d)))
+    items = list(torch.randn(CHURN_QUERIES, d, generator=g).mul_(1.0 / math.sqrt(d)))
     twins = torch.stack(items) * 2.0
 
     def upsert_args(t):
@@ -4407,9 +4461,10 @@ def lm_full_phase(torch, dev, card, on_card, seed, cfgs=None, shapes=None):
     (36 layers) and minicpm3-4b (62, MLA) whole, phi3.5-moe at 16 of its 32
     layers.  For each: ``prefill_step`` on LM["prefill"] random tokens
     (CUDA events, median of 3, against its bf16 GEMM plus f32 attention
-    FLOP bound); a decode loop over ``init_cache(cfg, 16, 4096)``, 32 prompt
-    tokens fed one ``decode_step`` at a time from ``pos`` 0 then 32 greedy
-    steps (each step by CUDA events; median against its byte bound), its
+    FLOP bound); a decode loop over ``init_cache(cfg, 16, 4096)``, LM["prompt"]
+    tokens fed one ``decode_step`` at a time from ``pos`` 0 then LM["gen"]
+    greedy steps (16 and 16, cut from 32 and 32 for the run's 1,200 s;
+    each step by CUDA events; median against its byte bound), its
     top-1 at steps LM_TOP1_AT against ``prefill_step`` of the same tokens
     (printed); one step at ``decode_32k``'s length (``pos`` 32,767 of a
     32,768 cache, batch LM["long_b"], LM["long_b_moe"] with experts) against
@@ -4826,7 +4881,8 @@ def train_full_phase(torch, dev, card, on_card, seed, cfgs=None, shapes=None):
     """Training through the port (``launch/steps.py``, ``launch/train.py``,
     ``optim/``, ``checkpoint/``; the backward under the reference's memory
     contract: layer remat, attention tiles and loss chunks recomputed).
-    (1) f32 at TRAIN["check_layers"] layers of full width, TF32 off: one
+    (1) f32 at TRAIN["check_layers"] layers of full width (MoE configs at
+    TRAIN["check_layers_moe"]), TF32 off: one
     ``make_lm_train_step`` step (lr STEP_LR) of each LM config of "lm full"
     and smollm-360m on the card against the CPU port on the same weights
     and batch (TRAIN["check_b"] x TRAIN["check_s"]; phi3.5-moe with its
@@ -4879,7 +4935,8 @@ def train_full_phase(torch, dev, card, on_card, seed, cfgs=None, shapes=None):
     rec = DispatchRecorder(M)
     for cfg in cfgs:
         t0 = time.perf_counter()
-        c32 = dataclasses.replace(cfg, n_layers=sh["check_layers"], dtype="float32")
+        c32 = dataclasses.replace(cfg, n_layers=sh["check_layers_moe" if cfg.is_moe else "check_layers"],
+                                  dtype="float32")
         model, _ = T.init_transformer(c32, seed=seed, device=dev)
         b = sh["check_b_moe"] if c32.is_moe else sh["check_b"]
         tok = torch.randint(0, c32.vocab_size, (b, sh["check_s"] + 1), generator=g, device=dev)
@@ -6706,7 +6763,11 @@ def main() -> int:
             f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
         t0 = time.perf_counter()
         _build.build_all()
-        log(f"phase build: {time.perf_counter() - t0:.1f} s for {', '.join(SOURCES)}")
+        csrc = hashlib.sha256()   # the kernel sources built, by name: ties this run's numbers to a tree
+        for f in sorted((HERE / "src" / "repro_torch" / "kernels" / "csrc").iterdir()):
+            csrc.update(f.name.encode() + b"\0" + f.read_bytes())
+        log(f"phase build: {time.perf_counter() - t0:.1f} s for {', '.join(SOURCES)}; csrc sha256 "
+            f"{csrc.hexdigest()[:16]}")
         for lib, ptxas in sorted(_build.PTXAS_LOG.items()):
             regs = [int(w) for line in ptxas.splitlines() if "registers" in line
                     for w, nxt in zip(line.split(), line.split()[1:]) if nxt == "registers,"]
@@ -6726,8 +6787,12 @@ def main() -> int:
     b1_cases, b1_sorts, b1_routes = b1_phase(torch, dev, check)
     log(f"phase b1 small: {b1_cases} cases of B1 agree bit for bit (exact integer scores: sorted, all equal, "
         f"NaN/+0/-0 at the k-th, n_valid < k with a row at -inf, bf16, l2, the graph entry set's shape, the "
-        f"scan route for d=61 and an unaligned corpus); the sample-blind corpus sorted the filter's lists "
-        f"{b1_sorts} times; launches: ring {b1_routes[0]}, scan {b1_routes[1]}; {time.perf_counter() - t0:.1f} s")
+        f"scan route for d=61 and an unaligned corpus; B = 17, 33, 64, 65, 128, 129 and 200 on both layouts, in "
+        f"clusters on the tensor-map layout, and topk_large's dense pass at B = 64, 129 and 200, each cluster "
+        f"launch equal to the launch of a block a group); the sample-blind "
+        f"corpus sorted the filter's lists {b1_sorts} times; launches: ring {b1_routes[0]} (in clusters "
+        f"{b1_routes[2]}), scan {b1_routes[1]}, topk_large in clusters {b1_routes[3]}; "
+        f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     rows_cases, rows_sorts, rows_launched = b1_rows_phase(torch, dev, check)
     log(f"phase b1 rows: {rows_cases} cases of B1's row layout agree bit for bit (d = 1, 3, 5, 18, 31 in f32 and "
@@ -6782,9 +6847,9 @@ def main() -> int:
     dense_gen = BruteForceGenerator(DenseSpace("ip"), dense, backend="cuda")
     assert type(resolve_backend("cuda", space, corpus)).__name__ == "CudaBackend"
 
-    mk.launches = mk.ring_launches = mk.row_launches = mk.scan_launches = 0
+    mk.launches = mk.ring_launches = mk.row_launches = mk.scan_launches = mk.cluster_launches = 0
     fk.launches = fk.ring_launches = fk.row_launches = fk.scan_launches = 0
-    lk.launches = 0
+    lk.launches = lk.cluster_launches = 0
     fused_s, dense_s, results, dense_results = [], [], [], []
     for q in batches:
         t0 = time.perf_counter()
@@ -6799,9 +6864,20 @@ def main() -> int:
         dense_s.append(time.perf_counter() - t0)
     # one deep request: k above the scan kernels' 2048 (a reranking pool)
     deep = dense_gen.generate(batches[0].dense, DEEP_K)
-    launches = {"mips_topk": mk.launches, "fused_topk": fk.launches, "topk_large": lk.launches}
-    log(f"phase main path: {BATCHES} batches of {b} and one dense request of k = {DEEP_K}; launches {launches} "
-        f"(mips_topk: ring {mk.ring_launches} of which row layout {mk.row_launches}, scan {mk.scan_launches}; "
+    # a batch of 64 (the first four batches' queries; the autotuner's b = 64) at k = 100 and at k = DEEP_K: B1
+    # and topk_large's dense pass in clusters of 4 blocks over one read of the corpus
+    q64 = torch.cat([x.dense for x in batches[:4]]).contiguous()
+    t0 = time.perf_counter()
+    wide = dense_gen.generate(q64, 100)
+    sync(torch, on_card)
+    wide_s = time.perf_counter() - t0
+    wide_deep = dense_gen.generate(q64, DEEP_K)
+    launches = {"mips_topk": mk.launches, "fused_topk": fk.launches, "topk_large": lk.launches,
+                "mips_topk_cluster": mk.cluster_launches, "topk_large_cluster": lk.cluster_launches}
+    log(f"phase main path: {BATCHES} batches of {b}, one dense request of k = {DEEP_K}, and one dense batch of "
+        f"{q64.shape[0]} at k = 100 ({1e3 * wide_s:.3f} ms, host clock, synchronised) and k = {DEEP_K}; launches "
+        f"{launches} (mips_topk: ring {mk.ring_launches} of which row layout {mk.row_launches} and in clusters "
+        f"{mk.cluster_launches}, scan {mk.scan_launches}; topk_large in clusters {lk.cluster_launches}; "
         f"fused_topk: ring {fk.ring_launches}, scan {fk.scan_launches}); "
         f"fused pipeline median {1e3 * statistics.median(fused_s):.3f} ms/batch, "
         f"dense median {1e3 * statistics.median(dense_s):.3f} ms/batch (host clock, synchronised)")
@@ -6859,9 +6935,21 @@ def main() -> int:
     check("mips_topk", "full dense k=2048 all scores equal", mk.mips_topk(zq, dense, 2048),
           ref.mips_topk_ref(zq, dense, 2048, tile_n=1 << 18), signed_zeros=True)
     del b1_2000, deep_2000
+    # the batch of 64 in clusters: against the plain version, and bit for bit the launch of a block a group
+    same = lambda a, c: torch.equal(a[1], c[1]) and torch.equal(a[0].view(torch.int32), c[0].view(torch.int32))
+    check("mips_topk_cluster", f"full dense B={q64.shape[0]} k=100 (generator)", tuple(wide),
+          ref.mips_topk_ref(q64, dense, 100, tile_n=1 << 18))
+    assert same(tuple(wide), mk.mips_filter(q64, dense, 100, cluster=False)[:2]), \
+        "full dense B=64 k=100: the cluster and a block a group disagree"
+    check("topk_large_cluster", f"full dense B={q64.shape[0]} k={DEEP_K} (generator)", tuple(wide_deep),
+          ref.mips_topk_ref(q64, dense, DEEP_K, tile_n=1 << 18), exact_ids=False)
+    assert same(tuple(wide_deep), lk.topk_large(None, q64, None, None, dense, DEEP_K, cluster=False)), \
+        f"full dense B=64 k={DEEP_K}: the cluster and a block a group disagree"
+    del wide, wide_deep
     log(f"phase full check: fused k=100, k=2000 (ring equal to the scan route bit for bit) and k={DEEP_K}, "
         f"dense k=100 (planted and random), k=2000 "
-        f"(equal to topk_large bit for bit), k=2048 with every score +0 and k={DEEP_K} agree")
+        f"(equal to topk_large bit for bit), k=2048 with every score +0 and k={DEEP_K} agree; the dense batch of "
+        f"{q64.shape[0]} at k=100 and k={DEEP_K} agrees and equals the launch of a block a group bit for bit")
 
     # ---- timings ------------------------------------------------------
     reps = 5 if on_card else 1
@@ -6909,9 +6997,11 @@ def main() -> int:
         f"library {large_lib:.3f} ms; fused topk_large {fused_large_ms:.3f} ms (bound "
         f"{bound(fused_bytes - b * 100 * 8 + b * DEEP_K * 8, fused_ops)[0]:.3f} ms)")
 
-    # B1 against topk_large dense and the library call as k grows, at B = 1, 16 and 64 (batch 0's first
-    # query, batch 0, batches 0-3), B2 against topk_large fused at B = 16 (k = 100: the scan kernels and
-    # the library call as timed above); B1's extra device memory at B = 16
+    # B1 against topk_large dense and the library call as k grows, at B = 1, 16, 32, 64 and 128 (batch 0's
+    # first query, batch 0, batches 0-1, 0-3 and 0-7; above 16 in clusters, and beside them the launch of a
+    # block a group, the parent's); B2 against topk_large fused at B = 16 (k = 100: the scan kernels and the
+    # library call as timed above), B2 on the ring at B = 1 and 64 (its scan route at B = 64, k = 100, once);
+    # topk_large dense at k = DEEP_K and B = 64; the extra device memory of B1 at B = 16 and 64, of B2 at 16
     def extra_gb(fn):
         if not on_card:
             return float("nan")
@@ -6922,42 +7012,77 @@ def main() -> int:
         torch.cuda.synchronize()
         return (torch.cuda.max_memory_allocated() - base) / 1e9
 
-    cross, b1_gb, b2_gb = [], {}, {}
-    for bq, qq in ((1, q.dense[:1].contiguous()), (b, q.dense),
-                   (4 * b, torch.cat([x.dense for x in batches[:4]]))):
+    wide_args = (torch.cat([ref.query_table(x.sparse, v) for x in batches[:4]]), q64, idx, val, dense)
+    one_args = (table[:1].contiguous(), q.dense[:1].contiguous(), idx, val, dense)
+    cross, b1_gb, b2_gb, b1_gb64 = [], {}, {}, {}
+    for bq in (1, b, 2 * b, 4 * b, 8 * b):
+        qq = q.dense[:1].contiguous() if bq == 1 else torch.cat([x.dense for x in batches[:bq // b]]).contiguous()
         for k in CROSSOVER_K:
             seen = bq == b and k == 100
-            row = [bq, k, mips_ms if seen else timer(lambda: mk.mips_topk(qq, dense, k), 3),
-                   timer(lambda: lk.topk_large(None, qq, None, None, dense, k), 3),
-                   mips_lib if seen else timer(lambda: library_topk(k, qq), 3), None, None,
-                   timer(lambda: mk.mips_scan(qq, dense, k), 1 if bq > b else 3), None]
+            row = dict(b=bq, k=k, b1=mips_ms if seen else timer(lambda: mk.mips_topk(qq, dense, k), 3),
+                       large=timer(lambda: lk.topk_large(None, qq, None, None, dense, k), 3),
+                       lib=mips_lib if seen else timer(lambda: library_topk(k, qq), 3))
+            if bq <= 4 * b or k == 100:   # the parent's kernel: past B = 64 at k = 100 alone (the run's 1,200 s)
+                row["scan"] = timer(lambda: mk.mips_scan(qq, dense, k), 1 if bq > b else 3)
+            if bq > b and k == 100:   # the launch of a block a group: the parent's grid
+                row["b1_one"] = timer(lambda: mk.mips_filter(qq, dense, k, cluster=False), 3)
+                row["large_one"] = timer(lambda: lk.topk_large(None, qq, None, None, dense, k, cluster=False), 3)
             if bq == b:
-                row[5] = fused_ms if seen else timer(lambda: fk.fused_topk(*fused_args, k, **fused_kw), 3)
-                row[6] = timer(lambda: lk.topk_large(*fused_args, k, **fused_kw), 3)
-                row[8] = timer(lambda: fk.fused_scan(*fused_args, k, **fused_kw), 3)
+                row["b2"] = fused_ms if seen else timer(lambda: fk.fused_topk(*fused_args, k, **fused_kw), 3)
+                row["large_fused"] = timer(lambda: lk.topk_large(*fused_args, k, **fused_kw), 3)
+                row["b2_scan"] = timer(lambda: fk.fused_scan(*fused_args, k, **fused_kw), 3)
                 b1_gb[k] = extra_gb(lambda: mk.mips_topk(qq, dense, k))
                 b2_gb[k] = extra_gb(lambda: fk.fused_topk(*fused_args, k, **fused_kw))
-            cross.append(tuple(row))
+            if bq in (1, 4 * b):   # B2 on the ring at B = 1 and 64: a timing only
+                args_b2 = one_args if bq == 1 else wide_args
+                row["b2"] = timer(lambda: fk.fused_topk(*args_b2, k, **fused_kw), 3)
+                if bq > b and k == 100:
+                    row["b2_scan"] = timer(lambda: fk.fused_scan(*args_b2, k, **fused_kw), 1)
+            if bq == 4 * b:
+                b1_gb64[k] = extra_gb(lambda: mk.mips_topk(qq, dense, k))
+            cross.append(row)
+    deep64 = timer(lambda: lk.topk_large(None, q64, None, None, dense, DEEP_K), 3)
+    deep64_one = timer(lambda: lk.topk_large(None, q64, None, None, dense, DEEP_K, cluster=False), 3)
+    deep64_lib = timer(lambda: library_topk(DEEP_K, q64), 3)
+    names = dict(b1="B1", b1_one="B1 a block a group", large="topk_large dense",
+                 large_one="topk_large dense a block a group", lib="library", scan="B1's scan route", b2="B2",
+                 large_fused="topk_large fused", b2_scan="B2's scan route")
     # the scan routes are the parent's B1 and B2 kernels (topk_scan.cu, unchanged): their times before the ring
-    for bq in (1, b, 4 * b):
+    for bq in sorted({r["b"] for r in cross}):
         log(f"phase crossover B={bq} (f32, CUDA events, median of 3; B=16 k=100 rows of median 5; the scan "
-            f"route at B=64 one run): "
-            + "; ".join(f"k={k}: B1 {b1:.3f} ms, topk_large dense {ld:.3f} ms, library {lib:.3f} ms, "
-                        f"B1's scan route {sc:.3f} ms"
-                        + ("" if b2 is None else f", B2 {b2:.3f} ms, topk_large fused {lf:.3f} ms, "
-                                                 f"B2's scan route {sc2:.3f} ms")
-                        for bb, k, b1, ld, lib, b2, lf, sc, sc2 in cross if bb == bq)
+            f"routes above B=16 one run{'; in clusters of ' + str(-(-bq // 16)) + ' blocks' if bq > 16 else ''}"
+            f"{', a block a group at k=100' if bq > 16 else ''}{', the scan route at k=100' if bq > 4 * b else ''}): "
+            + "; ".join(f"k={r['k']}: " + ", ".join(f"{names[key]} {r[key]:.3f} ms" for key in names if key in r)
+                        for r in cross if r["b"] == bq)
+            + (f"; k={DEEP_K}: topk_large dense {deep64:.3f} ms, a block a group {deep64_one:.3f} ms, library "
+               f"{deep64_lib:.3f} ms" if bq == 4 * b else "")
             + f"; {card}")
-    ahead = all(b1 < lib and b1 <= ld for bb, k, b1, ld, lib, *_ in cross if bb == b)
-    faster = all(b1 <= sc for _, _, b1, _, _, _, _, sc, _ in cross)
-    b2_ahead = all(b2 < lf and b2 <= sc2 for bb, _, _, _, _, b2, lf, _, sc2 in cross if bb == b)
-    log(f"phase b1 memory (B={b}, max_memory_allocated over one call): "
+    if on_card:   # the clusters of each width that fit the card at once (the grid's blocks along x)
+        fits = {lib: mk.cluster_fit(_build.load(lib), entry, False, d, False, dev)
+                for lib, entry in (("mips_topk", "mips_ring_clusters"), ("topk_large", "topk_large_dense_clusters"))}
+        log("phase clusters: " + "; ".join(f"{lib} width {w}: {fit(w)} clusters ({w * fit(w)} SMs)"
+                                           for lib, fit in fits.items() for w in range(2, mk.MAX_CLUSTER + 1)))
+    ahead = all(r["b1"] < r["lib"] and r["b1"] <= r["large"] for r in cross if r["b"] == b)
+    faster = all(r["b1"] <= r["scan"] for r in cross if "scan" in r)
+    b2_ahead = all(r["b2"] < r["large_fused"] and r["b2"] <= r["b2_scan"] for r in cross if r["b"] == b)
+    wide_ahead = {bq: (all(r["b1"] < r["lib"] for r in cross if r["b"] == bq),
+                       all(r["large"] < r["lib"] for r in cross if r["b"] == bq)) for bq in (2 * b, 4 * b, 8 * b)}
+    log(f"phase b1 memory (max_memory_allocated over one call): B={b} "
         + ", ".join(f"k={k}: {gb:.4f} GB" for k, gb in b1_gb.items())
-        + "; B2's: " + ", ".join(f"k={k}: {gb:.4f} GB" for k, gb in b2_gb.items())
+        + f"; B={4 * b} " + ", ".join(f"k={k}: {gb:.4f} GB" for k, gb in b1_gb64.items())
+        + f"; B2's at B={b}: " + ", ".join(f"k={k}: {gb:.4f} GB" for k, gb in b2_gb.items())
         + f"; B1 faster than the library call and no slower than topk_large dense at every k at B={b}: {ahead}; "
         f"no slower than its scan route at every k and B: {faster}; B2 faster than topk_large fused and no "
-        f"slower than its scan route at every k: {b2_ahead}")
+        f"slower than its scan route at every k: {b2_ahead}; below the library call at every k (B1, topk_large "
+        f"dense): " + ", ".join(f"B={bq} {x[0]}, {x[1]}" for bq, x in wide_ahead.items())
+        + f"; topk_large dense at k={DEEP_K}, B={4 * b}: {deep64 < deep64_lib}")
 
+    # the batch of 64 in clusters (B1 at k = 100, topk_large at k = DEEP_K): the kernels JSON's cluster entries
+    b64 = q64.shape[0]
+    wide_ms = timer(lambda: mk.mips_topk(q64, dense, 100), reps)
+    wide_plain = timer(lambda: ref.mips_topk_ref(q64, dense, 100, tile_n=1 << 18), 1)
+    wide_deep_plain = timer(lambda: ref.mips_topk_ref(q64, dense, DEEP_K, tile_n=1 << 18), 1)
+    wide_ops = 2 * b64 * n * d
     kernels = []
     for name, source, replaces, ms, plain, lib, (bms, by) in (
             ("mips_topk", SOURCES[4], "src/repro/kernels/mips_topk.py:92", mips_ms, mips_plain, mips_lib,
@@ -6965,12 +7090,17 @@ def main() -> int:
             ("fused_topk", SOURCES[5], "src/repro/kernels/fused_topk.py:146", fused_ms, fused_plain, None,
              bound(fused_bytes, fused_ops)),
             ("topk_large", SOURCES[3], "src/repro/kernels/mips_topk.py:92", large_ms, large_plain, large_lib,
-             bound(large_bytes, dense_ops))):
+             bound(large_bytes, dense_ops)),
+            ("mips_topk_cluster", SOURCES[4], "src/repro/kernels/mips_topk.py:92", wide_ms, wide_plain,
+             timer(lambda: library_topk(100, q64), reps), bound(n * d * 4 + b64 * d * 4 + b64 * 100 * 8, wide_ops)),
+            ("topk_large_cluster", SOURCES[3], "src/repro/kernels/mips_topk.py:92", deep64, wide_deep_plain,
+             deep64_lib, bound(n * d * 4 + b64 * d * 4 + b64 * DEEP_K * 8, wide_ops))):
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": check.max_err[name],
                         "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
                         "library_ms": lib})
-    log(f"phase timings (B={b}, k=100 (topk_large: k={DEEP_K}), f32, CUDA events, median of {reps}): "
+    log(f"phase timings (B={b}, k=100 (topk_large: k={DEEP_K}); the cluster entries B={b64}, f32, CUDA events, "
+        f"median of {reps}; topk_large_cluster of 3): "
         + "; ".join(f"{k['name']} {k['ms']:.3f} ms vs bound {k['bound_ms']:.3f} ms ({k['bound_by']}), "
                     f"plain {k['plain_ms']:.3f} ms, library {k['library_ms']}" for k in kernels))
     # where the fused time goes: the sparse part alone (the index lookups
@@ -7026,7 +7156,8 @@ def main() -> int:
     # index cache all hold it, and so do the closed services of the served
     # phases until the cyclic collector runs (a service and its endpoints
     # refer to each other)
-    del dense, idx, val, corpus, batches, q, pipe, dense_gen, results, dense_results, fused_args
+    del (dense, idx, val, corpus, batches, q, pipe, dense_gen, results, dense_results, fused_args, wide_args,
+         one_args, args_b2)
     gc.collect()
     clear_ann_index_cache()
     if on_card:   # "dist full"'s ranks held the corpus through IPC: its blocks go once they are collected
@@ -7121,6 +7252,8 @@ def main() -> int:
                           + cross_launches.get(k["name"], 0) + recsys_launches.get(k["name"], 0)
                           + molecule_launches.get(k["name"], 0) + tune_launches.get(k["name"], 0)
                           + dist_launches.get(k["name"], 0))
+    log("phase clock (s since the run began, at each phase's line): "
+        + ", ".join(f"{name} {t:.1f}" for name, t in PHASE_CLOCK))
     log(f"phase total: {time.perf_counter() - t_start:.1f} s, the build included")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

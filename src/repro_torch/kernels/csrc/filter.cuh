@@ -64,13 +64,13 @@ struct SampleTiles {
   }
   __device__ static long long first_row(const Args& a, long long u) { return u * a.stride * kTileRows; }
   __device__ static void init(const Args&, Shared&, int, int, int) {}
-  template <bool L2>
+  template <bool L2, int R>
   __device__ static void tile(const Args& a, Shared&, long long u, long long tile_row0, int row_in,
-                              const float (&acc)[4][4], const float (&c2)[4], const float* q2s, int q0, int qn,
+                              const float (&acc)[R][4], const float (&c2)[R], const float* q2s, int q0, int qn,
                               int lane) {
     const int qgi = lane & 3;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
+    for (int r = 0; r < R; ++r) {
       const int in = row_in + 8 * r;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -80,6 +80,7 @@ struct SampleTiles {
       }
     }
   }
+  template <int R = 4>
   __device__ static void finish(const Args&, Shared&, int, int) {}
 };
 
@@ -122,16 +123,17 @@ struct FilterTiles {
     sh.th[t] = th;
   }
   // Sort query q's list of this block, best first (empty slots as 0), keep
-  // its best k and raise the threshold to the k-th.  The eight multiplying
-  // warps together.
+  // its best k and raise the threshold to the k-th.  The NT multiplying
+  // threads together.
+  template <int NT>
   __device__ static void compact(const Args& a, Shared& sh, int q0, int q) {
     unsigned long long* l = a.lists + (size_t(q0 + q) * gridDim.x + blockIdx.x) * a.slots;
     const int tid = threadIdx.x, used = sh.cnt[q];
-    for (int p = used + tid; p < a.slots; p += ring::kConsumers * 32) l[p] = 0ull;
-    ring::consumers_sync();
+    for (int p = used + tid; p < a.slots; p += NT) l[p] = 0ull;
+    ring::consumers_sync<NT>();
     for (int len = 2; len <= a.slots; len <<= 1) {
       for (int stride = len >> 1; stride > 0; stride >>= 1) {
-        for (int p = tid; p < a.slots / 2; p += ring::kConsumers * 32) {
+        for (int p = tid; p < a.slots / 2; p += NT) {
           const int lo = 2 * stride * (p / stride) + (p % stride), hi = lo + stride;
           const unsigned long long x = l[lo], y = l[hi];
           if ((x < y) == ((lo & len) == 0)) {
@@ -139,7 +141,7 @@ struct FilterTiles {
             l[hi] = x;
           }
         }
-        ring::consumers_sync();
+        ring::consumers_sync<NT>();
       }
     }
     if (tid == 0) {
@@ -147,21 +149,24 @@ struct FilterTiles {
       sh.th[q] = l[a.k - 1];
       atomicAdd(a.stats + size_t(q0 + q) * kStats, 1);
     }
-    ring::consumers_sync();
+    ring::consumers_sync<NT>();
   }
   // Sort the lists of the queries in `crowded` (a bit a query), in order.  Out of line: it is rare, and
   // inlined, its barriers cost every tile's epilogue more than its sorts cost (measured, PERF.md).
+  template <int NT>
   __device__ __noinline__ static void compact_all(const Args& a, Shared& sh, int q0, unsigned crowded) {
-    for (; crowded; crowded &= crowded - 1) compact(a, sh, q0, __ffs(crowded) - 1);
+    for (; crowded; crowded &= crowded - 1) compact<NT>(a, sh, q0, __ffs(crowded) - 1);
   }
-  template <bool L2>
+  // R: the rows a thread holds (ring.cuh consumer_threads: the block's multiplying threads)
+  template <bool L2, int R>
   __device__ static void tile(const Args& a, Shared& sh, long long, long long tile_row0, int row_in,
-                              const float (&acc)[4][4], const float (&c2)[4], const float* q2s, int q0, int qn,
+                              const float (&acc)[R][4], const float (&c2)[R], const float* q2s, int q0, int qn,
                               int lane) {
-    ring::consumers_sync();   // the last tile's appends are in: every thread reads the same counts
+    constexpr int NT = ring::consumer_threads<R>();
+    ring::consumers_sync<NT>();   // the last tile's appends are in: every thread reads the same counts
     const unsigned crowded = __ballot_sync(0xffffffffu, lane < qn && sh.cnt[lane] > a.slots - kTileRows);
-    ring::consumers_sync();   // and no append starts before the last thread has read them
-    if (crowded) compact_all(a, sh, q0, crowded);
+    ring::consumers_sync<NT>();   // and no append starts before the last thread has read them
+    if (crowded) compact_all<NT>(a, sh, q0, crowded);
     // A row passes only if its score is not below the threshold's as floats (or either is a NaN): order_key
     // keeps the order of the floats.  On most tiles no row of the warp does, and the pairs are not formed.
     const int qgi = lane & 3;
@@ -170,7 +175,7 @@ struct FilterTiles {
     for (int j = 0; j < 4; ++j) t[j] = topk::from_key(unsigned(sh.th[4 * qgi + j] >> 32));
     bool maybe = false;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
+    for (int r = 0; r < R; ++r) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int q = 4 * qgi + j;
@@ -179,7 +184,7 @@ struct FilterTiles {
     }
     if (!__any_sync(0xffffffffu, maybe)) return;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
+    for (int r = 0; r < R; ++r) {
       const long long row = tile_row0 + row_in + 8 * r;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -202,8 +207,9 @@ struct FilterTiles {
       }
     }
   }
+  template <int R = 4>
   __device__ static void finish(const Args& a, Shared& sh, int q0, int qn) {
-    ring::consumers_sync();
+    ring::consumers_sync<ring::consumer_threads<R>()>();
     const int t = threadIdx.x;
     if (t < qn) a.counts[size_t(q0 + t) * gridDim.x + blockIdx.x] = sh.cnt[t];
   }

@@ -7,21 +7,23 @@
 //
 // What bounds it on an H100 SXM (80 GB at 3.35 TB/s, 67 TFLOP/s f32 on CUDA
 // cores): the corpus read, 27.16 GB = 8.1 ms for 8.84M x 768 f32, against
-// 3.2 ms of FMAs at B = 16.  At DIN's 100M x 18 the read is 7.2 GB (2.15 ms)
-// in f32 and 3.6 GB in bf16, and what bounds the row layout is the
-// consumers' instructions a tile (the FMAs, the reads, the epilogue), not
-// the bytes.  The TPU kernel carries a running top-k from
-// grid step to grid step; PR 12's port (topk_scan.cu) kept a candidate list
+// 3.2 ms of FMAs at B = 16; above 16 queries the ring's clusters read the
+// corpus once for up to 128 (ring.cuh Grid), and the FMAs bound it (12.97
+// ms at B = 64) with the consumers' issue rate.  At DIN's 100M x 18 the
+// read is 7.2 GB (2.15 ms) in f32 and 3.6 GB in bf16, and what bounds the
+// row layout is the consumers' instructions a tile (the FMAs, the reads,
+// the epilogue), not the bytes.  The TPU kernel carries a running top-k
+// from grid step to grid step; the first port (topk_scan.cu) kept a candidate list
 // per query in shared memory and sorted it whenever it filled, which above
 // k = 256 cut the queries a block to 4 (the corpus read four times at
 // B = 16) and put a bitonic sort of up to 4,096 entries in lockstep with the
 // multiply.  Here selection leaves the scan's way:
 //
-// 1. sample   the ring of ring.cuh (persistent blocks, eight
-//             multiplying warps fed by a ninth through a ring of copies:
-//             tensor-map boxes, or whole rows of D <= 32 by one bulk copy a
-//             tile) scores the tiles 0, stride, 2*stride, ... into a
-//             [B, cols] buffer (SampleTiles);
+// 1. sample   the ring of ring.cuh (persistent blocks, multiplying warps
+//             fed by one more through a ring of copies: tensor-map boxes,
+//             or whole rows of D <= 32 by one bulk copy a tile) scores the
+//             tiles 0, stride, 2*stride, ... into a [B, cols] buffer
+//             (SampleTiles);
 // 2. select   large_select.cuh (topk_large's radix passes over every SM)
 //             takes each query's top k of the sample.  Its k-th (key, row)
 //             is a threshold no row of the top k lies behind: the k-th of
@@ -39,7 +41,7 @@
 //             a counter in shared memory, to the block's own list of the
 //             query in global memory ([B, blocks, slots]).  A list that
 //             could overflow within the next tile (more than slots - 256
-//             entries) is sorted in place by the block's eight warps; its
+//             entries) is sorted in place by the block's multiplying warps; its
 //             best k stay, and its k-th becomes the block's threshold for
 //             that query: a row behind it has k rows of its own block ahead
 //             of it.  Memory stays bounded and the answer exact whatever
@@ -94,29 +96,40 @@ template <typename TD>
 bool box_rows(int d) { return d * sizeof(TD) % 16 == 0; }
 
 template <typename TD, typename E, typename S>
-cudaError_t launch_layout(const typename E::Args& a, const CUtensorMap& map, int l2, int blocks, cudaStream_t st) {
-  return l2 ? ring::launch_dense<TD, true, E, S>(a, map, blocks, st)
-            : ring::launch_dense<TD, false, E, S>(a, map, blocks, st);
+cudaError_t launch_layout(const typename E::Args& a, const CUtensorMap& map, int l2, const ring::Grid& g,
+                          cudaStream_t st) {
+  return l2 ? ring::launch_dense<TD, true, E, S>(a, map, g, st) : ring::launch_dense<TD, false, E, S>(a, map, g, st);
 }
 
 template <typename TD, typename E>
-cudaError_t launch_ring(const typename E::Args& a, const CUtensorMap& map, int l2, int blocks, cudaStream_t st) {
-  if (box_rows<TD>(a.d)) return launch_layout<TD, E, ring::Stage<TD>>(a, map, l2, blocks, st);
-  if (a.d % 2 == 0) return launch_layout<TD, E, ring::RowStage<TD, true>>(a, map, l2, blocks, st);
-  return launch_layout<TD, E, ring::RowStage<TD, false>>(a, map, l2, blocks, st);
+cudaError_t launch_ring(const typename E::Args& a, const CUtensorMap& map, int l2, const ring::Grid& g,
+                        cudaStream_t st) {
+  if (box_rows<TD>(a.d)) return launch_layout<TD, E, ring::Stage<TD>>(a, map, l2, g, st);
+  if (a.d % 2 == 0) return launch_layout<TD, E, ring::RowStage<TD, true>>(a, map, l2, g, st);
+  return launch_layout<TD, E, ring::RowStage<TD, false>>(a, map, l2, g, st);
 }
 
+// The clusters of `width` filter blocks (the pass with the lists) that fit the card at once; only the
+// tensor-map layout launches clusters.
+template <typename TD>
+cudaError_t cluster_fit(const FilterArgs& a, int l2, int width, int* fit) {
+  return l2 ? ring::cluster_fit<TD, true, FilterTiles>(a, width, fit)
+            : ring::cluster_fit<TD, false, FilterTiles>(a, width, fit);
+}
+
+// g: the query groups' grid (its blocks are the filter's; the sample's are p.sample_blocks).
 template <typename TD>
 cudaError_t run(const SampleArgs& sa, const large::SelArgs& sel, const FilterArgs& fa, const MergeArgs& ma,
-                const Plan& p, int l2, cudaStream_t st) {
+                const Plan& p, int l2, const ring::Grid& g, cudaStream_t st) {
   CUtensorMap map{};   // unused by the row layout
   if (sa.n_valid > 0 && box_rows<TD>(sa.d)) {
     const cudaError_t err = ring::tensor_map<TD>(sa.c, sa.d, sa.n_valid, &map);
     if (err != cudaSuccess) return err;
   }
+  const ring::Grid gs{p.sample_blocks, g.width, g.rows}, gf{p.blocks, g.width, g.rows};
   return run_passes(
-      sa, sel, fa, ma, p, [&] { return launch_ring<TD, SampleTiles>(sa, map, l2, p.sample_blocks, st); },
-      [&] { return launch_ring<TD, FilterTiles>(fa, map, l2, p.blocks, st); }, st);
+      sa, sel, fa, ma, p, [&] { return launch_ring<TD, SampleTiles>(sa, map, l2, gs, st); },
+      [&] { return launch_ring<TD, FilterTiles>(fa, map, l2, gf, st); }, st);
 }
 
 }  // namespace b1
@@ -133,15 +146,20 @@ extern "C" {
 // selection's workspace, lists and top list [b, k_sample] (topk_large.py:
 // select_large's shapes; unused at stride 1, where k_sample = cols), the
 // filter's lists [b, blocks, slots] and counts [b, blocks], stats [b, 2]
-// (list sorts, candidates merged).  Returns a cudaError_t.
+// (list sorts, candidates merged).  The grid along y (ring.cuh Grid):
+// rows x width query groups (q holds that many), in clusters of width
+// blocks that read each corpus stage once (width 1: no cluster; the
+// tensor-map layout only).  Returns a cudaError_t.
 int mips_filter_launch(const float* q, const void* c, int c_bf16, int d, int b, int n, int n_valid, int k,
                        int l2, int stride, int cols, int k_sample, int sample_blocks, float* sample_scores,
                        int* sel_ws, int sel_cap, int sel_chunk_rows, int sel_chunks, long long sel_list_cap,
                        float* sel_list_s, int* sel_list_i, float* sample_s, int* sample_pos, int blocks,
                        int slots, unsigned long long* lists, int* counts, int* stats, float* out_s, int* out_i,
-                       void* stream) {
+                       int width, int rows, void* stream) {
   const int elems = c_bf16 ? 8 : 4;
+  const ring::Grid g{blocks > 0 ? blocks : 1, width, rows};
   if (!q || !c || d < 1 || (d % elems && d > ring::kChunk) || reinterpret_cast<uintptr_t>(c) % 16 ||
+      !ring::grid_ok(g, b) || (width > 1 && d % elems) ||
       !b1::plan_ok(b, n, n_valid, k, stride, cols, k_sample, sample_blocks, sample_scores, sample_s, sample_pos,
                    blocks, slots, lists, counts, stats, out_s, out_i))
     return int(cudaErrorInvalidValue);
@@ -155,7 +173,21 @@ int mips_filter_launch(const float* q, const void* c, int c_bf16, int d, int b, 
   const b1::MergeArgs ma{k, n_valid, stride, k_sample, blocks, slots, masked, direct ? sample_scores : sample_s,
                          direct ? nullptr : sample_pos, lists, counts, stats, out_s, out_i};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return int(c_bf16 ? b1::run<__nv_bfloat16>(sa, sel, fa, ma, p, l2, st) : b1::run<float>(sa, sel, fa, ma, p, l2, st));
+  return int(c_bf16 ? b1::run<__nv_bfloat16>(sa, sel, fa, ma, p, l2, g, st)
+                    : b1::run<float>(sa, sel, fa, ma, p, l2, g, st));
+}
+
+// Clusters of `width` (2 to 8) blocks of the filter pass on a corpus of d
+// columns (f32, or bf16 when c_bf16; the tensor-map layout: d a multiple
+// of 4 or 8) that fit the card at once, into *fit: the filter's blocks
+// along x (mips_topk.py ring_grid).  Returns a cudaError_t.
+int mips_ring_clusters(int c_bf16, int d, int l2, int width, int* fit) {
+  const int elems = c_bf16 ? 8 : 4;
+  if (!fit || d < 1 || d % elems || width < 2 || width > ring::kMaxCluster)
+    return int(cudaErrorInvalidValue);
+  b1::FilterArgs a{};
+  a.d = d;
+  return int(c_bf16 ? b1::cluster_fit<__nv_bfloat16>(a, l2, width, fit) : b1::cluster_fit<float>(a, l2, width, fit));
 }
 
 }  // extern "C"

@@ -2,17 +2,18 @@
 // [B, n_valid] buffer) and mips_topk.cu (B1: a sample of tiles scored into
 // a small buffer, then a scan that keeps only the rows above a threshold).
 //
-// Persistent blocks (one or two an SM) score tiles of kTileRows rows for
-// kQB queries.  Eight warps hold a 4-row x 4-query register tile per
-// thread (fmaf in column order, |c|^2 in the same pass for l2); a ninth
-// warp feeds them a ring of shared-memory stages, each handed over on an
-// mbarrier, so that the next stages' loads are in flight while one is
+// Persistent blocks (two an SM) score tiles of kTileRows rows for kQB
+// queries.  The multiplying warps hold an R-row x 4-query register tile
+// per thread (fmaf in column order, |c|^2 in the same pass for l2); one
+// more warp feeds them a ring of shared-memory stages, each handed over on
+// an mbarrier, so that the next stages' loads are in flight while one is
 // multiplied and no barrier holds the whole block.  Two stage layouts,
 // chosen by template parameter:
 //   Stage<TD>      rows of a multiple of 16 bytes (D = 768, 64, 16 ...):
 //                  kChunk columns of a tile as one tensor-map box, and the
 //                  queries' kChunk columns; a tile is ceil(D / kChunk)
-//                  stages; one block an SM;
+//                  stages; two blocks an SM of four multiplying warps,
+//                  each thread 8 rows x 4 queries;
 //   RowStage<TD>   rows of at most kChunk columns that no tensor map can
 //                  describe (DIN's D = 18: 72 bytes in f32, 36 in bf16):
 //                  a whole tile, its rows row-major and unswizzled, by one
@@ -24,6 +25,19 @@
 // What a finished tile's scores become is the epilogue's business: a
 // policy type E gives the tiles a launch walks and what happens at the end
 // of each (see dense_kernel).
+//
+// A batch of more than kQB queries (G = ceil(B / 16) groups) runs as
+// thread-block clusters of the groups' blocks along y (Grid: at most
+// kMaxCluster a cluster, so up to 128 queries share a read).  The blocks
+// of a cluster share blockIdx.x, so they walk the same tiles, and each
+// corpus stage lands in all of them from the first block's one multicast
+// copy, so that the corpus is read once for the cluster instead of once a
+// group.  Each block keeps its 16 queries, its consumers and its epilogue;
+// a slot is refilled only when every block of the cluster has released it
+// (the consumers arrive on the first block's empty barriers across the
+// cluster).  A launch of one group a cluster (width 1) is the launch
+// without clusters: a grid of G rows of blocks, each reading the whole
+// corpus.  Only the tensor-map layout (Stage<TD>) launches clusters.
 //
 // The second half of the file is the fused ring (fused_kernel, B2's): the
 // same blocks, warps and hand-overs over tiles that carry sparse stages
@@ -52,8 +66,12 @@ constexpr int kQB = 16;            // queries of a block
 constexpr int kChunk = 32;         // columns of a ring stage
 constexpr int kStages = 4;         // ring depth of the tensor-map layout
 constexpr int kQStage = kChunk * kQB * 4;   // query bytes of a stage
-constexpr int kConsumers = 8;                          // warps that multiply
+constexpr int kConsumers = 8;                          // warps that multiply (the fused ring, the row layout)
 constexpr int kDenseThreads = (kConsumers + 1) * 32;   // and one that copies
+// The multiplying threads of a block whose threads hold R rows x 4 queries of a tile each.
+template <int R>
+__host__ __device__ constexpr int consumer_threads() { return kTileRows * kQB / (4 * R); }
+constexpr int kMaxCluster = 8;     // query groups a cluster: the portable cluster size
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -83,10 +101,41 @@ __device__ __forceinline__ void tile_copy(void* dst, const CUtensorMap* map, int
   asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
                ::"r"(smem_u32(dst)), "l"(map), "r"(col), "r"(row), "r"(smem_u32(b)) : "memory");
 }
-// Named barrier 1 of the eight multiplying warps; the copy warp, which
+// The box copy multicast: the bytes land at the same offset in the shared memory of every block of the
+// cluster in `mask`, each completing on its own barrier at the offset of `b`.
+__device__ __forceinline__ void tile_copy_mc(void* dst, const CUtensorMap* map, int col, int row, unsigned long long* b,
+                                             unsigned short mask) {
+  asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n"
+               ::"r"(smem_u32(dst)), "l"(map), "r"(col), "r"(row), "r"(smem_u32(b)), "h"(mask) : "memory");
+}
+__device__ __forceinline__ unsigned cluster_blocks() {
+  unsigned n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// Every live thread of the cluster, with release and acquire: what a block wrote to shared memory before
+// (its barriers' initialisation) is seen by its peers after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// An arrive on the barrier at b's offset in block `rank` of the cluster (CUTLASS's ClusterBarrier::arrive:
+// the default semantics; release at cluster scope fences every arrive, and measured three times slower).
+__device__ __forceinline__ void mbar_arrive_at(unsigned long long* b, unsigned rank) {
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(b)), "r"(rank));
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(remote) : "memory");
+}
+
+// Named barrier 1 of the NT multiplying threads; the copy warp, which
 // returns once its copies are issued, takes no part.
+template <int NT = kConsumers * 32>
 __device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers * 32) : "memory");
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NT) : "memory");
 }
 
 // Stage<TD>: a stage holds a tile's rows for kChunk columns, row-major, as
@@ -94,10 +143,21 @@ __device__ __forceinline__ void consumers_sync() {
 // the 16-byte pieces of a row XORed with its index, so that the eight rows
 // a warp reads at once (rows x..x+7, the same columns) hit distinct banks;
 // then the block's 16 queries' values of those columns, column-major.
+// In dense_kernel a thread holds 8 rows x 4 queries of a tile (four
+// multiplying warps a block) and two blocks share an SM, each a ring of
+// three stages: once the corpus is read once for several groups, the
+// consumers bound the ring, and one block of eight warps of 4 x 4 left
+// about 40% of their issue slots stalled; more FMAs a shared-memory read
+// and two blocks' warps to hide each other's latency took B = 64 from 32
+// to 26 ms (PERF.md).  The fused ring (BoxTile) multiplies its dense
+// stages at 4 x 4, one block an SM, a ring of kStages.
 template <typename TD>
 struct Stage {
-  static constexpr int kMaxStages = kStages;
-  static constexpr int kBlocksPerSM = 1;
+  static constexpr int kMaxStages = 3;
+  static constexpr int kBlocksPerSM = 2;
+  static constexpr int kRows = 8;                                    // rows of a thread
+  static constexpr int kConsumers = consumer_threads<kRows>() / 32;  // 4 multiplying warps
+  static constexpr int kThreads = (kConsumers + 1) * 32;
   static constexpr int kRowBytes = kChunk * int(sizeof(TD));   // 128 (f32) or 64 (bf16)
   static constexpr int kPieces = kRowBytes / 16;
   static constexpr int kTile = kTileRows * kRowBytes;
@@ -107,7 +167,7 @@ struct Stage {
   static constexpr bool kSets = false;       // multiply adds to acc and c2 (a tile is several stages)
   __host__ __device__ static int chunks(int d) { return (d + kChunk - 1) / kChunk; }
   __host__ __device__ static int bytes(int) { return kBytes; }
-  __host__ __device__ static int stages(int) { return kStages; }
+  __host__ __device__ static int stages(int) { return kMaxStages; }
   __device__ static const float* queries(const unsigned char*, const unsigned char* st) {
     return reinterpret_cast<const float*>(st + kTile);
   }
@@ -131,9 +191,20 @@ struct Stage {
     tile_copy(st, map, col0, int(row0), full);
     bulk_copy(st + kTile, qg + size_t(col0) * kQB, kQStage, full);
   }
-  template <bool L2>
+  // The same in a cluster of `cs` blocks: the box lands in every block from the first block's one
+  // multicast copy.  Each block copies its own queries and expects the whole stage on its own barrier (the
+  // first block's bytes may land before this arrive: the barrier's transaction count runs below zero
+  // until it comes).
+  static constexpr bool kCluster = true;
+  __device__ static void copy_cluster(unsigned char* st, const CUtensorMap* map, long long row0, int col0,
+                                      const float* qg, unsigned long long* full, unsigned rank, unsigned cs) {
+    mbar_expect_tx(full, kBytes);
+    if (rank == 0) tile_copy_mc(st, map, col0, int(row0), full, static_cast<unsigned short>((1u << cs) - 1u));
+    bulk_copy(st + kTile, qg + size_t(col0) * kQB, kQStage, full);
+  }
+  template <bool L2, int R>
   __device__ static void multiply(const unsigned char* st, const float* qs, int, int row_in, int qgi,
-                                  float (&acc)[4][4], float (&c2)[4]);
+                                  float (&acc)[R][4], float (&c2)[R]);
 };
 
 __device__ __forceinline__ float comp(const float4& v, int i) {
@@ -141,19 +212,19 @@ __device__ __forceinline__ float comp(const float4& v, int i) {
 }
 
 template <typename TD>
-template <bool L2>
+template <bool L2, int R>
 __device__ __forceinline__ void Stage<TD>::multiply(const unsigned char* st, const float* qs, int, int row_in,
-                                                    int qgi, float (&acc)[4][4], float (&c2)[4]) {
+                                                    int qgi, float (&acc)[R][4], float (&c2)[R]) {
 #pragma unroll
   for (int c4 = 0; c4 < kChunk / 4; ++c4) {
-    float4 x[4];
+    float4 x[R];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) x[r] = read4(st, row_in + 8 * r, c4);
+    for (int r = 0; r < R; ++r) x[r] = read4(st, row_in + 8 * r, c4);
 #pragma unroll
     for (int cc = 0; cc < 4; ++cc) {
       const float4 qv = *reinterpret_cast<const float4*>(qs + (4 * c4 + cc) * kQB + 4 * qgi);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
+      for (int r = 0; r < R; ++r) {
         const float xv = comp(x[r], cc);
         if (L2) c2[r] = fmaf(xv, xv, c2[r]);
         acc[r][0] = fmaf(qv.x, xv, acc[r][0]);
@@ -208,10 +279,14 @@ template <typename TD, bool kPair>
 struct RowStage {
   static constexpr int kMaxStages = 8;
   static constexpr int kBlocksPerSM = 2;    // two blocks an SM: sixteen multiplying warps
+  static constexpr int kRows = 4;           // rows of a thread: 4 x 4, eight multiplying warps
+  static constexpr int kConsumers = consumer_threads<kRows>() / 32;
+  static constexpr int kThreads = (kConsumers + 1) * 32;
   static constexpr int kSmem = 112 * 1024;  // shared memory of a block, so that two fit an SM's 228 KB
   static constexpr unsigned kAlign = 16;
   static constexpr int kHead = kQStage;     // the block's queries, kChunk columns
   static constexpr bool kSets = true;       // multiply sets acc and c2: a stage is the whole tile
+  static constexpr bool kCluster = false;   // a block a group: the consumers bound it, not the bytes (PERF.md)
   __host__ __device__ static int chunks(int) { return 1; }
   __host__ __device__ static int bytes(int d) { return kTileRows * d * int(sizeof(TD)); }
   // stages in flight: as many as fit kSmem (3 at d = 31 in f32, 6 at d = 18), at most kMaxStages
@@ -302,11 +377,16 @@ __device__ __forceinline__ float dense_score(float acc, float c2, float q2) {
   return L2 ? -__fsub_rn(__fadd_rn(q2, c2), __fmul_rn(2.f, acc)) : acc;
 }
 
-// Warps 0-7 multiply: thread (warp w, lane l) holds rows 32w + l/4 + 8r
-// (r < 4) of a tile and queries 4(l%4) .. +3 of the block's 16.  Warp 8
-// copies: for each stage it waits until the eight warps have released the
-// ring slot, then one thread copies the stage (S::copy), completing on the
-// slot's `full` barrier.
+// Warps 0 .. S::kConsumers - 1 multiply: thread (warp w, lane l) holds
+// rows (256 / kConsumers) w + l/4 + 8r (r < S::kRows) of a tile and
+// queries 4(l%4) .. +3 of the block's 16 (Stage: 4 warps of 8 rows;
+// RowStage: 8 warps of 4).  The next warp copies: for each stage it waits
+// until the multiplying warps have released the ring slot, then one
+// thread copies the stage (S::copy), completing on the slot's `full`
+// barrier.  In a cluster (launch_dense, Grid; Stage<TD> only) each
+// block's copying thread copies its queries and the first block's the box
+// for the whole cluster (S::copy_cluster), once every block has released
+// the slot: the first block's `empty` barrier counts the warps of all.
 //
 // E::Args carries q (the queries as [groups, d_pad, 16], d_pad = d rounded
 // up to kChunk, zero-padded: mips_topk.py query_groups), c, d, b and
@@ -319,13 +399,15 @@ __device__ __forceinline__ float dense_score(float acc, float c2, float q2) {
 //                            before the ring starts,
 //   tile<L2>(a, sh, u, tile_row0, row_in, acc, c2, q2s, q0, qn, lane)
 //                            called by every multiplying thread when its
-//                            tile is scored (its rows tile_row0 + row_in +
-//                            8r), before acc and c2 are cleared,
-//   finish(a, sh, q0, qn)    called by every multiplying thread at the end.
+//                            tile is scored (acc[R][4]: its rows tile_row0
+//                            + row_in + 8r), before acc and c2 are cleared,
+//   finish<R>(a, sh, q0, qn) called by every multiplying thread at the end.
 // The stage layout S (Stage<TD> by default, or RowStage<TD, pair>) gives
 // how a stage is copied and multiplied; the map is unused by RowStage.
 template <typename TD, bool L2, typename E, typename S = Stage<TD>>
-__global__ void __launch_bounds__(kDenseThreads, S::kBlocksPerSM) dense_kernel(typename E::Args a, const __grid_constant__ CUtensorMap map) {
+__global__ void __launch_bounds__(S::kThreads, S::kBlocksPerSM)
+    dense_kernel(typename E::Args a, const __grid_constant__ CUtensorMap map) {
+  constexpr int R = S::kRows, NC = S::kConsumers;
   extern __shared__ __align__(16) unsigned char ring_raw[];
   unsigned char* smem = ring_raw + ((S::kAlign - (smem_u32(ring_raw) & (S::kAlign - 1))) & (S::kAlign - 1));
   unsigned char* slots = smem + S::kHead;   // the ring's stages
@@ -342,11 +424,13 @@ __global__ void __launch_bounds__(kDenseThreads, S::kBlocksPerSM) dense_kernel(t
   const long long n_units = E::units(a);
   const long long mine = blockIdx.x < n_units ? (n_units - 1 - blockIdx.x) / gridDim.x + 1 : 0;
   const long long total = mine * cpt;
+  const unsigned cs = S::kCluster ? cluster_blocks() : 1;   // 1: no cluster
+  const unsigned rank = cs > 1 ? cluster_rank() : 0;
 
   if (tid == 0) {
     for (int i = 0; i < nst; ++i) {
       mbar_init(&full[i], 1);
-      mbar_init(&empty[i], kConsumers);
+      mbar_init(&empty[i], rank == 0 ? NC * cs : NC);   // the first block's copies land in every block
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -357,35 +441,53 @@ __global__ void __launch_bounds__(kDenseThreads, S::kBlocksPerSM) dense_kernel(t
   }
   if constexpr (S::kHead > 0) {   // the queries' kChunk columns, once
     float* qh = reinterpret_cast<float*>(smem);
-    for (int i = tid; i < kChunk * kQB; i += kDenseThreads) qh[i] = qg[i];
+    for (int i = tid; i < kChunk * kQB; i += S::kThreads) qh[i] = qg[i];
   }
   if (tid < kQB) E::init(a, sh, tid, q0, qn);
-  __syncthreads();
+  if (cs > 1) {
+    cluster_sync();   // every peer's barriers are initialised before a copy can complete on them
+  } else {
+    __syncthreads();
+  }
 
-  if (warp == kConsumers) {   // the copying warp
+  if (warp == NC) {   // the copying warp
     if (lane == 0) {
       int slot = 0;
       unsigned ph = 0;   // the parity of the ring's round
       for (long long s = 0; s < total; ++s) {
-        if (s >= nst) mbar_wait(&empty[slot], ph ^ 1u);   // the last round's stage in this slot is released
+        // the last round's stage in this slot is released (in the first block of a cluster: by every block)
+        if (s >= nst) mbar_wait(&empty[slot], ph ^ 1u);
         const long long row0 = E::first_row(a, blockIdx.x + (s / cpt) * gridDim.x);
         row0s[slot] = row0;   // before the copy's arrive on `full` releases it
-        S::copy(slots + size_t(slot) * stage_bytes, &map, a.c, a.d, a.n_valid, row0, int(s % cpt) * kChunk, qg,
-                &full[slot]);
+        unsigned char* st = slots + size_t(slot) * stage_bytes;
+        const int col0 = int(s % cpt) * kChunk;
+        if constexpr (S::kCluster) {
+          if (cs > 1) {
+            S::copy_cluster(st, &map, row0, col0, qg, &full[slot], rank, cs);
+          } else {
+            S::copy(st, &map, a.c, a.d, a.n_valid, row0, col0, qg, &full[slot]);
+          }
+        } else {
+          S::copy(st, &map, a.c, a.d, a.n_valid, row0, col0, qg, &full[slot]);
+        }
         if (++slot == nst) {
           slot = 0;
           ph ^= 1u;
         }
       }
     }
+    if (cs > 1) {   // the kernel's last barrier, below
+      __syncwarp();
+      cluster_sync();
+    }
     return;
   }
 
   const int qgi = lane & 3, rg = lane >> 2;
-  const int row_in = 32 * warp + rg;
-  float acc[4][4], c2[4];
+  const int row_in = kTileRows / NC * warp + rg;
+  float acc[R][4], c2[R];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
+  for (int r = 0; r < R; ++r) {
     c2[r] = 0.f;
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
@@ -398,7 +500,14 @@ __global__ void __launch_bounds__(kDenseThreads, S::kBlocksPerSM) dense_kernel(t
     S::template multiply<L2>(st, S::queries(smem, st), a.d, row_in, qgi, acc, c2);
     const long long row0 = row0s[slot];
     __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[slot]);   // this warp is done with the slot
+    if (lane == 0) {   // this warp is done with the slot: tell its block, and the first block of a cluster
+      if (cs == 1) {
+        mbar_arrive(&empty[slot]);
+      } else {
+        mbar_arrive_at(&empty[slot], rank);
+        if (rank != 0) mbar_arrive_at(&empty[slot], 0);
+      }
+    }
     if (++slot == nst) {
       slot = 0;
       ph ^= 1u;
@@ -408,7 +517,7 @@ __global__ void __launch_bounds__(kDenseThreads, S::kBlocksPerSM) dense_kernel(t
       E::template tile<L2>(a, sh, unit, row0, row_in, acc, c2, q2s, q0, qn, lane);
       if constexpr (!S::kSets) {
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
+        for (int r = 0; r < R; ++r) {
           c2[r] = 0.f;
 #pragma unroll
           for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
@@ -416,7 +525,10 @@ __global__ void __launch_bounds__(kDenseThreads, S::kBlocksPerSM) dense_kernel(t
       }
     }
   }
-  E::finish(a, sh, q0, qn);
+  E::template finish<R>(a, sh, q0, qn);
+  // no block leaves while a peer may still arrive on its barriers (the copies into it have all landed:
+  // its consumers waited for every stage)
+  if (cs > 1) cluster_sync();
 }
 
 // cuTensorMapEncodeTiled, looked up once (cudaGetDriverEntryPoint).
@@ -451,17 +563,79 @@ cudaError_t tensor_map(const void* c, int d, long long rows, CUtensorMap* map) {
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// One launch of dense_kernel<TD, L2, E, S> over a grid of `blocks` x the
-// query groups, on corpus rows [0, a.n_valid) (Stage<TD>: through the
-// tensor map of those rows).
+// The dense ring's launch shape: `blocks` along x (the persistent blocks,
+// or with clusters the clusters of a row that fit the card at once) by
+// rows x width query groups along y, in clusters of `width` blocks (1: no
+// cluster).  The queries' groups (mips_topk.py query_groups) number rows x
+// width, those past the batch zero; a launch reads the corpus `rows` times.
+struct Grid {
+  int blocks, width, rows;
+};
+
+// Whether a grid holds b queries as the launch needs them.
+inline bool grid_ok(const Grid& g, int b) {
+  const long long groups = static_cast<long long>(g.rows) * g.width;
+  return g.blocks >= 1 && g.width >= 1 && g.width <= kMaxCluster && g.rows >= 1 && groups <= 65535 &&
+         groups * kQB >= b && (groups - g.width) * kQB < b;
+}
+
+template <typename TD, bool L2, typename E, typename S>
+size_t dense_smem(const typename E::Args& a) {
+  return size_t(S::kHead) + size_t(S::stages(a.d)) * S::bytes(a.d) + S::kAlign;   // room to align
+}
+
+// One launch of dense_kernel<TD, L2, E, S> over Grid g, on corpus rows
+// [0, a.n_valid) (Stage<TD>: through the tensor map of those rows).  A
+// cluster that cannot launch, or of a layout that launches none, returns
+// its error: nothing falls back to a launch without clusters.
 template <typename TD, bool L2, typename E, typename S = Stage<TD>>
-cudaError_t launch_dense(const typename E::Args& a, const CUtensorMap& map, int blocks, cudaStream_t st) {
-  const size_t smem = size_t(S::kHead) + size_t(S::stages(a.d)) * S::bytes(a.d) + S::kAlign;   // room to align
+cudaError_t launch_dense(const typename E::Args& a, const CUtensorMap& map, const Grid& g, cudaStream_t st) {
+  if (g.width > 1 && !S::kCluster) return cudaErrorInvalidValue;
+  const size_t smem = dense_smem<TD, L2, E, S>(a);
   auto kernel = dense_kernel<TD, L2, E, S>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(blocks, (a.b + kQB - 1) / kQB), kDenseThreads, smem, st>>>(a, map);
+  if (g.width == 1) {
+    kernel<<<dim3(g.blocks, g.rows), S::kThreads, smem, st>>>(a, map);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned(g.blocks), unsigned(g.rows * g.width));
+  cfg.blockDim = dim3(S::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = unsigned(g.width);
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, a, map);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// Clusters of `width` blocks of dense_kernel<TD, L2, E, S> that fit the
+// card at once (cudaOccupancyMaxActiveClusters), into *fit.
+template <typename TD, bool L2, typename E, typename S = Stage<TD>>
+cudaError_t cluster_fit(const typename E::Args& a, int width, int* fit) {
+  const size_t smem = dense_smem<TD, L2, E, S>(a);
+  auto kernel = dense_kernel<TD, L2, E, S>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1, unsigned(width));
+  cfg.blockDim = dim3(S::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = unsigned(width);
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(fit, kernel, &cfg);
 }
 
 // ---------------------------------------------------------------------------

@@ -11,10 +11,11 @@
 //                 lax.top_k's order (topk_scan.cuh: order_key).
 //
 // 1. Scores into a [B, n_valid] f32 buffer.  A dense corpus whose rows
-//    allow 16-byte copies takes the ring of ring.cuh (one persistent block
-//    an SM, eight multiplying warps fed a ring of tensor-map copies by a
-//    ninth; B1's arithmetic) with the StoreAll epilogue: every row's score
-//    leaves as 32-byte sectors.  Other corpora take row_kernel (one warp a
+//    allow 16-byte copies takes the ring of ring.cuh (two persistent
+//    blocks an SM, four multiplying warps each fed a ring of tensor-map
+//    copies by a fifth; above 16 queries clusters that read the corpus once
+//    for up to 128; B1's arithmetic) with the StoreAll epilogue: every
+//    row's score leaves as 32-byte sectors.  Other corpora take row_kernel (one warp a
 //    row, the graph hop's arithmetic, score_row.cuh); the wrapper scores a
 //    fused corpus through fused_score.cu.
 // 2. Selection, spread over every SM (large_select.cuh: run_select):
@@ -49,11 +50,11 @@
 // 8.84M x 768 f32, as for the scan kernels; the scores add B x n_valid x 4
 // bytes written once and read two or three times (hist<0>, collect, a
 // refinement when the first bin is crowded): 0.57 GB at B = 16, 0.17 ms a
-// read.  The ring keeps three stages of loads in flight; with the copies
-// taken off the multiplying warps the score pass runs close to its
-// arithmetic's own time (the shared-memory reads of the register tiles),
-// which sits a little above the corpus read.  PERF.md has the times on an
-// H100.
+// read.  Each block's ring keeps three stages of loads in flight; with the
+// copies taken off the multiplying warps the score pass runs close to the
+// corpus read at B <= 16, and above it, read once for each cluster, at
+// the consumers' issue rate over the FMAs (12.97 ms at B = 64).  PERF.md
+// has the times on an H100.
 #include "large_select.cuh"
 #include "ring.cuh"
 #include "score_row.cuh"
@@ -81,13 +82,13 @@ struct StoreAll {
   __device__ static long long units(const Args& a) { return (a.n_valid + kTileRows - 1) / kTileRows; }
   __device__ static long long first_row(const Args&, long long u) { return u * kTileRows; }
   __device__ static void init(const Args&, Shared&, int, int, int) {}
-  template <bool L2>
+  template <bool L2, int R>
   __device__ static void tile(const Args& a, Shared&, long long, long long tile_row0, int row_in,
-                              const float (&acc)[4][4], const float (&c2)[4], const float* q2s, int q0, int qn,
+                              const float (&acc)[R][4], const float (&c2)[R], const float* q2s, int q0, int qn,
                               int lane) {
     const int qgi = lane & 3;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
+    for (int r = 0; r < R; ++r) {
       const long long row = tile_row0 + row_in + 8 * r;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -98,16 +99,22 @@ struct StoreAll {
       }
     }
   }
+  template <int R = 4>
   __device__ static void finish(const Args&, Shared&, int, int) {}
 };
 
 template <typename TD>
-cudaError_t launch_dense(const DenseArgs& a, int blocks, cudaStream_t st) {
+cudaError_t launch_dense(const DenseArgs& a, const ring::Grid& g, cudaStream_t st) {
   CUtensorMap map;
   cudaError_t err = ring::tensor_map<TD>(a.c, a.d, a.n_valid, &map);
   if (err != cudaSuccess) return err;
-  return a.l2 ? ring::launch_dense<TD, true, StoreAll>(a, map, blocks, st)
-              : ring::launch_dense<TD, false, StoreAll>(a, map, blocks, st);
+  return a.l2 ? ring::launch_dense<TD, true, StoreAll>(a, map, g, st)
+              : ring::launch_dense<TD, false, StoreAll>(a, map, g, st);
+}
+
+template <typename TD>
+cudaError_t dense_fit(const DenseArgs& a, int width, int* fit) {
+  return a.l2 ? ring::cluster_fit<TD, true, StoreAll>(a, width, fit) : ring::cluster_fit<TD, false, StoreAll>(a, width, fit);
 }
 
 // Any space, one warp a row (grid-stride), every query's score with the
@@ -189,17 +196,32 @@ extern "C" {
 // Dense ip (l2 = 0) or negated-l2 scores [b, n_valid] of the first n_valid
 // rows through dense_kernel, times w when weighted.  c is f32 (c_bf16 = 0)
 // or bf16, 16-byte aligned with d a multiple of 4 (f32) or 8 (bf16) values;
-// q is the queries grouped as dense_kernel reads them (DenseArgs).
-// `blocks` is the grid's row dimension.  Returns a cudaError_t.
+// q is the queries grouped as dense_kernel reads them (DenseArgs), rows x
+// width groups.  The grid (ring.cuh Grid): `blocks` along x, rows x width
+// groups along y in clusters of width blocks that read each corpus stage
+// once (width 1: no cluster).  Returns a cudaError_t.
 int topk_large_dense_launch(const float* q, const void* c, int c_bf16, int d, int b, int n_valid,
-                            int l2, int weighted, float w, int blocks, float* scores, void* stream) {
+                            int l2, int weighted, float w, int blocks, int width, int rows, float* scores,
+                            void* stream) {
   const int elems = c_bf16 ? 8 : 4;
+  const ring::Grid g{blocks, width, rows};
   if (!q || !c || !scores || b < 1 || n_valid < 1 || d < 1 || d % elems ||
-      reinterpret_cast<uintptr_t>(c) % 16 || blocks < 1 || (b + large::kQB - 1) / large::kQB > 65535)
+      reinterpret_cast<uintptr_t>(c) % 16 || !ring::grid_ok(g, b))
     return int(cudaErrorInvalidValue);
   large::DenseArgs a{q, c, d, b, n_valid, l2, weighted, w, scores};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return int(c_bf16 ? large::launch_dense<__nv_bfloat16>(a, blocks, st) : large::launch_dense<float>(a, blocks, st));
+  return int(c_bf16 ? large::launch_dense<__nv_bfloat16>(a, g, st) : large::launch_dense<float>(a, g, st));
+}
+
+// Clusters of `width` (2 to 8) blocks of the dense score pass that fit the
+// card at once, into *fit (topk_large.py's blocks along x).  Returns a
+// cudaError_t.
+int topk_large_dense_clusters(int c_bf16, int d, int l2, int width, int* fit) {
+  if (!fit || d < 1 || width < 2 || width > ring::kMaxCluster) return int(cudaErrorInvalidValue);
+  large::DenseArgs a{};
+  a.d = d;
+  a.l2 = l2;
+  return int(c_bf16 ? large::dense_fit<__nv_bfloat16>(a, width, fit) : large::dense_fit<float>(a, width, fit));
 }
 
 // Scores [b, n_valid] of any space through row_kernel, one warp a row.  A

@@ -20,12 +20,21 @@ the corpus's shape, dtype and alignment before the launch
   keeps a candidate list per query in shared memory; B2 (``fused_topk``)
   shares this kernel and its plan (:func:`plan`).
 
+The tensor-map layout takes a batch of more than 16 queries as
+thread-block clusters (:func:`ring_grid`): the blocks of up to 8 groups of
+16 queries share one read of each corpus stage, multicast into all of
+them, so the corpus is read once for every 128 queries and not once a
+group.  The row layout keeps a block a group: its consumers, not its
+bytes, bound it (PERF.md).
+
 For tensors on the CPU the wrappers run the plain versions
 (``ref.mips_topk_ref``; ``ref.mips_filter_ref`` for the ring's plan, either
 layout); for CUDA tensors they launch a kernel or raise: nothing falls back
-to another route.  ``launches`` counts B1's launches on any route,
-``ring_launches`` the ring's (either layout), ``row_launches`` the row
-layout's and ``scan_launches`` the scan route's, nowhere else.
+to another route, and a cluster that does not launch raises.  ``launches``
+counts B1's launches on any route, ``ring_launches`` the ring's (either
+layout), ``row_launches`` the row layout's, ``cluster_launches`` the ring's
+launches in clusters (more than 16 queries) and ``scan_launches`` the scan
+route's, nowhere else.
 """
 
 from __future__ import annotations
@@ -40,15 +49,19 @@ from repro_torch.kernels import _build, ref
 MAX_K = 2048
 TILE = 256          # corpus rows per tile: the scan kernels' kRows, the ring's kTileRows
 ROW_COLS = 32       # the ring's row layout: at most this many columns (its kChunk) ...
-ROW_BLOCKS_PER_SM = 2   # ... and two of its blocks an SM (ring.cuh RowStage::kBlocksPerSM)
+ROW_BLOCKS_PER_SM = 2   # ... and two of its blocks an SM (ring.cuh RowStage::kBlocksPerSM; B2's too)
+RING_BLOCKS_PER_SM = 2  # B1's blocks an SM on either layout (ring.cuh Stage and RowStage kBlocksPerSM)
 _BLOCKS_PER_SM = 4  # scan route: scan blocks to aim for, per SM
 SAMPLE_STRIDE = 16  # ring route: at most every 16th tile is the sample's ...
 SAMPLE_PER_K = 32   # ... and the sample holds at least 32 k rows where the corpus allows
+GROUP = 16          # queries of a ring block (ring.cuh kQB)
+MAX_CLUSTER = 8     # query groups of a cluster (ring.cuh kMaxCluster): 128 queries share a read
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
 ring_launches = 0
 row_launches = 0
+cluster_launches = 0
 scan_launches = 0
 
 
@@ -75,6 +88,63 @@ def plan(b: int, n: int, k: int, n_sms: int):
     return qb, buf, cdiv(n, rows), rows
 
 
+class RingGrid(NamedTuple):
+    """The ring's launch shape for a batch (``ring.cuh`` Grid)."""
+    groups: int   # G = ceil(B / 16): the batch's groups of 16 queries
+    width: int    # blocks of a cluster, one a group (1: no cluster, a block a group)
+    rows: int     # rows of clusters along y: the corpus is read this many times
+    blocks: int   # along x: the clusters of a row that fit the card at once (width 1: the persistent blocks)
+
+    @property
+    def padded(self) -> int:
+        """The groups the launch holds, rows x width: those past the batch are zero."""
+        return self.rows * self.width
+
+
+def ring_grid(b: int, persistent: int, cluster: bool = True, fit=None) -> RingGrid:
+    """The ring's grid for ``b`` queries on a card where ``persistent``
+    blocks run at once (:func:`_ring_blocks`).  G = ceil(b / 16)
+    groups; above one group, clusters of ``width = ceil(G / rows)`` blocks in
+    ``rows = ceil(G / 8)`` rows, so that each row of clusters reads the corpus
+    once for up to 128 queries; along x, ``fit(width)`` clusters (on the card
+    ``cudaOccupancyMaxActiveClusters``; by default ``persistent // width``).
+    ``cluster=False`` gives one group a block in G rows, each reading the
+    whole corpus (the launch of one group; only the checks ask for it)."""
+    if b < 1:
+        raise ValueError(f"the ring needs at least one query, got {b}")
+    groups = cdiv(b, GROUP)
+    if not cluster or groups == 1:
+        return RingGrid(groups, 1, groups, persistent)
+    rows = cdiv(groups, MAX_CLUSTER)
+    width = cdiv(groups, rows)
+    blocks = persistent // width if fit is None else int(fit(width))
+    if blocks < 1:
+        raise RuntimeError(f"no cluster of {width} ring blocks fits the card")
+    return RingGrid(groups, width, rows, blocks)
+
+
+_FITS: dict = {}
+
+
+def cluster_fit(lib, entry: str, bf16: bool, d: int, l2: bool, device: torch.device):
+    """``fit(width)`` for :func:`ring_grid` on the card: the clusters of that
+    width of the kernel behind ``entry`` (``mips_ring_clusters`` or
+    ``topk_large_dense_clusters``) that fit at once, asked once a shape."""
+    def fit(width: int) -> int:
+        key = (entry, bf16, d, l2, width, device.index)
+        if key not in _FITS:
+            fn = getattr(lib, entry)
+            if fn.argtypes is None:
+                fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+            out = ctypes.c_int(0)
+            with torch.cuda.device(device):
+                _build.check(fn(int(bf16), d, int(l2), width, ctypes.byref(out)), entry)
+            _FITS[key] = out.value
+        return _FITS[key]
+    return fit
+
+
 class FilterPlan(NamedTuple):
     stride: int          # the sample is tiles 0, stride, 2 * stride, ...
     cols: int            # its rows below n_valid: the sample buffer's width
@@ -93,10 +163,12 @@ def filter_plan(n: int, n_valid: int, k: int, n_sms: int, stride: int | None = N
     on exchangeable data about k * (stride - 1) rows a query then pass the
     filter.  A filter block's list holds k plus one tile, rounded up to a
     power of two: sorted down to k, it has room for the next tile.
-    ``n_sms`` is the ring's persistent blocks (:func:`_ring_blocks`: the
-    SMs, twice them for the row layout).  ``stride`` and ``blocks`` (the
-    filter's blocks, at most ``n_sms`` by default) may be given, as the
-    checks do to make the lists overflow."""
+    ``n_sms`` is the ring's blocks along x (:func:`ring_grid`'s ``blocks``:
+    the persistent blocks, :func:`_ring_blocks`, or in a cluster launch the
+    clusters of a row; the blocks of a cluster share their tiles and each
+    keeps its own queries' lists).  ``stride`` and ``blocks`` (the filter's
+    blocks, at most ``n_sms`` by default) may be given, as the checks do to
+    make the lists overflow."""
     tiles = cdiv(n_valid, TILE)
     if stride is None:
         stride = max(1, min(SAMPLE_STRIDE, n_valid // (SAMPLE_PER_K * k)))
@@ -179,12 +251,13 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
 
-def query_groups(q: torch.Tensor) -> torch.Tensor:
+def query_groups(q: torch.Tensor, groups: int | None = None) -> torch.Tensor:
     """The dense queries [B, D] as the ring's stages copy them:
-    [ceil(B / 16), D rounded up to 32, 16], a group's 16 values of a column
+    [groups, D rounded up to 32, 16] (``groups`` at least ceil(B / 16), the
+    grid's :attr:`RingGrid.padded`), a group's 16 values of a column
     contiguous, zero past B and D."""
     b, d = q.shape
-    groups, d_pad = cdiv(b, 16), cdiv(d, 32) * 32
+    groups, d_pad = max(cdiv(b, GROUP), groups or 0), cdiv(d, 32) * 32
     out = torch.zeros((groups * 16, d_pad), dtype=torch.float32, device=q.device)
     out[:b, :d] = q
     return out.view(groups, 16, d_pad).transpose(1, 2).contiguous()
@@ -203,9 +276,9 @@ def ring_layout(corpus: torch.Tensor) -> str | None:
 
 
 def _ring_blocks(corpus: torch.Tensor, n_sms: int) -> int:
-    """The ring's persistent blocks on a card of ``n_sms`` SMs: one an SM
-    for the tensor-map layout, ROW_BLOCKS_PER_SM for the row layout."""
-    return n_sms * (ROW_BLOCKS_PER_SM if ring_layout(corpus) == "rows" else 1)
+    """B1's persistent ring blocks on a card of ``n_sms`` SMs:
+    RING_BLOCKS_PER_SM on either layout."""
+    return n_sms * RING_BLOCKS_PER_SM
 
 
 def ring_fits(corpus: torch.Tensor) -> bool:
@@ -220,7 +293,7 @@ def _declare(lib, name):
         fn.argtypes = {
             "mips_topk_launch": [v, v, i, i, i, i, i, i, i, v, v, i, i, i, i, v, v, v],
             "mips_filter_launch": [v, v, i, i, i, i, i, i, i, i, i, i, i, v, v, i, i, i, ll, v, v, v, v,
-                                   i, i, v, v, v, v, v, v]}[name]
+                                   i, i, v, v, v, v, v, i, i, v]}[name]
         fn.restype = ctypes.c_int
     return fn
 
@@ -244,39 +317,50 @@ def _check(queries, corpus, k, n_valid, space):
 
 def mips_filter(queries: torch.Tensor, corpus: torch.Tensor, k: int,
                 n_valid: int | None = None, space: str = "ip", *, stride: int | None = None,
-                blocks: int | None = None):
+                blocks: int | None = None, cluster: bool = True):
     """The ring route: (scores f32[B, K], ids i32[B, K], stats i32[B, 2]),
     stats holding per query the filter's list sorts and the candidates
-    merged.  ``stride`` and ``blocks`` override :func:`filter_plan`.  On
-    the CPU: the plain emulation (``ref.mips_filter_ref``) of the same
-    plan, at 132 SMs (:func:`_ring_blocks` blocks)."""
-    global launches, ring_launches, row_launches
+    merged.  ``stride`` and ``blocks`` override :func:`filter_plan`;
+    ``cluster=False`` launches a block a group where the tensor-map layout
+    would launch clusters (the checks' only: the answer is the same).  On
+    the CPU: the plain emulation (``ref.mips_filter_ref``) of the same plan,
+    its blocks those of :func:`ring_grid` at 132 SMs (with clusters
+    ``persistent // width``, where the card asks
+    ``cudaOccupancyMaxActiveClusters``); no cluster runs there."""
+    global launches, ring_launches, row_launches, cluster_launches
+    layout = ring_layout(corpus)
+    cluster = cluster and layout == "box"
     if corpus.device.type == "cpu":
         n = corpus.shape[0]
         nv = n if n_valid is None else max(0, min(int(n_valid), n))
         check_k(k, n)
-        p = filter_plan(n, nv, k, _ring_blocks(corpus, 132), stride, blocks)
+        grid = ring_grid(queries.shape[0], _ring_blocks(corpus, 132), cluster)
+        p = filter_plan(n, nv, k, grid.blocks, stride, blocks)
         return ref.mips_filter_ref(queries, corpus, k, p, n_valid=nv, space=space)
     q, n_valid = _check(queries, corpus, k, n_valid, space)
-    layout = ring_layout(corpus)
     if layout is None:
         raise ValueError("the ring route needs a 16-byte aligned corpus whose rows are a multiple of 16 "
                          f"bytes or at most {ROW_COLS} columns")
     dev = corpus.device
     n, d = corpus.shape
     b = q.shape[0]
-    p = filter_plan(n, n_valid, k, _ring_blocks(corpus, _sms(dev)), stride, blocks)
-    qg = query_groups(q)
+    lib = _build.load("mips_topk")
+    bf16, l2 = corpus.dtype == torch.bfloat16, space == "l2"
+    grid = ring_grid(b, _ring_blocks(corpus, _sms(dev)), cluster,
+                     cluster_fit(lib, "mips_ring_clusters", bf16, d, l2, dev))
+    p = filter_plan(n, n_valid, k, grid.blocks, stride, blocks)
+    qg = query_groups(q, grid.padded)
     buf = filter_buffers(b, k, p, dev)
-    fn = _declare(_build.load("mips_topk"), "mips_filter_launch")
+    fn = _declare(lib, "mips_filter_launch")
     with torch.cuda.device(dev), _build.LAUNCH_LOCK:
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ptr(qg), ptr(corpus), _DTYPES[corpus.dtype], d, b, n, n_valid, k, int(space == "l2"),
-                 *buf.args(p), ctypes.c_void_p(stream))
+        err = fn(ptr(qg), ptr(corpus), _DTYPES[corpus.dtype], d, b, n, n_valid, k, int(l2),
+                 *buf.args(p), grid.width, grid.rows, ctypes.c_void_p(stream))
         _build.check(err, "mips_filter_launch")
         launches += 1
         ring_launches += 1
         row_launches += int(layout == "rows")
+        cluster_launches += int(grid.width > 1)
     return buf.out_s, buf.out_i, buf.stats
 
 

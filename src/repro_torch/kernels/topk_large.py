@@ -17,11 +17,16 @@ every SM, then a sort of a short list per query).  Rows at or past
 reference backend's top k (unless valid rows score a NaN with the sign
 bit set, which ranks below the reference's -inf mask).
 
+The dense ring takes a batch of more than 16 queries as thread-block
+clusters (``mips_topk.ring_grid``): up to 8 groups of 16 queries share one
+read of each corpus stage.
+
 For tensors on the CPU the wrappers run the plain versions
 (``ref.fused_table_scores``, ``select_topk``, and for :func:`topk_large`
 the plain scan of ``ref`` over the first ``n_valid`` rows); for CUDA
 tensors they launch the kernels or raise.  ``launches`` counts calls of
-the three C entry points, nowhere else: two per request on the card.
+the three C entry points, nowhere else: two per request on the card;
+``cluster_launches`` the dense ring's launches in clusters.
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ from repro_torch.core.brute_force import select_topk
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import sparse_dense as _score
 from repro_torch.kernels.fused_topk import _weights
-from repro_torch.kernels.mips_topk import _DTYPES, _sms, cdiv, ptr, query_groups, require_cuda
+from repro_torch.kernels.mips_topk import (_DTYPES, RING_BLOCKS_PER_SM, _sms, cdiv, cluster_fit, ptr,
+                                           query_groups, require_cuda, ring_grid)
 
 SORT_SMEM = 16384          # kSortSmem: list entries the finish kernel sorts in shared memory
 MIN_CAPACITY = 2048        # rows of the k-th key's bin collected without refining, at the least
@@ -44,12 +50,13 @@ _ROW_BLOCKS_PER_SM = 8     # 256-thread blocks of the one-warp-a-row kernel, per
 HIST_INTS = 4096 + 2 * 1024 + 8    # kHistInts + State, per query
 
 launches = 0
+cluster_launches = 0
 
 
 def _declare(lib):
     v, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     for name, args in (
-            ("topk_large_dense_launch", [v, v, i, i, i, i, i, i, f, i, v, v]),
+            ("topk_large_dense_launch", [v, v, i, i, i, i, i, i, f, i, i, i, v, v]),
             ("topk_large_rows_launch", [v, i, v, i, v, v, i, i, v, i, i, i, f, f, i, i, i, v, v]),
             ("topk_large_select_launch", [v, i, i, i, i, i, i, ll, v, v, v, v, v, v])):
         fn = getattr(lib, name)
@@ -88,10 +95,11 @@ def _check(qdensified, q_dense, c_idx, c_dense, w_dense, w_sparse, n_valid, dens
 
 
 def large_scores(qdensified, q_dense, c_idx, c_val, c_dense, w_dense=None, w_sparse=None,
-                 n_valid: int | None = None, dense_kind: str = "ip") -> torch.Tensor:
+                 n_valid: int | None = None, dense_kind: str = "ip", *, cluster: bool = True) -> torch.Tensor:
     """f32 scores [B, n_valid] of the first ``n_valid`` rows, with
-    ``topk_large``'s conventions."""
-    global launches
+    ``topk_large``'s conventions.  ``cluster=False`` launches the dense
+    ring a block a group (the checks' only: the answer is the same)."""
+    global launches, cluster_launches
     has_dense, has_sparse, weighted, wd, ws, n_valid = _check(
         qdensified, q_dense, c_idx, c_dense, w_dense, w_sparse, n_valid, dense_kind)
     if n_valid < 1:
@@ -132,11 +140,15 @@ def large_scores(qdensified, q_dense, c_idx, c_val, c_dense, w_dense=None, w_spa
     with torch.cuda.device(dev), _build.LAUNCH_LOCK:
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         if has_dense and d % (8 if bf16 else 4) == 0 and c_dense.data_ptr() % 16 == 0:
-            blocks = max(1, min(cdiv(n_valid, 256), _sms(dev)))
-            qg = query_groups(qdt)
-            err = lib.topk_large_dense_launch(ptr(qg), ptr(c_dense), int(bf16), d, b, n_valid,
-                                              int(dense_kind == "l2"), int(weighted), wd, blocks,
-                                              ptr(scores), stream)
+            l2 = dense_kind == "l2"
+            grid = ring_grid(b, RING_BLOCKS_PER_SM * _sms(dev), cluster,
+                             cluster_fit(lib, "topk_large_dense_clusters", bf16, d, l2, dev))
+            blocks = max(1, min(cdiv(n_valid, 256), grid.blocks))
+            qg = query_groups(qdt, grid.padded)
+            err = lib.topk_large_dense_launch(ptr(qg), ptr(c_dense), int(bf16), d, b, n_valid, int(l2),
+                                              int(weighted), wd, blocks, grid.width, grid.rows, ptr(scores),
+                                              stream)
+            cluster_launches += int(grid.width > 1)
             what = "topk_large_dense_launch"
         else:
             blocks = max(1, min(cdiv(n_valid, 8), _ROW_BLOCKS_PER_SM * _sms(dev)))
@@ -181,14 +193,14 @@ def select_large(scores: torch.Tensor, k: int):
 
 def topk_large(qdensified, q_dense, c_idx, c_val, c_dense, k: int,
                w_dense=None, w_sparse=None, n_valid: int | None = None,
-               dense_kind: str = "ip"):
+               dense_kind: str = "ip", *, cluster: bool = True):
     """(scores f32[B, k], ids i32[B, k]) over rows [0, n_valid) in
     ``lax.top_k``'s order (ties toward the lower row id).  Components and
     weights follow ``fused_topk``: ``qdensified`` [B, V+1] (zero trash
     column last) with ``c_idx`` i32 / ``c_val`` [N, NNZ], ``q_dense``
     [B, Dd] with ``c_dense`` [N, Dd]; ``None`` drops a part; sparse and
     fused spaces take ``dense_kind='ip'`` only.  Requires
-    1 <= k <= n_valid."""
+    1 <= k <= n_valid.  ``cluster``: :func:`large_scores`'."""
     has_dense, has_sparse, _, _, _, nv = _check(qdensified, q_dense, c_idx, c_dense, w_dense,
                                                 w_sparse, n_valid, dense_kind)
     if not 1 <= k <= nv:
@@ -200,5 +212,5 @@ def topk_large(qdensified, q_dense, c_idx, c_val, c_dense, k: int,
                                         k, w_dense=w_dense, w_sparse=w_sparse,
                                         dense_kind=dense_kind)
     scores = large_scores(qdensified, q_dense, c_idx, c_val, c_dense, w_dense, w_sparse, nv,
-                          dense_kind)
+                          dense_kind, cluster=cluster)
     return select_large(scores, k)

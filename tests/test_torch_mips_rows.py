@@ -197,8 +197,8 @@ def test_rows_adversarial(case, dtype, space, no_library):
 def test_routing(no_library):
     """The route is a function of shape, dtype and alignment alone: rows of a
     multiple of 16 bytes take the tensor-map layout, other rows of at most
-    32 columns the row layout (twice the blocks), anything else the scan
-    route; on the CPU every route is its plain version."""
+    32 columns the row layout (both two blocks an SM), anything else the
+    scan route; on the CPU every route is its plain version."""
     f32, bf16 = torch.float32, torch.bfloat16
     for d, dtype, layout in ((18, f32, "rows"), (18, bf16, "rows"), (1, f32, "rows"), (31, bf16, "rows"),
                              (30, f32, "rows"), (768, f32, "box"), (16, f32, "box"), (32, bf16, "box"),
@@ -207,7 +207,7 @@ def test_routing(no_library):
         assert c.data_ptr() % 16 == 0
         assert mk.ring_layout(c) == layout, (d, dtype)
         assert mk.ring_fits(c) == (layout is not None)
-        assert mk._ring_blocks(c, 132) == (264 if layout == "rows" else 132)
+        assert mk._ring_blocks(c, 132) == 264
     # a view 4 bytes off its storage: the scan route, whatever its width
     for d, dtype in ((18, f32), (18, bf16), (64, f32)):
         base = torch.zeros(64 * d + 8, dtype=dtype)

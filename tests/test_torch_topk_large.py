@@ -62,26 +62,39 @@ def test_topk_large_matches_repro(variant, dtype, k, no_library):
                       ctx=(variant, dtype, k))
 
 
-@pytest.mark.parametrize("space", ["ip", "l2"])
-def test_topk_large_dense_kinds_match_repro(space, no_library):
-    q, c, planted = planted_margin_corpus(300, 16, 3, 8, seed=5)
+@pytest.mark.parametrize("space,b", [pytest.param("ip", 3, id="ip"), pytest.param("l2", 3, id="l2"),
+                                     ("ip", 64), ("l2", 64)])
+def test_topk_large_dense_kinds_match_repro(space, b, no_library):
+    """Every valid row in repro's order; at B = 64 the card launches the
+    dense pass as clusters of 4 blocks over one read of the corpus."""
+    q, c, planted = planted_margin_corpus(300, 16, b, 8, seed=5)
     got = tops.topk_large(None, to_torch(q), None, to_torch(c), 0, 290, dense_kind=space,
                           n_valid=290)
+    assert got.indices.shape == (b, 290)
     assert_topk_match(jref.mips_topk_ref(q, c, 290, n_valid=290, space=space), got, ctx=space)
     if space == "ip":
         assert set(np.asarray(got.indices)[:, :8].ravel()) == set(np.asarray(planted).tolist())
+    # the launch without clusters (a block a group) computes the same plain scores
+    one = lk.topk_large(None, to_torch(q), None, None, to_torch(c), 290, n_valid=290, dense_kind=space,
+                        cluster=False)
+    assert torch.equal(one[1], got.indices) and torch.equal(one[0].view(torch.int32), got.scores.view(torch.int32))
 
 
 def test_query_groups_layout():
     """The dense kernel reads query q's value of column c at [q // 16, c,
     q % 16]; columns up to a multiple of 32 and queries up to a multiple of
-    16 are zero."""
-    q = torch.from_numpy(np.random.default_rng(3).standard_normal((19, 40)).astype(np.float32))
-    g = lk.query_groups(q)
-    assert g.shape == (2, 64, 16) and g.is_contiguous()
-    for b, c in ((0, 0), (5, 39), (16, 7), (18, 33)):
-        assert g[b // 16, c, b % 16] == q[b, c]
-    assert not g[:, 40:].any() and not g[1, :, 3:].any()
+    16 are zero, and so are the groups a cluster grid adds past the batch
+    (B = 129: two rows of clusters of 5 groups; B = 200: two of 7)."""
+    for b, groups in ((19, None), (129, 10), (200, 14)):
+        q = torch.from_numpy(np.random.default_rng(3).standard_normal((b, 40)).astype(np.float32))
+        g = lk.query_groups(q, groups)
+        want = -(-b // 16) if groups is None else groups
+        assert g.shape == (want, 64, 16) and g.is_contiguous()
+        if groups is not None:
+            assert groups == lk.ring_grid(b, 132).padded
+        for i, c in ((0, 0), (5, 39), (16, 7), (18, 33), (b - 1, 20)):
+            assert g[i // 16, c, i % 16] == q[i, c]
+        assert not g[:, 40:].any() and not g[b // 16, :, b % 16:].any() and not g[-(-b // 16):].any()
 
 
 def test_topk_large_refusals(no_library):
