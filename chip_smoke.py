@@ -63,7 +63,8 @@ against ``topk_large``, the library call and its own scan route (the
 parent's kernel) at k = 10, 100, 356, 1,100, 2,000 and 2,048 and B = 1, 16,
 32, 64 and 128 (above 16 in thread-block clusters, beside the launch of a
 block a group at k = 100; the scan route at B = 128 at k = 100), B2 against ``topk_large`` and its own scan route at B = 16
-and on the ring at B = 1 and 64 ("crossover"), with B1's and B2's extra
+and on the ring at B = 1 to 128, in clusters beside a block a group at B = 32 to 200
+("crossover"), with B1's and B2's extra
 device memory ("b1 memory").  Then the
 FlexNeuART feature side over the same corpus ("flexneuart full"): the
 forward index of its COO ids, BM25 vectors and the inverted index built
@@ -977,10 +978,16 @@ def b2_phase(torch, dev, check):
     index stress (Zipf and out-of-range ids, repeated query terms, an
     all-pad query, V = 1,000 in f32 and bf16, 30,522 and 250,000, whose
     index words are read from global memory); exact NaN, +0 and -0 scores
-    (``exact_rows``); and d = 61, an odd d = 17 and an unaligned view
-    through the scan route.  On the card every call is asserted to launch
-    the route and layout it claims.  Returns (cases, list sorts, ring,
-    row-layout and scan launches)."""
+    (``exact_rows``); d = 61, an odd d = 17 and an unaligned view
+    through the scan route; and batches above 16 queries (B = 17, 64, 128,
+    129 and 200: on the box layout clusters of 2 to 8 blocks over one read
+    of each stage, two rows of clusters with zero-padded groups past 128;
+    on the row layout a block a group), with plans that run the sample
+    pass alone and the sample and filter passes, each cluster launch equal
+    bit for bit to the launch of a block a group and to the scan route.
+    On the card every call is asserted to launch the route, layout and
+    grid it claims.  Returns (cases, list sorts, ring, row-layout, scan
+    and cluster launches)."""
     from repro_torch.kernels import fused_topk as fk
     from repro_torch.kernels import ref
 
@@ -1001,20 +1008,29 @@ def b2_phase(torch, dev, check):
     sorts = 0
 
     def run(label, args, k, w=(None, None), n_valid=None, kind="ip", layout=None, **over):
-        """The ring route against the scan route bit for bit (the card), both against the plain version."""
+        """The ring route against the scan route bit for bit (the card), both against the plain version;
+        above 16 queries on the box layout clusters (asked for at every B: by default B2 takes them up to
+        ``fk.CLUSTER_QUERIES``) against a block a group bit for bit."""
         nonlocal sorts
         table, qd, ci, cv, cd = args
         vocab = table.shape[1] - 1 if table is not None else 0
         got_layout = fk.ring_layout(cd, ci, cv, vocab)
         assert got_layout == layout, (label, got_layout, layout)
-        before = (fk.ring_launches, fk.row_launches)
-        s, i, st = fk.fused_filter(*args, k, *w, n_valid, kind, **over)
+        b = (qd if table is None else table).shape[0]
+        clustered = layout == "box" and b > 16
+        before = (fk.ring_launches, fk.row_launches, fk.cluster_launches)
+        s, i, st = fk.fused_filter(*args, k, *w, n_valid, kind, **over, **({"cluster": True} if clustered else {}))
         if on_card:
-            assert (fk.ring_launches, fk.row_launches) == (before[0] + 1, before[1] + (layout == "rows")), \
-                f"b2 {label}: not launched on the ring's {layout} layout"
+            assert (fk.ring_launches, fk.row_launches, fk.cluster_launches) == (
+                before[0] + 1, before[1] + (layout == "rows"), before[2] + clustered), \
+                f"b2 {label} b{b}: not on the ring's {layout} layout {'in' if clustered else 'without'} clusters"
             ws, wi = fk.fused_scan(*args, k, *w, n_valid, kind)
             assert torch.equal(i, wi) and torch.equal(s.view(torch.int32), ws.view(torch.int32)), \
-                f"b2 {label} k{k}: the ring and the scan route differ"
+                f"b2 {label} b{b} k{k}: the ring and the scan route differ"
+            if clustered:
+                os_, oi, _ = fk.fused_filter(*args, k, *w, n_valid, kind, **over, cluster=False)
+                assert torch.equal(i, oi) and torch.equal(s.view(torch.int32), os_.view(torch.int32)), \
+                    f"b2 {label} b{b} k{k}: the cluster and a block a group differ"
         sorts += int(st[:, 0].sum())
         nv = (cd if ci is None else ci).shape[0] if n_valid is None else n_valid
         if nv >= k:   # the plain version masks with -inf: its tail differs below n_valid rows
@@ -1023,7 +1039,7 @@ def b2_phase(torch, dev, check):
                                            n_valid=n_valid), signed_zeros=True)
         return st
 
-    cases, before = check.cases, (fk.ring_launches, fk.row_launches, fk.scan_launches)
+    cases, before = check.cases, (fk.ring_launches, fk.row_launches, fk.scan_launches, fk.cluster_launches)
     n, v = 50_003, 1000
     for layout, d, nnz in (("rows", 18, 1), ("rows", 18, 5), ("box", 64, 128), ("box", 64, 16)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -1095,8 +1111,29 @@ def b2_phase(torch, dev, check):
               ref.fused_topk_table_ref(*args, 100, w_dense=0.5, w_sparse=0.25), signed_zeros=True)
     if on_card:
         assert fk.scan_launches == scan0 + 3, "d=61, d=17 and an unaligned shard must take the scan route"
+    # above 16 queries: clusters of ceil(B / 16) blocks on the box layout (two rows of clusters past 128), a
+    # block a group on the row layout; k = 10 and 356 run the sample and the filter passes (stride 16 and 4
+    # here), k = 2048 and the 5-block plan's stride 1 the sample alone
+    cd = nonzero((n, 64), 2, 80).float()
+    ci = ints((n, 128), 0, v, 81, torch.int32)
+    cv = ints((n, 128), 1, 4, 82)
+    rows = (cd[:, :18].contiguous(), ci[:, :5].contiguous(), cv[:, :5].contiguous())
+    for b in (17, 64, 128, 129, 200):
+        qd = nonzero((b, 64), 3, 83 + b)
+        table = table_of(ints((b, 8), 0, v, 84 + b).int(), ints((b, 8), 1, 5, 85 + b), v)
+        tag = f"b{b}"
+        run(f"clusters fused {tag}", (table, qd, ci, cv, cd), 10, (0.5, 0.25), None, "ip", "box")
+        run(f"clusters fused {tag}", (table, qd, ci, cv, cd), 356, (0.5, 0.25), 49_000, "l2", "box")
+        run(f"clusters fused {tag}", (table, qd, ci, cv, cd), 2048, (0.5, 0.25), None, "ip", "box")
+        run(f"clusters sparse-only {tag}", (table, None, ci, cv, None), 100, (None, None), 49_000, "ip", "box",
+            stride=3, blocks=5)
+        run(f"clusters dense-only {tag}", (None, qd, None, None, cd), 100, (0.5, None), None, "l2", "box")
+        run(f"clusters fused bf16 {tag}", (table, qd, ci, cv.bfloat16(), cd.bfloat16()), 100, (0.5, 0.25), None,
+            "ip", "box")
+        run(f"rows fused {tag}", (table, qd[:, :18].contiguous(), rows[1], rows[2], rows[0]), 100, (0.5, 0.25),
+            None, "ip", "rows")
     return (check.cases - cases, sorts, fk.ring_launches - before[0], fk.row_launches - before[1],
-            fk.scan_launches - before[2])
+            fk.scan_launches - before[2], fk.cluster_launches - before[3])
 
 
 def index_phase(torch, dev):
@@ -1306,41 +1343,80 @@ def extremes(torch, dev, run, n, v, nnz, b):
 
 
 def score_small_phase(torch, dev, check):
-    """The fused score kernel against its plain version: f32 and bf16;
-    ragged N, N below one tile and N = 128 (the NAPP probe's pivots); NNZ
-    1, 4 and 128 with pad slots (id V); d = 61; B = 1, 16 and 128;
-    weights (0, 1), (1, 0) and mixed; and the weight linearity
-    score(wd, ws) = wd * score(1, 0) + ws * score(0, 1)."""
+    """B4 (``sparse_dense.fused_score``) against its plain version on each
+    route: the fused ring's box layout (d = 64 with nnz = 4, d = 768 with
+    nnz = 128; a block a group at every B), its row layout (d = 18 with nnz = 4) and
+    ``topk_large.cu``'s row kernel (d = 61, nnz 1; dense f32 with bf16
+    values; a base 4 bytes off; d = 64 with nnz 4 in bf16); f32 and bf16;
+    ragged N, N below one tile and N = 128 (the NAPP probe's pivots); pad
+    slots (id V); B = 1, 16, 40, 128 and 129; weights (0, 1), (1, 0) and
+    mixed; the weight linearity score(wd, ws) = wd * score(1, 0) + ws *
+    score(0, 1); the query-term index's risky cases; and B4's scores at
+    B2's ids equal to B2's scores bit for bit, ``topk_large`` fused equal
+    to B2 bit for bit at k = 100 and 2,048.  On the card every call is
+    asserted to take the route it claims.  Returns the ring's, the row
+    layout's and the row kernel's launches."""
     from repro_torch.core.sparse import SparseVectors
+    from repro_torch.kernels import fused_topk as fk
     from repro_torch.kernels import ref
     from repro_torch.kernels import sparse_dense as sd
+    from repro_torch.kernels import topk_large as lk
+
+    on_card = dev.type == "cuda"
+    before = (sd.ring_launches, sd.row_launches, sd.launches - sd.ring_launches)
+
+    def score(tag, args, w, way):
+        """B4 on its claimed route against the plain version."""
+        table, qd, idx, val, dense = args
+        assert sd.route(dense, idx, val, table.shape[1] - 1) == way, (tag, way)
+        counts = (sd.launches, sd.ring_launches, sd.row_launches)
+        got = sd.fused_score(*args, *w)
+        if on_card:
+            want = (counts[0] + 1, counts[1] + (way != "row_kernel"), counts[2] + (way == "rows"))
+            assert (sd.launches, sd.ring_launches, sd.row_launches) == want, \
+                f"score {tag}: not launched on the {way} route"
+        check.scores("fused_score", f"score {tag} w{w[0]}/{w[1]}", got, ref.fused_score_ref(*args, *w))
+        return got
 
     v = 1000
     g = torch.Generator(device=dev).manual_seed(21)
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
-        for n, d, nnz in ((5003, 64, 4), (100, 61, 1), (128, 768, 128), (4096, 768, 128)):
+        for n, d, nnz, way in ((5003, 64, 4, "box" if dtype == torch.float32 else "row_kernel"),
+                               (5003, 18, 4, "rows"), (100, 61, 1, "row_kernel"), (128, 768, 128, "box"),
+                               (4096, 768, 128, "box")):
             dense = torch.randn(n, d, generator=g, device=dev).to(dtype)
             idx = torch.randint(0, v, (n, nnz), generator=g, device=dev, dtype=torch.int32)
             idx[torch.rand(n, nnz, generator=g, device=dev) < 0.25] = v
             val = torch.rand(n, nnz, generator=g, device=dev).to(dtype)
-            for b in (1, 16, 128):
+            for b in (1, 16, 40, 128, 129):
                 qd = torch.randn(b, d, generator=g, device=dev)
                 qi = torch.randint(0, v, (b, 32), generator=g, device=dev, dtype=torch.int32)
                 table = ref.query_table(SparseVectors(qi, torch.rand(b, 32, generator=g, device=dev)), v)
                 args = (table, qd, idx, val, dense)
-                for wd, ws in ((0.0, 1.0), (1.0, 0.0), (0.6, 0.4)):
-                    check.scores("fused_score", f"score {tag} n{n} d{d} nnz{nnz} b{b} w{wd}/{ws}",
-                                 sd.fused_score(*args, wd, ws), ref.fused_score_ref(*args, wd, ws))
+                for w in ((0.0, 1.0), (1.0, 0.0), (0.6, 0.4)):
+                    score(f"{way} {tag} n{n} d{d} nnz{nnz} b{b}", args, w, way)
             s_d, s_s = sd.fused_score(*args, 1.0, 0.0), sd.fused_score(*args, 0.0, 1.0)
             for wd, ws in ((0.3, 1.7), (2.0, 0.5)):
-                check.scores("fused_score", f"score linearity {tag} n{n} w{wd}/{ws}",
+                check.scores("fused_score", f"score linearity {way} {tag} n{n} w{wd}/{ws}",
                              sd.fused_score(*args, wd, ws), wd * s_d + ws * s_s)
+    # what no ring layout takes: dense f32 with bf16 values, a base 4 bytes off
+    n, d, nnz = 3001, 64, 16
+    dense = torch.randn(n, d, generator=g, device=dev)
+    idx = torch.randint(0, v, (n, nnz), generator=g, device=dev, dtype=torch.int32)
+    val = torch.rand(n, nnz, generator=g, device=dev)
+    off = torch.empty(n * d + 1, device=dev)[1:].view(n, d)
+    off.copy_(dense)
+    for b in (5, 40):
+        qd = torch.randn(b, d, generator=g, device=dev)
+        table = ref.query_table(SparseVectors(torch.randint(0, v, (b, 8), generator=g, device=dev, dtype=torch.int32),
+                                              torch.rand(b, 8, generator=g, device=dev)), v)
+        score(f"row_kernel two dtypes b{b}", (table, qd, idx, val.bfloat16(), dense), (0.6, 0.4), "row_kernel")
+        score(f"row_kernel unaligned b{b}", (table, qd, idx, val, off), (0.6, 0.4), "row_kernel")
     # the query-term index: uniform and Zipf-skewed ids at V = 30,522,
-    # B = 128 with 128-nnz queries (the largest compact tables), the
-    # 64-query block with a partial block (B = 40), repeated query terms,
-    # an all-pad query, ids out of range, and V = 250,000 (index words in
-    # global memory)
+    # B = 128 with 128-nnz queries (the largest compact tables), a partial
+    # group (B = 40), repeated query terms, an all-pad query, ids out of
+    # range, and V = 250,000 (index words in global memory)
     n, d, nnz = 4099, 96, 128
     for v, dtype, skew in ((30_522, torch.float32, False), (30_522, torch.bfloat16, True),
                            (30_522, torch.float32, True), (250_000, torch.float32, True)):
@@ -1356,9 +1432,33 @@ def score_small_phase(torch, dev, check):
                   torch.randint(1, v, (b, nnz_q), generator=g, device=dev, dtype=torch.int32))
             qv = torch.rand(b, nnz_q, generator=g, device=dev)
             table = index_stress(torch, idx, qi, qv, v, g, skew)
-            want = ref.fused_score_ref(table, qd, idx, val, dense, 0.6, 0.4)
-            check.scores("fused_score", f"score index {tag} b{b} nnz_q{nnz_q}",
-                         sd.fused_score(table, qd, idx, val, dense, 0.6, 0.4), want)
+            score(f"index {tag} b{b} nnz_q{nnz_q}", (table, qd, idx, val, dense), (0.6, 0.4), "box")
+    # B4 and B2 share the ring's arithmetic: B4's scores at B2's ids are B2's scores, and topk_large's fused
+    # pass (B4, then its selection) is B2's answer, bit for bit
+    n, d, nnz, v = 50_003, 64, 128, 1000
+    dense = torch.randn(n, d, generator=g, device=dev)
+    idx = torch.randint(0, v + 1, (n, nnz), generator=g, device=dev, dtype=torch.int32)
+    val = torch.rand(n, nnz, generator=g, device=dev)
+    crossed = 0
+    for b in (16, 129):
+        qd = torch.randn(b, d, generator=g, device=dev)
+        table = ref.query_table(SparseVectors(torch.randint(0, v, (b, 32), generator=g, device=dev,
+                                                            dtype=torch.int32),
+                                              torch.rand(b, 32, generator=g, device=dev)), v)
+        args = (table, qd, idx, val, dense)
+        full = score(f"cross b{b}", args, (0.6, 0.4), "box")
+        for k in (100, 2048):
+            s2, i2 = fk.fused_topk(*args, k, w_dense=0.6, w_sparse=0.4)
+            if on_card:
+                at = torch.gather(full, 1, i2.long())
+                assert torch.equal(at.view(torch.int32), s2.view(torch.int32)), f"B4 at B2's ids b{b} k{k}"
+                sl, il = lk.topk_large(*args, k, w_dense=0.6, w_sparse=0.4)
+                assert torch.equal(il, i2) and torch.equal(sl.view(torch.int32), s2.view(torch.int32)), \
+                    f"topk_large fused and B2 differ b{b} k{k}"
+                crossed += 1
+    if on_card:
+        assert crossed == 4
+    return sd.ring_launches - before[0], sd.row_launches - before[1], sd.launches - sd.ring_launches - before[2]
 
 
 def graph_full_phase(torch, dev, check, corpus, batches, space, on_card):
@@ -1551,7 +1651,7 @@ def napp_full_phase(torch, dev, check, corpus, batches, space, on_card):
     pipe = RetrievalPipeline(BruteForceGenerator(space, corpus, backend=backend),
                              cand_qty=100, final_qty=10)
     blocks = -(-n // napp.NAPP_BLOCK_ROWS)
-    sd.launches = 0
+    sd.launches = sd.ring_launches = sd.row_launches = 0
     t0 = time.perf_counter()
     _, index = backend._index(space, corpus, n)
     sync(torch, on_card)
@@ -1565,6 +1665,7 @@ def napp_full_phase(torch, dev, check, corpus, batches, space, on_card):
     launches = sd.launches
     if on_card:
         assert launches == blocks + len(batches), f"fused_score launches {launches}, expected {blocks} + {len(batches)}"
+        assert sd.ring_launches == launches, f"B4 left the ring: ring {sd.ring_launches} of {launches}"
 
     for q, r in zip(batches, results):
         ids = r.indices
@@ -1589,8 +1690,8 @@ def napp_full_phase(torch, dev, check, corpus, batches, space, on_card):
         f"{build_s:.3f} s in {blocks} row blocks; {len(batches)} batches of {b}: "
         f"{1e3 * min(host):.3f}-{1e3 * max(host):.3f} ms/batch, median "
         f"{1e3 * statistics.median(host):.3f} ms/batch (host clock, synchronised); fused_score "
-        f"launches {launches} ({blocks} build blocks + {len(batches)} batches); batch 0 agrees with "
-        f"the plain pivot scores; auto resolves to cuda")
+        f"launches {launches} ({blocks} build blocks at B = {NAPP['num_pivots']}, all on the ring, + "
+        f"{len(batches)} batches); batch 0 agrees with the plain pivot scores; auto resolves to cuda")
     if on_card:
         busy, span_ms, kspan_ms = device_profile(torch, lambda: pipe.run(batches[1]), by_kernel=True)
         if busy:
@@ -1602,16 +1703,18 @@ def napp_full_phase(torch, dev, check, corpus, batches, space, on_card):
                 + "; ".join(f"{k} {v:.3f} ms" for k, v in sorted(busy.items(), key=lambda kv: -kv[1])))
         else:
             log("  profiler: no device time recorded; idle share not measured")
-    return index, launches
+    return index, launches, blocks
 
 
 def score_full_phase(torch, check, corpus, q, space, index, timer, reps, bound):
-    """The fused score kernel on the resident corpus: at B = 16 (batch
-    0's queries) against the plain version over every row, timed with the
-    plain version; at B = 128 (the NAPP index's pivots, the build's
-    shape) timed, held against the plain version on row slices, and the
+    """B4 on the resident corpus: at B = 16 (batch 0's queries) against
+    the plain version over every row, timed with the plain version; at
+    B = 128 (the NAPP index's pivots, the build's shape: 8 blocks a tile,
+    a block a group) timed beside the plain version, held against the
+    plain version on row slices (``fused_score_b128``'s error), and the
     slices' top-``num_index`` pivots against the index's membership where
-    the plain scores leave a margin at the cut."""
+    the plain scores leave a margin at the cut.  Returns the kernels
+    JSON's figures at B = 16 and at B = 128."""
     from repro_torch.core import graph_ann
     from repro_torch.core.brute_force import select_topk
     from repro_torch.kernels import ops, ref
@@ -1645,7 +1748,7 @@ def score_full_phase(torch, check, corpus, q, space, index, timer, reps, bound):
         r1 = min(n, r0 + 16384)
         pa = args(pivots)
         want = ref.fused_score_ref(pa[0], pa[1], pa[2][r0:r1], pa[3][r0:r1], pa[4][r0:r1], *w)
-        check.scores("fused_score", f"score full b128 rows {r0}:{r1}", got[:, r0:r1], want)
+        check.scores("fused_score_b128", f"score full b128 rows {r0}:{r1}", got[:, r0:r1], want)
         vals, top = select_topk(want.T, k + 1)
         scale = want.abs().amax(0).clamp_min(1e-30)
         clear = (vals[:, k - 1] - vals[:, k]) > 2 * TOL_REL * scale
@@ -1655,12 +1758,15 @@ def score_full_phase(torch, check, corpus, q, space, index, timer, reps, bound):
     del got
     ms128 = timer(lambda: ops.fused_scores(pivots.sparse, pivots.dense, corpus.sparse, corpus.dense,
                                            v, *w), 3 if reps > 1 else 1)
+    pa = args(pivots)
+    plain128 = timer(lambda: ref.fused_score_ref(*pa, *w, tile_n=1 << 14), 1)
     (b16, by16), (b128, by128) = work(q), work(pivots)
     log(f"phase score full: fused_score B=16 {ms16:.3f} ms vs bound {b16:.3f} ms ({by16}), plain "
-        f"{plain16:.3f} ms; B=128 {ms128:.3f} ms vs bound {b128:.3f} ms ({by128}) (CUDA events, "
-        f"median of {reps} / 3); [128, N] held on 3 row slices, index membership equal on "
-        f"{margins} rows with a margin at the cut")
-    return {"ms": ms16, "plain_ms": plain16, "bound_ms": b16, "bound_by": by16}
+        f"{plain16:.3f} ms; B=128 {ms128:.3f} ms (a block a group) vs bound "
+        f"{b128:.3f} ms ({by128}), plain {plain128:.3f} ms (CUDA events, median of {reps} / 3); [128, N] held on "
+        f"3 row slices, index membership equal on {margins} rows with a margin at the cut")
+    return ({"ms": ms16, "plain_ms": plain16, "bound_ms": b16, "bound_by": by16},
+            {"ms": ms128, "plain_ms": plain128, "bound_ms": b128, "bound_by": by128})
 
 
 def skew_phase(torch, dev, corpus, q, space, timer):
@@ -1744,7 +1850,7 @@ def device_profile(torch, fn, by_kernel=False, host_ops=True):
             continue
         key = (e.key[:60] if by_kernel else
                "beam traversal" if "beam::hop_kernel" in e.key else
-               "fused_score" if "fscore::" in e.key else
+               "fused_score" if "ring::StoreAll" in e.key and "fused_kernel" in e.key else
                "query index" if "topk::index_kernel" in e.key else
                "topk scan+merge" if "topk::scan_kernel" in e.key or "topk::merge_kernel" in e.key
                else "topk_large" if "large::" in e.key
@@ -6747,6 +6853,7 @@ def main() -> int:
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import fused_topk as fk
     from repro_torch.kernels import mips_topk as mk
+    from repro_torch.kernels import sparse_dense as sd
     from repro_torch.kernels import topk_large as lk
     from repro_torch.kernels.ops import fused_topk as ops_fused
     from repro_torch.kernels.query_index import build_index
@@ -6800,15 +6907,17 @@ def main() -> int:
         f"equal, NaN/+0/-0 at the k-th); the sample-blind corpus sorted the filter's lists {rows_sorts} times; "
         f"row-layout launches {rows_launched}; {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    b2_cases, b2_sorts, b2_ring, b2_rows, b2_scan = b2_phase(torch, dev, check)
+    b2_cases, b2_sorts, b2_ring, b2_rows, b2_scan, b2_clusters = b2_phase(torch, dev, check)
     log(f"phase b2 small: {b2_cases} cases of B2 agree with the plain version, and its ring route with its scan "
         f"route bit for bit (fused ip and l2, sparse-only, dense-only, f32 and bf16, d = 18 with nnz = 1 and 5 on "
         f"the row layout, d = 64 with nnz = 128, 16 and 4 on the box layout, k 1-2048, n_valid < n, plan "
         f"overrides; Zipf and out-of-range ids, repeated query terms, an all-pad query, V = 250,000; NaN/+0/-0 "
-        f"at the k-th; d = 61, d = 17 and an unaligned shard through the scan route); the sample-blind corpus "
+        f"at the k-th; d = 61, d = 17 and an unaligned shard through the scan route; B = 17, 64, 128, 129 and 200 "
+        f"in clusters on the box layout, each equal to the launch of a block a group and to the scan route bit "
+        f"for bit, and a block a group on the row layout); the sample-blind corpus "
         f"and the overrides sorted the filter's lists {b2_sorts} times; launches: ring {b2_ring} of which row "
-        f"layout {b2_rows}, scan {b2_scan} (a scan route call beside each ring call on the card, and the 3 that "
-        f"no ring layout takes); {time.perf_counter() - t0:.1f} s")
+        f"layout {b2_rows} and in clusters {b2_clusters}, scan {b2_scan} (a scan route call beside each ring "
+        f"call on the card, and the 3 that no ring layout takes); {time.perf_counter() - t0:.1f} s")
     cases = check.cases
     large_phase(torch, dev, check)
     log(f"phase large small: {check.cases - cases} cases of k > 2048 agree (tolerance {TOL_REL} of row scale; "
@@ -6819,8 +6928,14 @@ def main() -> int:
     log(f"phase beam small: {check.cases - cases} hops agree hop for hop ({valid} valid candidates; "
         f"mark-deltas equal, tolerance {TOL_REL} of row scale) in {time.perf_counter() - t0:.1f} s")
     cases = check.cases
-    score_small_phase(torch, dev, check)
-    log(f"phase score small: {check.cases - cases} score matrices agree (tolerance {TOL_REL} of row scale)")
+    t0 = time.perf_counter()
+    score_routes = score_small_phase(torch, dev, check)
+    log(f"phase score small: {check.cases - cases} score matrices of B4 agree (tolerance {TOL_REL} of row scale) "
+        f"on each route (launches: ring {score_routes[0]} of which row layout {score_routes[1]}, a block a group "
+        f"at every B; row kernel {score_routes[2]}: d = 61, two dtypes, an unaligned base, bf16 values of 8 bytes "
+        f"a row); B4 at B2's ids "
+        f"equals B2's scores and topk_large fused equals B2 bit for bit at B = 16 and 129, k = 100 and 2048; "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # ---- full scale: the main path -------------------------------------
     cfg = dict(MSMARCO, n=args.n)
@@ -6848,7 +6963,7 @@ def main() -> int:
     assert type(resolve_backend("cuda", space, corpus)).__name__ == "CudaBackend"
 
     mk.launches = mk.ring_launches = mk.row_launches = mk.scan_launches = mk.cluster_launches = 0
-    fk.launches = fk.ring_launches = fk.row_launches = fk.scan_launches = 0
+    fk.launches = fk.ring_launches = fk.row_launches = fk.scan_launches = fk.cluster_launches = 0
     lk.launches = lk.cluster_launches = 0
     fused_s, dense_s, results, dense_results = [], [], [], []
     for q in batches:
@@ -6872,13 +6987,23 @@ def main() -> int:
     sync(torch, on_card)
     wide_s = time.perf_counter() - t0
     wide_deep = dense_gen.generate(q64, DEEP_K)
+    # and the same 64 queries fused through the pipeline: B2 in clusters of 4 blocks over one read
+    f64 = FusedVectors(q64, SparseVectors(torch.cat([x.sparse.indices for x in batches[:4]]),
+                                          torch.cat([x.sparse.values for x in batches[:4]])))
+    t0 = time.perf_counter()
+    wide_fused = pipe.run(f64)
+    sync(torch, on_card)
+    wide_fused_s = time.perf_counter() - t0
     launches = {"mips_topk": mk.launches, "fused_topk": fk.launches, "topk_large": lk.launches,
-                "mips_topk_cluster": mk.cluster_launches, "topk_large_cluster": lk.cluster_launches}
-    log(f"phase main path: {BATCHES} batches of {b}, one dense request of k = {DEEP_K}, and one dense batch of "
-        f"{q64.shape[0]} at k = 100 ({1e3 * wide_s:.3f} ms, host clock, synchronised) and k = {DEEP_K}; launches "
+                "mips_topk_cluster": mk.cluster_launches, "topk_large_cluster": lk.cluster_launches,
+                "fused_topk_cluster": fk.cluster_launches}
+    log(f"phase main path: {BATCHES} batches of {b}, one dense request of k = {DEEP_K}, one dense batch of "
+        f"{q64.shape[0]} at k = 100 ({1e3 * wide_s:.3f} ms, host clock, synchronised) and k = {DEEP_K}, and the "
+        f"fused pipeline on that batch ({1e3 * wide_fused_s:.3f} ms); launches "
         f"{launches} (mips_topk: ring {mk.ring_launches} of which row layout {mk.row_launches} and in clusters "
         f"{mk.cluster_launches}, scan {mk.scan_launches}; topk_large in clusters {lk.cluster_launches}; "
-        f"fused_topk: ring {fk.ring_launches}, scan {fk.scan_launches}); "
+        f"fused_topk: ring {fk.ring_launches} of which in clusters {fk.cluster_launches}, scan "
+        f"{fk.scan_launches}); "
         f"fused pipeline median {1e3 * statistics.median(fused_s):.3f} ms/batch, "
         f"dense median {1e3 * statistics.median(dense_s):.3f} ms/batch (host clock, synchronised)")
     if on_card:
@@ -6946,10 +7071,31 @@ def main() -> int:
     assert same(tuple(wide_deep), lk.topk_large(None, q64, None, None, dense, DEEP_K, cluster=False)), \
         f"full dense B=64 k={DEEP_K}: the cluster and a block a group disagree"
     del wide, wide_deep
+    # the fused batch of 64 in clusters: against the plain version, bit for bit a block a group; B4's scores at
+    # B2's ids are B2's scores, and topk_large's fused pass (B4, then its selection) is B2's answer
+    wide_args = (torch.cat([ref.query_table(x.sparse, v) for x in batches[:4]]), q64, idx, val, dense)
+    want64 = ref.fused_topk_table_ref(*wide_args, 100, tile_n=1 << 16, **fused_kw)
+    check("fused_topk_cluster", f"full fused B={q64.shape[0]} k=100 (pipeline)", tuple(wide_fused),
+          (want64[0][:, :10], want64[1][:, :10]))
+    b2_64 = fk.fused_topk(*wide_args, 100, **fused_kw)
+    check("fused_topk_cluster", f"full fused B={q64.shape[0]} k=100", b2_64, want64)
+    del want64, wide_fused
+    if on_card:
+        assert same(b2_64, fk.fused_filter(*wide_args, 100, **fused_kw, cluster=False)[:2]), \
+            "full fused B=64 k=100: the cluster and a block a group disagree"
+        for args_x, b2_x in ((wide_args, b2_64), (fused_args, fk.fused_topk(*fused_args, 100, **fused_kw))):
+            at = torch.gather(sd.fused_score(*args_x[:5], w_dense, w_sparse), 1, b2_x[1].long())
+            assert torch.equal(at.view(torch.int32), b2_x[0].view(torch.int32)), \
+                f"full B={args_x[1].shape[0]}: B4's scores at B2's ids are not B2's"
+            del at, args_x, b2_x   # the loop's tuples hold the corpus: the release below needs it gone
+        assert same(b2_64, lk.topk_large(*wide_args, 100, **fused_kw)), "full fused B=64: topk_large and B2 differ"
+    del b2_64
     log(f"phase full check: fused k=100, k=2000 (ring equal to the scan route bit for bit) and k={DEEP_K}, "
         f"dense k=100 (planted and random), k=2000 "
         f"(equal to topk_large bit for bit), k=2048 with every score +0 and k={DEEP_K} agree; the dense batch of "
-        f"{q64.shape[0]} at k=100 and k={DEEP_K} agrees and equals the launch of a block a group bit for bit")
+        f"{q64.shape[0]} at k=100 and k={DEEP_K} agrees and equals the launch of a block a group bit for bit; the "
+        f"fused batch of {q64.shape[0]} agrees and equals a block a group and topk_large fused bit for bit, and "
+        f"B4's scores at B2's ids equal B2's at B = {b} and {q64.shape[0]}")
 
     # ---- timings ------------------------------------------------------
     reps = 5 if on_card else 1
@@ -7000,8 +7146,9 @@ def main() -> int:
     # B1 against topk_large dense and the library call as k grows, at B = 1, 16, 32, 64 and 128 (batch 0's
     # first query, batch 0, batches 0-1, 0-3 and 0-7; above 16 in clusters, and beside them the launch of a
     # block a group, the parent's); B2 against topk_large fused at B = 16 (k = 100: the scan kernels and the
-    # library call as timed above), B2 on the ring at B = 1 and 64 (its scan route at B = 64, k = 100, once);
-    # topk_large dense at k = DEEP_K and B = 64; the extra device memory of B1 at B = 16 and 64, of B2 at 16
+    # library call as timed above), B2 on the ring at B = 1 to 128 (its scan route at B = 64, k = 100, once; at
+    # k = 100 in clusters beside a block a group, and so at B = 129 and 200 too); topk_large dense at k = DEEP_K
+    # and B = 64; the extra device memory of B1 at B = 16 and 64, of B2 at 16
     def extra_gb(fn):
         if not on_card:
             return float("nan")
@@ -7012,11 +7159,12 @@ def main() -> int:
         torch.cuda.synchronize()
         return (torch.cuda.max_memory_allocated() - base) / 1e9
 
-    wide_args = (torch.cat([ref.query_table(x.sparse, v) for x in batches[:4]]), q64, idx, val, dense)
     one_args = (table[:1].contiguous(), q.dense[:1].contiguous(), idx, val, dense)
     cross, b1_gb, b2_gb, b1_gb64 = [], {}, {}, {}
     for bq in (1, b, 2 * b, 4 * b, 8 * b):
         qq = q.dense[:1].contiguous() if bq == 1 else torch.cat([x.dense for x in batches[:bq // b]]).contiguous()
+        args_b2 = one_args if bq == 1 else wide_args if bq == 4 * b else (
+            torch.cat([ref.query_table(x.sparse, v) for x in batches[:bq // b]]), qq, idx, val, dense)
         for k in CROSSOVER_K:
             seen = bq == b and k == 100
             row = dict(b=bq, k=k, b1=mips_ms if seen else timer(lambda: mk.mips_topk(qq, dense, k), 3),
@@ -7033,32 +7181,45 @@ def main() -> int:
                 row["b2_scan"] = timer(lambda: fk.fused_scan(*fused_args, k, **fused_kw), 3)
                 b1_gb[k] = extra_gb(lambda: mk.mips_topk(qq, dense, k))
                 b2_gb[k] = extra_gb(lambda: fk.fused_topk(*fused_args, k, **fused_kw))
-            if bq in (1, 4 * b):   # B2 on the ring at B = 1 and 64: a timing only
-                args_b2 = one_args if bq == 1 else wide_args
+            if bq != b:   # B2 on the ring at B = 1, above 16 as it chooses; at k = 100 clusters beside a block a group
                 row["b2"] = timer(lambda: fk.fused_topk(*args_b2, k, **fused_kw), 3)
                 if bq > b and k == 100:
+                    row["b2_cl"] = timer(lambda: fk.fused_filter(*args_b2, k, **fused_kw, cluster=True), 3)
+                    row["b2_one"] = timer(lambda: fk.fused_filter(*args_b2, k, **fused_kw, cluster=False), 3)
+                if bq == 4 * b and k == 100:
                     row["b2_scan"] = timer(lambda: fk.fused_scan(*args_b2, k, **fused_kw), 1)
             if bq == 4 * b:
                 b1_gb64[k] = extra_gb(lambda: mk.mips_topk(qq, dense, k))
             cross.append(row)
+    # B2 past one row of clusters (two rows of clusters, or a block a group), k = 100
+    wide_q, wide_qi, wide_qv = make_queries(torch, 200, d, v, cfg["nnz_q"], args.seed + 300, dev)
+    for bq in (8 * b + 1, 200):
+        args_b2 = (ref.query_table(SparseVectors(wide_qi[:bq], wide_qv[:bq]), v), wide_q[:bq], idx, val, dense)
+        cross.append(dict(b=bq, k=100, b2=timer(lambda: fk.fused_topk(*args_b2, 100, **fused_kw), 3),
+                          b2_cl=timer(lambda: fk.fused_filter(*args_b2, 100, **fused_kw, cluster=True), 3),
+                          b2_one=timer(lambda: fk.fused_filter(*args_b2, 100, **fused_kw, cluster=False), 3)))
+    del wide_q, wide_qi, wide_qv
     deep64 = timer(lambda: lk.topk_large(None, q64, None, None, dense, DEEP_K), 3)
     deep64_one = timer(lambda: lk.topk_large(None, q64, None, None, dense, DEEP_K, cluster=False), 3)
     deep64_lib = timer(lambda: library_topk(DEEP_K, q64), 3)
     names = dict(b1="B1", b1_one="B1 a block a group", large="topk_large dense",
-                 large_one="topk_large dense a block a group", lib="library", scan="B1's scan route", b2="B2",
+                 large_one="topk_large dense a block a group", lib="library", scan="B1's scan route",
+                 b2=f"B2 (clusters up to B={fk.CLUSTER_QUERIES})", b2_cl="B2 in clusters", b2_one="B2 a block a group",
                  large_fused="topk_large fused", b2_scan="B2's scan route")
     # the scan routes are the parent's B1 and B2 kernels (topk_scan.cu, unchanged): their times before the ring
     for bq in sorted({r["b"] for r in cross}):
         log(f"phase crossover B={bq} (f32, CUDA events, median of 3; B=16 k=100 rows of median 5; the scan "
-            f"routes above B=16 one run{'; in clusters of ' + str(-(-bq // 16)) + ' blocks' if bq > 16 else ''}"
-            f"{', a block a group at k=100' if bq > 16 else ''}{', the scan route at k=100' if bq > 4 * b else ''}): "
+            f"routes above B=16 one run"
+            f"{'; B1 in clusters of ' + str(-(-bq // 16)) + ' blocks' if 16 < bq <= 128 else ''}"
+            f"{', a block a group at k=100' if bq > 16 else ''}"
+            f"{', the scan route at k=100' if 4 * b < bq <= 128 else ''}): "
             + "; ".join(f"k={r['k']}: " + ", ".join(f"{names[key]} {r[key]:.3f} ms" for key in names if key in r)
                         for r in cross if r["b"] == bq)
             + (f"; k={DEEP_K}: topk_large dense {deep64:.3f} ms, a block a group {deep64_one:.3f} ms, library "
                f"{deep64_lib:.3f} ms" if bq == 4 * b else "")
             + f"; {card}")
     if on_card:   # the clusters of each width that fit the card at once (the grid's blocks along x)
-        fits = {lib: mk.cluster_fit(_build.load(lib), entry, False, d, False, dev)
+        fits = {lib: mk.cluster_fit(_build.load(lib), entry, dev, False, d, False)
                 for lib, entry in (("mips_topk", "mips_ring_clusters"), ("topk_large", "topk_large_dense_clusters"))}
         log("phase clusters: " + "; ".join(f"{lib} width {w}: {fit(w)} clusters ({w * fit(w)} SMs)"
                                            for lib, fit in fits.items() for w in range(2, mk.MAX_CLUSTER + 1)))
@@ -7067,6 +7228,7 @@ def main() -> int:
     b2_ahead = all(r["b2"] < r["large_fused"] and r["b2"] <= r["b2_scan"] for r in cross if r["b"] == b)
     wide_ahead = {bq: (all(r["b1"] < r["lib"] for r in cross if r["b"] == bq),
                        all(r["large"] < r["lib"] for r in cross if r["b"] == bq)) for bq in (2 * b, 4 * b, 8 * b)}
+    b2_gain = {r["b"]: r["b2_one"] / r["b2_cl"] for r in cross if "b2_one" in r}
     log(f"phase b1 memory (max_memory_allocated over one call): B={b} "
         + ", ".join(f"k={k}: {gb:.4f} GB" for k, gb in b1_gb.items())
         + f"; B={4 * b} " + ", ".join(f"k={k}: {gb:.4f} GB" for k, gb in b1_gb64.items())
@@ -7075,7 +7237,8 @@ def main() -> int:
         f"no slower than its scan route at every k and B: {faster}; B2 faster than topk_large fused and no "
         f"slower than its scan route at every k: {b2_ahead}; below the library call at every k (B1, topk_large "
         f"dense): " + ", ".join(f"B={bq} {x[0]}, {x[1]}" for bq, x in wide_ahead.items())
-        + f"; topk_large dense at k={DEEP_K}, B={4 * b}: {deep64 < deep64_lib}")
+        + f"; topk_large dense at k={DEEP_K}, B={4 * b}: {deep64 < deep64_lib}; B2 a block a group over its "
+        f"clusters at k=100: " + ", ".join(f"B={bq} {x:.3f}x" for bq, x in b2_gain.items()))
 
     # the batch of 64 in clusters (B1 at k = 100, topk_large at k = DEEP_K): the kernels JSON's cluster entries
     b64 = q64.shape[0]
@@ -7083,6 +7246,10 @@ def main() -> int:
     wide_plain = timer(lambda: ref.mips_topk_ref(q64, dense, 100, tile_n=1 << 18), 1)
     wide_deep_plain = timer(lambda: ref.mips_topk_ref(q64, dense, DEEP_K, tile_n=1 << 18), 1)
     wide_ops = 2 * b64 * n * d
+    wide_fused_ms = timer(lambda: fk.fused_topk(*wide_args, 100, **fused_kw), reps)
+    wide_fused_plain = timer(lambda: ref.fused_topk_table_ref(*wide_args, 100, tile_n=1 << 16, **fused_kw), 1)
+    wide_fused_bytes = n * d * 4 + n * nnz * 8 + b64 * d * 4 + b64 * (v + 1) * 4 + b64 * 100 * 8
+    wide_fused_ops = 2 * (b64 * n * d + sparse_fmas(torch, wide_args[0], idx)) + 3 * b64 * n
     kernels = []
     for name, source, replaces, ms, plain, lib, (bms, by) in (
             ("mips_topk", SOURCES[4], "src/repro/kernels/mips_topk.py:92", mips_ms, mips_plain, mips_lib,
@@ -7094,13 +7261,15 @@ def main() -> int:
             ("mips_topk_cluster", SOURCES[4], "src/repro/kernels/mips_topk.py:92", wide_ms, wide_plain,
              timer(lambda: library_topk(100, q64), reps), bound(n * d * 4 + b64 * d * 4 + b64 * 100 * 8, wide_ops)),
             ("topk_large_cluster", SOURCES[3], "src/repro/kernels/mips_topk.py:92", deep64, wide_deep_plain,
-             deep64_lib, bound(n * d * 4 + b64 * d * 4 + b64 * DEEP_K * 8, wide_ops))):
+             deep64_lib, bound(n * d * 4 + b64 * d * 4 + b64 * DEEP_K * 8, wide_ops)),
+            ("fused_topk_cluster", SOURCES[5], "src/repro/kernels/fused_topk.py:146", wide_fused_ms,
+             wide_fused_plain, None, bound(wide_fused_bytes, wide_fused_ops))):
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": check.max_err[name],
                         "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
                         "library_ms": lib})
-    log(f"phase timings (B={b}, k=100 (topk_large: k={DEEP_K}); the cluster entries B={b64}, f32, CUDA events, "
-        f"median of {reps}; topk_large_cluster of 3): "
+    log(f"phase timings (B={b}, k=100 (topk_large: k={DEEP_K}); the cluster entries B={b64} (fused_topk_cluster "
+        f"k=100), f32, CUDA events, median of {reps}; topk_large_cluster of 3): "
         + "; ".join(f"{k['name']} {k['ms']:.3f} ms vs bound {k['bound_ms']:.3f} ms ({k['bound_by']}), "
                     f"plain {k['plain_ms']:.3f} ms, library {k['library_ms']}" for k in kernels))
     # where the fused time goes: the sparse part alone (the index lookups
@@ -7122,8 +7291,8 @@ def main() -> int:
     hop = graph_full_phase(torch, dev, check, corpus, batches, space, on_card)
     if args.graph_build_n:
         graph_build(torch, dev, corpus, space, min(args.graph_build_n, n), on_card)
-    napp_index, score_launches = napp_full_phase(torch, dev, check, corpus, batches, space, on_card)
-    score = score_full_phase(torch, check, corpus, q, space, napp_index, timer, reps, bound)
+    napp_index, score_launches, score_build = napp_full_phase(torch, dev, check, corpus, batches, space, on_card)
+    score, score128 = score_full_phase(torch, check, corpus, q, space, napp_index, timer, reps, bound)
     # ---- learned weights and live corpora over the same resident corpus;
     # the NAPP membership and the graphs go first: a compaction copies it
     del napp_index
@@ -7238,6 +7407,10 @@ def main() -> int:
     kernels.append({"name": "fused_score", "route": "cuda", "source": SOURCES[2],
                     "replaces": "src/repro/kernels/sparse_dense.py:61", "launches": score_launches,
                     "max_abs_err": check.max_err["fused_score"], **score, "library_ms": None})
+    # B4 at B = 128 (the NAPP build's shape, a block a group): its launches are the build's
+    kernels.append({"name": "fused_score_b128", "route": "cuda", "source": SOURCES[2],
+                    "replaces": "src/repro/kernels/sparse_dense.py:61", "launches": score_build,
+                    "max_abs_err": check.max_err["fused_score_b128"], **score128, "library_ms": None})
     # B1's and B2's row layout (DIN's items at D = 18, f32, B = 16; B2 with one tag an item): their launches are
     # the recommendation path's
     kernels.append({"name": "mips_topk_rows", "route": "cuda", "source": SOURCES[4],

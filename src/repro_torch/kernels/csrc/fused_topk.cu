@@ -9,19 +9,27 @@
 // It is B1's route (mips_topk.cu's header: sample, select, filter, merge)
 // on the fused ring of ring.cuh (fused_kernel): the epilogues, the
 // selection and the merge are filter.cuh's, the same code as B1's.  A tile
-// is scored by the ring's persistent blocks, eight multiplying warps fed by
-// a ninth that copies, 16 queries a block at every k:
+// is scored by the ring's persistent blocks, multiplying warps fed by one
+// more that copies, 16 queries a block at every k:
 //
-//   box layout   (BoxTile, one block an SM): the dense rows in
+//   box layout   (BoxTile: a block a group, one an SM of eight
+//                multiplying warps, 4 rows x 4 queries a thread; in
+//                clusters two an SM of four, 8 x 4): the dense rows in
 //                ceil(D / 32) tensor-map boxes of 256 rows (Stage<TD>,
 //                B1's), then the COO slots in ceil(nnz / 16) stages, each
 //                a [256, 16] box of the ids and one of the values; for
 //                arrays whose rows are multiples of 16 bytes (MS MARCO's
-//                D = 768 and nnz = 128, f32 and bf16);
-//   row layout   (RowTile, two blocks an SM): one stage a tile, its dense
-//                rows (D <= 32, even), ids and values (nnz <= 32) each by
-//                one bulk copy of their contiguous bytes; for rows no
-//                tensor map describes (DIN's items, D = 18, with one tag).
+//                D = 768 and nnz = 128, f32 and bf16).  Above 16 queries
+//                the blocks of up to 8 groups run as a thread-block
+//                cluster (ring.cuh Grid, as B1's): every stage lands in all
+//                of them from one multicast copy, so the corpus is read
+//                once for up to 128 queries; each block keeps its own
+//                queries, query-term index, lookups and epilogue;
+//   row layout   (RowTile, two blocks an SM of eight warps, a block a
+//                group): one stage a tile, its dense rows (D <= 32, even),
+//                ids and values (nnz <= 32) each by one bulk copy of their
+//                contiguous bytes; for rows no tensor map describes (DIN's
+//                items, D = 18, with one tag).
 //
 // The consumers turn a sparse stage's slots into hits through the
 // query-term index of the block's 16 queries in their own registers and
@@ -37,7 +45,9 @@
 // at MS MARCO passage scale the bytes, 8.84M x (768 x 4 + 128 x 8) = 36.2
 // GB = 10.8 ms at B = 16, against 3.2 ms of dense FMAs; the consumers'
 // per-slot work (a lookup and a vote per slot, a table read and four FMAs
-// per hit) comes on top of the dense multiply in the same warps.  At
+// per hit) comes on top of the dense multiply in the same warps; above 16
+// queries, read once a cluster, the FMAs (12.97 ms at B = 64) and each
+// group's lookups.  At
 // DIN's 100M items of 18 f32 with one tag the read is 8.0 GB (2.39 ms),
 // and, as for B1's row layout, what bounds it is the consumers'
 // instructions a tile.  PERF.md holds what was measured.
@@ -46,7 +56,8 @@
 // from +0, l2 as -((|q|^2 + |c|^2) - 2 s), sparse sums fmaf in slot order
 // from +0 over the hits and the non-finite misses, the mix
 // __fadd_rn(__fmul_rn(w_d, dense), __fmul_rn(w_s, sparse)); so the ring's
-// scores and answers equal the scan route's bit for bit.
+// scores and answers equal the scan route's bit for bit, in a cluster or a
+// block a group.
 #include "filter.cuh"
 
 namespace b2 {
@@ -54,67 +65,34 @@ namespace b2 {
 using b1::FilterTiles;
 using b1::SampleTiles;
 
-template <typename TD, typename TV, bool DENSE, bool SPARSE, typename E, typename T>
-cudaError_t launch_l2(const ring::FusedArgs<typename E::Args>& fa, const CUtensorMap (&maps)[3], int l2, int blocks,
-                      cudaStream_t st) {
-  if constexpr (DENSE) {
-    if (l2) return ring::launch_fused<TD, TV, DENSE, SPARSE, true, E, T>(fa, maps[0], maps[1], maps[2], blocks, st);
+template <typename P, typename E, typename T>
+cudaError_t launch_l2(const ring::FusedArgs<typename E::Args>& fa, const CUtensorMap (&maps)[3], int l2,
+                      const ring::Grid& g, cudaStream_t st) {
+  if constexpr (P::DENSE) {
+    if (l2) return ring::launch_fused<typename P::TD, typename P::TV, true, P::SPARSE, true, E, T>(fa, maps, g, st);
   }
-  return ring::launch_fused<TD, TV, DENSE, SPARSE, false, E, T>(fa, maps[0], maps[1], maps[2], blocks, st);
+  return ring::launch_fused<typename P::TD, typename P::TV, P::DENSE, P::SPARSE, false, E, T>(fa, maps, g, st);
 }
 
-// The passes of one call for one combination of parts, dtypes and layout.
-template <typename TD, typename TV, bool DENSE, bool SPARSE, template <typename, typename, bool, bool> class L>
+// The passes of one call for one combination of parts and dtypes (P, ring.cuh Parts) and a layout; g the
+// query groups' grid (its blocks are the filter's; the sample's are p.sample_blocks).
+template <typename P, template <typename, typename, bool, bool> class L>
 cudaError_t run(const b1::SampleArgs& sa, const large::SelArgs& sel, const b1::FilterArgs& fa,
-                const b1::MergeArgs& ma, const ring::SparseArgs& sp, const b1::Plan& p, int l2, cudaStream_t st) {
-  using T = L<TD, TV, DENSE, SPARSE>;
-  constexpr bool kBox = std::is_same_v<T, ring::BoxTile<TD, TV, DENSE, SPARSE>>;
+                const b1::MergeArgs& ma, const ring::SparseArgs& sp, const b1::Plan& p, int l2, const ring::Grid& g,
+                cudaStream_t st) {
+  using T = L<typename P::TD, typename P::TV, P::DENSE, P::SPARSE>;
   CUtensorMap maps[3] = {};   // dense, ids, values: the box layout's
-  if (kBox && sa.n_valid > 0) {
-    cudaError_t err = cudaSuccess;
-    if (DENSE) err = ring::tensor_map<TD>(sa.c, sa.d, sa.n_valid, &maps[0]);
-    if (err == cudaSuccess && SPARSE)
-      err = ring::slot_map(sp.idx, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, sp.nnz, sa.n_valid, &maps[1]);
-    if (err == cudaSuccess && SPARSE)
-      err = ring::slot_map(sp.val, sizeof(TV) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                           int(sizeof(TV)), sp.nnz, sa.n_valid, &maps[2]);
+  if (T::kBox && sa.n_valid > 0) {
+    const cudaError_t err =
+        ring::box_maps<typename P::TD, typename P::TV, P::DENSE, P::SPARSE>(sa.c, sa.d, sp, sa.n_valid, maps);
     if (err != cudaSuccess) return err;
   }
   const ring::FusedArgs<b1::SampleArgs> fs{sa, sp};
   const ring::FusedArgs<b1::FilterArgs> ff{fa, sp};
+  const ring::Grid gs{p.sample_blocks, g.width, g.rows}, gf{p.blocks, g.width, g.rows};
   return b1::run_passes(
-      sa, sel, fa, ma, p, [&] { return launch_l2<TD, TV, DENSE, SPARSE, SampleTiles, T>(fs, maps, l2, p.sample_blocks, st); },
-      [&] { return launch_l2<TD, TV, DENSE, SPARSE, FilterTiles, T>(ff, maps, l2, p.blocks, st); }, st);
-}
-
-// The combinations the entry point takes: both parts in one dtype, the
-// dense part alone, the sparse part alone; each in either layout.
-template <template <typename, typename, bool, bool> class L>
-cudaError_t dispatch(bool dense, bool sparse, bool bf16, const b1::SampleArgs& sa, const large::SelArgs& sel,
-                     const b1::FilterArgs& fa, const b1::MergeArgs& ma, const ring::SparseArgs& sp, const b1::Plan& p,
-                     int l2, cudaStream_t st) {
-  using bf = __nv_bfloat16;
-  if (dense && sparse)
-    return bf16 ? run<bf, bf, true, true, L>(sa, sel, fa, ma, sp, p, l2, st)
-                : run<float, float, true, true, L>(sa, sel, fa, ma, sp, p, l2, st);
-  if (dense)
-    return bf16 ? run<bf, float, true, false, L>(sa, sel, fa, ma, sp, p, l2, st)
-                : run<float, float, true, false, L>(sa, sel, fa, ma, sp, p, l2, st);
-  return bf16 ? run<float, bf, false, true, L>(sa, sel, fa, ma, sp, p, l2, st)
-              : run<float, float, false, true, L>(sa, sel, fa, ma, sp, p, l2, st);
-}
-
-// Whether the layout takes the parts (kernels/fused_topk.py: ring_layout
-// gives the same answer from shapes, dtypes and alignment).
-inline bool layout_ok(bool rows, bool dense, bool sparse, int d, int dense_elem, int nnz, int val_elem,
-                      bool stage_words, int nw) {
-  if (!rows)
-    return (!dense || d * dense_elem % 16 == 0) && (!sparse || (nnz * 4 % 16 == 0 && nnz * val_elem % 16 == 0));
-  if ((dense && (d > ring::kChunk || d % 2)) || (sparse && nnz > ring::kRowSlots)) return false;
-  const int bytes = ring::kTileRows * ((dense ? d * dense_elem : 0) + (sparse ? nnz * (4 + val_elem) : 0));
-  const int fit = (ring::RowStage<float, true>::kSmem - (dense ? ring::kQStage : 0) - (stage_words ? nw * 8 : 0) -
-                   16) / bytes;
-  return fit >= 2;
+      sa, sel, fa, ma, p, [&] { return launch_l2<P, SampleTiles, T>(fs, maps, l2, gs, st); },
+      [&] { return launch_l2<P, FilterTiles, T>(ff, maps, l2, gf, st); }, st);
 }
 
 }  // namespace b2
@@ -123,33 +101,39 @@ extern "C" {
 
 // Fused top k of n rows (B2's ring route), rows at or past n_valid scoring
 // f32-min, into out_s / out_i [b, k].  The dense part: q the queries
-// grouped as the ring reads them (mips_topk.py: query_groups) and c_dense
-// [n, d] f32 (dense_bf16 = 0) or bf16, or both null; the sparse part:
-// words / table the query-term index of ceil(b / 16) groups of 16 queries
-// (query_index.py: build_index(qdensified, 16)), c_idx [n, nnz] i32 and
-// c_val [n, nnz] f32 (val_bf16 = 0) or bf16, or null.  Two parts share one
-// dtype and are always weighted; one part is scaled when weighted = 1.
-// rows = 0 takes the box layout, 1 the row layout (fused_topk.py:
-// ring_layout); every array 16-byte aligned.  The plan and the other
-// buffers are mips_filter_launch's (mips_topk.py: filter_plan,
-// filter_buffers).  Returns a cudaError_t.
+// grouped as the ring reads them (mips_topk.py: query_groups, rows x width
+// groups) and c_dense [n, d] f32 (dense_bf16 = 0) or bf16, or both null;
+// the sparse part: words / table the query-term index of rows x width
+// groups of 16 queries (query_index.py: build_index(qdensified, 16,
+// 16 * width)), c_idx [n, nnz] i32 and c_val [n, nnz] f32 (val_bf16 = 0) or
+// bf16, or null.  Two parts share one dtype and are always weighted; one
+// part is scaled when weighted = 1.  rows_layout = 0 takes the box layout,
+// 1 the row layout (fused_topk.py: ring_layout); every array 16-byte
+// aligned.  The plan and the other buffers are mips_filter_launch's
+// (mips_topk.py: filter_plan, filter_buffers).  The grid along y (ring.cuh
+// Grid): rows x width query groups, in clusters of width blocks that read
+// each stage once (width 1: no cluster; the box layout only).  Returns a
+// cudaError_t.
 int fused_filter_launch(const float* q, const void* c_dense, int dense_bf16, int d, const void* words,
                         const float* table, const int* c_idx, const void* c_val, int val_bf16, int nnz, int vocab,
-                        int rows, int b, int n, int n_valid, int k, int l2, int weighted, float w_dense,
+                        int rows_layout, int b, int n, int n_valid, int k, int l2, int weighted, float w_dense,
                         float w_sparse, int stride, int cols, int k_sample, int sample_blocks, float* sample_scores,
                         int* sel_ws, int sel_cap, int sel_chunk_rows, int sel_chunks, long long sel_list_cap,
                         float* sel_list_s, int* sel_list_i, float* sample_s, int* sample_pos, int blocks,
                         int slots, unsigned long long* lists, int* counts, int* stats, float* out_s, int* out_i,
-                        void* stream) {
+                        int width, int rows, void* stream) {
   const bool dense = c_dense != nullptr, sparse = c_idx != nullptr;
   const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  const int nw = sparse ? topk::index_words(vocab) : 0;
-  const bool stage_words = sparse && nw * 8 <= topk::kWordsSmemCap;
+  const ring::SparseArgs sp =
+      ring::sparse_args(sparse, words, table, c_idx, c_val, nnz, vocab, weighted, w_dense, w_sparse);
+  const ring::Grid g{blocks > 0 ? blocks : 1, width, rows};
   if (!(dense || sparse) || (dense && (!q || d < 1 || !aligned(c_dense))) ||
       (sparse && (!words || !table || !c_val || nnz < 1 || vocab < 0 || vocab > 0x7ffffffd || !aligned(c_idx) ||
                   !aligned(c_val))) ||
       (dense && sparse && (!weighted || dense_bf16 != val_bf16)) ||
-      !b2::layout_ok(rows != 0, dense, sparse, d, dense_bf16 ? 2 : 4, nnz, val_bf16 ? 2 : 4, stage_words, nw) ||
+      !ring::layout_ok(rows_layout != 0, dense, sparse, d, dense_bf16 ? 2 : 4, nnz, val_bf16 ? 2 : 4, sp.stage_words,
+                     sp.nw) ||
+      !ring::grid_ok(g, b) || (rows_layout && width > 1) ||
       !b1::plan_ok(b, n, n_valid, k, stride, cols, k_sample, sample_blocks, sample_scores, sample_s, sample_pos,
                    blocks, slots, lists, counts, stats, out_s, out_i))
     return int(cudaErrorInvalidValue);
@@ -163,12 +147,39 @@ int fused_filter_launch(const float* q, const void* c_dense, int dense_bf16, int
   const bool direct = stride == 1;   // the merge reads the sample's scores
   const b1::MergeArgs ma{k, n_valid, stride, k_sample, blocks, slots, masked, direct ? sample_scores : sample_s,
                          direct ? nullptr : sample_pos, lists, counts, stats, out_s, out_i};
-  const ring::SparseArgs sp{static_cast<const uint2*>(words), table, c_idx, c_val, sparse ? nnz : 0, vocab, nw,
-                            int(stage_words), weighted, w_dense, w_sparse};
-  const bool bf16 = dense ? dense_bf16 != 0 : val_bf16 != 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return int(rows ? b2::dispatch<ring::RowTile>(dense, sparse, bf16, sa, sel, fa, ma, sp, p, l2, st)
-                  : b2::dispatch<ring::BoxTile>(dense, sparse, bf16, sa, sel, fa, ma, sp, p, l2, st));
+  return int(ring::by_parts(dense, sparse, dense ? dense_bf16 != 0 : val_bf16 != 0, [&](auto parts) {
+    using P = decltype(parts);
+    if (rows_layout) return b2::run<P, ring::RowTile>(sa, sel, fa, ma, sp, p, l2, g, st);
+    return g.width > 1 ? b2::run<P, ring::BoxCluster>(sa, sel, fa, ma, sp, p, l2, g, st)
+                       : b2::run<P, ring::BoxOne>(sa, sel, fa, ma, sp, p, l2, g, st);
+  }));
+}
+
+// Clusters of `width` (2 to 8) blocks of the filter pass on the box layout
+// that fit the card at once, into *fit: the filter's blocks along x
+// (mips_topk.py ring_grid).  dense / sparse name the parts present, bf16
+// their dtype; d, nnz and vocab their shapes (the index words are staged
+// in shared memory up to kWordsSmemCap).  Returns a cudaError_t.
+int fused_ring_clusters(int dense, int sparse, int bf16, int d, int nnz, int vocab, int l2, int width, int* fit) {
+  if (!fit || !(dense || sparse) || (dense && d < 1) || (sparse && (nnz < 1 || vocab < 0)) || width < 2 ||
+      width > ring::kMaxCluster || (l2 && !dense))
+    return int(cudaErrorInvalidValue);
+  b1::FilterArgs fa{};
+  fa.d = dense ? d : 0;
+  const ring::SparseArgs sp =
+      ring::sparse_args(sparse != 0, nullptr, nullptr, nullptr, nullptr, nnz, vocab, 1, 0.f, 0.f);
+  const ring::FusedArgs<b1::FilterArgs> ff{fa, sp};
+  return int(ring::by_parts(dense, sparse, bf16 != 0, [&](auto parts) {
+    using P = decltype(parts);
+    using T = ring::BoxCluster<typename P::TD, typename P::TV, P::DENSE, P::SPARSE>;
+    if constexpr (P::DENSE) {
+      if (l2) return ring::fused_cluster_fit<typename P::TD, typename P::TV, true, P::SPARSE, true, b1::FilterTiles, T>(
+          ff, width, fit);
+    }
+    return ring::fused_cluster_fit<typename P::TD, typename P::TV, P::DENSE, P::SPARSE, false, b1::FilterTiles, T>(
+        ff, width, fit);
+  }));
 }
 
 }  // extern "C"

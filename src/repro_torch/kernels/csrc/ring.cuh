@@ -37,19 +37,22 @@
 // (the consumers arrive on the first block's empty barriers across the
 // cluster).  A launch of one group a cluster (width 1) is the launch
 // without clusters: a grid of G rows of blocks, each reading the whole
-// corpus.  Only the tensor-map layout (Stage<TD>) launches clusters.
+// corpus.  Only the tensor-map layouts (Stage<TD>, BoxTile) launch
+// clusters.
 //
-// The second half of the file is the fused ring (fused_kernel, B2's): the
-// same blocks, warps and hand-overs over tiles that carry sparse stages
-// beside the dense ones.  In the tensor-map layout (BoxTile) a tile's COO
-// ids and values follow its dense stages as [kTileRows, kSlotChunk] boxes,
-// copied by the copy warp; in the row layout (RowTile) a tile is one stage
-// of its dense rows, ids and values, each by one bulk copy.  The consumers
-// turn slots into hits through the query-term index in registers, a row's
-// hits passed round its four lanes by shuffles (sparse_box, rows_round),
-// and a score policy (SparseArgs: parts, weights; l2 as dense_score) forms
-// the fused score at the end of the tile, which the epilogue takes as an
-// ip tile's finished scores.
+// The second half of the file is the fused ring (fused_kernel: B2's, and
+// B4's with the StoreAll epilogue): the same blocks, warps, hand-overs and
+// clusters over tiles that carry sparse stages beside the dense ones.  In
+// the tensor-map layout (BoxTile) a tile's COO ids and values follow its
+// dense stages as [kTileRows, kSlotChunk] boxes, copied by the copy warp
+// (in a cluster, each stage by the first block's one multicast copy); in
+// the row layout (RowTile) a tile is one stage of its dense rows, ids and
+// values, each by one bulk copy.  The consumers turn slots into hits
+// through the query-term index of their block's group in registers, a
+// row's hits passed round its four lanes by shuffles (sparse_box,
+// rows_round), and a score policy (SparseArgs: parts, weights; l2 as
+// dense_score) forms the fused score at the end of the tile, which the
+// epilogue takes as an ip tile's finished scores.
 #pragma once
 
 #include <cuda.h>
@@ -66,8 +69,7 @@ constexpr int kQB = 16;            // queries of a block
 constexpr int kChunk = 32;         // columns of a ring stage
 constexpr int kStages = 4;         // ring depth of the tensor-map layout
 constexpr int kQStage = kChunk * kQB * 4;   // query bytes of a stage
-constexpr int kConsumers = 8;                          // warps that multiply (the fused ring, the row layout)
-constexpr int kDenseThreads = (kConsumers + 1) * 32;   // and one that copies
+constexpr int kConsumers = 8;      // warps that multiply, by default (consumers_sync)
 // The multiplying threads of a block whose threads hold R rows x 4 queries of a tile each.
 template <int R>
 __host__ __device__ constexpr int consumer_threads() { return kTileRows * kQB / (4 * R); }
@@ -149,8 +151,8 @@ __device__ __forceinline__ void consumers_sync() {
 // consumers bound the ring, and one block of eight warps of 4 x 4 left
 // about 40% of their issue slots stalled; more FMAs a shared-memory read
 // and two blocks' warps to hide each other's latency took B = 64 from 32
-// to 26 ms (PERF.md).  The fused ring (BoxTile) multiplies its dense
-// stages at 4 x 4, one block an SM, a ring of kStages.
+// to 26 ms (PERF.md).  The fused ring's tensor-map layout (BoxTile)
+// multiplies its dense stages at 4 x 4 for one group, 8 x 4 in clusters.
 template <typename TD>
 struct Stage {
   static constexpr int kMaxStages = 3;
@@ -377,6 +379,46 @@ __device__ __forceinline__ float dense_score(float acc, float c2, float q2) {
   return L2 ? -__fsub_rn(__fadd_rn(q2, c2), __fmul_rn(2.f, acc)) : acc;
 }
 
+struct StoreArgs {
+  const float* q;     // [groups, D rounded up to kChunk, 16] f32 (mips_topk.py: query_groups), or null
+  const void* c;      // [N, D] f32/bf16, or null
+  int d, b, n_valid, l2, weighted;
+  float w;
+  float* scores;      // [B, n_valid]
+};
+
+// The epilogue that keeps every score (topk_large.cu's dense pass; B4,
+// fused_score.cu, on the fused ring): every tile, every row below n_valid,
+// stores its score (times w when weighted) as 32-byte sectors.  The fused
+// ring hands it finished scores (weighted = 0: its score policy has mixed
+// them).
+struct StoreAll {
+  using Args = StoreArgs;
+  struct Shared {};
+  __device__ static long long units(const Args& a) { return (a.n_valid + kTileRows - 1) / kTileRows; }
+  __device__ static long long first_row(const Args&, long long u) { return u * kTileRows; }
+  __device__ static void init(const Args&, Shared&, int, int, int) {}
+  template <bool L2, int R>
+  __device__ static void tile(const Args& a, Shared&, long long, long long tile_row0, int row_in,
+                              const float (&acc)[R][4], const float (&c2)[R], const float* q2s, int q0, int qn,
+                              int lane) {
+    const int qgi = lane & 3;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const long long row = tile_row0 + row_in + 8 * r;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int q = 4 * qgi + j;
+        float v = dense_score<L2>(acc[r][j], c2[r], q2s[q]);
+        if (a.weighted) v = __fmul_rn(a.w, v);
+        if (row < a.n_valid && q < qn) a.scores[size_t(q0 + q) * a.n_valid + row] = v;
+      }
+    }
+  }
+  template <int R = 4>
+  __device__ static void finish(const Args&, Shared&, int, int) {}
+};
+
 // Warps 0 .. S::kConsumers - 1 multiply: thread (warp w, lane l) holds
 // rows (256 / kConsumers) w + l/4 + 8r (r < S::kRows) of a tile and
 // queries 4(l%4) .. +3 of the block's 16 (Stage: 4 warps of 8 rows;
@@ -584,58 +626,70 @@ size_t dense_smem(const typename E::Args& a) {
   return size_t(S::kHead) + size_t(S::stages(a.d)) * S::bytes(a.d) + S::kAlign;   // room to align
 }
 
-// One launch of dense_kernel<TD, L2, E, S> over Grid g, on corpus rows
-// [0, a.n_valid) (Stage<TD>: through the tensor map of those rows).  A
-// cluster that cannot launch, or of a layout that launches none, returns
-// its error: nothing falls back to a launch without clusters.
-template <typename TD, bool L2, typename E, typename S = Stage<TD>>
-cudaError_t launch_dense(const typename E::Args& a, const CUtensorMap& map, const Grid& g, cudaStream_t st) {
-  if (g.width > 1 && !S::kCluster) return cudaErrorInvalidValue;
-  const size_t smem = dense_smem<TD, L2, E, S>(a);
-  auto kernel = dense_kernel<TD, L2, E, S>;
+// The launch shape of `width` blocks a cluster along y: grid (x, y), `threads` a block, `smem` bytes.
+inline cudaLaunchConfig_t cluster_config(unsigned x, unsigned y, int width, int threads, size_t smem,
+                                         cudaStream_t st, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(x, y);
+  cfg.blockDim = dim3(unsigned(threads));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 1;
+  attr->val.clusterDim.y = unsigned(width);
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// One launch of a ring kernel over Grid g (`smem` bytes of dynamic shared
+// memory): <<<>>> at width 1, else cudaLaunchKernelEx in clusters of
+// g.width blocks along y.  A cluster that cannot launch returns its error:
+// nothing falls back to a launch without clusters.
+template <typename... P, typename... A>
+cudaError_t launch_grid(void (*kernel)(P...), const Grid& g, int threads, size_t smem, cudaStream_t st,
+                        const A&... args) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   if (g.width == 1) {
-    kernel<<<dim3(g.blocks, g.rows), S::kThreads, smem, st>>>(a, map);
+    kernel<<<dim3(g.blocks, g.rows), threads, smem, st>>>(args...);
     return cudaGetLastError();
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(unsigned(g.blocks), unsigned(g.rows * g.width));
-  cfg.blockDim = dim3(S::kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = unsigned(g.width);
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, a, map);
+  const cudaLaunchConfig_t cfg = cluster_config(unsigned(g.blocks), unsigned(g.rows * g.width), g.width, threads,
+                                                smem, st, attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// Clusters of `width` blocks of dense_kernel<TD, L2, E, S> that fit the
-// card at once (cudaOccupancyMaxActiveClusters), into *fit.
-template <typename TD, bool L2, typename E, typename S = Stage<TD>>
-cudaError_t cluster_fit(const typename E::Args& a, int width, int* fit) {
-  const size_t smem = dense_smem<TD, L2, E, S>(a);
-  auto kernel = dense_kernel<TD, L2, E, S>;
+// Clusters of `width` blocks of a ring kernel that fit the card at once
+// (cudaOccupancyMaxActiveClusters), into *fit.
+template <typename... P>
+cudaError_t fit_clusters(void (*kernel)(P...), int width, int threads, size_t smem, int* fit) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(1, unsigned(width));
-  cfg.blockDim = dim3(S::kThreads);
-  cfg.dynamicSmemBytes = smem;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = unsigned(width);
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  const cudaLaunchConfig_t cfg = cluster_config(1, unsigned(width), width, threads, smem, nullptr, attr);
   return cudaOccupancyMaxActiveClusters(fit, kernel, &cfg);
+}
+
+// One launch of dense_kernel<TD, L2, E, S> over Grid g, on corpus rows
+// [0, a.n_valid) (Stage<TD>: through the tensor map of those rows); a
+// layout that launches no cluster refuses a width above 1.
+template <typename TD, bool L2, typename E, typename S = Stage<TD>>
+cudaError_t launch_dense(const typename E::Args& a, const CUtensorMap& map, const Grid& g, cudaStream_t st) {
+  if (g.width > 1 && !S::kCluster) return cudaErrorInvalidValue;
+  auto kernel = dense_kernel<TD, L2, E, S>;
+  return launch_grid(kernel, g, S::kThreads, dense_smem<TD, L2, E, S>(a), st, a, map);
+}
+
+// Clusters of `width` blocks of dense_kernel<TD, L2, E, S> that fit the card at once, into *fit.
+template <typename TD, bool L2, typename E, typename S = Stage<TD>>
+cudaError_t cluster_fit(const typename E::Args& a, int width, int* fit) {
+  auto kernel = dense_kernel<TD, L2, E, S>;
+  return fit_clusters(kernel, width, S::kThreads, dense_smem<TD, L2, E, S>(a), fit);
 }
 
 // ---------------------------------------------------------------------------
@@ -669,6 +723,7 @@ struct SparseArgs {
   int stage_words;       // the words fit kWordsSmemCap: copied to shared memory
   int weighted;          // one part: scale it (two parts are always weighted)
   float w_dense, w_sparse;
+  int table_smem;        // shared bytes for the group's compact table (launch_fused sets it; 0: read from L2)
 };
 
 // The arguments of fused_kernel: the epilogue's (q, c, d, b, n_valid ...;
@@ -722,9 +777,12 @@ __device__ __forceinline__ unsigned look_up(const int* ids, const TV* vals, int 
   return m;
 }
 
-// table[hr][the thread's four queries] x hv onto a row's four sums (fmaf, as the scan)
+// table[hr][the thread's four queries] x hv onto a row's four sums (fmaf, as the scan); kAnywhere: the table
+// in shared or global memory, through a generic load (else global, through the read-only path)
+template <bool kAnywhere>
 __device__ __forceinline__ void add_hit(const float* tq, int hr, float hv, float (&s)[4]) {
-  const float4 t = __ldg(reinterpret_cast<const float4*>(tq + size_t(hr) * kQB));
+  const float4* p = reinterpret_cast<const float4*>(tq + size_t(hr) * kQB);
+  const float4 t = kAnywhere ? *p : __ldg(p);
   s[0] = fmaf(t.x, hv, s[0]);
   s[1] = fmaf(t.y, hv, s[1]);
   s[2] = fmaf(t.z, hv, s[2]);
@@ -776,7 +834,7 @@ __device__ __forceinline__ void sparse_box(const int* ids, const TV* vals, int r
     }
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      if (h < n[r]) add_hit(tq, hr[r], hv[r], sp[r]);
+      if (h < n[r]) add_hit<true>(tq, hr[r], hv[r], sp[r]);
   }
 }
 
@@ -812,26 +870,47 @@ __device__ __forceinline__ void rows_round(unsigned own, const int (&row)[4], co
     }
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      if (h < n[r]) add_hit(tq, hr[r], hv[r], sp[r]);
+      if (h < n[r]) add_hit<false>(tq, hr[r], hv[r], sp[r]);
   }
 }
 
-// BoxTile: the tensor-map layout of the fused ring (one block an SM, a
-// ring of kStages slots).  A tile is ceil(D / kChunk) dense stages, each a
-// Stage<TD> (a swizzled [kTileRows, kChunk] box of the corpus and the
-// queries' columns), then ceil(nnz / kSlotChunk) sparse stages, each a
-// [kTileRows, kSlotChunk] box of the ids and one of the values (no
-// swizzle: a row's 16 slots are 64 bytes of ids, read as four 16-byte
-// pieces by its four lanes, eight rows a warp over 512 contiguous bytes);
-// slots past nnz and rows past n_valid read as zero, and the slots past
-// nnz are not looked up.  A slot holds the larger of the two stages.
-// Needs rows of a multiple of 16 bytes in each array: D x sizeof(TD),
-// nnz x 4 and nnz x sizeof(TV).
-template <typename TD, typename TV, bool DENSE, bool SPARSE>
+// BoxTile: the tensor-map layout of the fused ring.  A tile is
+// ceil(D / kChunk) dense stages, each a Stage<TD> (a swizzled
+// [kTileRows, kChunk] box of the corpus and the queries' columns), then
+// ceil(nnz / kSlotChunk) sparse stages, each a [kTileRows, kSlotChunk] box
+// of the ids and one of the values (no swizzle: a row's 16 slots are 64
+// bytes of ids, read as four 16-byte pieces by its four lanes, eight rows
+// a warp over 512 contiguous bytes); slots past nnz and rows past n_valid
+// read as zero, and the slots past nnz are not looked up.  A slot holds
+// the larger of the two stages.  Needs rows of a multiple of 16 bytes in
+// each array: D x sizeof(TD), nnz x 4 and nnz x sizeof(TV).  The budget a
+// block leaves beside its ring and index words holds its group's compact
+// table (fused_kernel).  Two consumer shapes, R rows x 4 queries a
+// thread, the sparse lookups four lanes a row at either, four of the
+// thread's rows a pass (sparse_box; PERF.md holds the shapes measured):
+//   R = 4  (BoxOne, a block a group): eight multiplying warps, one block
+//          an SM, a ring of kStages slots; one group reads the corpus
+//          alone, and the deeper ring keeps the read going;
+//   R = 8  (BoxCluster, B2's clusters above 16 queries): B1's Stage shape, four
+//          multiplying warps and two blocks an SM, each a ring of two
+//          slots (the table's room beside them: 36 KB in f32 at
+//          V = 30,522); read once for the cluster, the corpus no longer
+//          bounds it, the consumers' FMAs do, and 8 x 4 issues more of
+//          them a shared-memory read.  In a cluster every stage, dense or
+//          sparse, lands in all the cluster's blocks from the first block's
+//          one multicast copy, and each block copies its own queries'
+//          columns.
+template <typename TD, typename TV, bool DENSE, bool SPARSE, int R>
 struct BoxTile {
   using DS = Stage<TD>;
-  static constexpr int kMaxStages = kStages;
-  static constexpr int kBlocksPerSM = 1;
+  static constexpr int kRows = R;
+  static constexpr int kConsumers = consumer_threads<R>() / 32;
+  static constexpr int kThreads = (kConsumers + 1) * 32;
+  static constexpr int kMaxStages = R == 8 ? 2 : kStages;
+  static constexpr int kBlocksPerSM = R == 8 ? 2 : 1;
+  static constexpr int kSmem = R == 8 ? 112 * 1024 : 224 * 1024;   // a block's shared memory budget
+  static constexpr bool kCluster = R == 8;
+  static constexpr bool kBox = true;   // tensor maps; the compact table in shared memory where it fits
   static constexpr unsigned kAlign = 1024;
   static constexpr int kHead = 0;
   static constexpr int kIdxBytes = kTileRows * kSlotChunk * 4;
@@ -852,41 +931,64 @@ struct BoxTile {
     return sparse;
   }
   __host__ __device__ static int bytes(int, int) { return kBytes; }
-  __host__ __device__ static int stages(int, int, int) { return kStages; }
+  __host__ __device__ static int stages(int, int, int) { return kMaxStages; }
+  // the budget's bytes left beside the ring and `words` bytes of index words: the compact table's room
+  __host__ __device__ static int table_room(int, int, int words) {
+    const int room = kSmem - kHead - kMaxStages * kBytes - words - int(kAlign);
+    return room > 0 ? room & ~15 : 0;
+  }
+  // by the copying thread, the slot free: stage s of the tile at row0 (the queries' columns with a dense
+  // stage); in a cluster of cs blocks (cs > 1) the first block multicasts the boxes to every block
   __device__ static void copy(unsigned char* st, const CUtensorMap* dmap, const CUtensorMap* imap,
                               const CUtensorMap* vmap, const void*, const SparseArgs&, int d, long long,
-                              long long row0, int s, const float* qg, unsigned long long* full) {
+                              long long row0, int s, const float* qg, unsigned long long* full, unsigned rank,
+                              unsigned cs) {
     int c;
     const bool sparse = sparse_at(s, d, c);
     if constexpr (DENSE) {
       if (!sparse) {
-        DS::copy(st, dmap, nullptr, 0, 0, row0, c * kChunk, qg, full);
+        if (cs > 1) {
+          DS::copy_cluster(st, dmap, row0, c * kChunk, qg, full, rank, cs);
+        } else {
+          DS::copy(st, dmap, nullptr, 0, 0, row0, c * kChunk, qg, full);
+        }
         return;
       }
     }
     if constexpr (SPARSE) {
       const int j0 = c * kSlotChunk;
-      mbar_expect_tx(full, kSparseBytes);
-      tile_copy(st, imap, j0, int(row0), full);
-      tile_copy(st + kIdxBytes, vmap, j0, int(row0), full);
+      mbar_expect_tx(full, kSparseBytes);   // the whole stage, wherever it was copied from
+      if (cs > 1) {
+        if (rank == 0) {
+          const unsigned short mask = static_cast<unsigned short>((1u << cs) - 1u);
+          tile_copy_mc(st, imap, j0, int(row0), full, mask);
+          tile_copy_mc(st + kIdxBytes, vmap, j0, int(row0), full, mask);
+        }
+      } else {
+        tile_copy(st, imap, j0, int(row0), full);
+        tile_copy(st + kIdxBytes, vmap, j0, int(row0), full);
+      }
     }
   }
   template <bool L2>
   __device__ static void consume(const unsigned char* st, const unsigned char* smem, const SparseArgs& sa, int d,
                                  int s, int row_in, int qgi, int lane, const uint2* words, const float* tq,
-                                 float (&acc)[4][4], float (&c2)[4], float (&sp)[4][4]) {
+                                 float (&acc)[kRows][4], float (&c2)[kRows], float (&sp)[kRows][4]) {
     int c;
     const bool sparse = sparse_at(s, d, c);
     if constexpr (DENSE) {
       if (!sparse) {
-        DS::template multiply<L2>(st, DS::queries(smem, st), d, row_in, qgi, acc, c2);
+        DS::template multiply<L2, kRows>(st, DS::queries(smem, st), d, row_in, qgi, acc, c2);
         return;
       }
     }
     if constexpr (SPARSE) {
       const int j0 = c * kSlotChunk;
-      sparse_box<TV>(reinterpret_cast<const int*>(st), reinterpret_cast<const TV*>(st + kIdxBytes),
-                     min(kSlotChunk, sa.nnz - j0), row_in, words, sa.vocab, tq, lane, sp);
+#pragma unroll
+      for (int h = 0; h < kRows / 4; ++h)   // the thread's rows row_in + 32 h + 8 r, r < 4
+        sparse_box<TV>(reinterpret_cast<const int*>(st), reinterpret_cast<const TV*>(st + kIdxBytes),
+                       min(kSlotChunk, sa.nnz - j0), row_in + 32 * h, words, sa.vocab, tq, lane,
+                       *reinterpret_cast<float(*)[4][4]>(&sp[4 * h]));
     }
   }
 };
@@ -923,8 +1025,13 @@ using bits_of = std::conditional_t<sizeof(T) == 4, unsigned, unsigned short>;
 template <typename TD, typename TV, bool DENSE, bool SPARSE>
 struct RowTile {
   using DS = RowStage<TD, true>;
+  static constexpr int kRows = 4;
+  static constexpr int kConsumers = consumer_threads<kRows>() / 32;   // eight multiplying warps
+  static constexpr int kThreads = (kConsumers + 1) * 32;
   static constexpr int kMaxStages = DS::kMaxStages;
   static constexpr int kBlocksPerSM = DS::kBlocksPerSM;
+  static constexpr bool kCluster = false;   // a block a group, as B1's row layout (PERF.md)
+  static constexpr bool kBox = false;
   static constexpr unsigned kAlign = 16;
   static constexpr int kHead = DENSE ? kQStage : 0;
   __host__ __device__ static int dense_bytes(int d) { return DENSE ? kTileRows * d * int(sizeof(TD)) : 0; }
@@ -939,7 +1046,7 @@ struct RowTile {
   }
   __device__ static void copy(unsigned char* st, const CUtensorMap*, const CUtensorMap*, const CUtensorMap*,
                               const void* c, const SparseArgs& sa, int d, long long n_valid, long long row0, int,
-                              const float*, unsigned long long* full) {
+                              const float*, unsigned long long* full, unsigned, unsigned) {
     const unsigned rows = unsigned(n_valid - row0 < kTileRows ? n_valid - row0 : kTileRows);
     const unsigned char* src[3] = {nullptr, nullptr, nullptr};
     unsigned bulk[3] = {0, 0, 0}, region[3] = {0, 0, 0};
@@ -994,18 +1101,33 @@ struct RowTile {
   }
 };
 
-// The fused ring: dense_kernel's blocks, warps and ring over the stages of
-// the tile layout T (BoxTile or RowTile); at the end of each tile, the
-// score policy turns the sums into the fused score (the scan's arithmetic,
-// topk_scan.cu: __fadd_rn(__fmul_rn(w_d, dense), __fmul_rn(w_s, sparse)),
-// l2's dense part as dense_score), and the epilogue E (filter.cuh:
-// SampleTiles or FilterTiles) takes them as an ip tile's finished scores.
-// The index words follow the ring in shared memory when they fit.
+template <typename TD, typename TV, bool DENSE, bool SPARSE>
+using BoxOne = BoxTile<TD, TV, DENSE, SPARSE, 4>;
+template <typename TD, typename TV, bool DENSE, bool SPARSE>
+using BoxCluster = BoxTile<TD, TV, DENSE, SPARSE, 8>;
+
+// The fused ring: dense_kernel's blocks, warps, ring and clusters over the
+// stages of the tile layout T (BoxTile or RowTile); at the end of each
+// tile, the score policy turns the sums into the fused score (the scan's
+// arithmetic, topk_scan.cu: __fadd_rn(__fmul_rn(w_d, dense),
+// __fmul_rn(w_s, sparse)), l2's dense part as dense_score), and the
+// epilogue E (filter.cuh: SampleTiles or FilterTiles; StoreAll) takes them
+// as an ip tile's finished scores.  Block y holds query group y: its
+// queries' columns (a.q), its query-term index words and compact table
+// (sa.words, sa.table), both laid out for the grid's rows x width groups;
+// the words follow the ring in shared memory when they fit, and the
+// group's compact table after them when it fits the room that the launch
+// left (the box layout's).  In a cluster (Grid width > 1, BoxCluster
+// only) the first block copies each stage's boxes
+// into every block of the cluster (T::copy), each block its own queries'
+// columns, and a slot is refilled once every block of the cluster has
+// released it, as in dense_kernel.
 template <typename TD, typename TV, bool DENSE, bool SPARSE, bool L2, typename E, typename T>
-__global__ void __launch_bounds__(kDenseThreads, T::kBlocksPerSM)
+__global__ void __launch_bounds__(T::kThreads, T::kBlocksPerSM)
     fused_kernel(FusedArgs<typename E::Args> fa, const __grid_constant__ CUtensorMap dmap,
                  const __grid_constant__ CUtensorMap imap, const __grid_constant__ CUtensorMap vmap) {
   static_assert(DENSE || SPARSE, "a part to score");
+  constexpr int R = T::kRows, NC = T::kConsumers;
   const typename E::Args& a = fa.e;
   const SparseArgs& sa = fa.s;
   extern __shared__ __align__(16) unsigned char ring_raw[];
@@ -1019,16 +1141,18 @@ __global__ void __launch_bounds__(kDenseThreads, T::kBlocksPerSM)
   const int q0 = blockIdx.y * kQB, qn = min(kQB, a.b - q0);
   const int cpt = T::chunks(a.d, sa.nnz);   // stages a tile
   const int stage_bytes = T::bytes(a.d, sa.nnz);
-  const int nst = T::stages(a.d, sa.nnz, SPARSE && sa.stage_words ? sa.nw * 8 : 0);
+  const int nst = T::stages(a.d, sa.nnz, SPARSE && sa.stage_words ? (sa.nw * 8 + 15) & ~15 : 0);
   const float* qg = DENSE ? a.q + size_t(blockIdx.y) * ((a.d + kChunk - 1) / kChunk) * kChunk * kQB : nullptr;
   const long long n_units = E::units(a);
   const long long mine = blockIdx.x < n_units ? (n_units - 1 - blockIdx.x) / gridDim.x + 1 : 0;
   const long long total = mine * cpt;
+  const unsigned cs = T::kCluster ? cluster_blocks() : 1;   // 1: no cluster
+  const unsigned rank = cs > 1 ? cluster_rank() : 0;
 
   if (tid == 0) {
     for (int i = 0; i < nst; ++i) {
       mbar_init(&full[i], 1);
-      mbar_init(&empty[i], kConsumers);
+      mbar_init(&empty[i], rank == 0 ? NC * cs : NC);   // the first block's copies land in every block
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -1039,46 +1163,69 @@ __global__ void __launch_bounds__(kDenseThreads, T::kBlocksPerSM)
   }
   if constexpr (T::kHead > 0) {   // the queries' kChunk columns, once
     float* qh = reinterpret_cast<float*>(smem);
-    for (int i = tid; i < kChunk * kQB; i += kDenseThreads) qh[i] = qg[i];
+    for (int i = tid; i < kChunk * kQB; i += T::kThreads) qh[i] = qg[i];
   }
   const uint2* words = nullptr;
   const float* tq = nullptr;
   if constexpr (SPARSE) {
     words = sa.words + size_t(blockIdx.y) * sa.nw;
-    tq = sa.table + size_t(blockIdx.y) * (sa.vocab + 2) * kQB + 4 * (lane & 3);
+    const float* table = sa.table + size_t(blockIdx.y) * (sa.vocab + 2) * kQB;
+    unsigned char* after = slots + size_t(nst) * stage_bytes;   // past the ring
+    if constexpr (T::kBox) {
+      // the group's compact table in shared memory when its rows 0 .. S fit the room the launch left (S:
+      // the group's present terms, from its last index word): a hit's read then waits for no L2 round trip
+      const uint2 last = words[sa.nw - 1];
+      const int rows = int(last.y) + __popc(last.x);
+      if (rows * kQB * 4 <= sa.table_smem) {
+        float4* st = reinterpret_cast<float4*>(after + (sa.stage_words ? (sa.nw * 8 + 15) & ~15 : 0));
+        for (int i = tid; i < rows * (kQB / 4); i += T::kThreads) st[i] = reinterpret_cast<const float4*>(table)[i];
+        table = reinterpret_cast<const float*>(st);
+      }
+    }
     if (sa.stage_words) {
-      uint2* sw = reinterpret_cast<uint2*>(slots + size_t(nst) * stage_bytes);
-      for (int i = tid; i < sa.nw; i += kDenseThreads) sw[i] = words[i];
+      uint2* sw = reinterpret_cast<uint2*>(after);
+      for (int i = tid; i < sa.nw; i += T::kThreads) sw[i] = words[i];
       words = sw;
     }
+    tq = table + 4 * (lane & 3);
   }
   if (tid < kQB) E::init(a, sh, tid, q0, qn);
-  __syncthreads();
+  if (cs > 1) {
+    cluster_sync();   // every peer's barriers are initialised before a copy can complete on them
+  } else {
+    __syncthreads();
+  }
 
-  if (warp == kConsumers) {   // the copying warp
+  if (warp == NC) {   // the copying warp
     if (lane == 0) {
       int slot = 0;
       unsigned ph = 0;
       for (long long s = 0; s < total; ++s) {
+        // the last round's stage in this slot is released (in the first block of a cluster: by every block)
         if (s >= nst) mbar_wait(&empty[slot], ph ^ 1u);
         const long long row0 = E::first_row(a, blockIdx.x + (s / cpt) * gridDim.x);
         row0s[slot] = row0;
         T::copy(slots + size_t(slot) * stage_bytes, &dmap, &imap, &vmap, a.c, sa, a.d, a.n_valid, row0,
-                int(s % cpt), qg, &full[slot]);
+                int(s % cpt), qg, &full[slot], rank, cs);
         if (++slot == nst) {
           slot = 0;
           ph ^= 1u;
         }
       }
     }
+    if (cs > 1) {   // the kernel's last barrier, below
+      __syncwarp();
+      cluster_sync();
+    }
     return;
   }
 
   const int qgi = lane & 3, rg = lane >> 2;
-  const int row_in = 32 * warp + rg;
-  float acc[4][4], c2[4], sp[4][4];
+  const int row_in = kTileRows / NC * warp + rg;
+  const bool idle = qn <= 0;   // a group wholly past the batch (a cluster's padding): it only hands slots back
+  float acc[R][4], c2[R], sp[R][4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
+  for (int r = 0; r < R; ++r) {
     c2[r] = 0.f;
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[r][j] = sp[r][j] = 0.f;
@@ -1088,18 +1235,26 @@ __global__ void __launch_bounds__(kDenseThreads, T::kBlocksPerSM)
   for (long long s = 0; s < total; ++s) {
     mbar_wait(&full[slot], ph);
     const int in_tile = int(s % cpt);
-    T::template consume<L2>(slots + size_t(slot) * stage_bytes, smem, sa, a.d, in_tile, row_in, qgi, lane, words,
-                            tq, acc, c2, sp);
+    if (!idle)
+      T::template consume<L2>(slots + size_t(slot) * stage_bytes, smem, sa, a.d, in_tile, row_in, qgi, lane,
+                              words, tq, acc, c2, sp);
     const long long row0 = row0s[slot];
     __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[slot]);
+    if (lane == 0) {   // this warp is done with the slot: tell its block, and the first block of a cluster
+      if (cs == 1) {
+        mbar_arrive(&empty[slot]);
+      } else {
+        mbar_arrive_at(&empty[slot], rank);
+        if (rank != 0) mbar_arrive_at(&empty[slot], 0);
+      }
+    }
     if (++slot == nst) {
       slot = 0;
       ph ^= 1u;
     }
     if (in_tile == cpt - 1) {   // the tile is scored: its fused scores to the epilogue, start the next
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
+      for (int r = 0; r < R; ++r) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           float v;
@@ -1117,16 +1272,19 @@ __global__ void __launch_bounds__(kDenseThreads, T::kBlocksPerSM)
         }
       }
       const long long unit = blockIdx.x + (s / cpt) * gridDim.x;
-      E::template tile<false>(a, sh, unit, row0, row_in, acc, c2, q2s, q0, qn, lane);
+      E::template tile<false, R>(a, sh, unit, row0, row_in, acc, c2, q2s, q0, qn, lane);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
+      for (int r = 0; r < R; ++r) {
         c2[r] = 0.f;
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[r][j] = sp[r][j] = 0.f;
       }
     }
   }
-  E::finish(a, sh, q0, qn);
+  E::template finish<R>(a, sh, q0, qn);
+  // no block leaves while a peer may still arrive on its barriers (the copies into it have all landed:
+  // its consumers waited for every stage)
+  if (cs > 1) cluster_sync();
 }
 
 // A tensor map of an [rows, nnz] COO array (ids: i32, values: f32/bf16),
@@ -1146,19 +1304,98 @@ inline cudaError_t slot_map(const void* p, CUtensorMapDataType type, int elem, i
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// One launch of fused_kernel over a grid of `blocks` x the query groups.
+// The box layout's three tensor maps over rows [0, rows): the dense part
+// (maps[0]) and the COO ids and values (maps[1], maps[2]), each where its
+// part is present.
+template <typename TD, typename TV, bool DENSE, bool SPARSE>
+cudaError_t box_maps(const void* c, int d, const SparseArgs& sp, long long rows, CUtensorMap (&maps)[3]) {
+  cudaError_t err = cudaSuccess;
+  if (DENSE) err = tensor_map<TD>(c, d, rows, &maps[0]);
+  if (err == cudaSuccess && SPARSE) err = slot_map(sp.idx, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, sp.nnz, rows, &maps[1]);
+  if (err == cudaSuccess && SPARSE)
+    err = slot_map(sp.val, sizeof(TV) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                   int(sizeof(TV)), sp.nnz, rows, &maps[2]);
+  return err;
+}
+
+// The dynamic shared memory of fused_kernel over layout T: the ring (and
+// the queries ahead of it in the row layout), the index words after it
+// when they fit, the room for the compact table (*table, the box layout's
+// budget left), room to align; 0 when the ring holds fewer than two
+// stages.
+template <bool SPARSE, typename T>
+size_t fused_smem(const SparseArgs& s, int d, int* table) {
+  const int words = SPARSE && s.stage_words ? (s.nw * 8 + 15) & ~15 : 0;
+  const int nst = T::stages(d, s.nnz, words);
+  if constexpr (SPARSE && T::kBox) {
+    *table = T::table_room(d, s.nnz, words);
+  } else {
+    *table = 0;
+  }
+  return nst < 2 ? 0 : size_t(T::kHead) + size_t(nst) * T::bytes(d, s.nnz) + words + *table + T::kAlign;
+}
+
+// One launch of fused_kernel over Grid g (ring.cuh launch_grid: clusters
+// of g.width blocks along y above width 1; the box layout only).
 template <typename TD, typename TV, bool DENSE, bool SPARSE, bool L2, typename E, typename T>
-cudaError_t launch_fused(const FusedArgs<typename E::Args>& fa, const CUtensorMap& dmap, const CUtensorMap& imap,
-                         const CUtensorMap& vmap, int blocks, cudaStream_t st) {
-  const int words = SPARSE && fa.s.stage_words ? fa.s.nw * 8 : 0;
-  const int nst = T::stages(fa.e.d, fa.s.nnz, words);
-  if (nst < 2) return cudaErrorInvalidValue;
-  const size_t smem = size_t(T::kHead) + size_t(nst) * T::bytes(fa.e.d, fa.s.nnz) + words + T::kAlign;
+cudaError_t launch_fused(const FusedArgs<typename E::Args>& fa, const CUtensorMap (&maps)[3], const Grid& g,
+                         cudaStream_t st) {
+  FusedArgs<typename E::Args> f = fa;
+  const size_t smem = fused_smem<SPARSE, T>(f.s, f.e.d, &f.s.table_smem);
+  if (smem == 0 || (g.width > 1 && !T::kCluster)) return cudaErrorInvalidValue;
   auto kernel = fused_kernel<TD, TV, DENSE, SPARSE, L2, E, T>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(blocks, (fa.e.b + kQB - 1) / kQB), kDenseThreads, smem, st>>>(fa, dmap, imap, vmap);
-  return cudaGetLastError();
+  return launch_grid(kernel, g, T::kThreads, smem, st, f, maps[0], maps[1], maps[2]);
+}
+
+// Clusters of `width` blocks of fused_kernel that fit the card at once, into *fit.
+template <typename TD, typename TV, bool DENSE, bool SPARSE, bool L2, typename E, typename T>
+cudaError_t fused_cluster_fit(const FusedArgs<typename E::Args>& fa, int width, int* fit) {
+  int table;
+  const size_t smem = fused_smem<SPARSE, T>(fa.s, fa.e.d, &table);
+  if (smem == 0) return cudaErrorInvalidValue;
+  auto kernel = fused_kernel<TD, TV, DENSE, SPARSE, L2, E, T>;
+  return fit_clusters(kernel, width, T::kThreads, smem, fit);
+}
+
+// The combinations of parts and dtypes the fused ring is built for, as a
+// tag: both parts in one dtype, the dense part alone, the sparse part
+// alone.
+template <typename D, typename V, bool kDense, bool kSparse>
+struct Parts {
+  using TD = D;
+  using TV = V;
+  static constexpr bool DENSE = kDense, SPARSE = kSparse;
+};
+
+// f(Parts<...>{}) for the combination that the flags name (bf16: the dtype of the present parts).
+template <typename F>
+cudaError_t by_parts(bool dense, bool sparse, bool bf16, F&& f) {
+  using bf = __nv_bfloat16;
+  if (dense && sparse) return bf16 ? f(Parts<bf, bf, true, true>{}) : f(Parts<float, float, true, true>{});
+  if (dense) return bf16 ? f(Parts<bf, float, true, false>{}) : f(Parts<float, float, true, false>{});
+  return bf16 ? f(Parts<float, bf, false, true>{}) : f(Parts<float, float, false, true>{});
+}
+
+// Whether the fused ring's layout (rows: RowTile, else BoxTile) takes the
+// parts (kernels/fused_topk.py: ring_layout gives the same answer from
+// shapes, dtypes and alignment).
+inline bool layout_ok(bool rows, bool dense, bool sparse, int d, int dense_elem, int nnz, int val_elem,
+                      bool stage_words, int nw) {
+  if (!rows)
+    return (!dense || d * dense_elem % 16 == 0) && (!sparse || (nnz * 4 % 16 == 0 && nnz * val_elem % 16 == 0));
+  if ((dense && (d > kChunk || d % 2)) || (sparse && nnz > kRowSlots)) return false;
+  const int bytes = kTileRows * ((dense ? d * dense_elem : 0) + (sparse ? nnz * (4 + val_elem) : 0));
+  const int words = stage_words ? (nw * 8 + 15) & ~15 : 0;   // as fused_smem counts them
+  const int fit = (RowStage<float, true>::kSmem - (dense ? kQStage : 0) - words - 16) / bytes;
+  return fit >= 2;
+}
+
+// The sparse part's arguments: its query-term index words staged in shared memory when they fit.
+inline SparseArgs sparse_args(bool sparse, const void* words, const float* table, const int* c_idx,
+                              const void* c_val, int nnz, int vocab, int weighted, float w_dense, float w_sparse) {
+  const int nw = sparse ? topk::index_words(vocab) : 0;
+  return SparseArgs{static_cast<const uint2*>(words), table, c_idx, c_val, sparse ? nnz : 0, vocab, nw,
+                    int(sparse && nw * 8 <= topk::kWordsSmemCap), weighted, w_dense, w_sparse};
 }
 
 }  // namespace ring

@@ -14,10 +14,12 @@
 //    allow 16-byte copies takes the ring of ring.cuh (two persistent
 //    blocks an SM, four multiplying warps each fed a ring of tensor-map
 //    copies by a fifth; above 16 queries clusters that read the corpus once
-//    for up to 128; B1's arithmetic) with the StoreAll epilogue: every
-//    row's score leaves as 32-byte sectors.  Other corpora take row_kernel (one warp a
-//    row, the graph hop's arithmetic, score_row.cuh); the wrapper scores a
-//    fused corpus through fused_score.cu.
+//    for up to 128; B1's arithmetic) with the StoreAll epilogue (ring.cuh):
+//    every row's score leaves as 32-byte sectors.  A fused corpus takes the
+//    fused ring with the same epilogue (B4, fused_score.cu: sparse_dense.py
+//    routes it), or row_kernel where no ring layout takes it.  Other
+//    corpora take row_kernel (one warp a row, the graph hop's arithmetic,
+//    score_row.cuh).
 // 2. Selection, spread over every SM (large_select.cuh: run_select):
 //    hist<0>    every (query, row chunk) block histograms the top 12 bits
 //               of the order keys in shared memory (a warp whose rows share
@@ -66,42 +68,11 @@ using ring::kTileRows;
 
 // ---- 1. scores ---------------------------------------------------------
 
-struct DenseArgs {
-  const float* q;     // [ceil(B / 16), D rounded up to kChunk, 16] f32 (mips_topk.py: query_groups)
-  const void* c;      // [N, D] f32/bf16, 16-byte aligned, D a multiple of 16 bytes' worth
-  int d, b, n_valid, l2, weighted;
-  float w;
-  float* scores;      // [B, n_valid]
-};
-
-// The ring's epilogue here: every tile, every row below n_valid, stores
-// its score (times w when weighted) as 32-byte sectors.
-struct StoreAll {
-  using Args = DenseArgs;
-  struct Shared {};
-  __device__ static long long units(const Args& a) { return (a.n_valid + kTileRows - 1) / kTileRows; }
-  __device__ static long long first_row(const Args&, long long u) { return u * kTileRows; }
-  __device__ static void init(const Args&, Shared&, int, int, int) {}
-  template <bool L2, int R>
-  __device__ static void tile(const Args& a, Shared&, long long, long long tile_row0, int row_in,
-                              const float (&acc)[R][4], const float (&c2)[R], const float* q2s, int q0, int qn,
-                              int lane) {
-    const int qgi = lane & 3;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const long long row = tile_row0 + row_in + 8 * r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int q = 4 * qgi + j;
-        float v = ring::dense_score<L2>(acc[r][j], c2[r], q2s[q]);
-        if (a.weighted) v = __fmul_rn(a.w, v);
-        if (row < a.n_valid && q < qn) a.scores[size_t(q0 + q) * a.n_valid + row] = v;
-      }
-    }
-  }
-  template <int R = 4>
-  __device__ static void finish(const Args&, Shared&, int, int) {}
-};
+// The dense pass's arguments (ring.cuh StoreArgs): q the queries grouped as
+// dense_kernel reads them (mips_topk.py: query_groups), c [N, D] f32/bf16,
+// 16-byte aligned with D a multiple of 16 bytes' worth.
+using DenseArgs = ring::StoreArgs;
+using ring::StoreAll;
 
 template <typename TD>
 cudaError_t launch_dense(const DenseArgs& a, const ring::Grid& g, cudaStream_t st) {

@@ -9,12 +9,16 @@ before the launch (:func:`ring_layout`):
   the fused ring: a sample of tiles scored and its top k taken, one scan
   of every other tile keeping the rows ahead of each block's threshold,
   one merge a query; the dense part in tensor-map boxes of 32 columns, the
-  COO slots in boxes of 16 slots, 16 queries a block at every k.  Plan:
-  ``mips_topk.filter_plan``.
+  COO slots in boxes of 16 slots, 16 queries a block at every k, one
+  block an SM.  From 17 to ``CLUSTER_QUERIES`` queries the blocks of the
+  groups run as one thread-block cluster (``mips_topk.ring_grid``, two
+  blocks an SM) that reads each stage once, multicast into all of them;
+  above that a block a group, which was measured ahead there
+  (:func:`fused_grid`).  Plan: ``mips_topk.filter_plan``.
 - **ring, row layout** (the same entry point): arrays of at most 32
   columns (D even) and 32 slots whose rows no tensor map describes (DIN's
   items, D = 18, with one tag): a tile's dense rows, ids and values by one
-  bulk copy each, two blocks an SM (the plan takes twice the blocks).
+  bulk copy each, two blocks an SM, a block a group.
 - **scan** (``csrc/topk_scan.cu``, ``fused_topk_launch``): anything else
   (D = 61, an odd D of at most 32, a base off 16 bytes such as a shard
   view at an odd row of D = 18 f32, a dense and a value array of two
@@ -24,10 +28,11 @@ before the launch (:func:`ring_layout`):
 For tensors on the CPU the wrappers run the plain versions
 (``ref.fused_topk_table_ref``; ``ref.fused_filter_ref`` for the ring's
 plan, either layout); for CUDA tensors they launch a kernel or raise:
-nothing falls back to another route.  ``launches`` counts B2's launches
-on any route, ``ring_launches`` the ring's (either layout),
-``row_launches`` the row layout's and ``scan_launches`` the scan route's,
-nowhere else.
+nothing falls back to another route, and a cluster that does not launch
+raises.  ``launches`` counts B2's launches on any route, ``ring_launches``
+the ring's (either layout), ``row_launches`` the row layout's,
+``cluster_launches`` the ring's launches in clusters and
+``scan_launches`` the scan route's, nowhere else.
 """
 
 from __future__ import annotations
@@ -37,20 +42,23 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.mips_topk import (_DTYPES, ROW_BLOCKS_PER_SM, ROW_COLS, TILE, _sms, check_k,
-                                           filter_buffers, filter_plan, plan, ptr, query_groups,
-                                           require_cuda)
-from repro_torch.kernels.query_index import build_index
+from repro_torch.kernels.mips_topk import (_DTYPES, ROW_BLOCKS_PER_SM, ROW_COLS, TILE, RingGrid, _sms, check_k,
+                                           cluster_fit, filter_buffers, filter_plan, plan, ptr, query_groups,
+                                           require_cuda, ring_grid)
+from repro_torch.kernels.query_index import build_index, query_index
 
 ROW_SLOTS = 32               # the row layout's widest COO row (ring.cuh kRowSlots)
 _ROW_SMEM = 112 * 1024       # a row-layout block's shared memory (ring.cuh RowStage::kSmem)
 _QUERY_BYTES = 32 * 16 * 4   # its queries' columns, ahead of the ring (kQStage)
 _WORDS_SMEM_CAP = 32768      # index words staged in shared memory up to this (topk_scan.cuh kWordsSmemCap)
 GROUP = 16                   # queries of a block, and of a query-term index group (ring.cuh kQB)
+BOX_BLOCKS_PER_SM = 1        # the box layout's blocks an SM, a block a group (ring.cuh BoxOne)
+CLUSTER_QUERIES = 64         # B2's clusters up to this batch, a block a group above (PERF.md: measured ahead)
 
 launches = 0
 ring_launches = 0
 row_launches = 0
+cluster_launches = 0
 scan_launches = 0
 
 
@@ -62,7 +70,7 @@ def _declare(lib, name):
             "fused_topk_launch": [v, v, v, v, i, i, i, v, v, i, i, i, i, i, i, i, i, f, f,
                                   v, v, i, i, i, i, v, v, v],
             "fused_filter_launch": [v, v, i, i, v, v, v, v, i, i, i, i, i, i, i, i, i, i, f, f,
-                                    i, i, i, i, v, v, i, i, i, ll, v, v, v, v, i, i, v, v, v, v, v, v]}[name]
+                                    i, i, i, i, v, v, i, i, i, ll, v, v, v, v, i, i, v, v, v, v, v, i, i, v]}[name]
         fn.restype = ctypes.c_int
     return fn
 
@@ -100,10 +108,44 @@ def ring_layout(c_dense, c_idx, c_val, vocab: int) -> str | None:
     if (dense and (d > ROW_COLS or d % 2)) or (sparse and nnz > ROW_SLOTS):
         return None
     words = (vocab // 32 + 1) * 8 if sparse else 0
-    words = words if words <= _WORDS_SMEM_CAP else 0
+    words = -(-words // 16) * 16 if words <= _WORDS_SMEM_CAP else 0   # staged in shared memory, 16-byte aligned
     stage = TILE * (d * de + nnz * (4 + ve))
     fit = (_ROW_SMEM - (_QUERY_BYTES if dense else 0) - words - 16) // stage
     return "rows" if fit >= 2 else None
+
+
+def ring_blocks(layout: str | None, n_sms: int) -> int:
+    """The fused ring's persistent blocks, a block a group, on a card of
+    ``n_sms`` SMs: one an SM on the box layout (``ring.cuh`` BoxOne), two on
+    the row layout (RowTile).  Clusters (BoxCluster, two blocks an SM) take
+    as many as ``cudaOccupancyMaxActiveClusters`` gives
+    (``mips_topk.ring_grid``)."""
+    return n_sms * (ROW_BLOCKS_PER_SM if layout == "rows" else BOX_BLOCKS_PER_SM)
+
+
+def fused_grid(b: int, layout: str | None, n_sms: int, cluster: bool | None = None, fit=None) -> RingGrid:
+    """B2's grid for ``b`` queries (``mips_topk.ring_grid``): clusters on
+    the box layout from 17 to ``CLUSTER_QUERIES`` queries, a block a group
+    elsewhere; ``cluster=True`` asks for clusters at any B on the box
+    layout, ``cluster=False`` for a block a group (the checks' and the
+    timings' only: the answer is the same bit for bit)."""
+    clustered = layout == "box" and (b <= CLUSTER_QUERIES if cluster is None else cluster)
+    return ring_grid(b, ring_blocks(layout, n_sms), clustered, fit)
+
+
+def ring_queries(q, qdensified, grid: RingGrid):
+    """The queries as the fused ring's blocks read them for ``grid``: the
+    dense ones grouped (``mips_topk.query_groups``) and the query-term index
+    of each group of 16 (``query_index.build_index`` on the card, its plain
+    version ``query_index`` elsewhere), each for ``grid.padded`` groups,
+    those past the batch zero; None for an absent part."""
+    qg = None if q is None else query_groups(q, grid.padded)
+    if qdensified is None:
+        return qg, None, None
+    index = build_index if qdensified.device.type == "cuda" else query_index
+    words, table = index(qdensified, GROUP, GROUP * grid.width)
+    assert words.shape[0] == grid.padded, (words.shape, grid)
+    return qg, words, table
 
 
 def _args(qdensified, q_dense, c_idx, c_val, c_dense, k, w_dense, w_sparse, n_valid, dense_kind):
@@ -150,47 +192,53 @@ def _args(qdensified, q_dense, c_idx, c_val, c_dense, k, w_dense, w_sparse, n_va
 
 def fused_filter(qdensified, q_dense, c_idx, c_val, c_dense, k: int, w_dense=None, w_sparse=None,
                  n_valid: int | None = None, dense_kind: str = "ip", *, stride: int | None = None,
-                 blocks: int | None = None):
+                 blocks: int | None = None, cluster: bool | None = None):
     """The ring route: (scores f32[B, K], ids i32[B, K], stats i32[B, 2]),
     stats holding per query the filter's list sorts and the candidates
-    merged.  ``stride`` and ``blocks`` override ``filter_plan``.  On the
-    CPU: the plain emulation (``ref.fused_filter_ref``) of the same plan,
-    at 132 SMs (twice the blocks for the row layout)."""
-    global launches, ring_launches, row_launches
+    merged.  ``stride`` and ``blocks`` override ``filter_plan``;
+    ``cluster`` as :func:`fused_grid`'s.  On the CPU: the plain emulation
+    (``ref.fused_filter_ref``) of the same plan, its blocks those of
+    :func:`fused_grid` at 132 SMs (with clusters ``persistent // width``,
+    where the card asks ``cudaOccupancyMaxActiveClusters``)."""
+    global launches, ring_launches, row_launches, cluster_launches
     has_dense, has_sparse = c_dense is not None, c_idx is not None
     corpus = c_dense if has_dense else c_idx
+    vocab = qdensified.shape[1] - 1 if has_sparse else 0
+    layout = ring_layout(c_dense, c_idx, c_val, vocab)
     if corpus is not None and corpus.device.type == "cpu":
         n = corpus.shape[0]
         nv = n if n_valid is None else max(0, min(int(n_valid), n))
         check_k(k, n)
-        vocab = qdensified.shape[1] - 1 if has_sparse else 0
-        layout = ring_layout(c_dense, c_idx, c_val, vocab)
-        p = filter_plan(n, nv, k, 132 * (ROW_BLOCKS_PER_SM if layout == "rows" else 1), stride, blocks)
+        grid = fused_grid((q_dense if has_dense else qdensified).shape[0], layout, 132, cluster)
+        p = filter_plan(n, nv, k, grid.blocks, stride, blocks)
         return ref.fused_filter_ref(qdensified, q_dense, c_idx, c_val, c_dense, k, p, w_dense=w_dense,
                                     w_sparse=w_sparse, dense_kind=dense_kind, n_valid=nv)
     b, n, n_valid, d, nnz, vocab, q, weighted, wd, ws = _args(
         qdensified, q_dense, c_idx, c_val, c_dense, k, w_dense, w_sparse, n_valid, dense_kind)
-    layout = ring_layout(c_dense, c_idx, c_val, vocab)
     if layout is None:
         raise ValueError("the ring route needs 16-byte aligned arrays of one dtype whose rows are multiples of "
                          f"16 bytes, or at most {ROW_COLS} even columns and {ROW_SLOTS} slots")
     dev = corpus.device
-    p = filter_plan(n, n_valid, k, _sms(dev) * (ROW_BLOCKS_PER_SM if layout == "rows" else 1), stride, blocks)
-    qg = query_groups(q) if has_dense else None
+    lib = _build.load("fused_topk")
+    bf16, l2 = (c_dense if has_dense else c_val).dtype == torch.bfloat16, dense_kind == "l2"
+    grid = fused_grid(b, layout, _sms(dev), cluster,
+                      cluster_fit(lib, "fused_ring_clusters", dev, has_dense, has_sparse, bf16, d, nnz, vocab, l2))
+    p = filter_plan(n, n_valid, k, grid.blocks, stride, blocks)
     # the sparse part through the query-term index of each block's 16 queries, built here on the card
-    words, table = build_index(qdensified, GROUP) if has_sparse else (None, None)
+    qg, words, table = ring_queries(q, qdensified if has_sparse else None, grid)
     buf = filter_buffers(b, k, p, dev)
-    fn = _declare(_build.load("fused_topk"), "fused_filter_launch")
+    fn = _declare(lib, "fused_filter_launch")
     with torch.cuda.device(dev), _build.LAUNCH_LOCK:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(ptr(qg), ptr(c_dense), _DTYPES[c_dense.dtype] if has_dense else 0, d, ptr(words), ptr(table),
                  ptr(c_idx), ptr(c_val), _DTYPES[c_val.dtype] if has_sparse else 0, nnz, vocab,
-                 int(layout == "rows"), b, n, n_valid, k, int(dense_kind == "l2"), int(weighted), wd, ws,
-                 *buf.args(p), ctypes.c_void_p(stream))
+                 int(layout == "rows"), b, n, n_valid, k, int(l2), int(weighted), wd, ws,
+                 *buf.args(p), grid.width, grid.rows, ctypes.c_void_p(stream))
         _build.check(err, "fused_filter_launch")
         launches += 1
         ring_launches += 1
         row_launches += int(layout == "rows")
+        cluster_launches += int(grid.width > 1)
     return buf.out_s, buf.out_i, buf.stats
 
 

@@ -126,20 +126,22 @@ def ring_grid(b: int, persistent: int, cluster: bool = True, fit=None) -> RingGr
 _FITS: dict = {}
 
 
-def cluster_fit(lib, entry: str, bf16: bool, d: int, l2: bool, device: torch.device):
+def cluster_fit(lib, entry: str, device: torch.device, *shape):
     """``fit(width)`` for :func:`ring_grid` on the card: the clusters of that
-    width of the kernel behind ``entry`` (``mips_ring_clusters`` or
-    ``topk_large_dense_clusters``) that fit at once, asked once a shape."""
+    width of the kernel behind ``entry`` (``mips_ring_clusters``,
+    ``topk_large_dense_clusters`` or ``fused_ring_clusters``: ``shape`` is
+    its integer arguments before ``width``) that fit at once, asked once a
+    shape."""
     def fit(width: int) -> int:
-        key = (entry, bf16, d, l2, width, device.index)
+        key = (entry, *shape, width, device.index)
         if key not in _FITS:
             fn = getattr(lib, entry)
             if fn.argtypes is None:
-                fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+                fn.argtypes = [ctypes.c_int] * (len(shape) + 1) + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
             out = ctypes.c_int(0)
             with torch.cuda.device(device):
-                _build.check(fn(int(bf16), d, int(l2), width, ctypes.byref(out)), entry)
+                _build.check(fn(*(int(x) for x in shape), width, ctypes.byref(out)), entry)
             _FITS[key] = out.value
         return _FITS[key]
     return fit
@@ -347,7 +349,7 @@ def mips_filter(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     lib = _build.load("mips_topk")
     bf16, l2 = corpus.dtype == torch.bfloat16, space == "l2"
     grid = ring_grid(b, _ring_blocks(corpus, _sms(dev)), cluster,
-                     cluster_fit(lib, "mips_ring_clusters", bf16, d, l2, dev))
+                     cluster_fit(lib, "mips_ring_clusters", dev, bf16, d, l2))
     p = filter_plan(n, n_valid, k, grid.blocks, stride, blocks)
     qg = query_groups(q, grid.padded)
     buf = filter_buffers(b, k, p, dev)

@@ -1,18 +1,33 @@
-"""Fused dense+sparse scores ``[B, N]`` through the CUDA kernel in
-``csrc/fused_score.cu`` (``fused_score_launch``), the counterpart of
+"""Fused dense+sparse scores ``[B, N]`` (B4), the counterpart of
 ``repro/kernels/sparse_dense.py: fused_score_pallas``:
 
     score[b, n] = w_dense * <q_dense[b], c_dense[n]>
                 + w_sparse * sum_k qdensified[b, c_idx[n, k]] * c_val[n, k]
 
 Both parts are required and both weights always apply (weight 0.0 still
-multiplies), as in the TPU kernel.  The kernel reads the sparse part
-through a query-term index per group of 16 queries
-(``kernels/query_index.py``) and the dense queries from a transposed copy
-(``query_columns``), both built here on the card.  For tensors on the CPU
-the wrapper runs the plain version (``ref.fused_score_ref``); for CUDA
-tensors it launches the kernel or raises.  ``launches`` counts kernel
-launches, nowhere else.
+multiplies), as in the TPU kernel.  Three routes, fixed by the arrays'
+shapes, dtypes and alignment before the launch (:func:`route`):
+
+- **box** (``csrc/fused_score.cu``, ``fused_score_launch``): B2's fused
+  ring (``ring.cuh`` ``fused_kernel``, ``fused_topk.ring_layout``'s box
+  layout: MS MARCO's D = 768 and nnz = 128) with an epilogue that stores
+  every score, a block a group of 16 queries at every B (B2's clusters
+  lost to it on the NAPP build's 128 pivots: ``PERF.md``);
+- **rows** (the same entry point): the ring's row layout (D <= 32 even,
+  nnz <= 32: DIN's items with their tags), a block a group;
+- **row_kernel** (``csrc/topk_large.cu``, ``topk_large_rows_launch``): what
+  no ring layout takes (D above 32 off 16 bytes, odd D, a base off 16
+  bytes, dense and values of two dtypes), one warp a row.
+
+The ring reads the sparse part through a query-term index per group of 16
+queries (``kernels/query_index.py``) and the dense queries grouped as its
+stages copy them, both built here on the card
+(``fused_topk.ring_queries``).  For tensors on the CPU the wrapper runs
+the plain version (``ref.fused_score_ref``); for CUDA tensors it launches
+a kernel or raises: nothing falls back to another route.  ``launches``
+counts B4's launches on any route, ``ring_launches`` the ring's (either
+layout), ``row_launches`` the ring's row layout's; the rest,
+``launches - ring_launches``, are row_kernel's.
 """
 
 from __future__ import annotations
@@ -22,49 +37,29 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.mips_topk import _DTYPES, ptr, require_cuda
-from repro_torch.kernels.query_index import build_index
-
-INDEX_GROUP = 16          # kGroup in fused_score.cu: queries per index group
-QUERIES_PER_BLOCK = 16    # kNarrowQB: queries per block for B <= 32
-WIDE_QUERIES_PER_BLOCK = 64   # kWideQB: B > 32 (the NAPP build's 128 pivots)
+from repro_torch.kernels.fused_topk import fused_grid, ring_layout, ring_queries
+from repro_torch.kernels.mips_topk import _DTYPES, TILE, _sms, cdiv, ptr, require_cuda
 
 launches = 0
+ring_launches = 0
+row_launches = 0
 
 
 def _declare(lib):
     fn = lib.fused_score_launch
     if fn.argtypes is None:
         v, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [v, v, v, v, i, i, i, v, i, v, i, i, i, i, i, f, f, v, v]
+        fn.argtypes = [v, v, i, v, v, v, v, i, i, i, i, i, i, f, f, i, i, v, v]
         fn.restype = ctypes.c_int
     return fn
 
 
-def block_queries(b: int) -> int:
-    """Queries per block for a batch of ``b``: 64 above 32 queries (a
-    corpus tile is then read by ceil(b / 64) blocks, not ceil(b / 16)),
-    else 16."""
-    return WIDE_QUERIES_PER_BLOCK if b > 2 * QUERIES_PER_BLOCK else QUERIES_PER_BLOCK
-
-
-def query_columns(q: torch.Tensor, qb: int) -> torch.Tensor:
-    """The dense queries [B, D] as the kernel reads them: transposed to
-    [D, b_pad] (zero columns past B), each block's ``qb`` columns ordered
-    so that a thread's queries 4*qg.. and, at qb = 64, qb/2 + 4*qg.. lie
-    where its one or two 16-byte shared-memory reads find them (thread qg
-    holds queries 4*qg..4*qg+3 at qb = 16, 8*qg..8*qg+7 at qb = 64)."""
-    b, d = q.shape
-    b_pad = -(-b // qb) * qb
-    q_t = torch.zeros((d, b_pad), dtype=torch.float32, device=q.device)
-    if qb == QUERIES_PER_BLOCK:   # query order: two PyTorch calls on the NAPP probe's host path
-        q_t[:, :b] = q.T
-        return q_t
-    j = torch.arange(qb, device=q.device)
-    pos = (j // 8) * 4 + torch.where(j % 8 < 4, 0, qb // 2) + j % 4
-    q_ids = torch.arange(b, device=q.device)
-    q_t[:, q_ids - q_ids % qb + pos[q_ids % qb]] = q.T
-    return q_t
+def route(c_dense, c_idx, c_val, vocab: int) -> str:
+    """B4's route for the corpus arrays, before any launch: the fused
+    ring's ``"box"`` or ``"rows"`` layout (``fused_topk.ring_layout``), or
+    ``"row_kernel"``.  ``vocab`` is the query table's V (its width less
+    one)."""
+    return ring_layout(c_dense, c_idx, c_val, vocab) or "row_kernel"
 
 
 def fused_score(qdensified, q_dense, c_idx, c_val, c_dense, w_dense: float = 1.0,
@@ -73,7 +68,7 @@ def fused_score(qdensified, q_dense, c_idx, c_val, c_dense, w_dense: float = 1.0
     table with its zero trash column last, ``q_dense`` [B, Dd]; the
     corpus is ``c_idx`` i32 / ``c_val`` [N, NNZ] (pad id V) and
     ``c_dense`` [N, Dd], values f32 or bf16.  Any N: nothing is padded."""
-    global launches
+    global launches, ring_launches, row_launches
     if c_dense.device.type == "cpu":
         return ref.fused_score_ref(qdensified, q_dense, c_idx, c_val, c_dense,
                                    w_dense, w_sparse)
@@ -93,16 +88,30 @@ def fused_score(qdensified, q_dense, c_idx, c_val, c_dense, w_dense: float = 1.0
                          f"{tuple(c_idx.shape)}, c_val {tuple(c_val.shape)}, q_dense {tuple(q.shape)}")
     if qdensified.shape[0] != b:
         raise ValueError(f"qdensified has {qdensified.shape[0]} rows, expected {b}")
-    qb = block_queries(b)
-    q_t = query_columns(q, qb)
-    words, table = build_index(qdensified, INDEX_GROUP, qb)
+    way = route(c_dense, c_idx, c_val, vocab)
     out = torch.empty((b, n), dtype=torch.float32, device=dev)
-    fn = _declare(_build.load("fused_score"))
+    if way == "row_kernel":
+        from repro_torch.kernels import topk_large   # imported here: topk_large imports this module
+        qd = qdensified.float().contiguous()
+        lib = topk_large.library()
+        with torch.cuda.device(dev), _build.LAUNCH_LOCK:
+            topk_large.launch_rows(lib, qd, q, c_idx, c_val, c_dense, "ip", True, float(w_dense),
+                                   float(w_sparse), out)
+            launches += 1
+        return out
+    lib = _build.load("fused_score")
+    bf16 = c_dense.dtype == torch.bfloat16
+    grid = fused_grid(b, way, _sms(dev), cluster=False)
+    qg, words, table = ring_queries(q, qdensified, grid)
+    fn = _declare(lib)
     with torch.cuda.device(dev), _build.LAUNCH_LOCK:
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ptr(words), ptr(table), ptr(c_idx), ptr(c_val), _DTYPES[c_val.dtype], nnz,
-                 vocab, ptr(q_t), q_t.shape[1], ptr(c_dense), _DTYPES[c_dense.dtype], d, b, n, qb,
-                 float(w_dense), float(w_sparse), ptr(out), ctypes.c_void_p(stream))
+        err = fn(ptr(qg), ptr(c_dense), d, ptr(words), ptr(table), ptr(c_idx), ptr(c_val), nnz, vocab,
+                 int(bf16), int(way == "rows"), b, n, float(w_dense), float(w_sparse),
+                 max(1, min(cdiv(n, TILE), grid.blocks)), grid.rows, ptr(out),
+                 ctypes.c_void_p(stream))
         _build.check(err, "fused_score_launch")
         launches += 1
+        ring_launches += 1
+        row_launches += int(way == "rows")
     return out

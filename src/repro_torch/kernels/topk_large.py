@@ -8,9 +8,10 @@ Two steps.  :func:`large_scores` scores the first ``n_valid`` rows into a
 [B, n_valid] buffer: a dense corpus that allows 16-byte copies through
 ``topk_large_dense_launch`` (register tiles fed by a ring of tensor-map
 copies), a
-fused corpus through the fused score kernel (``sparse_dense.fused_score``,
-which counts its own launches), any other through
-``topk_large_rows_launch`` (one warp a row).  :func:`select_large` takes
+fused corpus through B4 (``sparse_dense.fused_score``, which counts its own
+launches: the fused ring with the same store-every-score epilogue, a block
+a group, or this file's row kernel where no ring layout takes it), any
+other through ``topk_large_rows_launch`` (one warp a row).  :func:`select_large` takes
 each row's top k through ``topk_large_select_launch`` (radix passes over
 every SM, then a sort of a short list per query).  Rows at or past
 ``n_valid`` are not scored: with k <= n_valid they never reach the
@@ -66,6 +67,32 @@ def _declare(lib):
     return lib
 
 
+def library():
+    """``csrc/topk_large.cu``'s library, its entry points declared."""
+    return _declare(_build.load("topk_large"))
+
+
+def launch_rows(lib, qd, q_dense, c_idx, c_val, c_dense, dense_kind: str, weighted: bool, wd: float, ws: float,
+                scores: torch.Tensor):
+    """One launch of row_kernel (``topk_large_rows_launch``: any space, one
+    warp a row) into ``scores`` [B, n_valid] on its card's current stream:
+    ``qd`` the densified queries f32 [B, V+1] with ``c_idx`` / ``c_val``,
+    ``q_dense`` f32 [B, D] with ``c_dense``, each pair or None, contiguous.
+    The caller holds ``_build.LAUNCH_LOCK`` under the card's device and
+    counts the launch."""
+    b, n_valid = scores.shape
+    dev = scores.device
+    d = 0 if q_dense is None else q_dense.shape[1]
+    nnz, vp1 = (0, 0) if c_idx is None else (c_idx.shape[1], qd.shape[1])
+    blocks = max(1, min(cdiv(n_valid, 8), _ROW_BLOCKS_PER_SM * _sms(dev)))
+    err = lib.topk_large_rows_launch(
+        ptr(qd), vp1, ptr(q_dense), d, ptr(c_idx), ptr(c_val), int(c_val is not None and c_val.dtype == torch.bfloat16),
+        nnz, ptr(c_dense), int(c_dense is not None and c_dense.dtype == torch.bfloat16), int(dense_kind == "l2"),
+        int(weighted), wd, ws, b, n_valid, blocks, ptr(scores),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check(err, "topk_large_rows_launch")
+
+
 def capacity(k: int) -> int:
     """Rows of the k-th key's bin that the selection collects without
     refining: enough that the list (at most k - 1 + capacity entries)
@@ -112,10 +139,10 @@ def large_scores(qdensified, q_dense, c_idx, c_val, c_dense, w_dense=None, w_spa
     if lead.device.type != "cuda":
         raise ValueError(f"topk_large runs on cpu or cuda, not {lead.device}")
     dev = lead.device
-    if has_dense and has_sparse:   # the fused score kernel computes this function
+    if has_dense and has_sparse:   # B4 computes this function
         return _score.fused_score(qdensified, q_dense, cut(c_idx), cut(c_val), cut(c_dense), wd, ws)
     qdt = qd = None
-    b = d = nnz = vp1 = 0
+    b = d = 0
     if has_dense:
         qdt = q_dense.float().contiguous()     # upcast before the first multiply
         require_cuda("q_dense", qdt, (torch.float32,), 2, dev)
@@ -128,36 +155,31 @@ def large_scores(qdensified, q_dense, c_idx, c_val, c_dense, w_dense=None, w_spa
         require_cuda("qdensified", qd, (torch.float32,), 2, dev)
         require_cuda("c_idx", c_idx, (torch.int32,), 2, dev)
         require_cuda("c_val", c_val, _DTYPES, 2, dev)
-        nnz, vp1 = c_idx.shape[1], qd.shape[1]
         if c_val.shape != c_idx.shape:
             raise ValueError("sparse shapes disagree: qdensified "
                              f"{tuple(qd.shape)}, c_idx {tuple(c_idx.shape)}, "
                              f"c_val {tuple(c_val.shape)}")
         b = qd.shape[0]
     scores = torch.empty((b, n_valid), dtype=torch.float32, device=dev)
-    lib = _declare(_build.load("topk_large"))
+    lib = library()
     bf16 = has_dense and c_dense.dtype == torch.bfloat16
+    l2 = dense_kind == "l2"
+    ring = has_dense and d % (8 if bf16 else 4) == 0 and c_dense.data_ptr() % 16 == 0
+    if ring:
+        grid = ring_grid(b, RING_BLOCKS_PER_SM * _sms(dev), cluster,
+                         cluster_fit(lib, "topk_large_dense_clusters", dev, bf16, d, l2))
+        qg = query_groups(qdt, grid.padded)
     with torch.cuda.device(dev), _build.LAUNCH_LOCK:
-        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        if has_dense and d % (8 if bf16 else 4) == 0 and c_dense.data_ptr() % 16 == 0:
-            l2 = dense_kind == "l2"
-            grid = ring_grid(b, RING_BLOCKS_PER_SM * _sms(dev), cluster,
-                             cluster_fit(lib, "topk_large_dense_clusters", bf16, d, l2, dev))
-            blocks = max(1, min(cdiv(n_valid, 256), grid.blocks))
-            qg = query_groups(qdt, grid.padded)
+        if ring:
+            stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
             err = lib.topk_large_dense_launch(ptr(qg), ptr(c_dense), int(bf16), d, b, n_valid, int(l2),
-                                              int(weighted), wd, blocks, grid.width, grid.rows, ptr(scores),
-                                              stream)
+                                              int(weighted), wd, max(1, min(cdiv(n_valid, 256), grid.blocks)),
+                                              grid.width, grid.rows, ptr(scores), stream)
+            _build.check(err, "topk_large_dense_launch")
             cluster_launches += int(grid.width > 1)
-            what = "topk_large_dense_launch"
         else:
-            blocks = max(1, min(cdiv(n_valid, 8), _ROW_BLOCKS_PER_SM * _sms(dev)))
-            err = lib.topk_large_rows_launch(
-                ptr(qd), vp1, ptr(qdt), d, ptr(c_idx), ptr(c_val if has_sparse else None),
-                int(has_sparse and c_val.dtype == torch.bfloat16), nnz, ptr(c_dense), int(bf16),
-                int(dense_kind == "l2"), int(weighted), wd, ws, b, n_valid, blocks, ptr(scores), stream)
-            what = "topk_large_rows_launch"
-        _build.check(err, what)
+            launch_rows(lib, qd, qdt, c_idx, c_val if has_sparse else None, c_dense, dense_kind, weighted, wd, ws,
+                        scores)
         launches += 1
     return scores
 

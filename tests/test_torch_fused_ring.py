@@ -26,7 +26,10 @@ counts from the end once, then ids clamp to [0, V]), a repeated query
 term and an all-pad query.  Margin-planted random corpora (float data)
 are held to the contract: ids equal, f32 scores within ``F32_RTOL`` of
 the row scale, a bf16 corpus to recall 1.0 and ``BF16_MAX_ULP`` against
-the f32 oracle.
+the f32 oracle.  The ring's grid above 16 queries (thread-block clusters
+of up to 8 groups, two rows of clusters past 128; B2's by default up to
+``CLUSTER_QUERIES`` queries) and the inputs its blocks read, padded
+groups zero, are held at B = 1 to 200.
 """
 
 import jax.numpy as jnp
@@ -46,6 +49,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import fused_topk as fk
 from repro_torch.kernels import mips_topk as mk
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.query_index import table_from_index
 
 from _precision import assert_bf16_oracle_contract
 from _torch_parity import assert_topk_match, np_of, planted_fused_np, sparse_to_torch, to_torch
@@ -67,9 +71,11 @@ def no_library(monkeypatch):
         raise AssertionError("the CUDA library must not be loaded for CPU tensors")
     monkeypatch.setattr(_build, "load", refuse)
     monkeypatch.setattr(_build, "build_all", refuse)
-    before = (fk.launches, fk.ring_launches, fk.row_launches, fk.scan_launches, mk.launches)
+    counts = lambda: (fk.launches, fk.ring_launches, fk.row_launches, fk.cluster_launches, fk.scan_launches,
+                      mk.launches)
+    before = counts()
     yield
-    assert (fk.launches, fk.ring_launches, fk.row_launches, fk.scan_launches, mk.launches) == before
+    assert counts() == before
 
 
 def _bits(x):
@@ -120,8 +126,7 @@ class Case:
         """The ring's emulation under the wrapper's plan, and the CPU wrapper on it."""
         n = self.c_idx.shape[0]
         nv = n if n_valid is None else n_valid
-        blocks = 132 * (mk.ROW_BLOCKS_PER_SM if self.layout() == "rows" else 1)
-        plan = mk.filter_plan(n, nv, k, blocks, **over)
+        plan = mk.filter_plan(n, nv, k, fk.ring_blocks(self.layout(), 132), **over)
         got = tref.fused_filter_ref(*self.args(), k, plan, dense_kind=self.kind, n_valid=n_valid, **self.w)
         wrap = fk.fused_filter(*self.args(), k, n_valid=n_valid, dense_kind=self.kind, **over, **self.w)
         assert torch.equal(wrap[1], got[1]) and torch.equal(wrap[0].view(torch.int32), got[0].view(torch.int32))
@@ -317,3 +322,46 @@ def test_kernel_source_shares_b1s_selection(no_library):
     assert '#include "filter.cuh"' in (_build.CSRC / "mips_topk.cu").read_text()
     ring = (_build.CSRC / "ring.cuh").read_text()
     assert "fused_kernel" in ring and "sparse_box" in ring and "rows_round" in ring and "topk::index_row" in ring
+
+
+# (b, clusters' width, rows of clusters): G = ceil(b / 16) groups; one group a block up to 16 queries, then
+# clusters of up to 8 groups, two rows of clusters past 128 queries
+GRIDS = [(1, 1, 1), (16, 1, 1), (17, 2, 1), (64, 4, 1), (128, 8, 1), (129, 5, 2), (200, 7, 2)]
+
+
+@pytest.mark.parametrize("b,width,rows", GRIDS, ids=[f"b{b}" for b, _, _ in GRIDS])
+def test_ring_grid_and_queries(b, width, rows, no_library):
+    """The fused ring's grid for b queries on the box layout (132 SMs, two blocks an SM: the clusters along x
+    are ``persistent // width`` here, ``cudaOccupancyMaxActiveClusters`` on the card), and the inputs its
+    blocks read (``fused_topk.ring_queries``): block y's 16 dense queries as [D rounded up to 32, 16] and its
+    query-term index, for rows x width groups, those past the batch zero; a block a group lays the same
+    groups out."""
+    groups = -(-b // 16)
+    persistent = fk.ring_blocks("box", 132)
+    grid = mk.ring_grid(b, persistent)
+    assert (grid.groups, grid.width, grid.rows) == (groups, width, rows)
+    # B2 asks for these clusters up to CLUSTER_QUERIES queries by default, at any B when told to
+    assert fk.fused_grid(b, "box", 132, cluster=True) == grid
+    assert fk.fused_grid(b, "box", 132) == (grid if b <= fk.CLUSTER_QUERIES else mk.ring_grid(b, persistent, False))
+    assert fk.fused_grid(b, "rows", 132, cluster=True) == mk.RingGrid(groups, 1, groups, 264)
+    assert grid.blocks == persistent // width and grid.padded == width * rows
+    assert groups <= grid.padded and (grid.padded - width) < groups   # no row of clusters is all padding
+    assert mk.ring_grid(b, persistent, cluster=False) == mk.RingGrid(groups, 1, groups, persistent)
+    assert fk.ring_blocks("rows", 132) == 264
+    rng = np.random.default_rng(b)
+    d = 40
+    q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32))
+    qi = rng.integers(0, V, (b, NNZ_Q))
+    table = torch.zeros(b, V + 1)
+    table.scatter_add_(1, torch.from_numpy(qi), torch.from_numpy(rng.uniform(1, 2, (b, NNZ_Q)).astype(np.float32)))
+    qg, words, tbl = fk.ring_queries(q, table, grid)
+    assert qg.shape == (grid.padded, 64, 16) and words.shape[0] == tbl.shape[0] == grid.padded
+    back = qg.transpose(1, 2).reshape(grid.padded * 16, 64)
+    assert torch.equal(back[:b, :d], q) and not bool(back[b:].any()) and not bool(back[:, d:].any())
+    dense_table = table_from_index(words, tbl, V)
+    assert torch.equal(dense_table[:b], table) and not bool(dense_table[b:].any())
+    # whole groups past the batch: no term present (a word's rank field counts from row 1), a zero table
+    assert not bool(words[groups:, :, 0].any()) and not bool(tbl[groups:].any())
+    one = fk.ring_queries(q, table, mk.ring_grid(b, persistent, cluster=False))
+    assert torch.equal(one[0], qg[:groups]) and torch.equal(one[1], words[:groups])
+    assert torch.equal(one[2], tbl[:groups])

@@ -27,7 +27,7 @@ from repro.core.sparse import SparseVectors as JSparse
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels import sparse_dense as sd
+from repro_torch.kernels import fused_topk as fk
 from repro_torch.kernels.query_index import index_rows, query_index, table_from_index
 
 from _torch_parity import assert_scores_close
@@ -187,18 +187,25 @@ def test_plain_version_indexes_out_of_range_ids_as_repro():
     assert_scores_close(np.asarray(want), got.numpy(), ctx="out-of-range ids")
 
 
-@pytest.mark.parametrize("b,qb", [(1, 16), (16, 16), (32, 16), (33, 64), (128, 64)])
-def test_score_block_width(b, qb):
-    assert sd.block_queries(b) == qb
+@pytest.mark.parametrize("b,width", [(1, 1), (16, 1), (32, 2), (33, 3), (64, 4), (65, 1), (128, 1)])
+def test_score_block_width(b, width):
+    """The fused ring's blocks that share one read of the corpus, each a group of 16 queries with its own
+    query-term index: B2 launches a cluster of ceil(b / 16) of them from 17 to ``CLUSTER_QUERIES`` queries
+    and a block a group elsewhere; the fused score kernel (B4) a block a group at every B."""
+    assert fk.GROUP == 16 and fk.CLUSTER_QUERIES == 64
+    grid = fk.fused_grid(b, "box", 132)
+    assert grid.width == width and grid.padded == width * grid.rows and grid.groups == -(-b // 16)
+    b4 = fk.fused_grid(b, "box", 132, cluster=False)
+    assert (b4.width, b4.rows, b4.blocks) == (1, -(-b // 16), 132)
 
 
 def test_kernel_sources_use_the_index():
-    score = (_build.CSRC / "fused_score.cu").read_text()
+    ring = (_build.CSRC / "ring.cuh").read_text()
     scan = (_build.CSRC / "topk_scan.cu").read_text()
     header = (_build.CSRC / "topk_scan.cuh").read_text()
     assert "stage_hits" in header and "index_kernel" in header and "kWordsSmemCap" in header
-    assert "stage_hits<" in score and "stage_hits<" in scan and "query_index_launch" in scan
-    assert "qdt" not in score and "qdt" not in scan
-    assert f"constexpr int kGroup = {sd.INDEX_GROUP};" in score
+    assert "topk::index_row" in ring and "stage_hits<" in scan and "query_index_launch" in scan
+    assert "qdt" not in ring and "qdt" not in scan
+    assert f"constexpr int kQB = {fk.GROUP};" in ring   # the fused ring's (B2's and B4's) index groups
     # the dense-only scan's code depends on the argument struct's layout
     assert "static_assert(sizeof(ScanArgs) == 128" in scan
